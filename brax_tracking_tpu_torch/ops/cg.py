@@ -1,0 +1,430 @@
+"""Batched constraint solve + Euler velocity update: one CUDA kernel.
+
+Replaces the TPU kernel ``brax_tracking_tpu/ops/cg.py::cg_solve_fused``
+(``_cg_fused_kernel`` -> ``_assemble_qM_J`` + ``_cg_core``). Per env it
+
+  1. assembles qM from the low-rank factor (crb_f, cdof) with the
+     DFS-contiguous subtree masks plus armature, and J = ((P A) cdof) * md
+     plus the one-hot limit rows;
+  2. inverts M by the sweep operator and forms qacc_smooth = M^-1 qfrc_smooth;
+  3. runs MuJoCo CG (Polak-Ribiere, M^-1-preconditioned, bracketed Newton
+     line search, per-env convergence freeze) on one-sided quadratic rows;
+  4. returns qvel + h (M + h diag(damping))^-1 (qfrc_smooth + qfrc_constraint)
+     by Cholesky factor and substitution when the model has damping, else
+     qvel + h qacc.
+
+Hopper design (``csrc/cg_fused.cu``): one warp per env, one env per block;
+qM, M^-1 and J live in shared memory for the whole solve, so between the
+factor reads and the result writes nothing touches device memory: the
+kernel reads its inputs once (~3.6 KB per env at the minirat). On the
+roofline a call is bound by its bytes, just above its FP32 operations;
+what the kernel actually waits on is the serial chain of small dependent
+reductions (matvecs, 14 + ls_iters line-search sums per iteration), which
+it keeps to shuffles within one warp. Envs that converge leave the
+iteration loop early.
+
+``cg_solve_fused_reference`` is the plain PyTorch version of the same
+function (dense assembly + the port of ``solver.py::_cg_arrays``). The
+wrapper runs it only for tensors on the CPU; CUDA tensors go to the kernel
+or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from brax_tracking_tpu_torch.device import check_device, resolve_device
+from brax_tracking_tpu_torch.physics import model as M
+
+MINVAL = M.MINVAL
+# shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
+H100_SMEM_PER_BLOCK = 232448
+# floats of nv-length scratch vectors the kernel keeps per env (see the
+# layout in csrc/cg_fused.cu: x a0 mxa grad mgrad gradn mgradn p mp qfs
+# tmp rowbuf colbuf)
+_NVEC = 13
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "cg_fused.cu")
+_BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
+)
+_LIB = None
+
+
+def kernel_smem_bytes(nv: int, nefc: int) -> int:
+    """Shared memory one env's block needs: qM, M^-1 and J (row stride
+    padded to odd), six nefc-vectors and the nv-vectors, all float32. The
+    launch passes this size to the kernel, which carves it up in this
+    order (csrc/cg_fused.cu)."""
+    ld = nv | 1
+    return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv)
+
+
+# ---------------------------------------------------------------------------
+# Build and launch
+# ---------------------------------------------------------------------------
+
+
+def build() -> float:
+    """Builds the kernel library from the repo's source (first use only);
+    returns the seconds it took. A failure raises."""
+    global _LIB
+    if _LIB is not None:
+        return 0.0
+    from torch.utils.cpp_extension import load
+
+    t0 = time.perf_counter()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    # plain C interface, no torch headers: nvcc takes seconds, not minutes
+    path = load(
+        name="btt_cg_fused",
+        sources=[_SRC],
+        build_directory=_BUILD_DIR,
+        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+        is_python_module=False,
+        verbose=False,
+    )
+    lib = ctypes.CDLL(path)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cg_fused_launch.argtypes = [P] * 22 + [I] * 9 + [F, F, P]
+    lib.cg_fused_launch.restype = I
+    _LIB = lib
+    return time.perf_counter() - t0
+
+
+def _bm(P: torch.Tensor, A: torch.Tensor, nroots: int, ncon: int) -> torch.Tensor:
+    """Low-rank J factor: Bm[b, root*6 + c, r] = sum_k P[r, k] A[b, root, k, c]."""
+    B = A.shape[0]
+    Ar = A.reshape(B, nroots, ncon * 3, 6)
+    return torch.einsum("rk,bnkc->bncr", P, Ar).reshape(B, nroots * 6, P.shape[0])
+
+
+def _int_tables(row_slot, sz, root_bounds, limit_dadr, nv, device):
+    """Static int tables as device tensors, uploaded once per (tables,
+    device)."""
+    key = (row_slot, sz, root_bounds, limit_dadr, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        root_of_dof = np.zeros(nv, np.int32)
+        for n, (lo, hi) in enumerate(root_bounds):
+            root_of_dof[lo:hi] = n
+        as_i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32).reshape(-1), device=device)
+        t = (as_i32(row_slot), as_i32(sz), as_i32(root_of_dof), as_i32(limit_dadr))
+        _TABLES[key] = t
+    return t
+
+
+_TABLES: dict = {}
+
+
+def _launch(f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth, qvel, damp, md,
+            armature, tables, iters, ls_iters, tol, dt, has_damping):
+    B, _, nv = f.shape
+    nefc = D.shape[1]
+    nlim = jsign.shape[1]
+    nroots = Bm.shape[1] // 6
+    for name, t in dict(f=f, cdof=cdof, Bm=Bm, jsign=jsign, D=D, aref=aref,
+                        qfrc_smooth=qfrc_smooth, qvel=qvel, damp=damp, md=md,
+                        armature=armature).items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"cg_solve_fused kernel: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"cg_solve_fused kernel: {name} must be contiguous")
+    if exists.dtype != torch.bool or not exists.is_contiguous():
+        raise TypeError("cg_solve_fused kernel: exists must be a contiguous bool tensor")
+    smem = kernel_smem_bytes(nv, nefc)
+    if smem > H100_SMEM_PER_BLOCK:
+        raise ValueError(
+            f"cg_solve_fused kernel: nv={nv}, nefc={nefc} needs {smem} B of "
+            f"shared memory per block (limit {H100_SMEM_PER_BLOCK})"
+        )
+    build()
+    row_slot, sz, root_of_dof, limit_dadr = tables
+    outs = dict(
+        qacc=torch.empty(B, nv, dtype=f.dtype, device=f.device),
+        force=torch.empty(B, nefc, dtype=f.dtype, device=f.device),
+        qfrc=torch.empty(B, nv, dtype=f.dtype, device=f.device),
+        a0=torch.empty(B, nv, dtype=f.dtype, device=f.device),
+        qvel_new=torch.empty(B, nv, dtype=f.dtype, device=f.device),
+        done=torch.empty(B, dtype=torch.bool, device=f.device),
+    )
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    err = _LIB.cg_fused_launch(
+        *(ptr(t) for t in (f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth,
+                           qvel, damp, md, armature, row_slot, sz,
+                           root_of_dof, limit_dadr)),
+        *(ptr(t) for t in outs.values()),
+        B, nv, nefc, nlim, nroots, smem, iters, ls_iters, int(has_damping),
+        ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"cg_solve_fused kernel launch failed: CUDA error {err}")
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def assemble_qM_J(f, cdof, Bm, jsign, md, armature, *, row_slot, sz,
+                  root_bounds, limit_dadr):
+    """Dense qM (B, nv, nv) and J (B, nefc, nv) from the low-rank factors,
+    exactly as the kernel assembles them (JAX ``_assemble_qM_J``).
+
+    qM[i, j] = sum_c f[c, i] cdof[c, j] where j is an ancestor-or-self of i
+    (i in [j, j + sz_j)), its transpose above the diagonal, plus armature.
+    Contact row r: J[r] = md[slot(r)] * sum_c Bm[root(v)*6 + c, r] cdof[c, v];
+    scalar limit row i: jsign_i at its dof.
+    """
+    B, _, nv = f.shape
+    nefc = Bm.shape[-1]
+    i = np.arange(nv)[:, None]
+    j = np.arange(nv)[None, :]
+    sz = np.asarray(sz)
+    m1 = torch.as_tensor((i >= j) & (i < j + sz[None, :]), device=f.device)
+    m2 = torch.as_tensor((j > i) & (j < i + sz[:, None]), device=f.device)
+    acc = torch.einsum("bci,bcj->bij", f, cdof)
+    accT = torch.einsum("bci,bcj->bij", cdof, f)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    qM = torch.where(m1, acc, zero) + torch.where(m2, accT, zero) + torch.diag(armature)
+
+    nroots = len(root_bounds)
+    G = cdof.new_zeros(B, nroots, 6, nv)
+    for n, (lo, hi) in enumerate(root_bounds):
+        G[:, n, :, lo:hi] = cdof[:, :, lo:hi]
+    J = torch.einsum("bkr,bkv->brv", Bm, G.reshape(B, nroots * 6, nv))
+    rs = np.asarray(row_slot)
+    mdrow = md[torch.as_tensor(np.maximum(rs, 0), device=md.device)]
+    mdrow = mdrow * torch.as_tensor(rs >= 0, dtype=md.dtype, device=md.device)[:, None]
+    J = J * mdrow
+    nlim = len(limit_dadr)
+    if nlim:
+        J[:, torch.arange(nlim), torch.as_tensor(np.asarray(limit_dadr, np.int64))] = jsign
+    return qM, J
+
+
+def _sweep_inverse(a: torch.Tensor) -> torch.Tensor:
+    """Batched SPD inverse by the sweep operator, in the elimination order
+    and update formulas of the JAX array path (solver._sweep_inverse)."""
+    s = a.clone()
+    for k in range(a.shape[-1]):
+        row = s[:, k, :].clone()
+        col = s[:, :, k].clone()
+        dinv = 1.0 / s[:, k, k]
+        row_d = row * dinv[:, None]
+        s = s - col[:, :, None] * row_d[:, None, :]
+        s[:, k, :] = row_d
+        s[:, :, k] = -col * dinv[:, None]
+        s[:, k, k] = dinv
+    return s
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return (A @ x[..., None])[..., 0]
+
+
+def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
+               tol, dt, damp, has_damping):
+    """Batched CG on plain tensors: the port of ``solver.py::_cg_arrays`` for
+    one-sided quadratic rows, plus the qacc_smooth / Euler products and the
+    per-env convergence flag."""
+    B = qM.shape[0]
+    qMinv = _sweep_inverse(qM)
+    a0 = _mv(qMinv, qfrc_smooth)
+    Jt = J.transpose(-1, -2)
+    zero = torch.zeros((), dtype=qM.dtype, device=qM.device)
+
+    def cost_force(jar):
+        active = (jar < 0) & exists
+        f = torch.where(active, -D * jar, zero)
+        cost = 0.5 * torch.sum(torch.where(active, D * jar**2, zero), -1)
+        return cost, f
+
+    def eval_ctx(x, jar, mxa):
+        cost, force = cost_force(jar)
+        gauss = 0.5 * torch.sum((x - a0) * mxa, -1)
+        grad = mxa - _mv(Jt, force)
+        return force, cost + gauss, grad, _mv(qMinv, grad)
+
+    x = a0
+    jar = _mv(J, x) - aref
+    mxa = torch.zeros_like(x)
+    force, cost, grad, mgrad = eval_ctx(x, jar, mxa)
+    p = -mgrad
+    done = torch.zeros(B, dtype=torch.bool, device=qM.device)
+    pow2 = torch.as_tensor(2.0 ** np.arange(13), dtype=qM.dtype, device=qM.device)
+
+    for _ in range(iters):
+        jar_p = _mv(J, p)
+        mp = _mv(qM, p)
+        pmp = torch.sum(p * mp, -1)
+        gauss_p = torch.sum(p * mxa, -1)
+
+        def dphi(alpha):
+            """alpha (B, A) -> (phi', phi'') each (B, A)."""
+            jar_a = jar[:, None, :] + alpha[..., None] * jar_p[:, None, :]
+            active = (jar_a < 0) & exists[:, None, :]
+            dval = gauss_p[:, None] + alpha * pmp[:, None] + torch.sum(
+                torch.where(active, (D * jar_p)[:, None, :] * jar_a, zero), -1
+            )
+            ddval = pmp[:, None] + torch.sum(
+                torch.where(active, (D * jar_p**2)[:, None, :], zero), -1
+            )
+            return dval, ddval
+
+        d0, dd0 = dphi(torch.zeros(B, 1, dtype=qM.dtype, device=qM.device))
+        guess = torch.clamp(-d0[:, 0] / torch.clamp(dd0[:, 0], min=MINVAL), min=MINVAL)
+        cand = guess[:, None] * pow2
+        dcand, _ = dphi(cand)
+        pos = dcand >= 0
+        hi = torch.min(torch.where(pos, cand, cand[:, -1:]), -1).values
+        lo = torch.max(torch.where(~pos & (cand < hi[:, None]), cand, zero), -1).values
+        alpha = torch.minimum(guess, hi)
+
+        for _ in range(ls_iters):
+            dv, ddv = dphi(alpha[:, None])
+            dv, ddv = dv[:, 0], ddv[:, 0]
+            # freeze once converged: at dv ~ 0 the Newton step underflows
+            # and the safeguard would bisect away from the optimum
+            conv = torch.abs(dv) < tol
+            lo2 = torch.where(dv < 0, alpha, lo)
+            hi2 = torch.where(dv >= 0, alpha, hi)
+            newton = alpha - dv / torch.clamp(ddv, min=MINVAL)
+            inside = (newton > lo2) & (newton < hi2)
+            alpha2 = torch.where(inside, newton, 0.5 * (lo2 + hi2))
+            alpha = torch.where(conv, alpha, alpha2)
+            lo = torch.where(conv, lo, lo2)
+            hi = torch.where(conv, hi, hi2)
+
+        x_new = x + alpha[:, None] * p
+        jar_new = jar + alpha[:, None] * jar_p
+        mxa_new = mxa + alpha[:, None] * mp
+        force_new, cost_new, grad_new, mgrad_new = eval_ctx(x_new, jar_new, mxa_new)
+        improvement = cost - cost_new
+        gradient = torch.linalg.norm(grad_new, dim=-1)
+        beta = torch.sum(grad_new * (mgrad_new - mgrad), -1) / torch.clamp(
+            torch.sum(grad * mgrad, -1), min=MINVAL
+        )
+        beta = torch.clamp(beta, min=0.0)
+        p_new = -mgrad_new + beta[:, None] * p
+        step_done = (improvement < tol) | (gradient < tol)
+        # envs that converged before this iteration keep their state
+        keep = lambda old, new: torch.where(
+            done.reshape((B,) + (1,) * (old.dim() - 1)), old, new
+        )
+        x, jar, mxa, force = keep(x, x_new), keep(jar, jar_new), keep(mxa, mxa_new), keep(force, force_new)
+        cost, grad, mgrad, p = keep(cost, cost_new), keep(grad, grad_new), keep(mgrad, mgrad_new), keep(p, p_new)
+        done = done | step_done
+
+    qfrc_constraint = _mv(Jt, force)
+    qfrc_total = qfrc_smooth + qfrc_constraint
+    if has_damping:
+        mhinv = _sweep_inverse(qM + torch.diag(damp))
+        qvel_next = qvel + dt * _mv(mhinv, qfrc_total)
+    else:
+        qvel_next = qvel + dt * x
+    return x, force, qfrc_constraint, a0, qvel_next, done
+
+
+def cg_solve_fused_reference(
+    f, cdof, A, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel, damp,
+    P, md, armature, *, iters, ls_iters, tol, dt, has_damping, row_slot, sz,
+    root_bounds, limit_dadr,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel, on any device: dense assembly
+    of qM and J, then the port of ``_cg_arrays``. Same arguments and
+    outputs as ``cg_solve_fused``."""
+    ncon = md.shape[0]
+    Bm = _bm(P, A, len(root_bounds), ncon)
+    qM, J = assemble_qM_J(
+        f, cdof, Bm, jsign, md, armature, row_slot=row_slot, sz=sz,
+        root_bounds=root_bounds, limit_dadr=limit_dadr,
+    )
+    return _cg_arrays(
+        qM, J, D, aref, exists, qfrc_smooth, qvel, iters=iters,
+        ls_iters=ls_iters, tol=tol, dt=dt, damp=damp, has_damping=has_damping,
+    )
+
+
+def cg_solve_fused(
+    f: torch.Tensor,  # (B, 6, nv) composite-inertia factor (crb_f)
+    cdof: torch.Tensor,  # (B, 6, nv)
+    A: torch.Tensor,  # (B, nroots, ncon, 3, 6) contact point operators
+    jsign: torch.Tensor,  # (B, nlim) scalar limit signs
+    D: torch.Tensor,  # (B, nefc)
+    aref: torch.Tensor,  # (B, nefc)
+    exists: torch.Tensor,  # (B, nefc) bool: row instantiated
+    exists_con: torch.Tensor,  # (B, nell) elliptic contact activation
+    qfrc_smooth: torch.Tensor,  # (B, nv)
+    qvel: torch.Tensor,  # (B, nv)
+    damp: torch.Tensor,  # (nv,) h * dof_damping
+    P: torch.Tensor,  # (nefc, ncon*3) static row-combination coefficients
+    md: torch.Tensor,  # (ncon, nv) static +-1/0 contact support masks
+    armature: torch.Tensor,  # (nv,)
+    *,
+    iters: int,
+    ls_iters: int,
+    tol: float,
+    dt: float,
+    has_damping: bool,
+    row_slot: tuple,  # (nefc,) contact slot per row, -1 for limit rows
+    sz: tuple,  # (nv,) dof subtree sizes (DFS-contiguous)
+    root_bounds: tuple,  # ((lo, hi), ...) contiguous dof range per root
+    limit_dadr: tuple,  # (nlim,) dof address of each scalar limit row
+    warmstart: torch.Tensor = None,
+    stall_tol: float = 0.0,
+    device="cuda",
+):
+    """The solve kernel (see the module docstring). Returns (qacc,
+    efc_force, qfrc_constraint, qacc_smooth, qvel_new, done).
+
+    Tensors on the CPU run the plain version; tensors on the card launch
+    the CUDA kernel (float32 only) or raise. Elliptic rows, warmstart and
+    the stall exit are not ported.
+    """
+    dev = resolve_device(device)
+    if exists_con.shape[-1]:
+        M.unported("elliptic cones in the solve kernel", "§B.1(b)")
+    if warmstart is not None or stall_tol:
+        M.unported("solver warmstart and the stall exit", "§B.1(c)")
+    B, _, nv = f.shape
+    nefc = D.shape[1]
+    ncon = md.shape[0]
+    nroots = len(root_bounds)
+    shapes = dict(
+        f=(f, (B, 6, nv)), cdof=(cdof, (B, 6, nv)), A=(A, (B, nroots, ncon, 3, 6)),
+        jsign=(jsign, (B, len(limit_dadr))), D=(D, (B, nefc)), aref=(aref, (B, nefc)),
+        exists=(exists, (B, nefc)), qfrc_smooth=(qfrc_smooth, (B, nv)),
+        qvel=(qvel, (B, nv)), damp=(damp, (nv,)), P=(P, (nefc, ncon * 3)),
+        md=(md, (ncon, nv)), armature=(armature, (nv,)),
+    )
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"cg_solve_fused: {name} has shape {tuple(t.shape)}, expected {shape}")
+    check_device(dev, **{k: t for k, (t, _) in shapes.items()})
+    statics = dict(iters=iters, ls_iters=ls_iters, tol=tol, dt=dt, has_damping=has_damping)
+    if dev.type == "cpu":
+        return cg_solve_fused_reference(
+            f, cdof, A, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
+            damp, P, md, armature, row_slot=row_slot, sz=sz,
+            root_bounds=root_bounds, limit_dadr=limit_dadr, **statics,
+        )
+    tables = _int_tables(row_slot, sz, root_bounds, limit_dadr, nv, dev)
+    outs = _launch(
+        f, cdof, _bm(P, A, nroots, ncon).contiguous(), jsign, D, aref, exists,
+        qfrc_smooth, qvel, damp, md, armature, tables, **statics,
+    )
+    cg_solve_fused.launches += 1
+    return tuple(outs.values())
+
+
+# kernel launches since the count was last set to 0
+cg_solve_fused.launches = 0

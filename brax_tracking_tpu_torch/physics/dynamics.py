@@ -1,0 +1,52 @@
+"""Composite rigid body factor (CRB) and bias forces (RNE), batch-first.
+
+Counterpart of ``brax_tracking_tpu/physics/dynamics.py`` (mj_crb / mj_rne
+semantics). ``crb`` produces the low-rank mass-matrix factor ``crb_f``:
+qM[i, j] = cdof_j . f_i on the dof-ancestor pattern, symmetrized, plus
+diag(armature). The dense qM is never materialized on the engine path:
+the solve kernel assembles it from (crb_f, cdof), as the JAX kernel does
+(ops/cg.py ``assemble_qM_J`` is the plain version of that assembly).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from brax_tracking_tpu_torch.math.spatial import inert_mul_cm, motion_cross_force_cm
+from brax_tracking_tpu_torch.physics import model as M
+
+
+def crb(m: M.Model, d: M.Data) -> M.Data:
+    """Composite inertias (subtree sums) applied to cdof: crb_f (B, 6, nv)."""
+    SUB = m.const(m.plan.body_subtree_mask)
+    ci = d.cinert_s @ SUB.T  # (B, 6, nbody) composite packed inertia
+    ch = d.cinert_h @ SUB.T  # (B, 3, nbody)
+    cm = SUB @ m.body_mass
+    dofb = m.idx(m.dof_bodyid)
+    f = inert_mul_cm(ci[:, :, dofb], ch[:, :, dofb], cm[dofb], d.cdof)
+    return d.replace(crb_f=f)
+
+
+def rne(m: M.Model, d: M.Data) -> M.Data:
+    """Recursive Newton-Euler: qfrc_bias = C(qpos, qvel), gravity included."""
+    dtype = d.qpos.dtype
+    gravity = m.opt.gravity
+    cacc0 = torch.cat([torch.zeros(3, dtype=dtype, device=gravity.device), -gravity])
+
+    dofb = np.asarray(m.dof_bodyid)
+    D2B = m.const(np.eye(m.nbody)[dofb])  # (nv, nbody)
+    dof_acc = (d.cdof_dot * d.qvel[:, None, :]) @ D2B  # (B, 6, nbody)
+    # prefix (root-to-body) and subtree (body-to-root) sums as mask products
+    SUB = m.const(m.plan.body_subtree_mask)
+    cacc = cacc0[:, None] + dof_acc @ SUB
+
+    mass = m.body_mass
+    fv = inert_mul_cm(d.cinert_s, d.cinert_h, mass, d.cvel)
+    cfrc = inert_mul_cm(d.cinert_s, d.cinert_h, mass, cacc)
+    cfrc = cfrc + motion_cross_force_cm(d.cvel, fv)
+    cfrc = torch.cat([torch.zeros_like(cfrc[:, :, :1]), cfrc[:, :, 1:]], dim=-1)
+    cfrc = cfrc @ SUB.T  # subtree (body-to-root) sum
+
+    qfrc_bias = torch.sum(d.cdof * cfrc[:, :, m.idx(dofb)], dim=1)
+    return d.replace(qfrc_bias=qfrc_bias)

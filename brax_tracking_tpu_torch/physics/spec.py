@@ -1,0 +1,360 @@
+"""Frozen model files: MJCF -> .npz (offline) -> Model on a device.
+
+Counterpart of ``brax_tracking_tpu/physics/spec.py``. The JAX package
+compiles MJCF through the ``mujoco`` bindings every time it builds a
+model; the machine that runs the port on the card has no ``mujoco``, so
+the port splits that in two:
+
+- ``freeze_mjcf`` (offline, imports ``mujoco`` lazily) compiles an MJCF
+  with the env's solver options and writes every field the port reads,
+  plus the static contact-pair table, into an ``.npz``;
+- ``load_model`` builds the port's ``Model`` on a device from that file,
+  with no ``mujoco`` at all.
+
+``model_from_numpy`` takes the same flat field dict from any source, e.g.
+the JAX package's Model converted to numpy, so both packages can compute
+on identical parameters.
+"""
+
+from __future__ import annotations
+
+import os
+import types
+from typing import Dict
+
+import numpy as np
+import torch
+
+from brax_tracking_tpu_torch.device import default_dtype, resolve_device
+from brax_tracking_tpu_torch.physics import model as M
+from brax_tracking_tpu_torch.physics.plan import make_plan
+
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+MINIRAT_NPZ = os.path.join(ASSETS, "minirat.npz")
+MINIRAT_XML = os.path.join(ASSETS, "minirat.xml")
+
+# the env options a frozen file was compiled with (load_model checks them)
+FROZEN_OPTIONS = (
+    "scale_factor", "free_jnt", "torque_actuators", "solver", "iterations",
+    "ls_iterations",
+)
+
+# contact slots a pair of geom types owns; the port covers the pair types
+# of the minirat (plane-capsule, capsule-capsule)
+_PAIR_POINTS = {
+    (M.GEOM_PLANE, M.GEOM_CAPSULE): 2,
+    (M.GEOM_CAPSULE, M.GEOM_CAPSULE): 2,
+}
+
+
+# ---------------------------------------------------------------------------
+# Static-structure derivations (numpy; take any object with the fields)
+# ---------------------------------------------------------------------------
+
+
+def _dof_ancestor_mask(m) -> np.ndarray:
+    nv = int(m.nv)
+    mask = np.zeros((nv, nv), bool)
+    for i in range(nv):
+        j = i
+        while j >= 0:
+            mask[i, j] = True
+            j = int(m.dof_parentid[j])
+    return mask
+
+
+def _body_dof_mask(m) -> np.ndarray:
+    """mask[b, j] = True iff dof j is in the kinematic chain above body b."""
+    mask = np.zeros((int(m.nbody), int(m.nv)), bool)
+    for b in range(1, int(m.nbody)):
+        body = b
+        while body > 0:
+            adr, num = int(m.body_dofadr[body]), int(m.body_dofnum[body])
+            mask[b, adr : adr + num] = True
+            body = int(m.body_parentid[body])
+    return mask
+
+
+def name2id(model: M.Model, objtype: str, name: str) -> int:
+    """mj_name2id semantics: -1 when absent."""
+    try:
+        return model.names[objtype].index(name)
+    except ValueError:
+        return -1
+
+
+# ---------------------------------------------------------------------------
+# Contact pairs (offline, on a compiled mujoco.MjModel)
+# ---------------------------------------------------------------------------
+
+
+def _candidate_pairs(m):
+    """Geom pairs that can ever collide, per MuJoCo's filters: same-weld
+    exclusion, parent-child filter (world excepted), contype/conaffinity
+    compatibility and <exclude> signatures. Lower geom type first."""
+    excludes = set()
+    for s in m.exclude_signature:
+        excludes.add((int(s) >> 16, int(s) & 0xFFFF))
+    pairs = []
+    for g1 in range(m.ngeom):
+        for g2 in range(g1 + 1, m.ngeom):
+            b1, b2 = int(m.geom_bodyid[g1]), int(m.geom_bodyid[g2])
+            w1, w2 = int(m.body_weldid[b1]), int(m.body_weldid[b2])
+            if w1 == w2:
+                continue
+            wp1 = int(m.body_weldid[m.body_parentid[w1]])
+            wp2 = int(m.body_weldid[m.body_parentid[w2]])
+            if (wp1 == w2 and w2 != 0) or (wp2 == w1 and w1 != 0):
+                continue
+            if (b1, b2) in excludes or (b2, b1) in excludes:
+                continue
+            t1 = int(m.geom_contype[g1]) & int(m.geom_conaffinity[g2])
+            t2 = int(m.geom_contype[g2]) & int(m.geom_conaffinity[g1])
+            if not (t1 or t2):
+                continue
+            if m.geom_type[g1] <= m.geom_type[g2]:
+                pairs.append((g1, g2))
+            else:
+                pairs.append((g2, g1))
+    return pairs
+
+
+def _mix_pair_params(m, g1: int, g2: int):
+    """MuJoCo's contact parameter mixing (priority / solmix rules)."""
+    p1, p2 = int(m.geom_priority[g1]), int(m.geom_priority[g2])
+    f1, f2 = m.geom_friction[g1], m.geom_friction[g2]
+    if p1 != p2:
+        hi = g1 if p1 > p2 else g2
+        condim = int(m.geom_condim[hi])
+        friction3 = m.geom_friction[hi].copy()
+        solref = m.geom_solref[hi].copy()
+        solimp = m.geom_solimp[hi].copy()
+    else:
+        condim = int(max(m.geom_condim[g1], m.geom_condim[g2]))
+        friction3 = np.maximum(f1, f2)
+        s1, s2 = float(m.geom_solmix[g1]), float(m.geom_solmix[g2])
+        if s1 >= M.MINVAL and s2 >= M.MINVAL:
+            mix = s1 / (s1 + s2)
+        elif s1 < M.MINVAL and s2 < M.MINVAL:
+            mix = 0.5
+        else:
+            mix = 1.0 if s1 >= M.MINVAL else 0.0
+        r1, r2 = m.geom_solref[g1], m.geom_solref[g2]
+        if r1[0] > 0 and r2[0] > 0:
+            solref = mix * r1 + (1 - mix) * r2
+        else:
+            solref = np.minimum(r1, r2)
+        solimp = mix * m.geom_solimp[g1] + (1 - mix) * m.geom_solimp[g2]
+    friction5 = np.array(
+        [friction3[0], friction3[0], friction3[1], friction3[2], friction3[2]]
+    )
+    margin = float(max(m.geom_margin[g1], m.geom_margin[g2]))
+    gap = float(max(m.geom_gap[g1], m.geom_gap[g2]))
+    return condim, friction5, solref, solimp, margin, gap
+
+
+def _build_pairs(m) -> Dict[str, np.ndarray]:
+    """The static pair table as flat ``pairs_*`` arrays."""
+    cols = {k: [] for k in M.PAIR_STATIC_FIELDS + M.PAIR_PARAM_FIELDS}
+    for g1, g2 in _candidate_pairs(m):
+        key = (int(m.geom_type[g1]), int(m.geom_type[g2]))
+        if key not in _PAIR_POINTS:
+            M.unported(f"collision pair of geom types {key}", "§A.8")
+        condim, fr, sr, si, margin, gap = _mix_pair_params(m, g1, g2)
+        for k, v in zip(
+            M.PAIR_STATIC_FIELDS + M.PAIR_PARAM_FIELDS,
+            (g1, g2, _PAIR_POINTS[key], condim, fr, sr, si, margin, gap),
+        ):
+            cols[k].append(v)
+    shapes = dict(friction=(0, 5), solref=(0, 2), solimp=(0, 5))
+    out = {}
+    for k, v in cols.items():
+        if k in M.PAIR_STATIC_FIELDS:
+            out["pairs_" + k] = np.asarray(v, np.int32)
+        elif v:
+            out["pairs_" + k] = np.asarray(np.stack(v) if k in shapes else v, np.float64)
+        else:
+            out["pairs_" + k] = np.zeros(shapes.get(k, (0,)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Freeze (offline) and load
+# ---------------------------------------------------------------------------
+
+
+def freeze_mjcf(
+    xml_path: str,
+    out_npz: str,
+    scale_factor: float = 1.0,
+    free_jnt: bool = True,
+    torque_actuators: bool = False,
+    solver: str = "cg",
+    iterations: int = 4,
+    ls_iterations: int = 4,
+) -> Dict[str, np.ndarray]:
+    """Compiles ``xml_path`` with the env options and writes every field the
+    port reads into ``out_npz``; returns the written arrays.
+
+    The defaults are the minirat dataset's env_args
+    (configs/dataset/minirat.yaml). Needs the ``mujoco`` bindings, which
+    only this offline step imports.
+    """
+    import mujoco
+
+    if scale_factor != 1.0:
+        M.unported("subtree rescaling (scale_factor != 1)", "§A.4")
+    if not free_jnt:
+        M.unported("free-joint stripping (tethered models)", "§A.5")
+    if torque_actuators:
+        M.unported("torque-actuator rewrite", "§A.5")
+
+    m = mujoco.MjSpec.from_file(xml_path).compile()
+    # the env-level solver overrides (JAX spec.set_solver_options)
+    m.opt.solver = {
+        "cg": mujoco.mjtSolver.mjSOL_CG,
+        "newton": mujoco.mjtSolver.mjSOL_NEWTON,
+    }[solver.lower()]
+    m.opt.iterations = iterations
+    m.opt.ls_iterations = ls_iterations
+
+    fields: Dict[str, np.ndarray] = {}
+    for k in M.SIZE_FIELDS:
+        fields[k] = np.asarray(int(getattr(m, k)), np.int64)
+    for k in M.STATIC_FIELDS:
+        dt = bool if k in M.BOOL_FIELDS else np.int32
+        fields[k] = np.asarray(getattr(m, k), dt)
+    for k in M.PARAM_FIELDS:
+        fields[k] = np.asarray(getattr(m, k), np.float64)
+    for k in M.OPT_PARAM_FIELDS:
+        src = m.stat if k == "meaninertia" else m.opt
+        fields["opt_" + k] = np.asarray(getattr(src, k), np.float64)
+    for k in M.OPT_STATIC_FIELDS:
+        fields["opt_" + k] = np.asarray(int(getattr(m.opt, k)), np.int64)
+    fields.update(_build_pairs(m))
+    objs = dict(
+        body=(mujoco.mjtObj.mjOBJ_BODY, m.nbody),
+        joint=(mujoco.mjtObj.mjOBJ_JOINT, m.njnt),
+        geom=(mujoco.mjtObj.mjOBJ_GEOM, m.ngeom),
+        site=(mujoco.mjtObj.mjOBJ_SITE, m.nsite),
+        actuator=(mujoco.mjtObj.mjOBJ_ACTUATOR, m.nu),
+        sensor=(mujoco.mjtObj.mjOBJ_SENSOR, m.nsensor),
+    )
+    for kind, (objtype, count) in objs.items():
+        names = [mujoco.mj_id2name(m, objtype, i) or "" for i in range(count)]
+        fields["names_" + kind] = np.asarray(names, dtype=str)
+    frozen = dict(
+        scale_factor=scale_factor, free_jnt=free_jnt,
+        torque_actuators=torque_actuators, solver=solver.lower(),
+        iterations=iterations, ls_iterations=ls_iterations,
+    )
+    for k, v in frozen.items():
+        fields["frozen_" + k] = np.asarray(v)
+    np.savez(out_npz, **fields)
+    return fields
+
+
+def frozen_path(mjcf_path: str) -> str:
+    """The frozen model file for an MJCF path as the dataset configs name
+    it: ``builtin:<name>.xml`` is the port's ``assets/<name>.npz``; an
+    ``.npz`` path is itself."""
+    if mjcf_path.endswith(".npz"):
+        return mjcf_path
+    if mjcf_path.startswith("builtin:"):
+        name = os.path.splitext(mjcf_path[len("builtin:"):])[0]
+        path = os.path.join(ASSETS, name + ".npz")
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(
+        f"no frozen model for {mjcf_path!r}: run spec.freeze_mjcf on the MJCF "
+        "and pass the .npz"
+    )
+
+
+def load_model(npz: str = MINIRAT_NPZ, device="cuda", dtype=None, **options) -> M.Model:
+    """Builds the port's Model on ``device`` from a frozen model file.
+
+    ``options`` (any of FROZEN_OPTIONS) must match what the file was frozen
+    with: the port cannot recompile the MJCF, so a different request
+    raises rather than silently running the frozen configuration.
+    """
+    with np.load(npz) as z:
+        fields = {k: z[k] for k in z.files}
+    for k, want in options.items():
+        if k not in FROZEN_OPTIONS:
+            raise TypeError(f"unknown model option {k!r}")
+        have = fields["frozen_" + k].item()
+        if isinstance(want, str):
+            want = want.lower()
+        if want != have:
+            raise ValueError(
+                f"{os.path.basename(npz)} was frozen with {k}={have!r}; "
+                f"{k}={want!r} needs a new spec.freeze_mjcf run"
+            )
+    return model_from_numpy(fields, device=device, dtype=dtype)
+
+
+def model_to_numpy(model) -> Dict[str, np.ndarray]:
+    """Flat numpy fields (``model.field_keys()``) of a model: the port's, or
+    any object with the same MuJoCo-named fields, ``opt``, ``pairs`` and
+    ``names`` (the JAX package's Model included)."""
+
+    def get(k):
+        if k.startswith("opt_"):
+            return getattr(model.opt, k[4:])
+        if k.startswith("pairs_"):
+            return getattr(model.pairs, k[6:])
+        if k.startswith("names_"):
+            return np.asarray(model.names[k[6:]], dtype=str)
+        return getattr(model, k)
+
+    out = {}
+    for k in M.field_keys():
+        v = get(k)
+        out[k] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return out
+
+
+def model_from_numpy(
+    fields: Dict[str, np.ndarray], device="cuda", dtype=None
+) -> M.Model:
+    """The port's Model from flat numpy fields (``model.field_keys()``).
+
+    Derived static structure (dof ancestor / body-dof masks, the plan,
+    has_damping, has_fluid) is computed here from the static fields.
+    """
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype(dev)
+    t = lambda x: torch.as_tensor(np.array(x, np.float64), dtype=dtype, device=dev)
+    sizes = {k: int(fields[k]) for k in M.SIZE_FIELDS}
+    static = {
+        k: np.asarray(fields[k], bool if k in M.BOOL_FIELDS else np.int32)
+        for k in M.STATIC_FIELDS
+    }
+    opt = M.Option(
+        **{k: t(fields["opt_" + k]) for k in M.OPT_PARAM_FIELDS},
+        **{k: int(fields["opt_" + k]) for k in M.OPT_STATIC_FIELDS},
+    )
+    pairs = M.ContactPairs(
+        **{k: np.asarray(fields["pairs_" + k], np.int32) for k in M.PAIR_STATIC_FIELDS},
+        **{k: t(fields["pairs_" + k]) for k in M.PAIR_PARAM_FIELDS},
+    )
+    ns = types.SimpleNamespace(**sizes, **static)
+    damping = np.asarray(fields["dof_damping"])
+    return M.Model(
+        opt=opt,
+        device=dev,
+        dtype=dtype,
+        **sizes,
+        **static,
+        has_damping=bool(np.any(damping != 0)),
+        has_fluid=bool(
+            float(fields["opt_density"]) > 0 or float(fields["opt_viscosity"]) > 0
+        ),
+        dof_ancestor_mask=_dof_ancestor_mask(ns),
+        body_dof_mask=_body_dof_mask(ns),
+        plan=make_plan(ns),
+        names={k: [str(s) for s in fields["names_" + k]] for k in M.NAME_KINDS},
+        **{k: t(fields[k]) for k in M.PARAM_FIELDS},
+        pairs=pairs,
+    )

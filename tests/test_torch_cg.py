@@ -1,0 +1,257 @@
+"""The port's solve-kernel plain version against the JAX package, float64.
+
+``cg_solve_fused_reference`` (the CPU path and the CUDA kernel's yardstick)
+on minirat batched states, against the JAX kernel
+``ops/cg.cg_solve_fused(..., interpret=True)`` and against the JAX array
+path ``solver._cg_arrays``, at rtol 1e-9 / atol 1e-11 as
+tests/test_ops_cg_fused.py holds the JAX kernel to its array path. Both
+damping branches: the minirat has no joint damping, so the damped branch
+uses a seeded positive ``damp`` (the Cholesky tail of the JAX kernel, the
+sweep-inverse tail of the array paths).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import brax_tracking_tpu.physics.constraint as jCn
+import brax_tracking_tpu.physics.solver as jS
+import brax_tracking_tpu.physics.spec as jspec
+import brax_tracking_tpu.physics.step as jstep
+from brax_tracking_tpu.ops import cg as jcg
+from brax_tracking_tpu_torch.ops import cg as tcg
+from brax_tracking_tpu_torch.physics import constraint as tCn
+from brax_tracking_tpu_torch.physics import solver as tS
+from brax_tracking_tpu_torch.physics import spec as tspec
+
+RTOL, ATOL = 1e-9, 1e-11
+NAMES = ("qacc", "efc_force", "qfrc_constraint", "qacc_smooth", "qvel_new")
+
+
+def batched_forward(model, B, seed, drop=0.01):
+    """Seeded minirat states, root pushed into the floor (contacts), as in
+    tests/test_ops_cg_fused.py."""
+    rng = np.random.RandomState(seed)
+    d0 = jstep.make_data(model)
+    dB = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), d0)
+    qpos = np.tile(np.asarray(model.qpos0)[None], (B, 1))
+    qpos[:, 2] -= drop
+    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (B, model.nq - 7))
+    dB = dB.replace(
+        qpos=jnp.asarray(qpos),
+        qvel=jnp.asarray(rng.uniform(-0.5, 0.5, (B, model.nv))),
+        ctrl=jnp.asarray(rng.uniform(-0.3, 0.3, (B, model.nu))),
+    )
+    return jax.jit(jax.vmap(lambda dd: jstep.forward(model, dd)))(dB)
+
+
+@pytest.fixture(scope="module")
+def case():
+    model = jspec.build_model(
+        "builtin:minirat.xml", solver="cg", iterations=4, ls_iterations=4,
+        dtype=jnp.float64,
+    )
+    dF = batched_forward(model, 4, 0)
+    layout = jCn.efc_layout(model)
+    fstat = jS._fused_statics(model, layout)
+    nv = model.nv
+    tol = float(model.opt.tolerance) * float(model.opt.meaninertia) * nv
+    exists = np.asarray(dF.efc_pos < dF.efc_margin)
+    assert exists.any()
+    return model, dF, layout, fstat, tol, exists
+
+
+def _damp(model, damped):
+    if not damped:
+        return np.zeros(model.nv)
+    return float(model.opt.timestep) * np.random.RandomState(7).uniform(0.005, 0.02, model.nv)
+
+
+def _port(case, damped, iters):
+    model, dF, layout, fstat, tol, exists = case
+    T = lambda x: torch.as_tensor(np.array(x, np.float64))
+    B = exists.shape[0]
+    return tcg.cg_solve_fused_reference(
+        T(dF.crb_f), T(dF.cdof), T(dF.con_A), T(dF.efc_jsign), T(dF.efc_D),
+        T(dF.efc_aref), torch.as_tensor(np.array(exists)), torch.zeros(B, 0, dtype=torch.bool),
+        T(dF.qfrc_smooth), T(dF.qvel), T(_damp(model, damped)), T(fstat["P"]),
+        T(fstat["md"]), T(model.dof_armature),
+        iters=iters, ls_iters=4, tol=tol, dt=float(model.opt.timestep),
+        has_damping=damped, row_slot=fstat["row_slot"], sz=fstat["sz"],
+        root_bounds=fstat["root_bounds"], limit_dadr=fstat["limit_dadr"],
+    )
+
+
+@pytest.mark.parametrize("damped", [False, True])
+def test_reference_matches_jax_kernel_interpret(case, damped):
+    model, dF, layout, fstat, tol, exists = case
+    kout = jcg.cg_solve_fused(
+        dF.crb_f, dF.cdof, dF.con_A, dF.efc_jsign, dF.efc_D, dF.efc_aref,
+        jnp.asarray(exists), jnp.zeros((exists.shape[0], 0), bool),
+        dF.qfrc_smooth, dF.qvel, jnp.asarray(_damp(model, damped)),
+        jnp.asarray(fstat["P"]), jnp.asarray(fstat["md"]), model.dof_armature,
+        iters=4, ls_iters=4, tol=tol, dt=float(model.opt.timestep),
+        has_damping=damped, row_slot=fstat["row_slot"], sz=fstat["sz"],
+        root_bounds=fstat["root_bounds"], limit_dadr=fstat["limit_dadr"],
+        unroll_iters=False, unroll_ls=False, interpret=True,  # rolled: compiles faster
+    )
+    tout = _port(case, damped, 4)
+    for name, k, t in zip(NAMES, kout, tout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(k), rtol=RTOL, atol=ATOL, err_msg=name)
+    np.testing.assert_array_equal(tout[5].numpy(), np.asarray(kout[5]))
+
+
+@pytest.mark.parametrize("damped,iters", [(False, 4), (True, 4), (False, 12)])
+def test_reference_matches_jax_arrays(case, damped, iters):
+    model, dF, layout, fstat, tol, exists = case
+    statics = dict(
+        L1=np.eye(model.nv)[jCn.limit_dofs(model)], iters=iters, ls_iters=4,
+        tol=tol, dt=float(model.opt.timestep), damp=_damp(model, damped),
+        has_damping=damped, quad_mask=np.ones(layout.nefc), ell0=layout.nefc,
+        ell_mu=np.zeros(0), ell_scale=np.zeros((0, 2)),
+    )
+    bout = jax.vmap(
+        lambda qM, Jc, js, D, ar, ex, qfs, qv: jS._cg_arrays(
+            qM, Jc, js, D, ar, ex, jnp.zeros((0,), bool), qfs, qv, **statics
+        )
+    )(dF.qM, dF.efc_Jc, dF.efc_jsign, dF.efc_D, dF.efc_aref, jnp.asarray(exists),
+      dF.qfrc_smooth, dF.qvel)
+    tout = _port(case, damped, iters)
+    for name, b, t in zip(NAMES, bout, tout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_assembly_matches_dense_qM_J(case):
+    """The plain version's qM/J assembly from the low-rank factors against
+    the JAX package's dense qM and constraint jacobian."""
+    model, dF, layout, fstat, tol, exists = case
+    T = lambda x: torch.as_tensor(np.array(x, np.float64))
+    Bm = tcg._bm(T(fstat["P"]), T(dF.con_A), len(fstat["root_bounds"]), model.ncon)
+    qM, J = tcg.assemble_qM_J(
+        T(dF.crb_f), T(dF.cdof), Bm, T(dF.efc_jsign), T(fstat["md"]),
+        T(model.dof_armature), row_slot=fstat["row_slot"], sz=fstat["sz"],
+        root_bounds=fstat["root_bounds"], limit_dadr=fstat["limit_dadr"],
+    )
+    np.testing.assert_allclose(qM.numpy(), np.asarray(dF.qM), rtol=1e-12, atol=1e-15)
+    dense = np.asarray(jax.jit(jax.vmap(lambda d: jCn.dense_J(model, d)))(dF))
+    np.testing.assert_allclose(J.numpy(), dense, rtol=1e-12, atol=1e-14)
+
+
+def test_port_statics_and_wrapper_dispatch(case):
+    """The port's own static tables equal the JAX package's, and on CPU
+    tensors the wrapper runs exactly the plain version."""
+    model, dF, layout, fstat, tol, exists = case
+    tm = tspec.load_model(device="cpu")
+    tf = tS._fused_statics(tm, tCn.efc_layout(tm))
+    for k in ("row_slot", "sz", "root_bounds", "limit_dadr"):
+        assert tf[k] == fstat[k], k
+    np.testing.assert_array_equal(tf["P"], fstat["P"])
+    np.testing.assert_array_equal(tf["md"], fstat["md"])
+    assert tS.quad_kernel_eligible(tm)
+
+    ref = _port(case, False, 4)
+    T = lambda x: torch.as_tensor(np.array(x, np.float64))
+    B = exists.shape[0]
+    launches = tcg.cg_solve_fused.launches
+    out = tcg.cg_solve_fused(
+        T(dF.crb_f), T(dF.cdof), T(dF.con_A), T(dF.efc_jsign), T(dF.efc_D),
+        T(dF.efc_aref), torch.as_tensor(np.array(exists)), torch.zeros(B, 0, dtype=torch.bool),
+        T(dF.qfrc_smooth), T(dF.qvel), T(np.zeros(model.nv)), T(fstat["P"]),
+        T(fstat["md"]), T(model.dof_armature),
+        iters=4, ls_iters=4, tol=tol, dt=float(model.opt.timestep),
+        has_damping=False, row_slot=fstat["row_slot"], sz=fstat["sz"],
+        root_bounds=fstat["root_bounds"], limit_dadr=fstat["limit_dadr"],
+        device="cpu",
+    )
+    assert tcg.cg_solve_fused.launches == launches  # the plain version launches nothing
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_kernel_smem_rule():
+    """The Hopper eligibility rule: one env's qM, M^-1 and J fit a block's
+    shared memory. The minirat needs ~7.5 KB; a rodent-size model
+    (nv=73, ~300 rows) ~140 KB; a model with 1000 rows does not fit."""
+    assert tcg.kernel_smem_bytes(10, 92) == 7656
+    assert tcg.kernel_smem_bytes(73, 300) <= tcg.H100_SMEM_PER_BLOCK
+    assert tcg.kernel_smem_bytes(73, 1000) > tcg.H100_SMEM_PER_BLOCK
+
+
+def test_float32_error_is_rounding_not_conditioning(capsys):
+    """At the main path's 4 CG / 4 line-search iterations on stiff contact
+    states, the float32 solve is far from float64 (PERF.md section 6): in
+    the port's plain version and in the JAX array path alike, while a 1e-7
+    relative perturbation of the inputs moves the float64 result ~100x less.
+    Prints the median per-env relative qacc errors."""
+    from brax_tracking_tpu_torch.physics import step as tstep
+
+    B = 64
+    tm = tspec.load_model(device="cpu")
+    rng = np.random.RandomState(0)
+    qpos = np.tile(tm.qpos0.numpy()[None], (B, 1))
+    qpos[:, 2] -= 0.01
+    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (B, tm.nq - 7))
+    d = tstep.make_data(tm, B, device="cpu").replace(
+        qpos=torch.as_tensor(qpos),
+        qvel=torch.as_tensor(rng.uniform(-0.5, 0.5, (B, tm.nv))),
+        ctrl=torch.as_tensor(rng.uniform(-0.3, 0.3, (B, tm.nu))),
+    )
+    d = tstep.forward_to_constraint(tm, d)
+    st = tS._solve_statics(tm, tCn.efc_layout(tm))
+    kw = st["kw"]
+    Bm = tcg._bm(st["P"], d.con_A, len(kw["root_bounds"]), tm.ncon)
+    qM, J = tcg.assemble_qM_J(
+        d.crb_f, d.cdof, Bm, d.efc_jsign, st["md"], tm.dof_armature,
+        row_slot=kw["row_slot"], sz=kw["sz"], root_bounds=kw["root_bounds"],
+        limit_dadr=kw["limit_dadr"],
+    )
+    ins = (qM, J, d.efc_D, d.efc_aref)
+    exists = d.efc_pos < d.efc_margin
+    solve = dict(iters=kw["iters"], ls_iters=kw["ls_iters"], tol=kw["tol"],
+                 dt=kw["dt"], damp=st["damp"], has_damping=False)
+
+    def port(qM, J, D, aref):
+        return tcg._cg_arrays(qM, J, D, aref, exists, d.qfrc_smooth.to(qM.dtype),
+                              d.qvel.to(qM.dtype), **dict(solve, damp=st["damp"].to(qM.dtype)))[0]
+
+    nlim = len(kw["limit_dadr"])
+    jstatics = dict(
+        L1=np.eye(tm.nv)[list(kw["limit_dadr"])], iters=kw["iters"],
+        ls_iters=kw["ls_iters"], tol=kw["tol"], dt=kw["dt"], damp=np.zeros(tm.nv),
+        has_damping=False, quad_mask=np.ones(J.shape[1]), ell0=J.shape[1],
+        ell_mu=np.zeros(0), ell_scale=np.zeros((0, 2)),
+    )
+
+    # jitted: one compile per dtype instead of the eager vmap's many
+    solve_jax = jax.jit(jax.vmap(
+        lambda qM, Jc, js, D, ar, ex, qfs, qv: jS._cg_arrays(
+            qM, Jc, js, D, ar, ex, jnp.zeros((0,), bool), qfs, qv, **jstatics
+        )[0]
+    ))
+
+    def jax_arrays(dtype):
+        c = lambda t: jnp.asarray(t.numpy(), dtype)
+        return np.asarray(solve_jax(
+            c(qM), c(J[:, nlim:]), c(d.efc_jsign), c(d.efc_D), c(d.efc_aref),
+            jnp.asarray(exists.numpy()), c(d.qfrc_smooth), c(d.qvel),
+        ), np.float64)
+
+    def median_rel(x, ref):
+        x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+        return float(np.median(np.abs(x - ref).max(-1) / np.abs(ref).max(-1)))
+
+    ref = port(*ins).numpy()
+    g = torch.Generator().manual_seed(1)
+    perturbed = [t * (1 + 1e-7 * torch.randn(t.shape, generator=g, dtype=t.dtype)) for t in ins]
+    e_perturbed = median_rel(port(*perturbed), ref)
+    e_port32 = median_rel(port(*(t.float() for t in ins)), ref)
+    e_jax32 = median_rel(jax_arrays(jnp.float32), ref)
+    np.testing.assert_allclose(jax_arrays(jnp.float64), ref, rtol=RTOL, atol=ATOL)
+    with capsys.disabled():
+        print(f"\nmedian per-env relative qacc error vs float64 (B={B}): port float32 "
+              f"{e_port32:.3e}, JAX array path float32 {e_jax32:.3e}, float64 with "
+              f"1e-7 input noise {e_perturbed:.3e}")
+    assert e_port32 > 100 * e_perturbed and e_jax32 > 100 * e_perturbed
+    assert 0.2 < e_port32 / e_jax32 < 5.0
