@@ -25,7 +25,7 @@ def wrap(
 ) -> Wrapper:
     """Episode bookkeeping + tracking-aware auto-reset."""
     if randomization_fn is not None:
-        M.unported("per-env randomized models", "§A.8")
+        M.unported("per-env randomized models", "§A.12")
     return AutoResetWrapperTracking(EpisodeWrapper(env, episode_length, action_repeat))
 
 

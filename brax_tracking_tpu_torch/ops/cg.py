@@ -32,29 +32,22 @@ or the call raises.
 from __future__ import annotations
 
 import ctypes
-import os
-import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from brax_tracking_tpu_torch.device import check_device, resolve_device
+from brax_tracking_tpu_torch.ops import library
+from brax_tracking_tpu_torch.ops.cholesky import sweep_inverse_reference
 from brax_tracking_tpu_torch.physics import model as M
 
 MINVAL = M.MINVAL
-# shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
-H100_SMEM_PER_BLOCK = 232448
 # floats of nv-length scratch vectors the kernel keeps per env (see the
 # layout in csrc/cg_fused.cu: x a0 mxa grad mgrad gradn mgradn p mp qfs
 # tmp rowbuf colbuf)
 _NVEC = 13
-
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "cg_fused.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
-)
-_LIB = None
+H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
 
 
 def kernel_smem_bytes(nv: int, nefc: int) -> int:
@@ -67,35 +60,8 @@ def kernel_smem_bytes(nv: int, nefc: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Build and launch
+# Launch
 # ---------------------------------------------------------------------------
-
-
-def build() -> float:
-    """Builds the kernel library from the repo's source (first use only);
-    returns the seconds it took. A failure raises."""
-    global _LIB
-    if _LIB is not None:
-        return 0.0
-    from torch.utils.cpp_extension import load
-
-    t0 = time.perf_counter()
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    # plain C interface, no torch headers: nvcc takes seconds, not minutes
-    path = load(
-        name="btt_cg_fused",
-        sources=[_SRC],
-        build_directory=_BUILD_DIR,
-        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-        is_python_module=False,
-        verbose=False,
-    )
-    lib = ctypes.CDLL(path)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cg_fused_launch.argtypes = [P] * 22 + [I] * 9 + [F, F, P]
-    lib.cg_fused_launch.restype = I
-    _LIB = lib
-    return time.perf_counter() - t0
 
 
 def _bm(P: torch.Tensor, A: torch.Tensor, nroots: int, ncon: int) -> torch.Tensor:
@@ -144,7 +110,6 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth, qvel, damp, md,
             f"cg_solve_fused kernel: nv={nv}, nefc={nefc} needs {smem} B of "
             f"shared memory per block (limit {H100_SMEM_PER_BLOCK})"
         )
-    build()
     row_slot, sz, root_of_dof, limit_dadr = tables
     outs = dict(
         qacc=torch.empty(B, nv, dtype=f.dtype, device=f.device),
@@ -154,9 +119,9 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth, qvel, damp, md,
         qvel_new=torch.empty(B, nv, dtype=f.dtype, device=f.device),
         done=torch.empty(B, dtype=torch.bool, device=f.device),
     )
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    ptr = library.ptr
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    err = _LIB.cg_fused_launch(
+    err = library.lib().cg_fused_launch(
         *(ptr(t) for t in (f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth,
                            qvel, damp, md, armature, row_slot, sz,
                            root_of_dof, limit_dadr)),
@@ -164,8 +129,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth, qvel, damp, md,
         B, nv, nefc, nlim, nroots, smem, iters, ls_iters, int(has_damping),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_void_p(stream),
     )
-    if err != 0:
-        raise RuntimeError(f"cg_solve_fused kernel launch failed: CUDA error {err}")
+    library.check("cg_solve_fused", err)
     return outs
 
 
@@ -211,22 +175,6 @@ def assemble_qM_J(f, cdof, Bm, jsign, md, armature, *, row_slot, sz,
     return qM, J
 
 
-def _sweep_inverse(a: torch.Tensor) -> torch.Tensor:
-    """Batched SPD inverse by the sweep operator, in the elimination order
-    and update formulas of the JAX array path (solver._sweep_inverse)."""
-    s = a.clone()
-    for k in range(a.shape[-1]):
-        row = s[:, k, :].clone()
-        col = s[:, :, k].clone()
-        dinv = 1.0 / s[:, k, k]
-        row_d = row * dinv[:, None]
-        s = s - col[:, :, None] * row_d[:, None, :]
-        s[:, k, :] = row_d
-        s[:, :, k] = -col * dinv[:, None]
-        s[:, k, k] = dinv
-    return s
-
-
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (A @ x[..., None])[..., 0]
 
@@ -237,7 +185,7 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
     one-sided quadratic rows, plus the qacc_smooth / Euler products and the
     per-env convergence flag."""
     B = qM.shape[0]
-    qMinv = _sweep_inverse(qM)
+    qMinv = sweep_inverse_reference(qM)
     a0 = _mv(qMinv, qfrc_smooth)
     Jt = J.transpose(-1, -2)
     zero = torch.zeros((), dtype=qM.dtype, device=qM.device)
@@ -327,7 +275,7 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
     qfrc_constraint = _mv(Jt, force)
     qfrc_total = qfrc_smooth + qfrc_constraint
     if has_damping:
-        mhinv = _sweep_inverse(qM + torch.diag(damp))
+        mhinv = sweep_inverse_reference(qM + torch.diag(damp))
         qvel_next = qvel + dt * _mv(mhinv, qfrc_total)
     else:
         qvel_next = qvel + dt * x

@@ -72,7 +72,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     g1, g2 = pairs.geom1, pairs.geom2
     t1, t2 = np.asarray(m.geom_type)[g1], np.asarray(m.geom_type)[g2]
     for key in set(zip(t1.tolist(), t2.tolist())) - _PORTED:
-        M.unported(f"collision pair of geom types {key}", "§A.8")
+        M.unported(f"collision pair of geom types {key}", "§A.12")
 
     dist = torch.full((B, ncon), 1e10, dtype=dtype, device=device)
     pos = d.qpos.new_zeros(B, ncon, 3)

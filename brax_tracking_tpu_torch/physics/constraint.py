@@ -1,14 +1,16 @@
-"""Constraint row assembly: scalar joint limits + pyramidal contacts.
+"""Constraint row assembly: scalar and ball joint limits + pyramidal
+contacts.
 
 Counterpart of ``brax_tracking_tpu/physics/constraint.py`` with the same
 static row layout: every candidate constraint always owns its rows, and
-activation is run-time masking. Rows are limits first, then contacts.
-Elliptic cones and ball-joint limits raise.
+activation is run-time masking. Rows are scalar limits first, then ball
+limits, then contacts. Elliptic cones raise.
 
-The dense constraint jacobian is not materialized here: the solve kernel
+The dense contact jacobian is not materialized here: the solve kernel
 assembles it from the per-contact operators ``con_A`` (J = (P A) cdof * md,
 see ``_contact_jac``), and the row velocities aref needs come from the
-same factors without it.
+same factors without it. Ball-limit rows (models off the kernel layout)
+are the dense block ``efc_Jc``; ``jac_mul`` / ``jac_t_mul`` apply J.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from brax_tracking_tpu_torch import math as btm
 from brax_tracking_tpu_torch.physics import model as M
 
 # efc row types
@@ -190,17 +193,15 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
     B = d.qpos.shape[0]
     layout = efc_layout(m)
     nefc = layout.nefc
-    if layout.limit_ball_jnt.size:
-        M.unported("ball-joint limits", "§A.8")
     if m.opt.cone == M.CONE_ELLIPTIC and m.ncon and np.any(layout.con_dim > 1):
         M.unported("elliptic friction cones", "§A.5")
     if m.ncon and int(np.max(layout.con_dim)) > 3:
-        M.unported("torsional and rolling friction (condim > 3)", "§A.8")
+        M.unported("torsional and rolling friction (condim > 3)", "§A.12")
 
     zeros = lambda *s: d.qpos.new_zeros(B, *s)
     efc_jsign = zeros(layout.limit_rows.size)
     efc_D, efc_aref, efc_pos, efc_margin = zeros(nefc), zeros(nefc), zeros(nefc), zeros(nefc)
-    con_A = None
+    con_A = efc_Jc = None
 
     # ---------------- scalar joint limits ----------------
     if layout.limit_jnt.size:
@@ -221,6 +222,39 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
         r = torch.clamp((1 - imp) / imp * m.dof_invweight0[dadr], min=M.MINVAL)
         rows = m.idx(layout.limit_rows)
         efc_jsign = sign
+        efc_D[:, rows] = 1.0 / r
+        efc_aref[:, rows] = aref
+        efc_pos[:, rows] = dist
+        efc_margin[:, rows] = margin.expand(B, -1)
+
+    # ---------------- ball-joint limits (dense rows) ----------------
+    # mj_instantiateLimit, mjJNT_BALL branch: a limit on the total rotation
+    # angle; dist = max(range) - |angle|, jacobian = -axis over the 3 dofs
+    n_ball = int(layout.limit_ball_jnt.size)
+    if n_ball:
+        if m.ncon:
+            # the dense block would need the contact rows too
+            M.unported("dense contact rows beside ball-joint limits", "§A.9")
+        jids = layout.limit_ball_jnt
+        ji = m.idx(jids)
+        qadr = np.asarray(m.jnt_qposadr)[jids]
+        dadr = np.asarray(m.jnt_dofadr)[jids]
+        aa = btm.quat_to_axis_angle(d.qpos[:, m.idx(qadr[:, None] + np.arange(4))])
+        angle = torch.linalg.norm(aa, dim=-1)  # (B, n_ball)
+        axis = aa / torch.clamp(angle, min=M.MINVAL)[..., None]
+        axis = torch.where(
+            (angle > M.MINVAL)[..., None], axis, m.const([1.0, 0.0, 0.0]).expand_as(axis)
+        )
+        dist = torch.maximum(m.jnt_range[ji, 0], m.jnt_range[ji, 1]) - angle
+        margin = m.jnt_margin[ji]
+        k, b, imp = _kbi(m, m.jnt_solref[ji], m.jnt_solimp[ji], dist - margin)
+        dofs = m.idx(dadr[:, None] + np.arange(3))  # (n_ball, 3)
+        jvel = torch.sum(-axis * d.qvel[:, dofs], dim=-1)
+        aref = -b * jvel - k * imp * (dist - margin)
+        r = torch.clamp((1 - imp) / imp * m.dof_invweight0[m.idx(dadr)], min=M.MINVAL)
+        efc_Jc = d.qpos.new_zeros(B, n_ball, m.nv)
+        efc_Jc[:, m.idx(np.repeat(np.arange(n_ball), 3)), dofs.reshape(-1)] = -axis.reshape(B, -1)
+        rows = m.idx(layout.limit_ball_rows)
         efc_D[:, rows] = 1.0 / r
         efc_aref[:, rows] = aref
         efc_pos[:, rows] = dist
@@ -276,6 +310,7 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
 
     return d.replace(
         con_A=con_A,
+        efc_Jc=efc_Jc,
         efc_jsign=efc_jsign,
         efc_D=efc_D,
         efc_aref=efc_aref,
@@ -287,3 +322,26 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
 def limit_dofs(m: M.Model) -> np.ndarray:
     """Static dof address of each scalar limit row."""
     return np.asarray(m.jnt_dofadr)[np.asarray(efc_layout(m).limit_jnt)]
+
+
+def jac_mul(m: M.Model, d: M.Data, x: torch.Tensor) -> torch.Tensor:
+    """J x (B, nefc) for x (B, nv) without the dense J: the scalar limit
+    rows are signed gathers, the rest the dense block efc_Jc."""
+    parts = []
+    if d.efc_jsign.shape[1]:
+        parts.append(d.efc_jsign * x[:, m.idx(limit_dofs(m))])
+    if d.efc_Jc is not None and d.efc_Jc.shape[1]:
+        parts.append((d.efc_Jc @ x[..., None])[..., 0])
+    return torch.cat(parts, dim=1) if parts else x.new_zeros(x.shape[0], 0)
+
+
+def jac_t_mul(m: M.Model, d: M.Data, f: torch.Tensor) -> torch.Tensor:
+    """J^T f (B, nv) for f (B, nefc): a signed scatter for the scalar limit
+    rows plus the dense block's product."""
+    nlim = d.efc_jsign.shape[1]
+    out = f.new_zeros(f.shape[0], m.nv)
+    if nlim:
+        out = out.index_add(1, m.idx(limit_dofs(m)), d.efc_jsign * f[:, :nlim])
+    if d.efc_Jc is not None and d.efc_Jc.shape[1]:
+        out = out + (d.efc_Jc.transpose(-1, -2) @ f[:, nlim:, None])[..., 0]
+    return out

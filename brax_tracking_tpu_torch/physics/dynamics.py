@@ -1,11 +1,14 @@
-"""Composite rigid body factor (CRB) and bias forces (RNE), batch-first.
+"""Composite rigid body factor (CRB), mass-matrix inverses and bias forces
+(RNE), batch-first.
 
 Counterpart of ``brax_tracking_tpu/physics/dynamics.py`` (mj_crb / mj_rne
 semantics). ``crb`` produces the low-rank mass-matrix factor ``crb_f``:
 qM[i, j] = cdof_j . f_i on the dof-ancestor pattern, symmetrized, plus
-diag(armature). The dense qM is never materialized on the engine path:
+diag(armature). On the kernel path the dense qM is never materialized:
 the solve kernel assembles it from (crb_f, cdof), as the JAX kernel does
-(ops/cg.py ``assemble_qM_J`` is the plain version of that assembly).
+(ops/cg.py ``assemble_qM_J`` is the plain version of that assembly). The
+solve paths off that layout (XLA-CG and Newton) read the dense qM, and
+XLA-CG its inverses (``invert_m``, ``solve_m``).
 """
 
 from __future__ import annotations
@@ -14,18 +17,46 @@ import numpy as np
 import torch
 
 from brax_tracking_tpu_torch.math.spatial import inert_mul_cm, motion_cross_force_cm
+from brax_tracking_tpu_torch.ops import cholesky as ops_chol
 from brax_tracking_tpu_torch.physics import model as M
 
 
-def crb(m: M.Model, d: M.Data) -> M.Data:
-    """Composite inertias (subtree sums) applied to cdof: crb_f (B, 6, nv)."""
+def crb(m: M.Model, d: M.Data, dense: bool = False) -> M.Data:
+    """Composite inertias (subtree sums) applied to cdof: crb_f (B, 6, nv),
+    and with ``dense`` the dense qM (B, nv, nv) the solve paths off the
+    kernel layout read."""
     SUB = m.const(m.plan.body_subtree_mask)
     ci = d.cinert_s @ SUB.T  # (B, 6, nbody) composite packed inertia
     ch = d.cinert_h @ SUB.T  # (B, 3, nbody)
     cm = SUB @ m.body_mass
     dofb = m.idx(m.dof_bodyid)
     f = inert_mul_cm(ci[:, :, dofb], ch[:, :, dofb], cm[dofb], d.cdof)
-    return d.replace(crb_f=f)
+    if not dense:
+        return d.replace(crb_f=f)
+    # qM[i, j] = cdof_j . f_i on the dof-ancestor pattern, symmetrized
+    full = torch.einsum("bci,bcj->bij", f, d.cdof)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    lower = torch.where(m.const(m.dof_ancestor_mask, torch.bool), full, zero)
+    qM = lower + lower.transpose(-1, -2) - torch.diag_embed(torch.diagonal(lower, dim1=-2, dim2=-1))
+    return d.replace(crb_f=f, qM=qM + torch.diag(m.dof_armature))
+
+
+def invert_m(m: M.Model, d: M.Data) -> M.Data:
+    """qMinv and, on a damped model, qMhinv = (M + h diag(damping))^-1 from
+    one kernel launch (ops/cholesky.py): the XLA-CG path's
+    preconditioner and the Euler update's implicit damping."""
+    if m.has_damping:
+        damp = m.dof_damping * m.opt.timestep
+        qMinv, qMhinv = ops_chol.spd_inverse2(d.qM, damp, device=m.device)
+        return d.replace(qMinv=qMinv, qMhinv=qMhinv)
+    return d.replace(qMinv=ops_chol.spd_inverse(d.qM, device=m.device))
+
+
+def solve_m(m: M.Model, d: M.Data, rhs: torch.Tensor) -> torch.Tensor:
+    """M^-1 rhs (B, nv) from qMinv; the Cholesky-factor branch raises."""
+    if d.qMinv is None:
+        M.unported("M^-1 products from the Cholesky factor qLD", "§B.5")
+    return (d.qMinv @ rhs[..., None])[..., 0]
 
 
 def rne(m: M.Model, d: M.Data) -> M.Data:

@@ -1,7 +1,8 @@
 """Forward kinematics and CoM-frame quantities, batch-first.
 
 Counterpart of ``brax_tracking_tpu/physics/kinematics.py`` (MuJoCo
-mj_kinematics / mj_comPos / mj_comVel semantics). Bodies are never looped
+mj_kinematics / mj_comPos / mj_tendon for fixed tendons / mj_comVel
+semantics) for free, hinge and ball joints. Bodies are never looped
 over: each joint slot group is one wide op, world transforms are composed
 by pointer jumping over the body tree, and tree sums are products with the
 plan's static subtree mask.
@@ -37,11 +38,8 @@ def _joint_slot_groups(m: M.Model):
 
 
 def _check_joint_types(m: M.Model):
-    jt = np.asarray(m.jnt_type)
-    if np.any(jt == M.JNT_BALL):
-        M.unported("ball joints", "§A.8")
-    if np.any(jt == M.JNT_SLIDE):
-        M.unported("slide joints", "§A.8")
+    if np.any(np.asarray(m.jnt_type) == M.JNT_SLIDE):
+        M.unported("slide joints", "§A.12")
 
 
 def kinematics(m: M.Model, d: M.Data) -> M.Data:
@@ -64,22 +62,25 @@ def kinematics(m: M.Model, d: M.Data) -> M.Data:
     free_jids = np.nonzero(np.asarray(m.jnt_type) == M.JNT_FREE)[0]
 
     for s in range(max_slot):
-        jids = groups[s][M.JNT_HINGE]
-        if not jids.size:
-            continue
-        bodies = m.idx(jb[jids])
-        ji = m.idx(jids)
-        jpos = m.jnt_pos[ji]
-        jaxis = m.jnt_axis[ji]
-        q_s, p_s = Lq[:, bodies], Lp[:, bodies]
-        preq[:, ji] = q_s
-        prep[:, ji] = p_s
-        qadr = m.idx(np.asarray(m.jnt_qposadr)[jids])
-        angle = qpos[:, qadr] - m.qpos0[qadr]
-        qloc = btm.axis_angle_to_quat(jaxis, angle)
-        tp = jpos - rot(qloc, jpos)
-        Lq[:, bodies] = btm.quat_mul(q_s, qloc)
-        Lp[:, bodies] = p_s + rot(q_s, tp)
+        for t in (M.JNT_HINGE, M.JNT_BALL):
+            jids = groups[s][t]
+            if not jids.size:
+                continue
+            bodies = m.idx(jb[jids])
+            ji = m.idx(jids)
+            jpos = m.jnt_pos[ji]
+            q_s, p_s = Lq[:, bodies], Lp[:, bodies]
+            preq[:, ji] = q_s
+            prep[:, ji] = p_s
+            qadr = np.asarray(m.jnt_qposadr)[jids]
+            if t == M.JNT_HINGE:
+                qa = m.idx(qadr)
+                qloc = btm.axis_angle_to_quat(m.jnt_axis[ji], qpos[:, qa] - m.qpos0[qa])
+            else:  # ball: the joint's quaternion straight from qpos
+                qloc = btm.quat_normalize(qpos[:, m.idx(qadr[:, None] + np.arange(4))])
+            tp = jpos - rot(qloc, jpos)
+            Lq[:, bodies] = btm.quat_mul(q_s, qloc)
+            Lp[:, bodies] = p_s + rot(q_s, tp)
     if free_jids.size:
         # free-joint bodies take their world pose straight from qpos
         fb = m.idx(jb[free_jids])
@@ -174,15 +175,19 @@ def com_pos(m: M.Model, d: M.Data) -> M.Data:
         cdof[:, :, m.idx(dofadr[hinge_j])] = torch.cat(
             [axis, torch.linalg.cross(axis, off, dim=-1)], -1
         ).transpose(-1, -2)
-    if free_j.size:
-        fj = m.idx(free_j)
-        b = jb[free_j]
-        off = subtree_com[:, m.idx(rootid[b])] - d.xanchor[:, fj]  # (B, n, 3)
+    ball_j = plan.jnt_by_type[M.JNT_BALL]
+    for jgrp, rot_off in ((ball_j, 0), (free_j, 3)):
+        if not jgrp.size:
+            continue
+        # rotational dofs: the body frame's axes, about the joint anchor
+        b = jb[jgrp]
+        off = subtree_com[:, m.idx(rootid[b])] - d.xanchor[:, m.idx(jgrp)]  # (B, n, 3)
         cols = btm.quat_to_mat(d.xquat[:, m.idx(b)]).transpose(-1, -2)
         lin = torch.linalg.cross(cols, off[:, :, None, :].expand_as(cols), dim=-1)
         rows = torch.cat([cols, lin], -1)  # (B, n, 3, 6)
-        dadr = (dofadr[free_j] + 3)[:, None] + np.arange(3)[None, :]
+        dadr = (dofadr[jgrp] + rot_off)[:, None] + np.arange(3)[None, :]
         cdof[:, :, m.idx(dadr.reshape(-1))] = rows.reshape(B, -1, 6).transpose(-1, -2)
+    if free_j.size:
         dadr = dofadr[free_j][:, None] + np.arange(3)[None, :]
         eye = np.tile(np.concatenate([np.zeros((3, 3)), np.eye(3)], -1), (free_j.size, 1))
         cdof[:, :, m.idx(dadr.reshape(-1))] = m.const(eye.T)
@@ -192,10 +197,22 @@ def com_pos(m: M.Model, d: M.Data) -> M.Data:
 
 
 def tendon(m: M.Model, d: M.Data) -> M.Data:
-    """Fixed tendons: the minirat has none; any tendon raises."""
-    if m.ntendon:
-        M.unported("tendons", "§A.4")
-    return d
+    """Fixed-tendon lengths and jacobians: each tendon is a static
+    combination of joint positions, so its jacobian is a constant scatter
+    of the wrap coefficients."""
+    if not m.ntendon:
+        return d
+    B = d.qpos.shape[0]
+    # wrap w belongs to tendon t(w)
+    t_of_w = np.repeat(np.arange(m.ntendon), np.asarray(m.tendon_num))
+    jids = np.asarray(m.wrap_objid)
+    qadr = m.idx(np.asarray(m.jnt_qposadr)[jids])
+    dadr = np.asarray(m.jnt_dofadr)[jids]
+    coef = m.wrap_prm
+    length = d.qpos.new_zeros(B, m.ntendon).index_add_(1, m.idx(t_of_w), coef * d.qpos[:, qadr])
+    J = torch.zeros(m.ntendon, m.nv, dtype=coef.dtype, device=coef.device)
+    J.index_put_((m.idx(t_of_w), m.idx(dadr)), coef, accumulate=True)
+    return d.replace(ten_length=length, ten_J=J.expand(B, m.ntendon, m.nv))
 
 
 def com_vel(m: M.Model, d: M.Data) -> M.Data:

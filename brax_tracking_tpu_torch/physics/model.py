@@ -61,7 +61,7 @@ STATIC_FIELDS = (
     "actuator_trntype", "actuator_dyntype", "actuator_gaintype",
     "actuator_biastype", "actuator_trnid", "actuator_actadr",
     "actuator_actnum", "actuator_ctrllimited", "actuator_forcelimited",
-    "actuator_actlimited",
+    "actuator_actlimited", "tendon_adr", "tendon_num", "wrap_objid",
 )
 BOOL_FIELDS = (
     "jnt_limited", "actuator_ctrllimited", "actuator_forcelimited",
@@ -75,7 +75,8 @@ PARAM_FIELDS = (
     "geom_pos", "geom_quat", "geom_size", "site_pos", "site_quat",
     "actuator_dynprm", "actuator_gainprm", "actuator_biasprm",
     "actuator_ctrlrange", "actuator_forcerange", "actuator_actrange",
-    "actuator_gear",
+    "actuator_gear", "actuator_lengthrange", "actuator_acc0",
+    "tendon_stiffness", "tendon_damping", "tendon_lengthspring", "wrap_prm",
 )
 OPT_PARAM_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -190,6 +191,9 @@ class Model:
     actuator_ctrllimited: Any = None
     actuator_forcelimited: Any = None
     actuator_actlimited: Any = None
+    tendon_adr: Any = None  # (ntendon,) first wrap of each fixed tendon
+    tendon_num: Any = None  # (ntendon,) wraps per tendon
+    wrap_objid: Any = None  # (nwrap,) joint id of each fixed-tendon wrap
     # derived static structure
     has_damping: bool = False
     has_fluid: bool = False
@@ -229,6 +233,12 @@ class Model:
     actuator_forcerange: torch.Tensor = None
     actuator_actrange: torch.Tensor = None
     actuator_gear: torch.Tensor = None
+    actuator_lengthrange: torch.Tensor = None  # (nu, 2) muscle operating range
+    actuator_acc0: torch.Tensor = None  # (nu,) norm of unit-force qacc (muscle)
+    tendon_stiffness: torch.Tensor = None
+    tendon_damping: torch.Tensor = None
+    tendon_lengthspring: torch.Tensor = None  # (ntendon, 2) deadband
+    wrap_prm: torch.Tensor = None  # (nwrap,) fixed-tendon joint coefficients
     pairs: ContactPairs = None
     # per-model statics built once on first use (solver kernel tables)
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
@@ -280,12 +290,19 @@ class Data:
     cinert_s: Optional[torch.Tensor] = None  # (B, 6, nbody) [xx,yy,zz,xy,xz,yz]
     cinert_h: Optional[torch.Tensor] = None  # (B, 3, nbody)
     cdof: Optional[torch.Tensor] = None  # (B, 6, nv)
+    ten_length: Optional[torch.Tensor] = None  # (B, ntendon)
+    ten_J: Optional[torch.Tensor] = None  # (B, ntendon, nv)
     # velocity stage
     cvel: Optional[torch.Tensor] = None  # (B, 6, nbody)
     cdof_dot: Optional[torch.Tensor] = None  # (B, 6, nv)
     # dynamics: crb_f is the low-rank qM factor (qM = masksym(f^T cdof) +
     # diag(armature)); the solve kernel assembles qM from it
     crb_f: Optional[torch.Tensor] = None  # (B, 6, nv)
+    # dense mass matrix and inverses: only on the solve paths outside the
+    # kernel layout (dynamics.crb / invert_m)
+    qM: Optional[torch.Tensor] = None  # (B, nv, nv)
+    qMinv: Optional[torch.Tensor] = None  # (B, nv, nv) M^-1 (CG path)
+    qMhinv: Optional[torch.Tensor] = None  # (B, nv, nv) (M + h diag(damping))^-1
     qfrc_bias: Optional[torch.Tensor] = None  # (B, nv)
     qfrc_passive: Optional[torch.Tensor] = None  # (B, nv)
     qfrc_actuator: Optional[torch.Tensor] = None  # (B, nv)
@@ -298,9 +315,12 @@ class Data:
     contact_pos: Optional[torch.Tensor] = None  # (B, ncon, 3)
     contact_frame: Optional[torch.Tensor] = None  # (B, ncon, 3, 3)
     con_A: Optional[torch.Tensor] = None  # (B, nroots, ncon, 3, 6)
-    # constraint rows (static layout; limits first, then contacts). The
-    # dense jacobian is never materialized: the solve kernel assembles it
-    # from con_A, cdof and the static row tables (ops/cg.py)
+    # constraint rows (static layout; scalar limits, ball limits, then
+    # contacts). On the kernel path the dense jacobian is never
+    # materialized: the solve kernel assembles it from con_A, cdof and the
+    # static row tables (ops/cg.py). Off it, the rows after the scalar
+    # limits are the dense block efc_Jc.
+    efc_Jc: Optional[torch.Tensor] = None  # (B, nefc - nlim, nv)
     efc_jsign: Optional[torch.Tensor] = None  # (B, nlim)
     efc_D: Optional[torch.Tensor] = None  # (B, nefc)
     efc_aref: Optional[torch.Tensor] = None  # (B, nefc)
@@ -311,6 +331,11 @@ class Data:
     qfrc_constraint: Optional[torch.Tensor] = None  # (B, nv)
     qacc: Optional[torch.Tensor] = None  # (B, nv)
     qvel_next: Optional[torch.Tensor] = None  # (B, nv) Euler velocity update
+    # Newton iterations each env ran (the batch loop runs max of them)
+    solver_niter: Optional[torch.Tensor] = None  # (B,) int
+    # the next solve's warm start (mj_forward copies qacc here); None after
+    # make_data, so the first solve starts cold
+    qacc_warmstart: Optional[torch.Tensor] = None  # (B, nv)
 
     def replace(self, **kwargs) -> "Data":
         return dataclasses.replace(self, **kwargs)

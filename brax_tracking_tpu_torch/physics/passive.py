@@ -1,8 +1,8 @@
 """Passive forces: joint springs and dof dampers, batch-first.
 
 Counterpart of ``brax_tracking_tpu/physics/passive.py`` (mj_passive
-semantics) for free and hinge joints. Tendon springs and the fluid model
-raise: the minirat has neither.
+semantics) for free, hinge and ball joints and fixed tendons. The fluid
+model raises.
 """
 
 from __future__ import annotations
@@ -21,10 +21,8 @@ def _sub_quat(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
 
 def spring_damper(m: M.Model, d: M.Data) -> torch.Tensor:
     jt = np.asarray(m.jnt_type)
-    if np.any((jt == M.JNT_BALL) | (jt == M.JNT_SLIDE)):
-        M.unported("ball and slide joint springs", "§A.8")
-    if m.ntendon:
-        M.unported("tendon springs and dampers", "§A.4")
+    if np.any(jt == M.JNT_SLIDE):
+        M.unported("slide joint springs", "§A.12")
     qadr = np.asarray(m.jnt_qposadr)
     dadr = np.asarray(m.jnt_dofadr)
     qfrc = torch.zeros_like(d.qvel)
@@ -35,19 +33,34 @@ def spring_damper(m: M.Model, d: M.Data) -> torch.Tensor:
         hq = m.idx(qadr[h])
         k = m.jnt_stiffness[m.idx(h)]
         qfrc[:, m.idx(dadr[h])] = -k * (d.qpos[:, hq] - m.qpos_spring[hq])
-    # free-joint springs: translation and orientation
-    for jid in np.nonzero(jt == M.JNT_FREE)[0]:
+    # free-joint springs (translation and orientation) and ball springs
+    for jid in np.nonzero((jt == M.JNT_FREE) | (jt == M.JNT_BALL))[0]:
         k = m.jnt_stiffness[int(jid)]
         qa, da = int(qadr[jid]), int(dadr[jid])
-        qfrc[:, da : da + 3] = -k * (d.qpos[:, qa : qa + 3] - m.qpos_spring[qa : qa + 3])
-        dif = _sub_quat(d.qpos[:, qa + 3 : qa + 7], m.qpos_spring[qa + 3 : qa + 7])
-        qfrc[:, da + 3 : da + 6] = -k * dif
+        if jt[jid] == M.JNT_FREE:
+            qfrc[:, da : da + 3] = -k * (d.qpos[:, qa : qa + 3] - m.qpos_spring[qa : qa + 3])
+            qa, da = qa + 3, da + 3
+        dif = _sub_quat(d.qpos[:, qa : qa + 4], m.qpos_spring[qa : qa + 4])
+        qfrc[:, da : da + 3] = -k * dif
 
     # dof dampers
-    return qfrc - m.dof_damping * d.qvel
+    qfrc = qfrc - m.dof_damping * d.qvel
+
+    # tendon springs (with a deadband) and dampers
+    if m.ntendon:
+        ten_vel = (d.ten_J @ d.qvel[..., None])[..., 0]
+        lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+        length = d.ten_length
+        zero = torch.zeros((), dtype=length.dtype, device=length.device)
+        displacement = torch.where(
+            length > hi, hi - length, torch.where(length < lo, lo - length, zero)
+        )
+        frc = m.tendon_stiffness * displacement - m.tendon_damping * ten_vel
+        qfrc = qfrc + (d.ten_J.transpose(-1, -2) @ frc[..., None])[..., 0]
+    return qfrc
 
 
 def passive(m: M.Model, d: M.Data) -> M.Data:
     if m.has_fluid:
-        M.unported("the inertia-box fluid model", "§A.5")
+        M.unported("the inertia-box fluid model", "§A.9")
     return d.replace(qfrc_passive=spring_damper(m, d))

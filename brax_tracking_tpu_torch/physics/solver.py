@@ -1,58 +1,100 @@
-"""Constraint solve: MuJoCo CG on the primal (acceleration) problem.
+"""Constraint solve: MuJoCo CG and Newton on the primal (acceleration)
+problem.
 
-Counterpart of ``brax_tracking_tpu/physics/solver.py`` for the path the
-minirat (and the rodent) takes: CG models whose rows are all one-sided
-quadratics go through ``_solve_quad``, which calls the solve kernel
-(ops/cg.py ``cg_solve_fused``). On a CUDA model that is the hand-written
-kernel; on a CPU model the wrapper runs its plain version. There is no
-other switch. Newton, PGS, elliptic cones and models outside the kernel's
-layout raise.
+Counterpart of ``brax_tracking_tpu/physics/solver.py``. Dispatch follows
+``solve`` there, by the same eligibility rule (``quad_kernel_eligible``):
+
+- CG on the kernel layout (one-sided quadratic rows built from limits and
+  contacts; the minirat, the rodent) goes through ``_solve_quad``, which
+  calls the solve kernel (ops/cg.py ``cg_solve_fused``). A model the rule
+  sends there but whose env does not fit one block's shared memory on the
+  H100 raises: the XLA-CG path warmstarts where the kernel does not, so it
+  would compute something else.
+- CG off that layout (ball-joint limits, > 128 iterations) runs
+  ``_solve_xla``: M^-1-preconditioned Polak-Ribiere CG on the dense qM and
+  its inverse (``dynamics.invert_m``, kernel ``spd_inverse2``).
+- Newton off that layout runs ``_solve_newton``: exact-Hessian Newton, one
+  ``spd_solve`` launch per iteration.
+
+Both array paths warmstart from the previous step's qacc (mj_warmstart),
+freeze each env once it has converged, and stop when every env has (a host
+read of the done flags per iteration), as the JAX package's loops do under
+vmap. Newton on the kernel layout, PGS and elliptic rows raise.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from brax_tracking_tpu_torch.ops import cg as ops_cg
+from brax_tracking_tpu_torch.ops import cholesky as ops_chol
 from brax_tracking_tpu_torch.physics import constraint as Cn
+from brax_tracking_tpu_torch.physics import dynamics as D
 from brax_tracking_tpu_torch.physics import model as M
 
 
 def solve(m: M.Model, d: M.Data) -> M.Data:
-    """Constraint solve for qacc; writes qacc, qfrc_constraint, efc_force,
-    qacc_smooth and the Euler velocity update qvel_next."""
+    """Constraint solve for qacc; writes qacc, qfrc_constraint and
+    efc_force, and on the kernel path qacc_smooth and the Euler velocity
+    update qvel_next, on the Newton path the iteration counts."""
+    layout = Cn.efc_layout(m)
+    if layout.nefc == 0 or m.nv == 0:
+        B = d.qpos.shape[0]
+        return d.replace(
+            qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qvel),
+            efc_force=d.qpos.new_zeros(B, 0),
+        )
     if m.opt.solver == M.SOLVER_NEWTON:
-        M.unported("the Newton solver", "§A.6")
+        if quad_kernel_eligible(m):
+            M.unported("Newton on the solve kernel's layout (its warmstart and stall exit)", "§B.1(c)")
+        return _solve_newton(m, d)
     if m.opt.solver != M.SOLVER_CG:
         raise NotImplementedError(
-            f"solver {m.opt.solver} (PGS?) is not implemented; use cg"
+            f"solver {m.opt.solver} (PGS?) is not implemented; use cg or newton"
         )
-    if not quad_kernel_eligible(m):
-        M.unported("CG for models outside the solve kernel's layout", "§A.5")
-    return _solve_quad(m, d, Cn.efc_layout(m))
+    if quad_kernel_eligible(m):
+        return _solve_quad(m, d, layout)
+    return _solve_xla(m, d)
 
 
 def quad_kernel_eligible(m: M.Model) -> bool:
-    """True when the model fits the solve kernel: CG or Newton, one-sided
-    quadratic rows only (scalar limits, pyramidal or frictionless
-    contacts), at most 128 iterations, DFS-contiguous dof subtrees and, the
-    Hopper rule, one env's qM, M^-1 and J in one block's shared memory
-    (``ops_cg.kernel_smem_bytes`` <= 227 KB)."""
+    """The JAX package's rule for its solve-kernel path (CG or Newton): one-
+    sided quadratic rows plus at most one contiguous block of dim-3
+    elliptic contacts, no ball-joint limits, condim <= 3, at most 128
+    iterations, DFS-contiguous dof subtrees, and the TPU kernel's VMEM
+    budget. Models that fail it take the array paths; models that pass it
+    skip the dense qM. Whether the env also fits the H100 kernel's shared
+    memory is checked where the kernel is called (``_solve_quad``)."""
+    if "kernel_path" not in m.cache:
+        m.cache["kernel_path"] = _quad_kernel_eligible(m)
+    return m.cache["kernel_path"]
+
+
+def _quad_kernel_eligible(m: M.Model) -> bool:
     if m.nv == 0 or m.opt.solver not in (M.SOLVER_CG, M.SOLVER_NEWTON):
         return False
     layout = Cn.efc_layout(m)
     if layout.nefc == 0 or max(int(m.opt.iterations), 1) > 128:
         return False
     if m.opt.cone == M.CONE_ELLIPTIC and m.ncon and np.any(layout.con_dim > 1):
-        return False
+        ell = layout.con_dim > 1
+        if set(layout.con_dim[ell].tolist()) != {3}:
+            return False
+        rows = layout.con_rows[ell]
+        if not np.array_equal(rows, rows[0] + 3 * np.arange(rows.size)):
+            return False
     if layout.limit_ball_jnt.size:
         return False
     if m.ncon and int(np.max(layout.con_dim)) > 3:
         return False
     if _fused_statics(m, layout) is None:
         return False
-    return ops_cg.kernel_smem_bytes(m.nv, layout.nefc) <= ops_cg.H100_SMEM_PER_BLOCK
+    rp = (layout.nefc + 7) // 8 * 8
+    vp = (m.nv + 7) // 8 * 8
+    return (rp * vp + 3 * vp * vp) * 128 * 4 + int(12e6) < int(100e6)
 
 
 def _fused_statics(m: M.Model, layout: Cn.EfcLayout):
@@ -139,6 +181,12 @@ def _solve_statics(m: M.Model, layout: Cn.EfcLayout) -> dict:
 def _solve_quad(m: M.Model, d: M.Data, layout: Cn.EfcLayout) -> M.Data:
     """Purely one-sided-quadratic costs: the solve kernel also produces
     qacc_smooth and the Euler velocity update (qvel_next)."""
+    smem = ops_cg.kernel_smem_bytes(m.nv, layout.nefc)
+    if smem > ops_cg.H100_SMEM_PER_BLOCK:
+        M.unported(
+            f"the solve kernel for an env of {smem} B (one block holds "
+            f"{ops_cg.H100_SMEM_PER_BLOCK} B): its second layout", "§A.10",
+        )
     st = _solve_statics(m, layout)
     B = d.qpos.shape[0]
     exists = d.efc_pos < d.efc_margin
@@ -155,4 +203,211 @@ def _solve_quad(m: M.Model, d: M.Data, layout: Cn.EfcLayout) -> M.Data:
     return d.replace(
         qacc=x, qfrc_constraint=qfrc, efc_force=force, qacc_smooth=a0,
         qvel_next=qvel_next,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The array paths (models off the kernel layout)
+# ---------------------------------------------------------------------------
+
+
+class _Ctx(NamedTuple):
+    x: torch.Tensor  # qacc (B, nv)
+    jar: torch.Tensor  # J x - aref (B, nefc)
+    mxa: torch.Tensor  # qM (x - qacc_smooth), tracked incrementally
+    force: torch.Tensor  # efc forces (B, nefc)
+    cost: torch.Tensor  # (B,)
+    grad: torch.Tensor
+    mgrad: torch.Tensor  # M^-1 grad (CG's preconditioned gradient)
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return (A @ x[..., None])[..., 0]
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Per env: ``a`` where mask, else ``b`` (tensors or _Ctx of them)."""
+    if isinstance(a, _Ctx):
+        return _Ctx(*(_select(mask, x, y) for x, y in zip(a, b)))
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _tol(m: M.Model) -> torch.Tensor:
+    return m.opt.tolerance * m.opt.meaninertia * max(1, m.nv)
+
+
+def _eval_cost_force(exists: torch.Tensor, jar: torch.Tensor, efc_D: torch.Tensor):
+    """Cost and per-row force of the one-sided quadratic rows at jar."""
+    zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
+    active = (jar < 0) & exists
+    force = torch.where(active, -efc_D * jar, zero)
+    cost = 0.5 * torch.sum(torch.where(active, efc_D * jar**2, zero), -1)
+    return cost, force
+
+
+def _linesearch(m: M.Model, exists, ctx: _Ctx, p, jar_p, mp, efc_D) -> torch.Tensor:
+    """Exact line search along p per env: bracket the sign change of phi'
+    over guess * 2^k, then safeguarded Newton steps, each env frozen once
+    |phi'| < tol. It always runs ls_iterations steps: a frozen env is a
+    fixed point, and nearly every call needs them all (a host read of the
+    flags per step cost more than the steps it saved)."""
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    pmp = torch.sum(p * mp, -1)
+    # gauss part: phi_g' = p'M(x - a0) + alpha p'Mp
+    gauss_p = torch.sum(p * ctx.mxa, -1)
+
+    def dphi(alpha):
+        """alpha (B, A) -> (phi'(alpha), phi''(alpha)), each (B, A)."""
+        jar = ctx.jar[:, None, :] + alpha[..., None] * jar_p[:, None, :]
+        active = (jar < 0) & exists[:, None, :]
+        dval = gauss_p[:, None] + alpha * pmp[:, None] + torch.sum(
+            torch.where(active, efc_D[:, None, :] * jar * jar_p[:, None, :], zero), -1
+        )
+        ddval = pmp[:, None] + torch.sum(
+            torch.where(active, (efc_D * jar_p**2)[:, None, :], zero), -1
+        )
+        return dval, ddval
+
+    B = p.shape[0]
+    d0, dd0 = dphi(p.new_zeros(B, 1))
+    guess = torch.clamp(-d0[:, 0] / torch.clamp(dd0[:, 0], min=M.MINVAL), min=M.MINVAL)
+    cand = guess[:, None] * m.const(2.0 ** np.arange(13))
+    dcand, _ = dphi(cand)
+    pos = dcand >= 0
+    hi = torch.min(torch.where(pos, cand, cand[:, -1:]), -1).values
+    lo = torch.max(torch.where(~pos & (cand < hi[:, None]), cand, zero), -1).values
+    alpha = torch.minimum(guess, hi)
+
+    tol = _tol(m)
+    for _ in range(max(int(m.opt.ls_iterations), 1)):
+        dv, ddv = dphi(alpha[:, None])
+        dv, ddv = dv[:, 0], ddv[:, 0]
+        # freeze once converged: at dv ~ 0 the Newton step underflows and
+        # the safeguard would bisect away from the optimum
+        conv = torch.abs(dv) < tol
+        lo2 = torch.where(dv < 0, alpha, lo)
+        hi2 = torch.where(dv >= 0, alpha, hi)
+        newton = alpha - dv / torch.clamp(ddv, min=M.MINVAL)
+        inside = (newton > lo2) & (newton < hi2)
+        alpha2 = torch.where(inside, newton, 0.5 * (lo2 + hi2))
+        alpha = torch.where(conv, alpha, alpha2)
+        lo = torch.where(conv, lo, lo2)
+        hi = torch.where(conv, hi, hi2)
+    return alpha
+
+
+def _array_inputs(m: M.Model, d: M.Data):
+    if m.ncon:
+        M.unported("dense contact rows (solve paths off the kernel layout)", "§A.9")
+    return d.efc_pos < d.efc_margin, d.efc_D, d.efc_aref
+
+
+def _warmstart(m, d, eval_ctx, ctx: _Ctx, a0, aref) -> _Ctx:
+    """mj_warmstart: start from whichever of {qacc_warmstart, qacc_smooth}
+    has the lower primal cost."""
+    if d.qacc_warmstart is None:
+        return ctx
+    ws = d.qacc_warmstart
+    ctx_w = eval_ctx(ws, Cn.jac_mul(m, d, ws) - aref, _mv(d.qM, ws - a0))
+    return _select(ctx_w.cost < ctx.cost, ctx_w, ctx)
+
+
+def _solve_xla(m: M.Model, d: M.Data) -> M.Data:
+    """M^-1-preconditioned Polak-Ribiere CG with exact line search, on the
+    dense qM and qMinv (port of the JAX package's ``_solve_xla``)."""
+    exists, efc_D, aref = _array_inputs(m, d)
+    a0 = d.qacc_smooth
+    tol = _tol(m)
+
+    def eval_ctx(x, jar, mxa):
+        cost, force = _eval_cost_force(exists, jar, efc_D)
+        gauss = 0.5 * torch.sum((x - a0) * mxa, -1)
+        grad = mxa - Cn.jac_t_mul(m, d, force)
+        return _Ctx(x, jar, mxa, force, cost + gauss, grad, D.solve_m(m, d, grad))
+
+    ctx = eval_ctx(a0, Cn.jac_mul(m, d, a0) - aref, torch.zeros_like(a0))
+    ctx = _warmstart(m, d, eval_ctx, ctx, a0, aref)
+    p = -ctx.mgrad
+    done = torch.zeros(a0.shape[0], dtype=torch.bool, device=a0.device)
+    for _ in range(max(int(m.opt.iterations), 1)):
+        jar_p = Cn.jac_mul(m, d, p)
+        mp = _mv(d.qM, p)
+        alpha = _linesearch(m, exists, ctx, p, jar_p, mp, efc_D)
+        new = eval_ctx(
+            ctx.x + alpha[:, None] * p, ctx.jar + alpha[:, None] * jar_p,
+            ctx.mxa + alpha[:, None] * mp,
+        )
+        improvement = ctx.cost - new.cost
+        gradient = torch.linalg.norm(new.grad, dim=-1)
+        beta = torch.sum(new.grad * (new.mgrad - ctx.mgrad), -1) / torch.clamp(
+            torch.sum(ctx.grad * ctx.mgrad, -1), min=M.MINVAL
+        )
+        p_new = -new.mgrad + torch.clamp(beta, min=0.0)[:, None] * p
+        step_done = (improvement < tol) | (gradient < tol)
+        # envs that converged before this iteration keep their state
+        ctx = _select(done, ctx, new)
+        p = _select(done, p, p_new)
+        done = done | step_done
+        if bool(done.all()):
+            break
+    return d.replace(
+        qacc=ctx.x, qfrc_constraint=Cn.jac_t_mul(m, d, ctx.force), efc_force=ctx.force
+    )
+
+
+def _solve_newton(m: M.Model, d: M.Data) -> M.Data:
+    """Exact-Hessian Newton (mjSOL_NEWTON; port of the JAX package's
+    ``_solve_newton`` / ``_newton_iterate``): direction -H^-1 grad with
+    H = M + J' W J, W the row weights of the active quadratic rows, one
+    ``spd_solve`` launch per iteration for the whole batch."""
+    exists, efc_D, aref = _array_inputs(m, d)
+    a0 = d.qacc_smooth
+    qM = d.qM
+    tol = _tol(m)
+    nlim = d.efc_jsign.shape[1]
+    dadr_lim = m.idx(Cn.limit_dofs(m))
+    Jc = d.efc_Jc
+
+    def hess(jar):
+        zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
+        w = torch.where((jar < 0) & exists, efc_D, zero)
+        H = qM
+        if Jc is not None and Jc.shape[1]:
+            H = H + (Jc * w[:, nlim:, None]).transpose(-1, -2) @ Jc
+        if nlim:
+            # scalar limit rows are +-1 one-hot: a diagonal scatter-add
+            diag_w = torch.zeros_like(a0).index_add_(1, dadr_lim, w[:, :nlim])
+            H = H + torch.diag_embed(diag_w)
+        return H
+
+    def eval_ctx(x, jar, mxa):
+        cost, force = _eval_cost_force(exists, jar, efc_D)
+        gauss = 0.5 * torch.sum((x - a0) * mxa, -1)
+        grad = mxa - Cn.jac_t_mul(m, d, force)
+        return _Ctx(x, jar, mxa, force, cost + gauss, grad, grad)
+
+    ctx = eval_ctx(a0, Cn.jac_mul(m, d, a0) - aref, torch.zeros_like(a0))
+    ctx = _warmstart(m, d, eval_ctx, ctx, a0, aref)
+    done = torch.linalg.norm(ctx.grad, dim=-1) < tol
+    niter = torch.zeros(a0.shape[0], dtype=torch.int32, device=a0.device)
+    for _ in range(max(int(m.opt.iterations), 1)):
+        if bool(done.all()):
+            break
+        p = -ops_chol.spd_solve(hess(ctx.jar), ctx.grad, device=m.device)
+        jar_p = Cn.jac_mul(m, d, p)
+        mp = _mv(qM, p)
+        alpha = _linesearch(m, exists, ctx, p, jar_p, mp, efc_D)
+        new = eval_ctx(
+            ctx.x + alpha[:, None] * p, ctx.jar + alpha[:, None] * jar_p,
+            ctx.mxa + alpha[:, None] * mp,
+        )
+        improvement = ctx.cost - new.cost
+        gradient = torch.linalg.norm(new.grad, dim=-1)
+        step_done = (improvement < tol) | (gradient < tol)
+        ctx = _select(done, ctx, new)
+        niter = niter + (~done).to(torch.int32)
+        done = done | step_done
+    return d.replace(
+        qacc=ctx.x, qfrc_constraint=Cn.jac_t_mul(m, d, ctx.force),
+        efc_force=ctx.force, solver_niter=niter,
     )

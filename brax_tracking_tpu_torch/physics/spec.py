@@ -32,6 +32,16 @@ from brax_tracking_tpu_torch.physics.plan import make_plan
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 MINIRAT_NPZ = os.path.join(ASSETS, "minirat.npz")
 MINIRAT_XML = os.path.join(ASSETS, "minirat.xml")
+# ballmuscle: ball joints with limits, a fixed tendon, muscles and a
+# filterexact actuator, frozen once per solver of the engine slice
+BALLMUSCLE_XML = os.path.join(ASSETS, "ballmuscle.xml")
+BALLMUSCLE_NPZ = {
+    solver: os.path.join(ASSETS, f"ballmuscle_{solver}.npz")
+    for solver in ("cg", "newton")
+}
+# the options each ballmuscle file is frozen with: its own <option> line,
+# with the solver switched for the Newton file
+BALLMUSCLE_OPTIONS = dict(iterations=50, ls_iterations=25)
 
 # the env options a frozen file was compiled with (load_model checks them)
 FROZEN_OPTIONS = (
@@ -159,7 +169,7 @@ def _build_pairs(m) -> Dict[str, np.ndarray]:
     for g1, g2 in _candidate_pairs(m):
         key = (int(m.geom_type[g1]), int(m.geom_type[g2]))
         if key not in _PAIR_POINTS:
-            M.unported(f"collision pair of geom types {key}", "§A.8")
+            M.unported(f"collision pair of geom types {key}", "§A.12")
         condim, fr, sr, si, margin, gap = _mix_pair_params(m, g1, g2)
         for k, v in zip(
             M.PAIR_STATIC_FIELDS + M.PAIR_PARAM_FIELDS,
@@ -203,13 +213,15 @@ def freeze_mjcf(
     import mujoco
 
     if scale_factor != 1.0:
-        M.unported("subtree rescaling (scale_factor != 1)", "§A.4")
+        M.unported("subtree rescaling (scale_factor != 1)", "§A.8")
     if not free_jnt:
-        M.unported("free-joint stripping (tethered models)", "§A.5")
+        M.unported("free-joint stripping (tethered models)", "§A.9")
     if torque_actuators:
-        M.unported("torque-actuator rewrite", "§A.5")
+        M.unported("torque-actuator rewrite", "§A.9")
 
     m = mujoco.MjSpec.from_file(xml_path).compile()
+    if any(int(w) != int(mujoco.mjtWrap.mjWRAP_JOINT) for w in m.wrap_type):
+        M.unported("spatial tendons (site and geom wraps)", "§A.12")
     # the env-level solver overrides (JAX spec.set_solver_options)
     m.opt.solver = {
         "cg": mujoco.mjtSolver.mjSOL_CG,

@@ -1,15 +1,18 @@
-"""Where a control step of the PyTorch port's minirat rollout spends its time.
+"""Where a step of the PyTorch port spends its time on the card.
 
-    python3 scripts/profile_torch_rollout.py [--envs 2048] [--steps 3]
+    python3 scripts/profile_torch_rollout.py [--model minirat] [--envs 2048] [--steps 3]
 
-Run from the root of a checkout on a machine with a CUDA card. It builds
-the same env as chip_smoke.py (GenericSingleClip + wrappers, 10 substeps),
-warms up, then profiles ``--steps`` control steps with torch.profiler and
-prints one JSON line: wall ms per control step (timed without the
-profiler, then with it), device busy ms per control step (sum of the
-device times of CUDA kernels and copies; one stream, so they do not
-overlap), the device idle share against the unprofiled wall time, device
-ops per substep, and the top ops by device time.
+Run from the root of a checkout on a machine with a CUDA card. ``--model
+minirat`` builds the same env as chip_smoke.py (GenericSingleClip +
+wrappers, 10 substeps) and a step is a control step; ``ballmuscle_cg`` and
+``ballmuscle_newton`` step chip_smoke.py's posed ballmuscle states through
+``physics.step`` and a step is one substep. It warms up, then profiles
+``--steps`` steps with torch.profiler and prints one JSON line: wall ms per
+step (timed without the profiler, then with it), device busy ms per step
+(sum of the device times of CUDA kernels and copies; one stream, so they
+do not overlap), the device idle share against the unprofiled wall time,
+device ops and device-to-host reads per substep, the device time per
+launch of the port's own kernels, and the top ops by device time.
 """
 
 from __future__ import annotations
@@ -28,8 +31,35 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 
+def _stepper(model: str, envs: int):
+    """(advance, substeps per step) for the profiled model."""
+    if model == "minirat":
+        env = chip_smoke.make_env("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        box = [env.reset(gen, envs)]
+        act = lambda: 2.0 * torch.rand(envs, env.action_size, generator=gen, device="cuda") - 1.0
+
+        def advance():
+            box[0] = env.step(box[0], act())
+
+        return advance, chip_smoke.N_SUBSTEPS
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = chip_smoke.bm_model("cuda", model.split("_")[1])
+    box = [chip_smoke.bm_posed(m, envs)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def advance():
+        ctrl = -0.5 + 1.5 * torch.rand(envs, m.nu, generator=gen, device="cuda")
+        box[0] = pstep.step(m, box[0].replace(ctrl=ctrl), device="cuda")
+
+    return advance, 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="minirat",
+                    choices=("minirat", "ballmuscle_cg", "ballmuscle_newton"))
     ap.add_argument("--envs", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -37,29 +67,25 @@ def main() -> int:
         chip_smoke.fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from brax_tracking_tpu_torch.ops import cg as ops_cg
+    from brax_tracking_tpu_torch.ops import library
 
     card = chip_smoke.card_line()
     print(card)
-    ops_cg.build()
-    env = chip_smoke.make_env("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state = env.reset(gen, args.envs)
-    act = lambda: 2.0 * torch.rand(args.envs, env.action_size, generator=gen, device="cuda") - 1.0
+    library.build()
+    advance, substeps = _stepper(args.model, args.envs)
     for _ in range(2):  # warmup
-        state = env.step(state, act())
+        advance()
     torch.cuda.synchronize()
 
-    acts = [act() for _ in range(args.steps)]
     t0 = time.perf_counter()  # unprofiled wall time of the same work
-    for a in acts:
-        state = env.step(state, a)
+    for _ in range(args.steps):
+        advance()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for a in acts:
-            state = env.step(state, a)
+        for _ in range(args.steps):
+            advance()
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
 
@@ -70,16 +96,27 @@ def main() -> int:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time_total)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    n_sub = args.steps * chip_smoke.N_SUBSTEPS
+    # the port's own kernels (ops/csrc), by device time per launch
+    ours = {k: v for k, v in by_name.items() if any(
+        tag in k for tag in ("cg_fused_kernel", "spd_inverse_kernel", "spd_solve_kernel"))}
+    n_sub = args.steps * substeps
     print(json.dumps({
         "card": card,
+        "model": args.model,
         "envs": args.envs,
-        "control_steps": args.steps,
-        "wall_ms_per_control_step": wall * 1e3 / args.steps,
-        "wall_ms_per_control_step_profiled": wall_profiled * 1e3 / args.steps,
-        "device_busy_ms_per_control_step": busy_us / 1e3 / args.steps,
+        "steps": args.steps,
+        "substeps_per_step": substeps,
+        "wall_ms_per_step": wall * 1e3 / args.steps,
+        "wall_ms_per_step_profiled": wall_profiled * 1e3 / args.steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_ops_per_substep": len(events) / n_sub,
+        # device-to-host copies: each is a read the host waits for
+        "host_reads_per_substep": sum("DtoH" in e.name for e in events) / n_sub,
+        "port_kernels": [
+            {"name": k[:60], "launches_per_substep": n / n_sub, "us_per_launch": t / n}
+            for k, (n, t) in ours.items()
+        ],
         "top_device_ops": [
             {"name": k[:80], "count_per_substep": n / n_sub, "ms_per_substep": t / 1e3 / n_sub}
             for k, (n, t) in top

@@ -1,0 +1,107 @@
+"""The port's SPD inverse and solve kernels (ops/cholesky.py): their plain
+versions against the JAX package's Pallas kernels, float64 on the CPU.
+
+The JAX kernels run with ``interpret=True`` as tests/test_ops_cholesky.py
+runs them; under ``jax_enable_x64`` they compute in float64, within ~1e-16
+of numpy. Seeded SPD matrices at nv in {7 (ballmuscle), 13} and B in
+{5, 130} (130 crosses the TPU kernels' 128-env lane padding). Tolerance
+1e-10 relative to the largest entry: both sides are float64 eliminations of
+well-conditioned matrices (condition number < ~10), so anything above
+rounding (~1e-15) is a fault; 1e-10 leaves room for the two elimination
+orders (blocked on the TPU side, one pivot at a time here).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from brax_tracking_tpu.ops import cholesky as jchol
+from brax_tracking_tpu_torch.ops import cholesky as tchol
+
+RTOL = 1e-10
+SHAPES = [(7, 5), (7, 130), (13, 5), (13, 130)]
+
+
+def _case(nv, B, seed=0):
+    rng = np.random.RandomState(seed)
+    A = rng.randn(B, nv, nv)
+    M = A @ A.transpose(0, 2, 1) + nv * np.eye(nv)
+    return M, rng.randn(B, nv), rng.uniform(0.01, 0.1, nv)
+
+
+def _close(port, ref):
+    port, ref = np.asarray(port), np.asarray(ref)
+    assert port.shape == ref.shape
+    assert np.abs(port - ref).max() <= RTOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("nv,B", SHAPES)
+def test_inverse_matches_jax_kernel(nv, B):
+    M, _, _ = _case(nv, B)
+    ref = jchol.inverse_batched(jnp.asarray(M), interpret=True)
+    _close(tchol.spd_inverse(torch.as_tensor(M), device="cpu").numpy(), ref)
+
+
+@pytest.mark.parametrize("nv,B", SHAPES)
+def test_inverse2_matches_jax_kernel(nv, B):
+    M, _, damp = _case(nv, B)
+    ref = jchol.inverse2_batched(jnp.asarray(M), jnp.asarray(damp), interpret=True)
+    out = tchol.spd_inverse2(torch.as_tensor(M), torch.as_tensor(damp), device="cpu")
+    for o, r in zip(out, ref):
+        _close(o.numpy(), r)
+
+
+@pytest.mark.parametrize("nv,B", SHAPES)
+def test_solve_matches_jax_kernel(nv, B):
+    M, b, _ = _case(nv, B)
+    ref = jchol.factor_solve_batched(jnp.asarray(M), jnp.asarray(b), interpret=True)
+    _close(tchol.spd_solve(torch.as_tensor(M), torch.as_tensor(b), device="cpu").numpy(), ref)
+
+
+def test_cpu_tensors_run_the_plain_version():
+    """On CPU tensors each wrapper returns exactly its plain version and
+    launches nothing."""
+    M, b, damp = (torch.as_tensor(a) for a in _case(7, 4, seed=1))
+    counts = [f.launches for f in (tchol.spd_inverse, tchol.spd_inverse2, tchol.spd_solve)]
+    torch.testing.assert_close(
+        tchol.spd_inverse(M, device="cpu"), tchol.sweep_inverse_reference(M), rtol=0, atol=0
+    )
+    inv, invd = tchol.spd_inverse2(M, damp, device="cpu")
+    torch.testing.assert_close(inv, tchol.sweep_inverse_reference(M), rtol=0, atol=0)
+    torch.testing.assert_close(
+        invd, tchol.sweep_inverse_reference(M + torch.diag(damp)), rtol=0, atol=0
+    )
+    torch.testing.assert_close(
+        tchol.spd_solve(M, b, device="cpu"), tchol.spd_solve_reference(M, b), rtol=0, atol=0
+    )
+    assert counts == [f.launches for f in (tchol.spd_inverse, tchol.spd_inverse2, tchol.spd_solve)]
+
+
+def test_wrappers_check_their_arguments(monkeypatch):
+    M, b, damp = (torch.as_tensor(a) for a in _case(7, 4, seed=2))
+    with pytest.raises(ValueError, match="shape"):
+        tchol.spd_solve(M, b[:, :5], device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        tchol.spd_inverse2(M, damp[:3], device="cpu")
+    with pytest.raises(ValueError, match=r"\(B, nv, nv\)"):
+        tchol.spd_inverse(M[:, :, :5], device="cpu")
+    # the kernels take contiguous float32 only (checked before any launch)
+    with pytest.raises(TypeError, match="float32"):
+        tchol._launch_solve(M, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tchol._launch_inverse(M.float().transpose(1, 2), damp.float(), 2)
+    # entry points default to the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tchol.spd_inverse(M), lambda: tchol.spd_inverse2(M, damp),
+                 lambda: tchol.spd_solve(M, b)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_shared_memory_rule():
+    """One block holds one matrix: rodent_pair's nv = 146 fits a block of
+    the H100 (85.8 KB of 227 KB), nv = 240 does not."""
+    assert tchol.inverse_smem_bytes(146) == 4 * (146 * 147 + 2 * 146)
+    assert tchol.solve_smem_bytes(146) <= tchol.H100_SMEM_PER_BLOCK
+    assert tchol.inverse_smem_bytes(240) > tchol.H100_SMEM_PER_BLOCK

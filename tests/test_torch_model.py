@@ -149,31 +149,44 @@ def _variant(m, **changes):
 
 @pytest.mark.parametrize(
     "feature",
-    ["tendons", "sensors", "activation", "fluid", "ball", "elliptic",
-     "newton", "geom_pair"],
+    ["slide", "sensors", "site_transmission", "fluid", "user_dynamics",
+     "elliptic", "newton", "geom_pair", "smem_refused"],
 )
-def test_unported_features_raise(feature):
-    """Features the minirat does not exercise raise NotImplementedError
-    naming the ROADMAP item, rather than computing something else."""
+def test_unported_features_raise(feature, monkeypatch):
+    """Features the port does not cover raise NotImplementedError naming
+    the ROADMAP item, rather than computing something else. ``newton`` is
+    Newton on the kernel layout (the JAX package's fused branch);
+    ``smem_refused`` a model the JAX package sends to the kernel path whose
+    env does not fit one block's shared memory (here by shrinking the
+    limit): the port raises rather than run another algorithm."""
+    from brax_tracking_tpu_torch.ops import cg
     from brax_tracking_tpu_torch.physics import step
 
     m = tspec.load_model(device="cpu")
     jt = np.array(m.jnt_type)
     gt = np.array(m.geom_type)
-    jt[1] = TM.JNT_BALL
+    trn = np.array(m.actuator_trntype)
+    dyn = np.array(m.actuator_dyntype)
+    jt[1] = TM.JNT_SLIDE
     gt[1] = TM.GEOM_SPHERE
+    trn[0] = TM.TRN_SITE
+    dyn[0] = 5  # mjDYN_USER
     changes = dict(
-        tendons=dict(ntendon=1),
+        slide=dict(jnt_type=jt),
         sensors=dict(nsensor=1),
-        activation=dict(na=1),
+        site_transmission=dict(actuator_trntype=trn),
         fluid=dict(has_fluid=True),
-        ball=dict(jnt_type=jt),
+        user_dynamics=dict(actuator_dyntype=dyn),
         elliptic=dict(opt=dict(cone=TM.CONE_ELLIPTIC)),
         newton=dict(opt=dict(solver=TM.SOLVER_NEWTON)),
         geom_pair=dict(geom_type=gt),
+        smem_refused=dict(),
     )[feature]
+    if feature == "smem_refused":
+        monkeypatch.setattr(cg, "H100_SMEM_PER_BLOCK", 1000)
     mv = _variant(m, **changes)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    match = {"newton": r"B\.1\(c\)", "smem_refused": r"A\.10"}.get(feature, "ROADMAP.md")
+    with pytest.raises(NotImplementedError, match=match):
         step.step(mv, step.make_data(mv, 2, device="cpu"), device="cpu")
 
 
