@@ -1,32 +1,38 @@
-"""Batched constraint solve + Euler velocity update: one CUDA kernel.
+"""Batched constraint solve + Euler velocity update: CUDA kernels.
 
-Replaces the TPU kernel ``brax_tracking_tpu/ops/cg.py::cg_solve_fused``
-(``_cg_fused_kernel`` -> ``_assemble_qM_J`` + ``_cg_core``). Per env it
+Replaces the TPU kernels ``brax_tracking_tpu/ops/cg.py::cg_solve_fused``
+(``_cg_fused_kernel`` -> ``_assemble_qM_J`` + ``_cg_core``) and
+``cg_solve_batched`` (``_cg_kernel`` -> ``_cg_core``). Per env it
 
   1. assembles qM from the low-rank factor (crb_f, cdof) with the
      DFS-contiguous subtree masks plus armature, and J = ((P A) cdof) * md
-     plus the one-hot limit rows;
+     plus the one-hot limit rows (``cg_solve_fused``), or reads the dense
+     qM and J (``cg_solve_batched``);
   2. inverts M by the sweep operator and forms qacc_smooth = M^-1 qfrc_smooth;
   3. runs MuJoCo CG (Polak-Ribiere, M^-1-preconditioned, bracketed Newton
-     line search, per-env convergence freeze) on one-sided quadratic rows;
+     line search, per-env convergence freeze) on one-sided quadratic rows
+     plus one contiguous block of dim-3 elliptic contacts [n, t1, t2],
+     optionally started from the better of a warmstart and qacc_smooth and
+     with the float32 stall exit;
   4. returns qvel + h (M + h diag(damping))^-1 (qfrc_smooth + qfrc_constraint)
      by Cholesky factor and substitution when the model has damping, else
      qvel + h qacc.
 
 Hopper design (``csrc/cg_fused.cu``): one warp per env, one env per block;
 qM, M^-1 and J live in shared memory for the whole solve, so between the
-factor reads and the result writes nothing touches device memory: the
+input reads and the result writes nothing touches device memory: the
 kernel reads its inputs once (~3.6 KB per env at the minirat). On the
 roofline a call is bound by its bytes, just above its FP32 operations;
 what the kernel actually waits on is the serial chain of small dependent
 reductions (matvecs, 14 + ls_iters line-search sums per iteration), which
 it keeps to shuffles within one warp. Envs that converge leave the
-iteration loop early.
+iteration loop early. The two entry points share one device-side core and
+differ only in how qM and J reach shared memory.
 
-``cg_solve_fused_reference`` is the plain PyTorch version of the same
-function (dense assembly + the port of ``solver.py::_cg_arrays``). The
-wrapper runs it only for tensors on the CPU; CUDA tensors go to the kernel
-or the call raises.
+``cg_solve_fused_reference`` and ``cg_solve_batched_reference`` are the
+plain PyTorch versions of the same functions (dense assembly + ``_cg_arrays``,
+the port of the TPU kernel's ``_cg_core``). The wrappers run them only for
+tensors on the CPU; CUDA tensors go to the kernels or the call raises.
 """
 
 from __future__ import annotations
@@ -50,13 +56,14 @@ _NVEC = 13
 H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
 
 
-def kernel_smem_bytes(nv: int, nefc: int) -> int:
+def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0) -> int:
     """Shared memory one env's block needs: qM, M^-1 and J (row stride
-    padded to odd), six nefc-vectors and the nv-vectors, all float32. The
-    launch passes this size to the kernel, which carves it up in this
-    order (csrc/cg_fused.cu)."""
+    padded to odd), six nefc-vectors, the nv-vectors and four per-contact
+    vectors of the elliptic block (activation, mu and the two tangent
+    scales), all float32. The launch passes this size to the kernel, which
+    carves it up in this order (csrc/cg_fused.cu)."""
     ld = nv | 1
-    return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv)
+    return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv + 4 * nell)
 
 
 # ---------------------------------------------------------------------------
@@ -86,50 +93,117 @@ def _int_tables(row_slot, sz, root_bounds, limit_dadr, nv, device):
     return t
 
 
+def _ell_table(ell_mu, ell_scale, dtype, device) -> torch.Tensor:
+    """The elliptic block's per-model friction as one (3, nell) tensor
+    [mu; tangent scale 1; tangent scale 2], built once per (statics, dtype,
+    device)."""
+    key = ("ell", tuple(ell_mu), tuple(map(tuple, ell_scale)), dtype, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        sc = np.asarray(ell_scale, np.float64).reshape(len(ell_mu), 2)
+        t = torch.as_tensor(
+            np.stack([np.asarray(ell_mu, np.float64).reshape(-1), sc[:, 0], sc[:, 1]]),
+            dtype=dtype, device=device,
+        )
+        _TABLES[key] = t
+    return t
+
+
 _TABLES: dict = {}
 
 
-def _launch(f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth, qvel, damp, md,
-            armature, tables, iters, ls_iters, tol, dt, has_damping):
+def _check_kernel_tensors(name, float_tensors, bool_tensors):
+    for k, t in float_tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel: {k} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {k} must be contiguous")
+    for k, t in bool_tensors.items():
+        if t.dtype != torch.bool or not t.is_contiguous():
+            raise TypeError(f"{name} kernel: {k} must be a contiguous bool tensor")
+
+
+def _outputs(B, nv, nefc, like):
+    e = lambda *s: torch.empty(*s, dtype=like.dtype, device=like.device)
+    return dict(qacc=e(B, nv), force=e(B, nefc), qfrc=e(B, nv), a0=e(B, nv),
+                qvel_new=e(B, nv),
+                done=torch.empty(B, dtype=torch.bool, device=like.device))
+
+
+def _smem(name, nv, nefc, nell):
+    smem = kernel_smem_bytes(nv, nefc, nell)
+    if smem > H100_SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{name} kernel: nv={nv}, nefc={nefc} needs {smem} B of "
+            f"shared memory per block (limit {H100_SMEM_PER_BLOCK})"
+        )
+    return smem
+
+
+def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
+            damp, md, armature, ell, warmstart, tables, *, ell0, iters,
+            ls_iters, tol, dt, has_damping, stall_tol):
+    """``cg_solve_fused``'s kernel on prepared arguments (Bm = P A, the int
+    tables, the (3, nell) friction table, the warmstart or None)."""
     B, _, nv = f.shape
     nefc = D.shape[1]
     nlim = jsign.shape[1]
     nroots = Bm.shape[1] // 6
-    for name, t in dict(f=f, cdof=cdof, Bm=Bm, jsign=jsign, D=D, aref=aref,
-                        qfrc_smooth=qfrc_smooth, qvel=qvel, damp=damp, md=md,
-                        armature=armature).items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"cg_solve_fused kernel: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"cg_solve_fused kernel: {name} must be contiguous")
-    if exists.dtype != torch.bool or not exists.is_contiguous():
-        raise TypeError("cg_solve_fused kernel: exists must be a contiguous bool tensor")
-    smem = kernel_smem_bytes(nv, nefc)
-    if smem > H100_SMEM_PER_BLOCK:
-        raise ValueError(
-            f"cg_solve_fused kernel: nv={nv}, nefc={nefc} needs {smem} B of "
-            f"shared memory per block (limit {H100_SMEM_PER_BLOCK})"
-        )
+    nell = exists_con.shape[1]
+    fl = dict(f=f, cdof=cdof, Bm=Bm, jsign=jsign, D=D, aref=aref,
+              qfrc_smooth=qfrc_smooth, qvel=qvel, damp=damp, md=md,
+              armature=armature, ell=ell)
+    if warmstart is not None:
+        fl["warmstart"] = warmstart
+    _check_kernel_tensors("cg_solve_fused", fl, dict(exists=exists, exists_con=exists_con))
+    smem = _smem("cg_solve_fused", nv, nefc, nell)
     row_slot, sz, root_of_dof, limit_dadr = tables
-    outs = dict(
-        qacc=torch.empty(B, nv, dtype=f.dtype, device=f.device),
-        force=torch.empty(B, nefc, dtype=f.dtype, device=f.device),
-        qfrc=torch.empty(B, nv, dtype=f.dtype, device=f.device),
-        a0=torch.empty(B, nv, dtype=f.dtype, device=f.device),
-        qvel_new=torch.empty(B, nv, dtype=f.dtype, device=f.device),
-        done=torch.empty(B, dtype=torch.bool, device=f.device),
-    )
+    outs = _outputs(B, nv, nefc, f)
     ptr = library.ptr
+    ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = library.lib().cg_fused_launch(
-        *(ptr(t) for t in (f, cdof, Bm, jsign, D, aref, exists, qfrc_smooth,
-                           qvel, damp, md, armature, row_slot, sz,
-                           root_of_dof, limit_dadr)),
+        *(ptr(t) for t in (f, cdof, Bm, jsign, D, aref, exists, exists_con,
+                           qfrc_smooth, qvel, damp, md, armature, ell)),
+        ws,
+        *(ptr(t) for t in (row_slot, sz, root_of_dof, limit_dadr)),
         *(ptr(t) for t in outs.values()),
-        B, nv, nefc, nlim, nroots, smem, iters, ls_iters, int(has_damping),
-        ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_void_p(stream),
+        B, nv, nefc, nlim, nroots, nell, ell0, smem, iters, ls_iters,
+        int(has_damping), int(warmstart is not None),
+        ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
+        ctypes.c_void_p(stream),
     )
     library.check("cg_solve_fused", err)
+    return outs
+
+
+def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
+                    damp, ell, warmstart, *, ell0, iters, ls_iters, tol, dt,
+                    has_damping, stall_tol):
+    """``cg_solve_batched``'s kernel on prepared arguments."""
+    B, nefc, nv = J.shape
+    nell = exists_con.shape[1]
+    fl = dict(qM=qM, J=J, D=D, aref=aref, qfrc_smooth=qfrc_smooth, qvel=qvel,
+              damp=damp, ell=ell)
+    if warmstart is not None:
+        fl["warmstart"] = warmstart
+    _check_kernel_tensors("cg_solve_batched", fl, dict(exists=exists, exists_con=exists_con))
+    smem = _smem("cg_solve_batched", nv, nefc, nell)
+    outs = _outputs(B, nv, nefc, qM)
+    ptr = library.ptr
+    ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
+    stream = torch.cuda.current_stream(qM.device).cuda_stream
+    err = library.lib().cg_batched_launch(
+        *(ptr(t) for t in (qM, J, D, aref, exists, exists_con, qfrc_smooth,
+                           qvel, damp, ell)),
+        ws,
+        *(ptr(t) for t in outs.values()),
+        B, nv, nefc, nell, ell0, smem, iters, ls_iters, int(has_damping),
+        int(warmstart is not None),
+        ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
+        ctypes.c_void_p(stream),
+    )
+    library.check("cg_solve_batched", err)
     return outs
 
 
@@ -180,20 +254,52 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
-               tol, dt, damp, has_damping):
-    """Batched CG on plain tensors: the port of ``solver.py::_cg_arrays`` for
-    one-sided quadratic rows, plus the qacc_smooth / Euler products and the
-    per-env convergence flag."""
+               tol, dt, damp, has_damping, exists_con=None, ell0=0, ell=None,
+               warmstart=None, stall_tol=0.0):
+    """Batched CG on plain tensors: the port of the TPU kernel's ``_cg_core``
+    (the math of ``solver.py::_cg_arrays`` plus the warmstart select and the
+    stall exit), with the qacc_smooth / Euler products and the per-env
+    convergence flag.
+
+    ``exists`` covers the quadratic rows only (False on the elliptic rows);
+    the elliptic block is rows [ell0, ell0 + 3 nell) in [n, t1, t2] order per
+    contact, ``ell`` its (3, nell) friction [mu; scale1; scale2] and
+    ``exists_con`` (B, nell) its activation. ``warmstart`` (B, nv) starts
+    each env from whichever of it and qacc_smooth has the lower cost;
+    ``stall_tol`` > 0 adds the float32 stall exit to the line search's
+    freeze and to the done flag.
+    """
     B = qM.shape[0]
+    nell = 0 if exists_con is None else exists_con.shape[1]
     qMinv = sweep_inverse_reference(qM)
     a0 = _mv(qMinv, qfrc_smooth)
     Jt = J.transpose(-1, -2)
     zero = torch.zeros((), dtype=qM.dtype, device=qM.device)
+    if nell:
+        mu, sc = ell[0], ell[1:].T  # (nell,), (nell, 2)
+        parts = lambda v: v[..., ell0 : ell0 + 3 * nell].reshape(v.shape[:-1] + (nell, 3))
+        d_e = parts(D)  # (B, nell, 3)
+        dm = d_e[..., 0] / torch.clamp(1 + mu * mu, min=MINVAL)
 
     def cost_force(jar):
         active = (jar < 0) & exists
         f = torch.where(active, -D * jar, zero)
         cost = 0.5 * torch.sum(torch.where(active, D * jar**2, zero), -1)
+        if nell:
+            je = parts(jar)
+            n = je[..., 0]
+            u = je[..., 1:] * sc
+            t = torch.sqrt(torch.clamp(torch.sum(u * u, -1), min=MINVAL * MINVAL))
+            bottom = exists_con & (mu * n + t <= 0)
+            middle = exists_con & ~bottom & (n < mu * t)
+            nmt = n - mu * t
+            cost = cost + torch.sum(torch.where(bottom, 0.5 * torch.sum(d_e * je**2, -1), zero), -1)
+            cost = cost + torch.sum(torch.where(middle, 0.5 * dm * nmt * nmt, zero), -1)
+            f_mid = torch.cat(
+                [(-dm * nmt)[..., None], (dm * nmt * mu)[..., None] * (u / t[..., None]) * sc], -1
+            )
+            f_e = torch.where(bottom[..., None], -d_e * je, torch.where(middle[..., None], f_mid, zero))
+            f = torch.cat([f[:, :ell0], f_e.reshape(B, 3 * nell), f[:, ell0 + 3 * nell :]], -1)
         return cost, f
 
     def eval_ctx(x, jar, mxa):
@@ -206,6 +312,16 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
     jar = _mv(J, x) - aref
     mxa = torch.zeros_like(x)
     force, cost, grad, mgrad = eval_ctx(x, jar, mxa)
+    if warmstart is not None:
+        # mj_warmstart: start from whichever of {warmstart, qacc_smooth} has
+        # the lower cost
+        jar_w = _mv(J, warmstart) - aref
+        mxa_w = _mv(qM, warmstart - a0)
+        force_w, cost_w, grad_w, mgrad_w = eval_ctx(warmstart, jar_w, mxa_w)
+        better = cost_w < cost
+        pick = lambda w, o: torch.where(better.reshape((B,) + (1,) * (o.dim() - 1)), w, o)
+        x, jar, mxa, force = pick(warmstart, x), pick(jar_w, jar), pick(mxa_w, mxa), pick(force_w, force)
+        cost, grad, mgrad = pick(cost_w, cost), pick(grad_w, grad), pick(mgrad_w, mgrad)
     p = -mgrad
     done = torch.zeros(B, dtype=torch.bool, device=qM.device)
     pow2 = torch.as_tensor(2.0 ** np.arange(13), dtype=qM.dtype, device=qM.device)
@@ -215,6 +331,12 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
         mp = _mv(qM, p)
         pmp = torch.sum(p * mp, -1)
         gauss_p = torch.sum(p * mxa, -1)
+        if nell:
+            jpe = parts(jar_p)[:, None]  # (B, 1, nell, 3)
+            np_ = jpe[..., 0]
+            up = jpe[..., 1:] * sc
+            tpsqr = torch.sum(up * up, -1)
+            d_eb, dmb, econ = d_e[:, None], dm[:, None], exists_con[:, None]
 
         def dphi(alpha):
             """alpha (B, A) -> (phi', phi'') each (B, A)."""
@@ -226,6 +348,23 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
             ddval = pmp[:, None] + torch.sum(
                 torch.where(active, (D * jar_p**2)[:, None, :], zero), -1
             )
+            if nell:
+                jae = parts(jar_a)  # (B, A, nell, 3)
+                n = jae[..., 0]
+                u = jae[..., 1:] * sc
+                t = torch.sqrt(torch.clamp(torch.sum(u * u, -1), min=MINVAL * MINVAL))
+                bottom = econ & (mu * n + t <= 0)
+                middle = econ & ~bottom & (n < mu * t)
+                nmt = n - mu * t
+                tprime = torch.sum(u * up, -1) / t
+                tdprime = torch.clamp(tpsqr - tprime * tprime, min=0.0) / t
+                g = np_ - mu * tprime
+                dval = dval + torch.sum(torch.where(middle, dmb * nmt * g, zero), -1)
+                ddval = ddval + torch.sum(
+                    torch.where(middle, dmb * (g * g - nmt * mu * tdprime), zero), -1
+                )
+                dval = dval + torch.sum(torch.where(bottom, torch.sum(d_eb * jae * jpe, -1), zero), -1)
+                ddval = ddval + torch.sum(torch.where(bottom, torch.sum(d_eb * jpe**2, -1), zero), -1)
             return dval, ddval
 
         d0, dd0 = dphi(torch.zeros(B, 1, dtype=qM.dtype, device=qM.device))
@@ -236,6 +375,9 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
         hi = torch.min(torch.where(pos, cand, cand[:, -1:]), -1).values
         lo = torch.max(torch.where(~pos & (cand < hi[:, None]), cand, zero), -1).values
         alpha = torch.minimum(guess, hi)
+        if stall_tol:
+            # float32 stall floor: |phi'| at rounding noise of its start value
+            d0_scale = torch.abs(d0[:, 0]) * stall_tol
 
         for _ in range(ls_iters):
             dv, ddv = dphi(alpha[:, None])
@@ -243,6 +385,8 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
             # freeze once converged: at dv ~ 0 the Newton step underflows
             # and the safeguard would bisect away from the optimum
             conv = torch.abs(dv) < tol
+            if stall_tol:
+                conv = conv | (torch.abs(dv) < d0_scale)
             lo2 = torch.where(dv < 0, alpha, lo)
             hi2 = torch.where(dv >= 0, alpha, hi)
             newton = alpha - dv / torch.clamp(ddv, min=MINVAL)
@@ -264,6 +408,9 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
         beta = torch.clamp(beta, min=0.0)
         p_new = -mgrad_new + beta[:, None] * p
         step_done = (improvement < tol) | (gradient < tol)
+        if stall_tol:
+            # float32 stall: the cost improvement is rounding noise
+            step_done = step_done | (improvement < stall_tol * torch.abs(cost_new))
         # envs that converged before this iteration keep their state
         keep = lambda old, new: torch.where(
             done.reshape((B,) + (1,) * (old.dim() - 1)), old, new
@@ -285,21 +432,61 @@ def _cg_arrays(qM, J, D, aref, exists, qfrc_smooth, qvel, *, iters, ls_iters,
 def cg_solve_fused_reference(
     f, cdof, A, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel, damp,
     P, md, armature, *, iters, ls_iters, tol, dt, has_damping, row_slot, sz,
-    root_bounds, limit_dadr,
+    root_bounds, limit_dadr, ell0=0, ell_mu=(), ell_scale=(), warmstart=None,
+    stall_tol=0.0,
 ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of the kernel, on any device: dense assembly
-    of qM and J, then the port of ``_cg_arrays``. Same arguments and
-    outputs as ``cg_solve_fused``."""
+    """Plain PyTorch version of the fused kernel, on any device: dense
+    assembly of qM and J, then ``_cg_arrays``. Same arguments and outputs
+    as ``cg_solve_fused``."""
     ncon = md.shape[0]
     Bm = _bm(P, A, len(root_bounds), ncon)
     qM, J = assemble_qM_J(
         f, cdof, Bm, jsign, md, armature, row_slot=row_slot, sz=sz,
         root_bounds=root_bounds, limit_dadr=limit_dadr,
     )
+    return cg_solve_batched_reference(
+        qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel, damp,
+        iters=iters, ls_iters=ls_iters, tol=tol, dt=dt, has_damping=has_damping,
+        ell0=ell0, ell_mu=ell_mu, ell_scale=ell_scale, warmstart=warmstart,
+        stall_tol=stall_tol,
+    )
+
+
+def cg_solve_batched_reference(
+    qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel, damp, *, iters,
+    ls_iters, tol, dt, has_damping, ell0=0, ell_mu=(), ell_scale=(),
+    warmstart=None, stall_tol=0.0,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the dense-input kernel, on any device. Same
+    arguments and outputs as ``cg_solve_batched``."""
+    ell = _ell_table(ell_mu, ell_scale, qM.dtype, qM.device) if len(ell_mu) else None
     return _cg_arrays(
         qM, J, D, aref, exists, qfrc_smooth, qvel, iters=iters,
         ls_iters=ls_iters, tol=tol, dt=dt, damp=damp, has_damping=has_damping,
+        exists_con=exists_con if len(ell_mu) else None, ell0=ell0, ell=ell,
+        warmstart=warmstart, stall_tol=stall_tol,
     )
+
+
+def _check_statics(name, B, nv, nefc, exists_con, ell0, ell_mu, ell_scale,
+                   warmstart, stall_tol):
+    """The elliptic block, warmstart and stall arguments the core takes."""
+    nell = len(ell_mu)
+    if tuple(exists_con.shape) != (B, nell):
+        raise ValueError(
+            f"{name}: exists_con has shape {tuple(exists_con.shape)}, expected "
+            f"{(B, nell)} (one column per elliptic contact of ell_mu)"
+        )
+    if nell:
+        if np.asarray(ell_scale, np.float64).shape != (nell, 2):
+            raise ValueError(f"{name}: ell_scale must hold (scale1, scale2) per elliptic contact")
+        if not 0 <= ell0 <= nefc - 3 * nell:
+            raise ValueError(f"{name}: the elliptic block [{ell0}, {ell0} + 3 x {nell}) "
+                             f"does not fit {nefc} rows")
+    if warmstart is not None and tuple(warmstart.shape) != (B, nv):
+        raise ValueError(f"{name}: warmstart has shape {tuple(warmstart.shape)}, expected {(B, nv)}")
+    if not 0.0 <= stall_tol < 1.0:
+        raise ValueError(f"{name}: stall_tol must lie in [0, 1), got {stall_tol}")
 
 
 def cg_solve_fused(
@@ -309,8 +496,8 @@ def cg_solve_fused(
     jsign: torch.Tensor,  # (B, nlim) scalar limit signs
     D: torch.Tensor,  # (B, nefc)
     aref: torch.Tensor,  # (B, nefc)
-    exists: torch.Tensor,  # (B, nefc) bool: row instantiated
-    exists_con: torch.Tensor,  # (B, nell) elliptic contact activation
+    exists: torch.Tensor,  # (B, nefc) bool: quadratic row instantiated
+    exists_con: torch.Tensor,  # (B, nell) bool: elliptic contact active
     qfrc_smooth: torch.Tensor,  # (B, nv)
     qvel: torch.Tensor,  # (B, nv)
     damp: torch.Tensor,  # (nv,) h * dof_damping
@@ -327,22 +514,24 @@ def cg_solve_fused(
     sz: tuple,  # (nv,) dof subtree sizes (DFS-contiguous)
     root_bounds: tuple,  # ((lo, hi), ...) contiguous dof range per root
     limit_dadr: tuple,  # (nlim,) dof address of each scalar limit row
-    warmstart: torch.Tensor = None,
-    stall_tol: float = 0.0,
+    ell0: int = 0,  # first row of the elliptic block
+    ell_mu: tuple = (),  # (nell,) friction coefficient per elliptic contact
+    ell_scale: tuple = (),  # (nell, 2) tangent scales friction[0:2] / mu
+    warmstart: torch.Tensor = None,  # (B, nv) qacc warmstart, or None
+    stall_tol: float = 0.0,  # float32 stall exit (0 disables)
     device="cuda",
 ):
-    """The solve kernel (see the module docstring). Returns (qacc,
-    efc_force, qfrc_constraint, qacc_smooth, qvel_new, done).
+    """The solve kernel with in-kernel qM/J assembly (see the module
+    docstring). Returns (qacc, efc_force, qfrc_constraint, qacc_smooth,
+    qvel_new, done).
 
-    Tensors on the CPU run the plain version; tensors on the card launch
-    the CUDA kernel (float32 only) or raise. Elliptic rows, warmstart and
-    the stall exit are not ported.
+    ``exists`` is False on the elliptic rows, whose activation is
+    ``exists_con``; the elliptic block is rows [ell0, ell0 + 3 nell) in
+    [n, t1, t2] order per contact. Tensors on the CPU run the plain
+    version; tensors on the card launch the CUDA kernel (float32 only) or
+    raise.
     """
     dev = resolve_device(device)
-    if exists_con.shape[-1]:
-        M.unported("elliptic cones in the solve kernel", "§B.1(b)")
-    if warmstart is not None or stall_tol:
-        M.unported("solver warmstart and the stall exit", "§B.1(c)")
     B, _, nv = f.shape
     nefc = D.shape[1]
     ncon = md.shape[0]
@@ -357,22 +546,86 @@ def cg_solve_fused(
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"cg_solve_fused: {name} has shape {tuple(t.shape)}, expected {shape}")
-    check_device(dev, **{k: t for k, (t, _) in shapes.items()})
-    statics = dict(iters=iters, ls_iters=ls_iters, tol=tol, dt=dt, has_damping=has_damping)
+    _check_statics("cg_solve_fused", B, nv, nefc, exists_con, ell0, ell_mu, ell_scale,
+                   warmstart, stall_tol)
+    extra = dict(exists_con=exists_con) | ({} if warmstart is None else dict(warmstart=warmstart))
+    check_device(dev, **{k: t for k, (t, _) in shapes.items()}, **extra)
+    statics = dict(iters=iters, ls_iters=ls_iters, tol=tol, dt=dt,
+                   has_damping=has_damping, stall_tol=stall_tol)
     if dev.type == "cpu":
         return cg_solve_fused_reference(
             f, cdof, A, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
             damp, P, md, armature, row_slot=row_slot, sz=sz,
-            root_bounds=root_bounds, limit_dadr=limit_dadr, **statics,
+            root_bounds=root_bounds, limit_dadr=limit_dadr, ell0=ell0,
+            ell_mu=ell_mu, ell_scale=ell_scale, warmstart=warmstart, **statics,
         )
     tables = _int_tables(row_slot, sz, root_bounds, limit_dadr, nv, dev)
     outs = _launch(
         f, cdof, _bm(P, A, nroots, ncon).contiguous(), jsign, D, aref, exists,
-        qfrc_smooth, qvel, damp, md, armature, tables, **statics,
+        exists_con, qfrc_smooth, qvel, damp, md, armature,
+        _ell_table(ell_mu, ell_scale, f.dtype, dev), warmstart, tables,
+        ell0=ell0, **statics,
     )
     cg_solve_fused.launches += 1
     return tuple(outs.values())
 
 
-# kernel launches since the count was last set to 0
+def cg_solve_batched(
+    qM: torch.Tensor,  # (B, nv, nv)
+    J: torch.Tensor,  # (B, nefc, nv) dense constraint jacobian
+    D: torch.Tensor,  # (B, nefc)
+    aref: torch.Tensor,  # (B, nefc)
+    exists: torch.Tensor,  # (B, nefc) bool: quadratic row instantiated
+    exists_con: torch.Tensor,  # (B, nell) bool: elliptic contact active
+    qfrc_smooth: torch.Tensor,  # (B, nv)
+    qvel: torch.Tensor,  # (B, nv)
+    damp: torch.Tensor,  # (nv,) h * dof_damping
+    *,
+    iters: int,
+    ls_iters: int,
+    tol: float,
+    dt: float,
+    has_damping: bool,
+    ell0: int = 0,
+    ell_mu: tuple = (),
+    ell_scale: tuple = (),
+    warmstart: torch.Tensor = None,
+    stall_tol: float = 0.0,
+    device="cuda",
+):
+    """The solve kernel on a dense qM and J (the TPU kernel
+    ``cg_solve_batched``): ``cg_solve_fused``'s core and outputs, with the
+    elliptic block, warmstart and stall exit as there."""
+    dev = resolve_device(device)
+    B, nefc, nv = J.shape
+    shapes = dict(
+        qM=(qM, (B, nv, nv)), J=(J, (B, nefc, nv)), D=(D, (B, nefc)),
+        aref=(aref, (B, nefc)), exists=(exists, (B, nefc)),
+        qfrc_smooth=(qfrc_smooth, (B, nv)), qvel=(qvel, (B, nv)), damp=(damp, (nv,)),
+    )
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"cg_solve_batched: {name} has shape {tuple(t.shape)}, expected {shape}")
+    _check_statics("cg_solve_batched", B, nv, nefc, exists_con, ell0, ell_mu, ell_scale,
+                   warmstart, stall_tol)
+    extra = dict(exists_con=exists_con) | ({} if warmstart is None else dict(warmstart=warmstart))
+    check_device(dev, **{k: t for k, (t, _) in shapes.items()}, **extra)
+    statics = dict(iters=iters, ls_iters=ls_iters, tol=tol, dt=dt,
+                   has_damping=has_damping, stall_tol=stall_tol)
+    if dev.type == "cpu":
+        return cg_solve_batched_reference(
+            qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel, damp,
+            ell0=ell0, ell_mu=ell_mu, ell_scale=ell_scale, warmstart=warmstart,
+            **statics,
+        )
+    outs = _launch_batched(
+        qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel, damp,
+        _ell_table(ell_mu, ell_scale, qM.dtype, dev), warmstart, ell0=ell0, **statics,
+    )
+    cg_solve_batched.launches += 1
+    return tuple(outs.values())
+
+
+# kernel launches since each count was last set to 0
 cg_solve_fused.launches = 0
+cg_solve_batched.launches = 0

@@ -1,5 +1,5 @@
-"""Batched SPD inverses and the SPD solve: CUDA kernels and their plain
-versions.
+"""Batched SPD inverses, the SPD solve and the Cholesky factor and solve:
+CUDA kernels and their plain versions.
 
 Replaces the TPU kernels of ``brax_tracking_tpu/ops/cholesky.py``:
 
@@ -9,16 +9,21 @@ Replaces the TPU kernels of ``brax_tracking_tpu/ops/cholesky.py``:
   model, once per substep;
 - ``spd_solve``: ``factor_solve_batched`` (Cholesky factor and both
   substitutions, the factor kept on chip), the Newton path's qacc_smooth,
-  Hessian step and damped Euler update.
+  Hessian step and damped Euler update;
+- ``factor_batched`` / ``solve_batched``: the TPU kernels of the same
+  names, the upper factor U (M = U^T U) written out and the solve from it:
+  ``dynamics.factor_m`` and the qLD branch of ``dynamics.solve_m``.
 
-Hopper design (``csrc/spd_inverse.cu``, ``csrc/spd_solve.cu``): one block
-per matrix, the matrix in shared memory for the whole factor or sweep,
-each input read once and each output written once. The sweep is bound by
-its FP32 operations at rodent size, the solve by its bytes; at the
-ballmuscle's nv = 7 both are bound by launch latency. Each source says
-more.
+Hopper design (``csrc/spd_inverse.cu``, ``csrc/spd_solve.cu``,
+``csrc/cholesky.cu``, the last two on the block-level pieces of
+``csrc/cholesky.cuh``): one block per matrix, the matrix in shared memory
+for the whole factor or sweep, each input read once and each output written
+once. The sweep is bound by its FP32 operations at rodent size, the
+Cholesky kernels by their bytes; at the ballmuscle's nv = 7 all are bound
+by launch latency. Each source says more.
 
-``sweep_inverse_reference`` and ``spd_solve_reference`` are the plain
+``sweep_inverse_reference``, ``cholesky_factor_reference``,
+``cholesky_solve_reference`` and ``spd_solve_reference`` are the plain
 PyTorch versions, in the kernels' elimination order. A wrapper runs them
 only for tensors on the CPU; CUDA tensors go to the kernel (float32,
 contiguous) or the call raises.
@@ -43,9 +48,15 @@ def inverse_smem_bytes(nv: int) -> int:
 
 
 def solve_smem_bytes(nv: int) -> int:
-    """Shared memory of one spd_solve block: the factor (row stride
-    nv | 1) and the right-hand side, float32."""
+    """Shared memory of one spd_solve or solve_batched block: the factor
+    (row stride nv | 1) and the right-hand side, float32."""
     return 4 * (nv * (nv | 1) + nv)
+
+
+def factor_smem_bytes(nv: int) -> int:
+    """Shared memory of one factor_batched block: the factor (row stride
+    nv | 1), float32."""
+    return 4 * nv * (nv | 1)
 
 
 # ---------------------------------------------------------------------------
@@ -70,17 +81,24 @@ def sweep_inverse_reference(a: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def spd_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solves a x = b for SPD a (B, n, n), b (B, n): right-looking upper
-    Cholesky (a = U^T U, the TPU kernel's ``_factor_ref_blocked`` one pivot
-    at a time) and both substitutions, in the CUDA kernel's order."""
+def cholesky_factor_reference(a: torch.Tensor) -> torch.Tensor:
+    """Upper Cholesky factor U (a = U^T U, zero below the diagonal) of SPD a
+    (B, n, n): right-looking, one pivot at a time (the TPU kernels'
+    ``_factor_kernel`` / ``_factor_ref_blocked``), in the CUDA kernels'
+    order."""
     U = a.clone()
-    y = b.clone()
-    n = a.shape[-1]
-    for k in range(n):
+    for k in range(a.shape[-1]):
         U[:, k, k:] = U[:, k, k:] * torch.rsqrt(U[:, k, k])[:, None]
         u = U[:, k, k + 1:]
         U[:, k + 1:, k + 1:] -= u[:, :, None] * u[:, None, :]
+    return torch.triu(U)
+
+
+def cholesky_solve_reference(U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solves U^T U x = b for upper U (B, n, n), b (B, n): both
+    substitutions right-looking, in the CUDA kernels' order."""
+    y = b.clone()
+    n = U.shape[-1]
     for k in range(n):
         yk = y[:, k] / U[:, k, k]
         y[:, k + 1:] -= U[:, k, k + 1:] * yk[:, None]
@@ -90,6 +108,12 @@ def spd_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         y[:, :k] -= U[:, :k, k] * xk[:, None]
         y[:, k] = xk
     return y
+
+
+def spd_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solves a x = b for SPD a (B, n, n), b (B, n): the factor and both
+    substitutions, as the fused kernel computes them."""
+    return cholesky_solve_reference(cholesky_factor_reference(a), b)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +159,32 @@ def _launch_solve(qM: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         library.ptr(qM), library.ptr(b), library.ptr(x), B, nv, smem, stream
     )
     library.check("spd_solve", err)
+    return x
+
+
+def _launch_factor(qM: torch.Tensor) -> torch.Tensor:
+    B, nv, _ = qM.shape
+    smem = factor_smem_bytes(nv)
+    _check_kernel_args("factor_batched", smem, qM=qM)
+    U = torch.empty_like(qM)
+    stream = torch.cuda.current_stream(qM.device).cuda_stream
+    err = library.lib().cholesky_factor_launch(
+        library.ptr(qM), library.ptr(U), B, nv, smem, stream
+    )
+    library.check("factor_batched", err)
+    return U
+
+
+def _launch_solve_factor(U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    B, nv, _ = U.shape
+    smem = solve_smem_bytes(nv)
+    _check_kernel_args("solve_batched", smem, U=U, b=b)
+    x = torch.empty_like(b)
+    stream = torch.cuda.current_stream(U.device).cuda_stream
+    err = library.lib().cholesky_solve_launch(
+        library.ptr(U), library.ptr(b), library.ptr(x), B, nv, smem, stream
+    )
+    library.check("solve_batched", err)
     return x
 
 
@@ -193,7 +243,37 @@ def spd_solve(qM: torch.Tensor, b: torch.Tensor, device="cuda") -> torch.Tensor:
     return x
 
 
+def factor_batched(qM: torch.Tensor, device="cuda") -> torch.Tensor:
+    """Upper Cholesky factor U (qM = U^T U, zero below the diagonal) of SPD
+    qM (B, nv, nv). CPU tensors run the plain version; CUDA tensors launch
+    the kernel (float32) or raise."""
+    dev = resolve_device(device)
+    _check_shapes("factor_batched", qM)
+    check_device(dev, qM=qM)
+    if dev.type == "cpu":
+        return cholesky_factor_reference(qM)
+    U = _launch_factor(qM)
+    factor_batched.launches += 1
+    return U
+
+
+def solve_batched(U: torch.Tensor, b: torch.Tensor, device="cuda") -> torch.Tensor:
+    """x with U^T U x = b for upper factors U (B, nv, nv) and b (B, nv).
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (float32) or raise."""
+    dev = resolve_device(device)
+    _check_shapes("solve_batched", U, b=(b, U.shape[:2]))
+    check_device(dev, U=U, b=b)
+    if dev.type == "cpu":
+        return cholesky_solve_reference(U, b)
+    x = _launch_solve_factor(U, b)
+    solve_batched.launches += 1
+    return x
+
+
 # kernel launches since each count was last set to 0
 spd_inverse.launches = 0
 spd_inverse2.launches = 0
 spd_solve.launches = 0
+factor_batched.launches = 0
+solve_batched.launches = 0

@@ -1,8 +1,9 @@
 """The port's CUDA kernels, built into one shared library at first use.
 
-Every source under ``csrc/`` has a plain C interface and includes no torch
-headers, so ``nvcc`` takes seconds; ``torch.utils.cpp_extension.load``
-compiles the sources in parallel (one ninja job each) into
+Every source under ``csrc/`` (``*.cu``, and the ``*.cuh`` they share) has a
+plain C interface and includes no torch headers, so ``nvcc`` takes seconds;
+``torch.utils.cpp_extension.load`` compiles the sources in parallel (one
+ninja job each) into
 ``brax_tracking_tpu_torch/_build/`` and the library is called through
 ``ctypes``. Each launch function returns the ``cudaGetLastError()`` of its
 launch, which ``check`` turns into an exception.
@@ -16,7 +17,8 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(
-    os.path.join(_CSRC, f) for f in ("cg_fused.cu", "spd_inverse.cu", "spd_solve.cu")
+    os.path.join(_CSRC, f)
+    for f in ("cg_fused.cu", "spd_inverse.cu", "spd_solve.cu", "cholesky.cu")
 )
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
@@ -28,9 +30,12 @@ H100_SMEM_PER_BLOCK = 232448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each launch function (see its source)
 _SIGNATURES = {
-    "cg_fused_launch": [_P] * 22 + [_I] * 9 + [_F, _F, _P],
+    "cg_fused_launch": [_P] * 25 + [_I] * 12 + [_F] * 3 + [_P],
+    "cg_batched_launch": [_P] * 17 + [_I] * 10 + [_F] * 3 + [_P],
     "spd_inverse_launch": [_P] * 4 + [_I] * 4 + [_P],
     "spd_solve_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "cholesky_factor_launch": [_P] * 2 + [_I] * 3 + [_P],
+    "cholesky_solve_launch": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

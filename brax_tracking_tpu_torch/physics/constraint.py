@@ -1,10 +1,11 @@
-"""Constraint row assembly: scalar and ball joint limits + pyramidal
-contacts.
+"""Constraint row assembly: scalar and ball joint limits, pyramidal and
+elliptic (condim 3) contacts.
 
 Counterpart of ``brax_tracking_tpu/physics/constraint.py`` with the same
 static row layout: every candidate constraint always owns its rows, and
 activation is run-time masking. Rows are scalar limits first, then ball
-limits, then contacts. Elliptic cones raise.
+limits, then contacts; an elliptic contact owns a normal and two friction
+rows [n, t1, t2]. Condim > 3 raises.
 
 The dense contact jacobian is not materialized here: the solve kernel
 assembles it from the per-contact operators ``con_A`` (J = (P A) cdof * md,
@@ -193,8 +194,6 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
     B = d.qpos.shape[0]
     layout = efc_layout(m)
     nefc = layout.nefc
-    if m.opt.cone == M.CONE_ELLIPTIC and m.ncon and np.any(layout.con_dim > 1):
-        M.unported("elliptic friction cones", "§A.5")
     if m.ncon and int(np.max(layout.con_dim)) > 3:
         M.unported("torsional and rolling friction (condim > 3)", "§A.12")
 
@@ -295,7 +294,12 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
             jvel[:, slot, 0] + sgn * mu_i * jvel[:, slot, i_tan],
             jvel[:, slot, k_ell],
         )
-        aref = -b[slot] * vel - k[slot] * imp[:, slot] * pos_r[:, slot]
+        pos_term = k[slot] * imp[:, slot] * pos_r[:, slot]
+        if np.any(rtype == ROW_CON_FRICTION):
+            # elliptic friction rows have no position term
+            has_pos = m.const(rtype != ROW_CON_FRICTION, torch.bool)
+            pos_term = torch.where(has_pos, pos_term, torch.zeros_like(pos_term))
+        aref = -b[slot] * vel - pos_term
         invw_pyr = 2.0 * mu_i * mu_i * (1.0 + mu_i * mu_i) * invweight[slot]
         invw_ell = torch.where(
             m.const(kdim == 0, torch.bool), invweight[slot], invweight[slot] / impratio

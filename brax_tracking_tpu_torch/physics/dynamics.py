@@ -8,7 +8,9 @@ diag(armature). On the kernel path the dense qM is never materialized:
 the solve kernel assembles it from (crb_f, cdof), as the JAX kernel does
 (ops/cg.py ``assemble_qM_J`` is the plain version of that assembly). The
 solve paths off that layout (XLA-CG and Newton) read the dense qM, and
-XLA-CG its inverses (``invert_m``, ``solve_m``).
+XLA-CG its inverses (``invert_m``, ``solve_m``). ``factor_m`` keeps the
+Cholesky factor (kernel ``factor_batched``), from which ``solve_m`` solves
+when there is no inverse (kernel ``solve_batched``).
 """
 
 from __future__ import annotations
@@ -52,11 +54,18 @@ def invert_m(m: M.Model, d: M.Data) -> M.Data:
     return d.replace(qMinv=ops_chol.spd_inverse(d.qM, device=m.device))
 
 
+def factor_m(m: M.Model, d: M.Data) -> M.Data:
+    """The upper Cholesky factor of qM (qM = U^T U) as qLD, one kernel
+    launch (ops/cholesky.py ``factor_batched``)."""
+    return d.replace(qLD=ops_chol.factor_batched(d.qM, device=m.device))
+
+
 def solve_m(m: M.Model, d: M.Data, rhs: torch.Tensor) -> torch.Tensor:
-    """M^-1 rhs (B, nv) from qMinv; the Cholesky-factor branch raises."""
-    if d.qMinv is None:
-        M.unported("M^-1 products from the Cholesky factor qLD", "§B.5")
-    return (d.qMinv @ rhs[..., None])[..., 0]
+    """M^-1 rhs for rhs (B, nv): from qMinv when it is set, else from the
+    factor qLD through the ``solve_batched`` kernel."""
+    if d.qMinv is not None:
+        return (d.qMinv @ rhs[..., None])[..., 0]
+    return ops_chol.solve_batched(d.qLD, rhs, device=m.device)
 
 
 def rne(m: M.Model, d: M.Data) -> M.Data:

@@ -303,6 +303,7 @@ class Data:
     qM: Optional[torch.Tensor] = None  # (B, nv, nv)
     qMinv: Optional[torch.Tensor] = None  # (B, nv, nv) M^-1 (CG path)
     qMhinv: Optional[torch.Tensor] = None  # (B, nv, nv) (M + h diag(damping))^-1
+    qLD: Optional[torch.Tensor] = None  # (B, nv, nv) upper Cholesky factor, qM = U^T U
     qfrc_bias: Optional[torch.Tensor] = None  # (B, nv)
     qfrc_passive: Optional[torch.Tensor] = None  # (B, nv)
     qfrc_actuator: Optional[torch.Tensor] = None  # (B, nv)
@@ -333,6 +334,9 @@ class Data:
     qvel_next: Optional[torch.Tensor] = None  # (B, nv) Euler velocity update
     # Newton iterations each env ran (the batch loop runs max of them)
     solver_niter: Optional[torch.Tensor] = None  # (B,) int
+    # solve-kernel chunks the batch ran (Newton on the kernel layout), a
+    # count the dispatch holds on the host
+    solver_nchunk: Optional[int] = None
     # the next solve's warm start (mj_forward copies qacc here); None after
     # make_data, so the first solve starts cold
     qacc_warmstart: Optional[torch.Tensor] = None  # (B, nv)
@@ -341,9 +345,9 @@ class Data:
         return dataclasses.replace(self, **kwargs)
 
     def tensors(self) -> Dict[str, torch.Tensor]:
-        """The fields that are set, by name."""
+        """The tensor fields that are set, by name."""
         return {
             f.name: getattr(self, f.name)
             for f in dataclasses.fields(self)
-            if getattr(self, f.name) is not None
+            if isinstance(getattr(self, f.name), torch.Tensor)
         }

@@ -5,11 +5,18 @@ Counterpart of ``brax_tracking_tpu/physics/solver.py``. Dispatch follows
 ``solve`` there, by the same eligibility rule (``quad_kernel_eligible``):
 
 - CG on the kernel layout (one-sided quadratic rows built from limits and
-  contacts; the minirat, the rodent) goes through ``_solve_quad``, which
-  calls the solve kernel (ops/cg.py ``cg_solve_fused``). A model the rule
-  sends there but whose env does not fit one block's shared memory on the
-  H100 raises: the XLA-CG path warmstarts where the kernel does not, so it
-  would compute something else.
+  contacts, plus at most one contiguous block of dim-3 elliptic contacts;
+  the minirat, the elliptic minirat, the rodent, the fly) goes through
+  ``_solve_quad``, which calls the solve kernel (ops/cg.py
+  ``cg_solve_fused``) once. A model the rule sends there but whose env does
+  not fit one block's shared memory on the H100 raises: the XLA-CG path
+  warmstarts where the kernel's CG call does not, so it would compute
+  something else.
+- Newton on the kernel layout goes through ``_solve_newton_fused``: the
+  JAX package's batched branch for such models, which is CG with warmstart
+  and the float32 stall exit in chunks of the same kernel, not
+  exact-Hessian Newton (a documented performance dispatch there; the two
+  converge to the same optimum of the same strictly convex cost).
 - CG off that layout (ball-joint limits, > 128 iterations) runs
   ``_solve_xla``: M^-1-preconditioned Polak-Ribiere CG on the dense qM and
   its inverse (``dynamics.invert_m``, kernel ``spd_inverse2``).
@@ -19,7 +26,8 @@ Counterpart of ``brax_tracking_tpu/physics/solver.py``. Dispatch follows
 Both array paths warmstart from the previous step's qacc (mj_warmstart),
 freeze each env once it has converged, and stop when every env has (a host
 read of the done flags per iteration), as the JAX package's loops do under
-vmap. Newton on the kernel layout, PGS and elliptic rows raise.
+vmap; the chunked Newton path reads the flags once per chunk. PGS, condim
+> 3 and elliptic rows off the kernel layout raise.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ def solve(m: M.Model, d: M.Data) -> M.Data:
         )
     if m.opt.solver == M.SOLVER_NEWTON:
         if quad_kernel_eligible(m):
-            M.unported("Newton on the solve kernel's layout (its warmstart and stall exit)", "§B.1(c)")
+            return _solve_newton_fused(m, d, layout)
         return _solve_newton(m, d)
     if m.opt.solver != M.SOLVER_CG:
         raise NotImplementedError(
@@ -58,6 +66,51 @@ def solve(m: M.Model, d: M.Data) -> M.Data:
     if quad_kernel_eligible(m):
         return _solve_quad(m, d, layout)
     return _solve_xla(m, d)
+
+
+class _ConeMeta(NamedTuple):
+    """Static row metadata for evaluating the constraint cost."""
+
+    quad_rows: np.ndarray  # rows with a one-sided quadratic cost
+    ell_con: np.ndarray  # elliptic contact slot ids
+    ell_rows: np.ndarray  # (nell, maxdim) row indices (normal first), -1 pad
+    ell_dim: np.ndarray  # (nell,)
+
+
+def _cone_meta(m: M.Model, layout: Cn.EfcLayout) -> _ConeMeta:
+    """Which rows are one-sided quadratics and which form elliptic cones
+    (the JAX package's ``_cone_meta``), built once per model."""
+    meta = m.cache.get("cone_meta")
+    if meta is not None:
+        return meta
+    elliptic = m.opt.cone == M.CONE_ELLIPTIC
+    quad_rows = []
+    ell_con, ell_rows, ell_dim = [], [], []
+    for r in range(layout.nefc):
+        t = layout.row_type[r]
+        if t in (Cn.ROW_LIMIT, Cn.ROW_CON_PYRAMID) or (
+            t == Cn.ROW_CON_NORMAL and (not elliptic or layout.con_dim[layout.row_con[r]] == 1)
+        ):
+            quad_rows.append(r)
+    if elliptic:
+        for slot in range(m.ncon):
+            dim = int(layout.con_dim[slot])
+            if dim > 1:
+                ell_con.append(slot)
+                ell_rows.append([int(layout.con_rows[slot]) + k for k in range(dim)])
+                ell_dim.append(dim)
+    maxdim = max(ell_dim, default=1)
+    ell_rows = np.array(
+        [r + [-1] * (maxdim - len(r)) for r in ell_rows], np.int32
+    ).reshape(len(ell_con), maxdim)
+    meta = _ConeMeta(
+        np.array(quad_rows, np.int32),
+        np.array(ell_con, np.int32),
+        ell_rows,
+        np.array(ell_dim, np.int32),
+    )
+    m.cache["cone_meta"] = meta
+    return meta
 
 
 def quad_kernel_eligible(m: M.Model) -> bool:
@@ -79,13 +132,18 @@ def _quad_kernel_eligible(m: M.Model) -> bool:
     layout = Cn.efc_layout(m)
     if layout.nefc == 0 or max(int(m.opt.iterations), 1) > 128:
         return False
-    if m.opt.cone == M.CONE_ELLIPTIC and m.ncon and np.any(layout.con_dim > 1):
-        ell = layout.con_dim > 1
-        if set(layout.con_dim[ell].tolist()) != {3}:
+    meta = _cone_meta(m, layout)
+    if meta.ell_con.size:
+        # one contiguous block of uniform dim-3 elliptic contacts
+        er = meta.ell_rows
+        if set(meta.ell_dim.tolist()) != {3}:
             return False
-        rows = layout.con_rows[ell]
-        if not np.array_equal(rows, rows[0] + 3 * np.arange(rows.size)):
+        if not np.array_equal(np.sort(er.ravel()), np.arange(er.min(), er.max() + 1)):
             return False
+        if not np.array_equal(er[:, 0], er.min() + 3 * np.arange(er.shape[0])):
+            return False
+    elif meta.quad_rows.size != layout.nefc:
+        return False
     if layout.limit_ball_jnt.size:
         return False
     if m.ncon and int(np.max(layout.con_dim)) > 3:
@@ -153,15 +211,35 @@ def _fused_statics(m: M.Model, layout: Cn.EfcLayout):
 
 def _solve_statics(m: M.Model, layout: Cn.EfcLayout) -> dict:
     """Per-model solve constants (device tensors and python scalars), built
-    once: the hot path then reads nothing back from the device."""
+    once: the hot path then reads nothing back from the device. The
+    elliptic block's statics come from the pairs' friction: mu = friction[0]
+    and the tangent scales friction[0:2] / mu per elliptic slot."""
     st = m.cache.get("solve_statics")
     if st is None:
         fstat = _fused_statics(m, layout)
+        meta = _cone_meta(m, layout)
         dt = float(m.opt.timestep)
+        nell = int(meta.ell_con.size)
+        if nell:
+            cp = layout.con_pair[meta.ell_con]
+            fr = m.pairs.friction.cpu().numpy().astype(np.float64)[cp, 0:2]
+            ell = dict(
+                ell0=int(meta.ell_rows.min()),
+                ell_mu=tuple(fr[:, 0].tolist()),
+                ell_scale=tuple(map(tuple, (fr / fr[:, :1]).tolist())),
+            )
+            quad_mask = np.zeros(layout.nefc, bool)
+            quad_mask[meta.quad_rows] = True
+        else:
+            ell = dict(ell0=layout.nefc, ell_mu=(), ell_scale=())
         st = dict(
             P=m.const(fstat["P"]),
             md=m.const(fstat["md"]),
             damp=m.const(m.dof_damping.cpu().numpy().astype(np.float64) * dt),
+            # rows the kernel's quadratic cost covers (None: all of them)
+            quad_mask=m.const(quad_mask, torch.bool) if nell else None,
+            ell_con=m.idx(meta.ell_con),
+            ell_margin=m.pairs.margin[m.idx(layout.con_pair[meta.ell_con])],
             kw=dict(
                 iters=max(int(m.opt.iterations), 1),
                 ls_iters=max(int(m.opt.ls_iterations), 1),
@@ -172,37 +250,95 @@ def _solve_statics(m: M.Model, layout: Cn.EfcLayout) -> dict:
                 sz=fstat["sz"],
                 root_bounds=fstat["root_bounds"],
                 limit_dadr=fstat["limit_dadr"],
+                **ell,
             ),
         )
         m.cache["solve_statics"] = st
     return st
 
 
-def _solve_quad(m: M.Model, d: M.Data, layout: Cn.EfcLayout) -> M.Data:
-    """Purely one-sided-quadratic costs: the solve kernel also produces
-    qacc_smooth and the Euler velocity update (qvel_next)."""
-    smem = ops_cg.kernel_smem_bytes(m.nv, layout.nefc)
+def _kernel_args(m: M.Model, d: M.Data, layout: Cn.EfcLayout):
+    """The solve kernel's positional arguments at the state ``d`` and its
+    static keywords. A model whose env does not fit one block's shared
+    memory raises."""
+    st = _solve_statics(m, layout)
+    nell = len(st["kw"]["ell_mu"])
+    smem = ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell)
     if smem > ops_cg.H100_SMEM_PER_BLOCK:
         M.unported(
             f"the solve kernel for an env of {smem} B (one block holds "
             f"{ops_cg.H100_SMEM_PER_BLOCK} B): its second layout", "§A.10",
         )
-    st = _solve_statics(m, layout)
     B = d.qpos.shape[0]
     exists = d.efc_pos < d.efc_margin
+    if st["quad_mask"] is not None:
+        exists = exists & st["quad_mask"]  # elliptic rows: exists_con
+    if nell:
+        exists_con = d.contact_dist[:, st["ell_con"]] < st["ell_margin"]
+    else:
+        exists_con = torch.zeros(B, 0, dtype=torch.bool, device=m.device)
     con_A = d.con_A
     if con_A is None:  # no contact slots
         nroots = len(st["kw"]["root_bounds"])
         con_A = d.qpos.new_zeros(B, nroots, 0, 3, 6)
-    x, force, qfrc, a0, qvel_next, _ = ops_cg.cg_solve_fused(
+    args = (
         d.crb_f, d.cdof, con_A, d.efc_jsign, d.efc_D, d.efc_aref, exists,
-        torch.zeros(B, 0, dtype=torch.bool, device=m.device),
-        d.qfrc_smooth, d.qvel, st["damp"], st["P"], st["md"], m.dof_armature,
-        device=m.device, **st["kw"],
+        exists_con, d.qfrc_smooth, d.qvel, st["damp"], st["P"], st["md"],
+        m.dof_armature,
     )
+    return args, st["kw"]
+
+
+def _solve_quad(m: M.Model, d: M.Data, layout: Cn.EfcLayout) -> M.Data:
+    """CG on the kernel layout: one solve-kernel launch, which also produces
+    qacc_smooth and the Euler velocity update (qvel_next)."""
+    args, kw = _kernel_args(m, d, layout)
+    x, force, qfrc, a0, qvel_next, _ = ops_cg.cg_solve_fused(*args, device=m.device, **kw)
     return d.replace(
         qacc=x, qfrc_constraint=qfrc, efc_force=force, qacc_smooth=a0,
         qvel_next=qvel_next,
+    )
+
+
+# float32 stall floor of the chunked Newton dispatch: a relative cost
+# improvement below ~32 eps_f32 is rounding noise (the JAX package's
+# _STALL_TOL_F32)
+STALL_TOL_F32 = 4e-6
+
+
+def _solve_newton_fused(m: M.Model, d: M.Data, layout: Cn.EfcLayout) -> M.Data:
+    """Newton models on the kernel layout: the JAX package's batched branch
+    of ``_solve_newton_fused``. That branch is CG with warmstart and the
+    float32 stall exit, not exact-Hessian Newton: the solve kernel runs in
+    chunks of K = min(iterations, 4) CG iterations with at most 16
+    line-search steps, each chunk warmstarted from the previous chunk's
+    qacc (the first from qacc_warmstart, or zeros, which the kernel's
+    better-of select discards for qacc_smooth), until every env's done flag
+    is set or ceil(iterations / K) chunks have run: one host read of the
+    flags per chunk. The kernel's own Euler tail is off; a damped model's
+    update is one ``spd_solve`` of (M + h diag(damping)) after the loop.
+    ``solver_nchunk`` records the chunks the batch ran."""
+    args, kw = _kernel_args(m, d, layout)
+    iters = kw["iters"]
+    K = min(iters, 4)
+    n_chunks = -(-iters // K)
+    kw = dict(kw, iters=K, ls_iters=min(kw["ls_iters"], 16), has_damping=False,
+              stall_tol=STALL_TOL_F32)
+    ws = d.qacc_warmstart if d.qacc_warmstart is not None else torch.zeros_like(d.qfrc_smooth)
+    out = ops_cg.cg_solve_fused(*args, warmstart=ws, device=m.device, **kw)
+    chunks = 1
+    while chunks < n_chunks and not bool(out[5].all()):
+        out = ops_cg.cg_solve_fused(*args, warmstart=out[0], device=m.device, **kw)
+        chunks += 1
+    x, force, qfrc, a0, qvel_next, _ = out
+    if m.has_damping:
+        mh = d.qM + torch.diag(_solve_statics(m, layout)["damp"])
+        qvel_next = d.qvel + m.opt.timestep * ops_chol.spd_solve(
+            mh, d.qfrc_smooth + qfrc, device=m.device
+        )
+    return d.replace(
+        qacc=x, qfrc_constraint=qfrc, efc_force=force, qacc_smooth=a0,
+        qvel_next=qvel_next, solver_nchunk=chunks,
     )
 
 

@@ -32,6 +32,14 @@ from brax_tracking_tpu_torch.physics.plan import make_plan
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 MINIRAT_NPZ = os.path.join(ASSETS, "minirat.npz")
 MINIRAT_XML = os.path.join(ASSETS, "minirat.xml")
+# the minirat with elliptic friction cones (its <option> line adds
+# cone="elliptic"): 22 dim-3 elliptic contacts on the solve kernel's layout
+MINIRAT_ELLIPTIC_XML = os.path.join(ASSETS, "minirat_elliptic.xml")
+MINIRAT_ELLIPTIC_NPZ = os.path.join(ASSETS, "minirat_elliptic.npz")
+# the minirat frozen for Newton at MuJoCo's default budget (rodent_pair's
+# Newton/100), on the solve kernel's layout
+MINIRAT_NEWTON_NPZ = os.path.join(ASSETS, "minirat_newton.npz")
+MINIRAT_NEWTON_OPTIONS = dict(solver="newton", iterations=100, ls_iterations=50)
 # ballmuscle: ball joints with limits, a fixed tendon, muscles and a
 # filterexact actuator, frozen once per solver of the engine slice
 BALLMUSCLE_XML = os.path.join(ASSETS, "ballmuscle.xml")

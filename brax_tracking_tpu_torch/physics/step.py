@@ -3,9 +3,10 @@
 Counterpart of ``brax_tracking_tpu/physics/step.py``: ``forward`` runs
 mj_forward's stage order over a batch of envs, ``step`` adds semi-implicit
 Euler integration with MuJoCo's implicit joint damping. On the kernel path
-the Euler velocity update comes out of the solve kernel as ``qvel_next``;
-on the XLA-CG path it takes (M + h diag(damping))^-1 from ``invert_m``, on
-the Newton path one ``spd_solve``.
+the Euler velocity update comes out of the solve (the kernel's own tail, or
+one ``spd_solve`` after the chunked Newton dispatch on a damped model) as
+``qvel_next``; on the XLA-CG path it takes (M + h diag(damping))^-1 from
+``invert_m``, on the Newton path one ``spd_solve``.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ def make_data(m: M.Model, batch_size: int, device="cuda") -> M.Data:
 def forward_to_constraint(m: M.Model, d: M.Data) -> M.Data:
     """Every stage of ``forward`` before the constraint solve: the state the
     solve reads. Off the kernel layout this includes the dense qM, on the
-    CG path its inverses, and qacc_smooth."""
+    CG path its inverses, and qacc_smooth. On the kernel layout a damped
+    Newton model also gets the dense qM: its Euler update solves with
+    M + h diag(damping) after the kernel's chunks."""
     if m.nsensor:
         M.unported("sensors", "§A.8")
     kernel = S.quad_kernel_eligible(m)
@@ -59,7 +62,7 @@ def forward_to_constraint(m: M.Model, d: M.Data) -> M.Data:
     d = K.com_pos(m, d)
     d = K.tendon(m, d)
     d = C.collision(m, d)
-    d = D.crb(m, d, dense=not kernel)
+    d = D.crb(m, d, dense=not kernel or (newton and m.has_damping))
     if not kernel and not newton:
         # the XLA-CG path's preconditioner (and, damped, the Euler
         # update's implicit damping); Newton needs single solves only

@@ -7,23 +7,37 @@ Run from the root of a checkout on a machine with a CUDA card. It
 1. checks for the card and prints its name and power limit;
 2. builds every kernel (ops/csrc/*.cu, one library) and prints the seconds;
 3. holds each kernel against its plain PyTorch version, both scored
-   against a float64 plain run on the card: the solve kernel on the
-   minirat's batched forward at B=2048 and B=2047, without and with joint
-   damping; the SPD inverse, the paired inverse and the SPD solve on
-   seeded SPD matrices at nv = 7, 73 and 146 (B=2048 and B=2047) and on
-   the ballmuscle's own mass matrices;
-4. rolls out 2048 minirat tracking envs (GenericSingleClip + EpisodeWrapper
-   + AutoResetWrapperTracking, 10 substeps) for 20 control steps, counts
-   the kernel launches of that run and checks its first step on 8 envs
-   against the same step run on the CPU in float64;
+   against a float64 plain run on the card: the solve kernel
+   (cg_solve_fused) on the minirat's batched forward at B=2048 and B=2047,
+   without and with joint damping and converged, on the elliptic minirat's
+   (the elliptic block) likewise, and on a chunk of the Newton dispatch
+   (warmstart, stall exit); the dense-input solve kernel (cg_solve_batched)
+   on the dense qM and J of the minirat and the elliptic minirat; the SPD
+   inverse, the paired inverse, the SPD solve, the Cholesky factor and the
+   solve from it on seeded SPD matrices at nv = 7, 73 and 146 (B=2048 and
+   B=2047) and on the ballmuscle's own mass matrices;
+4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
+   AutoResetWrapperTracking, 10 substeps) for 20 control steps, on the
+   minirat (the main path) and on the elliptic minirat, counts the kernel
+   launches of each run and checks its first step on 8 envs against the
+   same step run on the CPU in float64; then holds the elliptic minirat's
+   constraint rows and one converged substep at seeded contact states
+   against the CPU in float64;
 5. steps 2048 ballmuscle envs (ball-joint limits, a fixed tendon, muscles)
    20 substeps under CG (the XLA-CG path: spd_inverse2 once per substep)
    and under Newton (spd_solve 2 + iterations per substep), counts the
    launches of each run and checks its first substep on 8 envs against the
    CPU in float64;
-6. times every kernel, its plain version and a PyTorch library call
-   computing the same function with CUDA events, and the rollout and the
-   ballmuscle substeps on the host clock.
+6. steps 2048 Newton minirat envs (Newton/100 on the kernel layout: chunks
+   of the solve kernel) 20 substeps, holds the solve kernel's launches to
+   the chunks the solver reports, and checks the first substep on 8 envs
+   against the CPU in float64;
+7. runs the smooth dynamics (dense qM, factor_m, solve_m) on 2048 minirat
+   states: one launch each of the factor and the solve kernel;
+8. times every kernel, its plain version and a PyTorch library call
+   computing the same function with CUDA events (the SPD and Cholesky
+   kernels' device time by torch.profiler), and the rollouts and substeps
+   on the host clock.
 
 It needs nothing beyond the checkout (the models are the frozen
 ``assets/*.npz``; weights and states come from seeds), exits non-zero if
@@ -43,6 +57,9 @@ import torch
 
 SEED = 0
 B_MAIN = 2048
+# the minirat files: pyramidal CG 4/4 (the main path), elliptic CG 4/4,
+# Newton/100 on the kernel layout
+MODELS = ("minirat", "minirat_elliptic", "minirat_newton")
 N_STEPS = 20
 N_SUBSTEPS = 10
 N_CPU_ENVS = 8
@@ -83,8 +100,17 @@ TAIL_ENVS = 8
 # version's do, plus DONE_MISMATCH_MAX of the batch.
 DONE_MISMATCH_MAX = 0.01
 # first control step, card (float32) against CPU (float64): 10 substeps of
-# contact dynamics; obs and reward agree to this absolute tolerance
-STEP_ATOL = 1e-3
+# the fall from the clip pose; obs and reward agree to this absolute
+# tolerance. A CPU float32 rehearsal of that step (64 envs) is off float64 by
+# 8.1e-6 (obs) and 2.9e-6 (reward) for both minirat files; the limit leaves
+# ~37x the larger. The first step touches no floor, and the steps that do
+# are far from float64 in float32 at 4/4 iterations (ROADMAP section C), so
+# the elliptic rows meet float64 in a converged contact-state substep
+# (ELL_ROW_RTOL below), and each rollout must have touched the floor
+# (contact forces in at least ROLLOUT_MIN_CONTACT of the envs at its last
+# step).
+STEP_ATOL = {"minirat": 3e-4, "minirat_elliptic": 3e-4}
+ROLLOUT_MIN_CONTACT = 0.5
 
 # SPD kernels (spd_inverse, spd_inverse2, spd_solve). Seeded float32 SPD
 # matrices Q diag(lam) Q^T with lam log-uniform in [1, SPD_COND] (condition
@@ -105,6 +131,7 @@ SPD_FLOOR = 1e-7
 SPD_ABS = 1e-3
 SPD_ABS_BM = 1e-4
 SPD_KERNELS = ("spd_inverse", "spd_inverse2", "spd_solve")
+CHOL_KERNELS = ("factor_batched", "solve_batched")
 # ballmuscle slice: 20 substeps of 2048 envs per solver; its first substep
 # of 8 envs on the card (float32) against the CPU (float64). A CPU float32
 # rehearsal of that substep (64 envs, both solvers) is off float64 by
@@ -114,6 +141,38 @@ SPD_KERNELS = ("spd_inverse", "spd_inverse2", "spd_solve")
 # the card's other summation order.
 BM_SUBSTEPS = 20
 BM_STEP_ATOL = {"qpos": 1e-5, "qvel": 1e-2, "act": 1e-6}
+
+# Newton minirat (Newton/100 on the kernel layout, chunks of the solve
+# kernel): NEWTON_SUBSTEPS substeps of 2048 envs from seeded contact states;
+# its first substep of 8 envs on the card (float32) against the CPU
+# (float64). A CPU float32 rehearsal of that substep (64 envs, 9 chunks) is
+# off float64 by 6.9e-8 (qpos) and 2.4e-5 (qvel); the limits leave ~30-40x.
+NEWTON_SUBSTEPS = 20
+NEWTON_STEP_ATOL = {"qpos": 2e-6, "qvel": 1e-3}
+# elliptic minirat at contact states (random_states with faster joints),
+# card (float32) against the CPU (float64): the rollouts' first control step
+# is a fall that touches no floor, so this is where the card's elliptic rows
+# meet float64. One substep of B_MAIN envs on the card (one cg_solve_fused
+# launch, no other kernel), with the solve converged (CONVERGED_ITERS CG
+# iterations, ELL_LS_ITERS line-search steps: at the file's 4/4 a float32
+# substep of these states is off float64 by up to 0.8 in qvel, rounding
+# inside the iteration), against the same substep of the first ELL_ROW_ENVS
+# envs on the CPU: make_constraint's rows (efc_D, efc_aref and efc_pos over
+# the active rows, each relative to its largest value there; con_A) within
+# ELL_ROW_RTOL, the quadratic rows' and the elliptic contacts' activations
+# equal, and qpos and qvel of the first N_CPU_ENVS envs within ELL_STEP_ATOL.
+# The float64 solution must leave active elliptic contacts in each zone of
+# the cone (bottom, middle, top). A CPU float32 rehearsal (seeds 0-2, 256
+# envs): rows at most 1.8e-6 relative (efc_pos), no activation flipped (every
+# row lies at least 4.9e-3 from its threshold); the substep of 8 envs off by
+# 4.4e-6 (qpos) and 2.2e-3 (qvel); the limits leave ~34x.
+ELL_ROW_ENVS = 64
+ELL_LS_ITERS = 50
+ELL_ROW_RTOL = 6e-5
+ELL_STEP_ATOL = {"qpos": 1.5e-4, "qvel": 7.5e-2}
+# smooth dynamics: float64 residual ||qM x - f|| / ||f|| of solve_m from the
+# factor on 2048 minirat states (a CPU float32 rehearsal: 2.8e-7)
+SMOOTH_RESIDUAL = 1e-5
 
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
@@ -137,7 +196,19 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def random_states(m, B, seed, drop=0.01):
+def load(model, device, dtype=None):
+    """One of the port's minirat files: pyramidal CG 4/4 (the main path),
+    elliptic CG 4/4, or Newton/100 with 50 line-search steps."""
+    from brax_tracking_tpu_torch.physics import spec
+
+    if model == "minirat_newton":
+        return spec.load_model(spec.MINIRAT_NEWTON_NPZ, device=device, dtype=dtype,
+                               **spec.MINIRAT_NEWTON_OPTIONS)
+    npz = spec.MINIRAT_ELLIPTIC_NPZ if model == "minirat_elliptic" else spec.MINIRAT_NPZ
+    return spec.load_model(npz, device=device, dtype=dtype)
+
+
+def random_states(m, B, seed, drop=0.01, vel=0.5):
     """Seeded minirat states with the root pushed into the floor (contacts),
     as the JAX package's fused-kernel tests build them."""
     from brax_tracking_tpu_torch.physics import step as pstep
@@ -150,36 +221,68 @@ def random_states(m, B, seed, drop=0.01):
     d = pstep.make_data(m, B, device=m.device)
     return d.replace(
         qpos=t(qpos),
-        qvel=t(rng.uniform(-0.5, 0.5, (B, m.nv))),
+        qvel=t(rng.uniform(-vel, vel, (B, m.nv))),
         ctrl=t(rng.uniform(-0.3, 0.3, (B, m.nu))),
     )
 
 
-def solve_inputs(m, d, damp=None):
-    """The solve kernel's arguments at the state ``d`` (as _solve_quad
-    passes them), with an optional damping override."""
+def solve_case(device, model, B, seed, damped=False, iters=None):
+    """The solve kernel's arguments as the solver passes them, at seeded
+    float32 states of ``model``: the one cg_solve_fused call of a CG file
+    (with an optional seeded damping, or ``iters`` CG iterations), or for
+    ``minirat_newton`` one chunk of the Newton dispatch (K = 4, 16
+    line-search steps, the stall exit) warmstarted from the qacc of a
+    substep run just before on the card (its launches are set back).
+    Elliptic states get faster joints (contacts in all three cone zones)."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
     from brax_tracking_tpu_torch.physics import constraint as Cn
     from brax_tracking_tpu_torch.physics import solver as S
     from brax_tracking_tpu_torch.physics import step as pstep
 
+    m = load(model, device, torch.float32)
+    d = random_states(m, B, seed, vel=1.0 if model == "minirat_elliptic" else 0.5)
+    if model == "minirat_newton":
+        launches = ops_cg.cg_solve_fused.launches
+        d = pstep.step(m, d, device=device)
+        ops_cg.cg_solve_fused.launches = launches
     d = pstep.forward_to_constraint(m, d)
-    st = S._solve_statics(m, Cn.efc_layout(m))
-    B = d.qpos.shape[0]
-    kw = dict(st["kw"])
-    args = [
-        d.crb_f, d.cdof, d.con_A, d.efc_jsign, d.efc_D, d.efc_aref,
-        d.efc_pos < d.efc_margin,
-        torch.zeros(B, 0, dtype=torch.bool, device=m.device),
-        d.qfrc_smooth, d.qvel, st["damp"], st["P"], st["md"], m.dof_armature,
-    ]
-    if damp is not None:
-        args[10] = torch.as_tensor(damp, dtype=m.dtype, device=m.device)
+    args, kw = S._kernel_args(m, d, Cn.efc_layout(m))
+    args, kw = list(args), dict(kw)
+    if model == "minirat_newton":
+        kw.update(iters=4, ls_iters=min(kw["ls_iters"], 16), has_damping=False,
+                  stall_tol=S.STALL_TOL_F32, warmstart=d.qacc_warmstart.contiguous())
+    if damped:
+        rng = np.random.RandomState(seed + 100)
+        args[10] = torch.as_tensor(float(m.opt.timestep) * rng.uniform(0.005, 0.02, m.nv),
+                                   dtype=m.dtype, device=m.device)
         kw["has_damping"] = True
-    return [a.contiguous() for a in args], kw
+    if iters is not None:
+        kw["iters"] = iters
+    return m, [a.contiguous() for a in args], kw
+
+
+def dense_case(args, kw):
+    """cg_solve_batched's arguments from cg_solve_fused's: qM and J
+    assembled densely by the plain version."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    f, cdof, A, jsign, D, aref, exists, econ, qfs, qvel, damp, P, md, arm = args
+    Bm = ops_cg._bm(P, A, len(kw["root_bounds"]), md.shape[0])
+    qM, J = ops_cg.assemble_qM_J(f, cdof, Bm, jsign, md, arm, row_slot=kw["row_slot"],
+                                 sz=kw["sz"], root_bounds=kw["root_bounds"],
+                                 limit_dadr=kw["limit_dadr"])
+    keep = ("iters", "ls_iters", "tol", "dt", "has_damping", "ell0", "ell_mu", "ell_scale",
+            "warmstart", "stall_tol")
+    return ([t.contiguous() for t in (qM, J, D, aref, exists, econ, qfs, qvel, damp)],
+            {k: v for k, v in kw.items() if k in keep})
 
 
 def cast(args, dtype):
     return [a.to(dtype) if a.is_floating_point() else a for a in args]
+
+
+def cast_kw(kw, dtype):
+    return {k: (v.to(dtype) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
 
 
 def outputs(out):
@@ -203,31 +306,32 @@ def _errors(out, ref):
             "n_above_tail": int((rel > TAIL_REL).sum())}
 
 
-def phase_kernel_vs_plain(device, B, damped, seed, iters=None):
+def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
+                          batched=False):
     """Kernel and float32 plain version against a float64 plain run on the
-    same inputs (the main path's solve at state ``seed``; ``iters``
-    overrides the CG iteration count). Returns the error report."""
+    same inputs (the solve at state ``seed`` of ``model``, see solve_case;
+    ``iters`` overrides the CG iteration count; ``batched`` runs
+    cg_solve_batched on the dense qM and J of the same call). Returns the
+    error report and (model, args, kw, kernel outputs)."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
-    from brax_tracking_tpu_torch.physics import spec
 
-    m = spec.load_model(device=device, dtype=torch.float32)
-    damp = None
-    if damped:
-        rng = np.random.RandomState(seed + 100)
-        damp = float(m.opt.timestep) * rng.uniform(0.005, 0.02, m.nv)
-    args, kw = solve_inputs(m, random_states(m, B, seed), damp)
-    if iters is not None:
-        kw["iters"] = iters
-    ref = outputs(ops_cg.cg_solve_fused_reference(*cast(args, torch.float64), **kw))
-    plain = outputs(ops_cg.cg_solve_fused_reference(*args, **kw))
-    launches = ops_cg.cg_solve_fused.launches
-    kern = outputs(ops_cg.cg_solve_fused(*args, device=device, **kw))
-    ops_cg.cg_solve_fused.launches = launches  # comparison launches do not count
+    m, args, kw = solve_case(device, model, B, seed, damped, iters)
+    kernel, plain_fn = ops_cg.cg_solve_fused, ops_cg.cg_solve_fused_reference
+    if batched:
+        args, kw = dense_case(args, kw)
+        kernel, plain_fn = ops_cg.cg_solve_batched, ops_cg.cg_solve_batched_reference
+    ref = outputs(plain_fn(*cast(args, torch.float64), **cast_kw(kw, torch.float64)))
+    plain = outputs(plain_fn(*args, **kw))
+    launches = kernel.launches
+    kern = outputs(kernel(*args, device=device, **kw))
+    kernel.launches = launches  # comparison launches do not count
     if device == "cuda":
         torch.cuda.synchronize()
 
-    case = f"B={B}, damped={damped}, iters={kw['iters']}"
-    report = {"B": B, "damped": damped, "iters": kw["iters"]}
+    case = (f"{kernel.__name__}, {model}, B={B}, damped={damped}, iters={kw['iters']}, "
+            f"warmstart={'warmstart' in kw}")
+    report = {"kernel": kernel.__name__, "model": model, "B": B, "damped": damped,
+              "iters": kw["iters"], "warmstart": "warmstart" in kw}
     for name in ("qacc", "efc_force", "qfrc_constraint", "qacc_smooth", "qvel_new"):
         ek, ep = _errors(kern[name], ref[name]), _errors(plain[name], ref[name])
         report[name] = {"scale": float(ref[name].abs().max()),
@@ -284,16 +388,17 @@ def synth_clip_qpos(qpos0, T=128, walk=0.1):
     return qpos
 
 
-def make_env(device, dtype=None):
+def make_env(device, dtype=None, model="minirat"):
+    """The tracking env of a CG minirat file (``minirat`` or
+    ``minirat_elliptic``) under the training wrappers."""
     from brax_tracking_tpu_torch.data import clips
     from brax_tracking_tpu_torch.envs import tracking, wrappers
-    from brax_tracking_tpu_torch.physics import spec
 
-    m = spec.load_model(device=device, dtype=dtype)
+    m = load(model, device, dtype)
     clip = clips.process_clip(m, torch.as_tensor(synth_clip_qpos(m.qpos0.cpu().numpy())))
     env = tracking.GenericSingleClip(
         reference_clip=clip,
-        mjcf_path="builtin:minirat.xml",
+        mjcf_path=f"builtin:{model}.xml",
         device=device,
         dtype=dtype,
         physics_steps_per_control_step=N_SUBSTEPS,
@@ -308,11 +413,14 @@ def make_env(device, dtype=None):
     return wrappers.wrap(env, episode_length=1000)
 
 
-def phase_rollout(device, B, seed):
+def phase_rollout(device, B, seed, model="minirat"):
     """Reset + N_STEPS control steps of B envs; returns the launch counts of
     the steps (every kernel, set to 0 just before), the first step's inputs
-    and outputs, and the final state."""
-    env = make_env(device)
+    and outputs, the final state and the share of envs with contact forces
+    at the last step (which must reach ROLLOUT_MIN_CONTACT)."""
+    from brax_tracking_tpu_torch.physics import constraint as Cn
+
+    env = make_env(device, model=model)
     gen = torch.Generator(device=device).manual_seed(seed)
     state = env.reset(gen, B)
     actions = [
@@ -328,14 +436,20 @@ def phase_rollout(device, B, seed):
     launches = read_counts()
     for s in states:
         if not (torch.isfinite(s.obs).all() and torch.isfinite(s.reward).all()):
-            fail("rollout obs or reward not finite")
-    return env, launches, first_in, actions[0], states[0], state
+            fail(f"{model} rollout obs or reward not finite")
+    contact_rows = torch.as_tensor(Cn.efc_layout(env.unwrapped.model).row_con >= 0,
+                                   device=state.obs.device)
+    touching = float((state.pipeline_state.efc_force[:, contact_rows] != 0).any(-1).float().mean())
+    if touching < ROLLOUT_MIN_CONTACT:
+        fail(f"{model} rollout: contact forces in {touching:.3f} of the envs at the last "
+             f"step, expected >= {ROLLOUT_MIN_CONTACT}")
+    return env, launches, first_in, actions[0], states[0], state, touching
 
 
-def phase_first_step_on_cpu(first_in, action, first_out, n):
+def phase_first_step_on_cpu(first_in, action, first_out, n, model="minirat"):
     """The first control step of ``n`` envs run again by the port on the CPU
     in float64; returns the max obs and reward gaps."""
-    env = make_env("cpu")
+    env = make_env("cpu", model=model)
     d = first_in.pipeline_state
     cpu = lambda t: t[:n].detach().to("cpu", torch.float64)
     s = env.init_state(first_in.info["cur_frame"][:n].cpu(), cpu(d.qpos), cpu(d.qvel))
@@ -345,9 +459,99 @@ def phase_first_step_on_cpu(first_in, action, first_out, n):
         "reward": float((s.reward - cpu(first_out.reward)).abs().max()),
         "done_mismatch": int((s.done != cpu(first_out.done)).sum()),
     }
-    if gaps["obs"] > STEP_ATOL or gaps["reward"] > STEP_ATOL or gaps["done_mismatch"]:
-        fail(f"first control step on the card differs from the CPU float64 run: {gaps}")
+    atol = STEP_ATOL[model]
+    if gaps["obs"] > atol or gaps["reward"] > atol or gaps["done_mismatch"]:
+        fail(f"{model}: first control step on the card differs from the CPU float64 "
+             f"run: {gaps} (limit {atol})")
     return gaps
+
+
+def converged(m):
+    """The model with its solve run to convergence: CONVERGED_ITERS CG
+    iterations, ELL_LS_ITERS line-search steps (a fresh cache: the solve
+    statics hold the counts)."""
+    import dataclasses
+
+    opt = dataclasses.replace(m.opt, iterations=CONVERGED_ITERS, ls_iterations=ELL_LS_ITERS)
+    return dataclasses.replace(m, opt=opt, cache={})
+
+
+def ell_zones(m, d):
+    """(bottom, middle, top) counts of the active elliptic contacts at the
+    solution d.qacc of the substep whose forward fields ``d`` holds."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+    from brax_tracking_tpu_torch.physics import constraint as Cn
+    from brax_tracking_tpu_torch.physics import solver as S
+
+    args, kw = S._kernel_args(m, d, Cn.efc_layout(m))
+    f, cdof, A, jsign, D, aref, exists, econ, qfs, qvel, damp, P, md, arm = args
+    Bm = ops_cg._bm(P, A, len(kw["root_bounds"]), md.shape[0])
+    _, J = ops_cg.assemble_qM_J(f, cdof, Bm, jsign, md, arm, row_slot=kw["row_slot"],
+                                sz=kw["sz"], root_bounds=kw["root_bounds"],
+                                limit_dadr=kw["limit_dadr"])
+    jar = (J @ d.qacc[..., None])[..., 0] - aref
+    nell, ell0 = len(kw["ell_mu"]), kw["ell0"]
+    je = jar[:, ell0 : ell0 + 3 * nell].reshape(-1, nell, 3)
+    mu = torch.as_tensor(kw["ell_mu"], dtype=jar.dtype)
+    sc = torch.as_tensor(kw["ell_scale"], dtype=jar.dtype)
+    n, t = je[..., 0], (je[..., 1:] * sc).norm(dim=-1)
+    bottom = econ & (mu * n + t <= 0)
+    middle = econ & ~bottom & (n < mu * t)
+    return int(bottom.sum()), int(middle.sum()), int((econ & ~bottom & ~middle).sum())
+
+
+def phase_elliptic_contacts(device, B, seed):
+    """One converged substep of B elliptic-minirat envs at seeded contact
+    states on ``device`` (float32) against the first ELL_ROW_ENVS of them on
+    the CPU in float64 (see ELL_ROW_RTOL); on the card it must launch
+    cg_solve_fused once and nothing else. Returns the gaps, the zone counts
+    and the launch counts."""
+    from brax_tracking_tpu_torch.physics import constraint as Cn
+    from brax_tracking_tpu_torch.physics import solver as S
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = converged(load("minirat_elliptic", device, torch.float32))
+    d = random_states(m, B, seed, vel=1.0)
+    reset_counts()
+    out = pstep.step(m, d, device=device)
+    counts = read_counts()
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": 1}
+    if device == "cuda" and counts != expected:
+        fail(f"minirat_elliptic contact substep launches {counts}, expected {expected}")
+    if not all(bool(torch.isfinite(getattr(out, k)).all()) for k in ("qpos", "qvel")):
+        fail("minirat_elliptic contact substep: state not finite")
+
+    m64 = converged(load("minirat_elliptic", "cpu"))
+    n = ELL_ROW_ENVS
+    cpu = lambda t: t[:n].detach().to("cpu", torch.float64 if t.is_floating_point() else t.dtype)
+    d64 = pstep.make_data(m64, n, device="cpu").replace(
+        **{k: cpu(getattr(d, k)) for k in ("qpos", "qvel", "ctrl")})
+    ref = pstep.step(m64, d64, device="cpu")
+    active = ref.efc_pos < ref.efc_margin
+    gaps = {}
+    for k in ("efc_D", "efc_aref", "efc_pos"):
+        r = getattr(ref, k)[active]
+        gaps[k] = float((cpu(getattr(out, k))[active] - r).abs().max() / r.abs().max())
+    gaps["con_A"] = float((cpu(out.con_A) - ref.con_A).abs().max() / ref.con_A.abs().max())
+    layout = Cn.efc_layout(m64)
+    a32, _ = S._kernel_args(m, out, Cn.efc_layout(m))
+    a64, _ = S._kernel_args(m64, ref, layout)
+    gaps["exists_mismatch"] = int((cpu(a32[6]) != a64[6]).sum())
+    gaps["exists_con_mismatch"] = int((cpu(a32[7]) != a64[7]).sum())
+    for k in ELL_STEP_ATOL:
+        gaps[k] = float((cpu(getattr(out, k))[:N_CPU_ENVS] - getattr(ref, k)[:N_CPU_ENVS])
+                        .abs().max())
+    zones = ell_zones(m64, ref)
+    bad = [k for k in ("efc_D", "efc_aref", "efc_pos", "con_A") if gaps[k] > ELL_ROW_RTOL]
+    bad += [k for k in ("exists_mismatch", "exists_con_mismatch") if gaps[k]]
+    bad += [k for k in ELL_STEP_ATOL if gaps[k] > ELL_STEP_ATOL[k]]
+    if bad:
+        fail(f"minirat_elliptic contact substep on {device} differs from the CPU float64 run "
+             f"in {bad}: {gaps} (limits {ELL_ROW_RTOL}, {ELL_STEP_ATOL})")
+    if min(zones) == 0:
+        fail(f"minirat_elliptic contact states: active elliptic contacts per zone (bottom, "
+             f"middle, top) {zones}: every zone must be reached")
+    return gaps, zones, counts
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +564,10 @@ def counted():
     from brax_tracking_tpu_torch.ops import cg as ops_cg
     from brax_tracking_tpu_torch.ops import cholesky as ops_chol
 
-    return {"cg_solve_fused": ops_cg.cg_solve_fused, "spd_inverse": ops_chol.spd_inverse,
-            "spd_inverse2": ops_chol.spd_inverse2, "spd_solve": ops_chol.spd_solve}
+    return {"cg_solve_fused": ops_cg.cg_solve_fused, "cg_solve_batched": ops_cg.cg_solve_batched,
+            "spd_inverse": ops_chol.spd_inverse, "spd_inverse2": ops_chol.spd_inverse2,
+            "spd_solve": ops_chol.spd_solve, "factor_batched": ops_chol.factor_batched,
+            "solve_batched": ops_chol.solve_batched}
 
 
 def reset_counts():
@@ -387,15 +593,25 @@ def spd_inputs(device, nv, B, seed):
     return M.float().contiguous(), b.float().contiguous(), damp.float().contiguous()
 
 
+def chol_inputs(name, M, b, damp):
+    """The inputs of ``name`` on the SPD matrices M: for solve_batched the
+    first is the upper factor of M (float64 factor, stored in float32)."""
+    from brax_tracking_tpu_torch.ops import cholesky as ops_chol
+
+    if name == "solve_batched":
+        M = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()
+    return M, b, damp
+
+
 def spd_run(name, M, b, damp, fn_kind):
-    """One of the SPD functions on (M, b, damp): fn_kind "kernel" (the
-    wrapper on M's device), "plain" or "plain64"; returns a tuple of
-    outputs."""
+    """One of the SPD functions on (M, b, damp) (M is the factor U for
+    solve_batched): fn_kind "kernel" (the wrapper on M's device), "plain"
+    or "plain64"; returns a tuple of outputs."""
     from brax_tracking_tpu_torch.ops import cholesky as ops_chol
 
     if fn_kind == "plain64":
         M, b, damp = M.double(), b.double(), damp.double()
-    if name == "spd_solve":
+    if name in ("spd_solve", "solve_batched"):
         args = (M, b)
     elif name == "spd_inverse2":
         args = (M, damp)
@@ -405,6 +621,10 @@ def spd_run(name, M, b, damp, fn_kind):
         out = getattr(ops_chol, name)(*args, device=M.device)
     elif name == "spd_solve":
         out = ops_chol.spd_solve_reference(*args)
+    elif name == "solve_batched":
+        out = ops_chol.cholesky_solve_reference(*args)
+    elif name == "factor_batched":
+        out = ops_chol.cholesky_factor_reference(M)
     elif name == "spd_inverse2":
         out = (ops_chol.sweep_inverse_reference(M),
                ops_chol.sweep_inverse_reference(M + torch.diag(damp)))
@@ -415,9 +635,16 @@ def spd_run(name, M, b, damp, fn_kind):
 
 def spd_residual(name, M, b, damp, outs):
     """Per-matrix float64 residual: ||M X - I||_max (for spd_inverse2 the
-    larger of its two inverses') or ||M x - b|| / ||b||."""
+    larger of its two inverses'), ||M x - b|| / ||b|| (for solve_batched M
+    = U^T U of its input factor U), ||U^T U - M||_max / ||M||_max for the
+    factor."""
     Md, outs = M.double(), [o.double() for o in outs]
-    if name == "spd_solve":
+    if name == "factor_batched":
+        U = outs[0]
+        return (U.transpose(-1, -2) @ U - Md).abs().amax((-1, -2)) / Md.abs().amax((-1, -2))
+    if name in ("spd_solve", "solve_batched"):
+        if name == "solve_batched":
+            Md = Md.transpose(-1, -2) @ Md
         bd = b.double()
         return ((Md @ outs[0][..., None])[..., 0] - bd).norm(dim=-1) / bd.norm(dim=-1)
     eye = torch.eye(M.shape[-1], dtype=torch.float64, device=M.device)
@@ -551,6 +778,94 @@ def phase_bm_first_substep_on_cpu(solver, first_in, first_out, n):
     return gaps
 
 
+# ---------------------------------------------------------------------------
+# Newton on the kernel layout and the smooth dynamics
+# ---------------------------------------------------------------------------
+
+
+def newton_ctrls(m, B, n, seed):
+    """n seeded ctrl draws, uniform in [-0.3, 0.3] (random_states' range)."""
+    g = torch.Generator(device=m.device).manual_seed(seed)
+    return [-0.3 + 0.6 * torch.rand(B, m.nu, generator=g, device=m.device, dtype=m.dtype)
+            for _ in range(n)]
+
+
+def phase_newton(device, B, seed, n=NEWTON_SUBSTEPS):
+    """``n`` substeps of B Newton minirat envs (Newton/100 on the kernel
+    layout: chunks of the solve kernel); the counts are set to 0 just before
+    and read just after. Fails on a non-finite state, or unless the
+    cg_solve_fused launches equal the chunks the solver reports and no other
+    kernel ran. Returns (counts, chunks per substep, the first substep's
+    input and output)."""
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = load("minirat_newton", device)
+    d = d0 = random_states(m, B, seed)
+    ctrls = newton_ctrls(m, B, n, seed)
+    reset_counts()
+    chunks, outs = [], []
+    for c in ctrls:
+        d = pstep.step(m, d.replace(ctrl=c), device=device)
+        chunks.append(d.solver_nchunk)
+        outs.append(d)
+    counts = read_counts()
+    for k, o in enumerate(outs):
+        for f in ("qpos", "qvel"):
+            if not bool(torch.isfinite(getattr(o, f)).all()):
+                fail(f"minirat_newton: {f} not finite at substep {k}")
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": sum(chunks)}
+    if device == "cuda" and counts != expected:
+        fail(f"minirat_newton launches {counts}, expected {expected} (chunks {chunks})")
+    return counts, chunks, d0.replace(ctrl=ctrls[0]), outs[0]
+
+
+def phase_newton_first_substep_on_cpu(first_in, first_out, n):
+    """The first Newton substep of ``n`` envs run again by the port on the
+    CPU in float64; returns the max gaps of qpos and qvel."""
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = load("minirat_newton", "cpu")
+    cpu = lambda t: t[:n].detach().to("cpu", torch.float64)
+    d = pstep.make_data(m, n, device="cpu").replace(
+        **{k: cpu(getattr(first_in, k)) for k in ("qpos", "qvel", "ctrl")}
+    )
+    d = pstep.step(m, d, device="cpu")
+    gaps = {k: float((getattr(d, k) - cpu(getattr(first_out, k))).abs().max())
+            for k in NEWTON_STEP_ATOL}
+    if any(gaps[k] > NEWTON_STEP_ATOL[k] for k in gaps):
+        fail(f"minirat_newton: first substep on the card differs from the CPU float64 "
+             f"run: {gaps} (limits {NEWTON_STEP_ATOL})")
+    return gaps
+
+
+def phase_smooth(device, B, seed):
+    """The smooth-dynamics entry points on B minirat states: crb with the
+    dense qM, factor_m (factor_batched) and solve_m of qfrc_smooth from the
+    factor (solve_batched); the counts are set to 0 just before the three
+    calls and read just after. Fails unless each kernel launched exactly
+    once and no other, or if the solve's float64 residual ||qM x - f|| /
+    ||f|| exceeds SMOOTH_RESIDUAL. Returns (counts, residual, qM, qLD, rhs)."""
+    from brax_tracking_tpu_torch.physics import dynamics as D
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = load("minirat", device)
+    d = pstep.forward_to_constraint(m, random_states(m, B, seed))
+    reset_counts()
+    d = D.crb(m, d, dense=True)
+    d = D.factor_m(m, d)
+    x = D.solve_m(m, d, d.qfrc_smooth)
+    counts = read_counts()
+    expected = dict.fromkeys(counts, 0) | {"factor_batched": 1, "solve_batched": 1}
+    if device == "cuda" and counts != expected:
+        fail(f"smooth dynamics launches {counts}, expected {expected}")
+    f = d.qfrc_smooth.double()
+    res = float(((d.qM.double() @ x.double()[..., None])[..., 0] - f).norm(dim=-1).div(
+        f.norm(dim=-1)).max())
+    if not bool(torch.isfinite(x).all()) or res > SMOOTH_RESIDUAL:
+        fail(f"smooth dynamics: solve_m residual {res:.3e} > {SMOOTH_RESIDUAL}")
+    return counts, res, d.qM.contiguous(), d.qLD.contiguous(), d.qfrc_smooth.contiguous()
+
+
 def spd_bound(name, B, nv):
     """Least time (ms) of one call on an H100 and what bounds it:
     max(bytes / HBM rate, FP32 operations / FP32 rate). Bytes: each input
@@ -558,11 +873,18 @@ def spd_bound(name, B, nv):
     2 nv^2 + nv per inverse (the symmetric sweep: per pivot a reciprocal,
     the pivot row scaled, one multiply-add on each entry of a triangle;
     Cholesky inversion, potrf + potri, also costs nv^3); the Cholesky
-    nv^3 / 3 + nv^2 / 2 and the two substitutions 2 nv^2 for the solve."""
+    nv^3 / 3 + nv^2 / 2 + nv (factor_batched), the two substitutions 2 nv^2
+    (solve_batched), both for spd_solve."""
     mat = 4 * B * nv * nv
     if name == "spd_solve":
         nbytes = mat + 2 * 4 * B * nv
         flops = B * (nv**3 / 3 + 2.5 * nv * nv + nv)
+    elif name == "factor_batched":
+        nbytes = 2 * mat
+        flops = B * (nv**3 / 3 + 0.5 * nv * nv + nv)
+    elif name == "solve_batched":
+        nbytes = mat + 2 * 4 * B * nv
+        flops = B * 2 * nv * nv
     else:
         ninv = 2 if name == "spd_inverse2" else 1
         nbytes = mat * (1 + ninv) + (4 * nv if ninv == 2 else 0)
@@ -594,15 +916,22 @@ def device_ms(fn, tag, reps=20):
 
 def spd_times(name, M, b, damp):
     """(kernel device ms per launch, kernel host-clock ms per launch, plain
-    ms, library ms) on the same inputs. The kernel is timed by its launch
-    alone; the library call is the one PyTorch call computing the same
-    function (torch.linalg.inv, twice for the pair, or torch.linalg.solve),
-    which the port never calls."""
+    ms, library ms) on the same inputs (M is the factor for solve_batched).
+    The kernel is timed by its launch alone; the library call is the one
+    PyTorch call computing the same function (torch.linalg.inv, twice for
+    the pair, torch.linalg.solve, torch.linalg.cholesky or
+    torch.cholesky_solve), which the port never calls."""
     from brax_tracking_tpu_torch.ops import cholesky as ops_chol
 
     if name == "spd_solve":
         kern = lambda: ops_chol._launch_solve(M, b)
         lib = lambda: torch.linalg.solve(M, b[..., None])
+    elif name == "factor_batched":
+        kern = lambda: ops_chol._launch_factor(M)
+        lib = lambda: torch.linalg.cholesky(M)
+    elif name == "solve_batched":  # M is the factor U
+        kern = lambda: ops_chol._launch_solve_factor(M, b)
+        lib = lambda: torch.cholesky_solve(b[..., None], M, upper=True)
     elif name == "spd_inverse2":
         kern = lambda: ops_chol._launch_inverse(M, damp, 2)
         lib = lambda: (torch.linalg.inv(M), torch.linalg.inv(M + torch.diag(damp)))
@@ -612,7 +941,8 @@ def spd_times(name, M, b, damp):
         lib = lambda: torch.linalg.inv(M)
     plain = lambda: spd_run(name, M, b, damp, "plain")
     reps = 50 if M.shape[-1] <= 73 else 10
-    tag = "spd_solve_kernel" if name == "spd_solve" else "spd_inverse_kernel"
+    tag = {"spd_solve": "spd_solve_kernel", "factor_batched": "factor_kernel",
+           "solve_batched": "solve_kernel"}.get(name, "spd_inverse_kernel")
     return (device_ms(kern, tag), time_cuda(kern, reps), time_cuda(plain, 3),
             time_cuda(lib, reps))
 
@@ -625,6 +955,23 @@ def bm_ms_per_substep(solver, B, n, seed):
     m = bm_model("cuda", solver)
     d = bm_posed(m, B)
     ctrls = bm_ctrls(m, B, n + 1, seed)
+    d = pstep.step(m, d.replace(ctrl=ctrls[0]), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in ctrls[1:]:
+        d = pstep.step(m, d.replace(ctrl=c), device="cuda")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def newton_ms_per_substep(B, n, seed):
+    """Host-clock ms per substep of B Newton minirat envs, after one warm
+    substep, ending in a synchronize."""
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = load("minirat_newton", "cuda")
+    d = random_states(m, B, seed)
+    ctrls = newton_ctrls(m, B, n + 1, seed)
     d = pstep.step(m, d.replace(ctrl=ctrls[0]), device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -648,76 +995,125 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_launch(args, kw):
-    """The kernel launch alone (no P A einsum, no argument checks), on the
-    main path's inputs: what ``ms`` times. Launches made here do not
-    count."""
+def _launch_statics(kw):
+    return dict(ell0=kw["ell0"], iters=kw["iters"], ls_iters=kw["ls_iters"], tol=kw["tol"],
+                dt=kw["dt"], has_damping=kw["has_damping"], stall_tol=kw.get("stall_tol", 0.0))
+
+
+def kernel_launch(args, kw, batched=False):
+    """The kernel launch alone (no P A einsum, no argument checks) on these
+    inputs: what ``ms`` times. Launches made here do not count."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
-    f, cdof, A, jsign, D, aref, exists, _, qfs, qvel, damp, P, md, arm = args
-    nroots = len(kw["root_bounds"])
-    Bm = ops_cg._bm(P, A, nroots, md.shape[0]).contiguous()
+    ell = ops_cg._ell_table(kw["ell_mu"], kw["ell_scale"], torch.float32, args[0].device)
+    ws, st = kw.get("warmstart"), _launch_statics(kw)
+    if batched:
+        return lambda: ops_cg._launch_batched(*args, ell, ws, **st)
+    f, cdof, A, jsign, D, aref, exists, econ, qfs, qvel, damp, P, md, arm = args
+    Bm = ops_cg._bm(P, A, len(kw["root_bounds"]), md.shape[0]).contiguous()
     tables = ops_cg._int_tables(kw["row_slot"], kw["sz"], kw["root_bounds"],
                                 kw["limit_dadr"], f.shape[-1], f.device)
-    statics = {k: kw[k] for k in ("iters", "ls_iters", "tol", "dt", "has_damping")}
-    return lambda: ops_cg._launch(f, cdof, Bm, jsign, D, aref, exists, qfs, qvel,
-                                  damp, md, arm, tables, **statics)
+    return lambda: ops_cg._launch(f, cdof, Bm, jsign, D, aref, exists, econ, qfs, qvel,
+                                  damp, md, arm, ell, ws, tables, **st)
 
 
-def iterations_run(args, kw):
+def iterations_run(args, kw, batched=False):
     """CG iterations each env runs (the kernel stops an env once it is
     done), from the float32 plain version's done flags after 1..iters-1
     iterations."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
+    plain = ops_cg.cg_solve_batched_reference if batched else ops_cg.cg_solve_fused_reference
     B = args[0].shape[0]
     its = torch.ones(B, device=args[0].device)
     for k in range(1, kw["iters"]):
-        done_k = ops_cg.cg_solve_fused_reference(*args, **dict(kw, iters=k))[5]
+        done_k = plain(*args, **dict(kw, iters=k))[5]
         its += (~done_k).float()
     return its
 
 
-def kernel_bound(args, kw, its):
+def kernel_bound(args, kw, its, batched=False):
     """Least time of one call on an H100: max(bytes / HBM rate, FLOPs /
     FP32 rate), counting each input read once and each output written once,
-    and the FLOPs of the iterations this data needs. qM is assembled only
-    at its lower-triangle ancestor pairs (it is symmetric and zero
-    elsewhere), and J only at its nonzeros (the md support of the contact
-    rows, one entry per limit row); the J products count those nonzeros."""
+    and the FLOPs of the iterations this data needs. For cg_solve_fused qM
+    is assembled only at its lower-triangle ancestor pairs (it is symmetric
+    and zero elsewhere) and J only at its nonzeros (the md support of the
+    contact rows, one entry per limit row); for cg_solve_batched the J
+    products count the nonzeros of the J it is given. A phi' evaluation
+    costs 6 FLOPs per quadratic row and 30 per elliptic contact; the
+    warmstart adds its cost (qM (ws - a0), J ws) to the start."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
-    f, cdof, A, jsign, D, aref, exists, _, qfs, qvel, damp, P, md, arm = args
-    B, _, nv = f.shape
-    nefc, ncon = D.shape[1], md.shape[0]
-    i = np.arange(nv)
-    sz = np.asarray(kw["sz"])
-    anc = int(((i[:, None] >= i[None, :]) & (i[:, None] < (i + sz)[None, :])).sum())
-    rs = np.asarray(kw["row_slot"])
-    j_con = int((md.cpu().numpy()[rs[rs >= 0]] != 0).sum())
-    j_nnz = j_con + len(kw["limit_dadr"])
-    nroots = len(kw["root_bounds"])
-    Bm = ops_cg._bm(P, A, nroots, ncon)
-    ins = (f, cdof, Bm, jsign, D, aref, exists, qfs, qvel, damp, md, arm)
-    nbytes = sum(t.numel() * t.element_size() for t in ins)
-    nbytes += 4 * (len(kw["row_slot"]) + 2 * nv + len(kw["limit_dadr"]))  # int tables
+    nell = len(kw["ell_mu"])
+    ws = kw.get("warmstart")
+    if batched:
+        qM, J, D, aref, exists, econ, qfs, qvel, damp = args
+        B, nefc, nv = J.shape
+        j_nnz = float((J != 0).sum()) / B
+        ins = list(args)
+        build = 0
+    else:
+        f, cdof, A, jsign, D, aref, exists, econ, qfs, qvel, damp, P, md, arm = args
+        B, _, nv = f.shape
+        nefc, ncon = D.shape[1], md.shape[0]
+        i = np.arange(nv)
+        sz = np.asarray(kw["sz"])
+        anc = int(((i[:, None] >= i[None, :]) & (i[:, None] < (i + sz)[None, :])).sum())
+        rs = np.asarray(kw["row_slot"])
+        j_con = int((md.cpu().numpy()[rs[rs >= 0]] != 0).sum())
+        j_nnz = j_con + len(kw["limit_dadr"])
+        Bm = ops_cg._bm(P, A, len(kw["root_bounds"]), ncon)
+        ins = [f, cdof, Bm, jsign, D, aref, exists, econ, qfs, qvel, damp, md, arm]
+        build = 12 * anc + nv + 12 * j_con  # qM (ancestor pairs, armature), contact rows of J
+        # int tables
+        ins.append(torch.empty(len(kw["row_slot"]) + 2 * nv + len(kw["limit_dadr"]),
+                               dtype=torch.int32))
+    if ws is not None:
+        ins.append(ws)
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + 12 * nell  # ell table
     nbytes += B * (4 * (4 * nv + nefc) + 1)  # qacc qfrc a0 qvel_new, force, done
     ls = kw["ls_iters"]
+    nquad = nefc - 3 * nell
+    cost = 6 * nquad + 30 * nell
     per_env = (
-        12 * anc + nv + 12 * j_con  # qM (ancestor pairs, armature), contact rows of J
+        build
         + nv**3 + 2 * nv * nv + nv + 2 * nv * nv  # SPD inverse (spd_bound), qacc_smooth
-        + 4 * j_nnz + 2 * nv * nv + 8 * nefc  # initial J x, J^T f, M^-1 grad
+        + 4 * j_nnz + 2 * nv * nv + 2 * nefc + cost  # initial J x, J^T f, M^-1 grad, cost
+        + (2 * nv * nv + 2 * j_nnz + cost + 4 * nv if ws is not None else 0)  # warmstart
         + 2 * j_nnz  # final J^T f
         + (nv**3 / 3 + 4 * nv * nv if kw["has_damping"] else 2 * nv)
     )
     per_iter = (
         4 * j_nnz + 4 * nv * nv + 20 * nv  # J p, J^T f, M p, M^-1 grad, dots
-        + 6 * nefc * (1 + 13 + ls) + 10 * nefc  # phi' evaluations, cost, step
+        + (6 * nquad + 30 * nell) * (1 + 13 + ls) + 4 * nefc + cost  # phi', step, cost
     )
     flops = float(B * per_env + its.sum().item() * per_iter)
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def fused_times(args, kw, batched=False):
+    """(kernel ms per launch, plain ms, bound ms, bound by, bytes, FLOPs,
+    mean CG iterations) of cg_solve_fused, or cg_solve_batched, on these
+    inputs."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    plain = ops_cg.cg_solve_batched_reference if batched else ops_cg.cg_solve_fused_reference
+    k_ms = time_cuda(kernel_launch(args, kw, batched), 100)
+    p_ms = time_cuda(lambda: plain(*args, **kw), 5)
+    its = iterations_run(args, kw, batched)
+    bound = kernel_bound(args, kw, its, batched)
+    return (k_ms, p_ms) + bound + (float(its.mean()),)
+
+
+def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+          library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"brax_tracking_tpu_torch/ops/csrc/{source}",
+            "replaces": f"brax_tracking_tpu/ops/{replaces}", "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def main() -> int:
@@ -727,7 +1123,7 @@ def main() -> int:
     from brax_tracking_tpu_torch.ops import cg as ops_cg
     from brax_tracking_tpu_torch.ops import library
     from brax_tracking_tpu_torch.physics import constraint as Cn
-    from brax_tracking_tpu_torch.physics import spec
+    from brax_tracking_tpu_torch.physics import solver as S
     from brax_tracking_tpu_torch.physics import step as pstep
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -740,48 +1136,77 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    m = spec.load_model(device="cuda", dtype=torch.float32)
-    nefc = Cn.efc_layout(m).nefc
-    print(f"kernel shared memory per env: {ops_cg.kernel_smem_bytes(m.nv, nefc)} B "
-          f"(nv={m.nv}, nefc={nefc})")
+    for model in MODELS:
+        m = load(model, "cuda", torch.float32)
+        layout = Cn.efc_layout(m)
+        nell = int(S._cone_meta(m, layout).ell_con.size)
+        print(f"{model}: kernel shared memory per env "
+              f"{ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell)} B (nv={m.nv}, "
+              f"nefc={layout.nefc}, elliptic contacts {nell})")
 
     # 3. kernels against their plain versions
-    for B, damped, iters in [(B_MAIN, False, None), (B_MAIN, True, None),
-                             (B_MAIN - 1, False, None), (B_MAIN - 1, True, None),
-                             (B_MAIN, False, CONVERGED_ITERS),
-                             (B_MAIN, True, CONVERGED_ITERS)]:
-        report, case = phase_kernel_vs_plain("cuda", B, damped, SEED, iters)
-        if (B, damped, iters) == (B_MAIN, False, None):
-            main_case, main_report = case, report
+    t0 = time.perf_counter()
+    cases = {}
+    for model, B, damped, iters in [
+        ("minirat", B_MAIN, False, None), ("minirat", B_MAIN, True, None),
+        ("minirat", B_MAIN - 1, False, None), ("minirat", B_MAIN - 1, True, None),
+        ("minirat", B_MAIN, False, CONVERGED_ITERS), ("minirat", B_MAIN, True, CONVERGED_ITERS),
+        ("minirat_elliptic", B_MAIN, False, None), ("minirat_elliptic", B_MAIN - 1, True, None),
+        ("minirat_elliptic", B_MAIN, False, CONVERGED_ITERS),
+        ("minirat_newton", B_MAIN, False, None), ("minirat_newton", B_MAIN - 1, False, None),
+    ]:
+        cases[model, B, damped, iters] = phase_kernel_vs_plain("cuda", B, damped, SEED, iters,
+                                                               model)
+    batched = {}
+    for model, B in [("minirat", B_MAIN), ("minirat_elliptic", B_MAIN),
+                     ("minirat_elliptic", B_MAIN - 1)]:
+        batched[model, B] = phase_kernel_vs_plain("cuda", B, False, SEED, None, model,
+                                                  batched=True)
     spd_cases = {}
     for nv in SPD_SIZES:
         for B in (B_MAIN, B_MAIN - 1):
             M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)
-            for name in SPD_KERNELS:
-                phase_spd_vs_plain(name, M, b, damp, "seeded", SPD_ABS)
+            for name in SPD_KERNELS + CHOL_KERNELS:
+                phase_spd_vs_plain(name, *chol_inputs(name, M, b, damp), "seeded", SPD_ABS)
             if B == B_MAIN:
                 spd_cases[nv] = (M, b, damp)
     bm = bm_model("cuda", "newton")
     dbm = pstep.forward_to_constraint(bm, bm_posed(bm, B_MAIN))
     bm_inputs = (dbm.qM.contiguous(), dbm.qfrc_smooth.contiguous(),
                  (bm.dof_damping * bm.opt.timestep).contiguous())
-    bm_reports = {name: phase_spd_vs_plain(name, *bm_inputs, "ballmuscle qM", SPD_ABS_BM)
-                  for name in SPD_KERNELS}
+    bm_reports = {name: phase_spd_vs_plain(name, *chol_inputs(name, *bm_inputs),
+                                           "ballmuscle qM", SPD_ABS_BM)
+                  for name in SPD_KERNELS + CHOL_KERNELS}
+    print(f"kernels against their plain versions: {time.perf_counter() - t0:.1f} s")
 
-    # 4. the minirat rollout
-    t0 = time.perf_counter()
-    env, counts, first_in, a0, first_out, last = phase_rollout("cuda", B_MAIN, SEED)
-    torch.cuda.synchronize()
-    launches = {"cg_solve_fused": counts["cg_solve_fused"]}
-    print(f"rollout: {B_MAIN} envs x {N_STEPS} control steps x {N_SUBSTEPS} substeps, "
-          f"first run {time.perf_counter() - t0:.1f} s, kernel launches {counts}")
-    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": N_STEPS * N_SUBSTEPS}
-    if counts != expected:
-        fail(f"kernel launches in the rollout: {counts}, expected {expected}")
-    print(f"rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
-          f"mean reward {float(last.reward.mean()):.4f}")
-    gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS)
-    print("first_step_vs_cpu_f64 " + json.dumps(gaps))
+    # 4. the tracking rollouts: minirat (the main path) and elliptic minirat
+    launches, envs = {}, {}
+    for model in ("minirat", "minirat_elliptic"):
+        t0 = time.perf_counter()
+        env, counts, first_in, a0, first_out, last, touching = phase_rollout(
+            "cuda", B_MAIN, SEED, model)
+        torch.cuda.synchronize()
+        envs[model] = env
+        print(f"{model} rollout: {B_MAIN} envs x {N_STEPS} control steps x {N_SUBSTEPS} "
+              f"substeps, first run {time.perf_counter() - t0:.1f} s, kernel launches {counts}")
+        expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": N_STEPS * N_SUBSTEPS}
+        if counts != expected:
+            fail(f"kernel launches in the {model} rollout: {counts}, expected {expected}")
+        if model == "minirat":
+            launches["cg_solve_fused"] = counts["cg_solve_fused"]
+            # cg_solve_batched lies on no step path (the JAX package has
+            # no caller either): the main path's count of it is 0 (gated)
+            launches["cg_solve_batched"] = counts["cg_solve_batched"]
+        print(f"{model} rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
+              f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
+              f"{touching:.4f}")
+        gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS, model)
+        print(f"{model}_first_step_vs_cpu_f64 " + json.dumps(gaps))
+    gaps, zones, counts = phase_elliptic_contacts("cuda", B_MAIN, SEED)
+    print(f"minirat_elliptic contact substep: {B_MAIN} envs, converged, kernel launches "
+          f"{counts}; active elliptic contacts per zone (bottom, middle, top) in the "
+          f"float64 solution of {ELL_ROW_ENVS} envs {zones}")
+    print("minirat_elliptic_contact_substep_vs_cpu_f64 " + json.dumps(gaps))
 
     # 5. the ballmuscle slice, CG (i) and Newton (ii)
     for solver, kernel in (("cg", "spd_inverse2"), ("newton", "spd_solve")):
@@ -799,82 +1224,106 @@ def main() -> int:
         gaps = phase_bm_first_substep_on_cpu(solver, bm_in, bm_out, N_CPU_ENVS)
         print(f"ballmuscle_{solver}_first_substep_vs_cpu_f64 " + json.dumps(gaps))
 
-    # 6. times
-    _, args, kw, _ = main_case
-    k_ms = time_cuda(kernel_launch(args, kw), 100)
-    w_ms = time_cuda(lambda: ops_cg.cg_solve_fused(*args, device="cuda", **kw), 100)
-    p_ms = time_cuda(lambda: ops_cg.cg_solve_fused_reference(*args, **kw), 5)
-    its = iterations_run(args, kw)
-    bound_ms, bound_by, nbytes, flops = kernel_bound(args, kw, its)
-    print(f"kernel: {k_ms * 1e3:.1f} us/launch at B={B_MAIN} (wrapper with the P A "
-          f"einsum {w_ms * 1e3:.1f} us/call; plain {p_ms:.3f} ms; bound "
-          f"{bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, {flops:.3e} FLOP, "
-          f"mean CG iterations {float(its.mean()):.2f}) on {card}")
-    entries = [{
-        "name": "cg_solve_fused",
-        "route": "cuda",
-        "source": "brax_tracking_tpu_torch/ops/csrc/cg_fused.cu",
-        "replaces": "brax_tracking_tpu/ops/cg.py:863",
-        "launches": launches["cg_solve_fused"],
-        "max_abs_err": max(main_report[n]["kernel_max"] for n in SCORED),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
+    # 6. Newton on the kernel layout
+    t0 = time.perf_counter()
+    counts, chunks, nt_in, nt_out = phase_newton("cuda", B_MAIN, SEED)
+    torch.cuda.synchronize()
+    print(f"minirat_newton: {B_MAIN} envs x {NEWTON_SUBSTEPS} substeps, first run "
+          f"{time.perf_counter() - t0:.1f} s, kernel launches {counts} (chunks per substep "
+          f"{chunks})")
+    gaps = phase_newton_first_substep_on_cpu(nt_in, nt_out, N_CPU_ENVS)
+    print("minirat_newton_first_substep_vs_cpu_f64 " + json.dumps(gaps))
+
+    # 7. the smooth dynamics: crb (dense) -> factor_m -> solve_m
+    counts, res, qM, qLD, rhs = phase_smooth("cuda", B_MAIN, SEED)
+    launches.update(factor_batched=counts["factor_batched"], solve_batched=counts["solve_batched"])
+    print(f"smooth dynamics: {B_MAIN} minirat envs, kernel launches {counts}, solve_m "
+          f"residual {res:.3e}")
+    mr_damp = torch.zeros(qM.shape[-1], device="cuda")
+    chol_reports = {name: phase_spd_vs_plain(name, *chol_inputs(name, qM, rhs, mr_damp),
+                                             "minirat qM", SPD_ABS_BM)
+                    for name in CHOL_KERNELS}
+
+    # 8. times
+    entries = []
+    for model, key in (("minirat", ("minirat", B_MAIN, False, None)),
+                       ("minirat_elliptic", ("minirat_elliptic", B_MAIN, False, None)),
+                       ("minirat_newton", ("minirat_newton", B_MAIN, False, None))):
+        report, (_, args, kw, _) = cases[key]
+        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw)
+        print(f"cg_solve_fused on {model}: {k_ms * 1e3:.1f} us/launch at B={B_MAIN} (plain "
+              f"{p_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, "
+              f"{flops:.3e} FLOP, mean CG iterations {its:.2f}) on {card}")
+        if model == "minirat":
+            w_ms = time_cuda(lambda: ops_cg.cg_solve_fused(*args, device="cuda", **kw), 100)
+            print(f"cg_solve_fused wrapper with the P A einsum on minirat: {w_ms * 1e3:.1f} "
+                  f"us/call on {card}")
+            entries.append(entry(
+                "cg_solve_fused", "cg_fused.cu", "cg.py:863", launches["cg_solve_fused"],
+                max(report[n]["kernel_max"] for n in SCORED), k_ms, p_ms, bound_ms, bound_by,
+                None))
+    for model in ("minirat", "minirat_elliptic"):
+        report, (_, args, kw, _) = batched[model, B_MAIN]
+        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw, batched=True)
+        print(f"cg_solve_batched on {model}: {k_ms * 1e3:.1f} us/launch at B={B_MAIN} (plain "
+              f"{p_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, "
+              f"{flops:.3e} FLOP, mean CG iterations {its:.2f}) on {card}")
+        if model == "minirat":
+            entries.append(entry(
+                "cg_solve_batched", "cg_fused.cu", "cg.py:552", launches["cg_solve_batched"],
+                max(report[n]["kernel_max"] for n in SCORED), k_ms, p_ms, bound_ms, bound_by,
+                None))
     spd_meta = {
         "spd_inverse": ("spd_inverse.cu", 362),
         "spd_inverse2": ("spd_inverse.cu", 388),
         "spd_solve": ("spd_solve.cu", 489),
+        "factor_batched": ("cholesky.cu", 180),
+        "solve_batched": ("cholesky.cu", 206),
     }
-    for name in SPD_KERNELS:
+    for name in SPD_KERNELS + CHOL_KERNELS:
         for nv in SPD_SIZES:
-            t = spd_times(name, *spd_cases[nv])
+            t = spd_times(name, *chol_inputs(name, *spd_cases[nv]))
             bnd = spd_bound(name, B_MAIN, nv)
             print(f"{name} nv={nv} B={B_MAIN}: kernel {t[0] * 1e3:.2f} us/launch on the "
                   f"device ({t[1] * 1e3:.2f} us/launch on the host clock), plain "
                   f"{t[2]:.3f} ms, library {t[3] * 1e3:.2f} us, bound {bnd[0] * 1e3:.2f} us by "
                   f"{bnd[1]} ({bnd[2]} B, {bnd[3]:.3e} FLOP) on {card}")
-        # the JSON line holds each kernel at the main path's shape: the
-        # ballmuscle's own mass matrices (nv=7, B=2048)
-        t = spd_times(name, *bm_inputs)
-        bnd = spd_bound(name, B_MAIN, bm.nv)
-        print(f"{name} on the ballmuscle's qM (nv={bm.nv}, B={B_MAIN}): kernel "
+        # the JSON line holds each kernel at its path's shape: the
+        # ballmuscle's own mass matrices (nv=7) for the SPD kernels, the
+        # minirat's (nv=10) for the factor and the solve; B=2048
+        if name in CHOL_KERNELS:
+            ins, where, nv, rep = (qM, rhs, mr_damp), "minirat", qM.shape[-1], chol_reports[name]
+        else:
+            ins, where, nv, rep = bm_inputs, "ballmuscle", bm.nv, bm_reports[name]
+        t = spd_times(name, *chol_inputs(name, *ins))
+        bnd = spd_bound(name, B_MAIN, nv)
+        print(f"{name} on the {where}'s qM (nv={nv}, B={B_MAIN}): kernel "
               f"{t[0] * 1e3:.2f} us/launch on the device ({t[1] * 1e3:.2f} us on the host "
-              f"clock), plain {t[2]:.3f} ms, library {t[3] * 1e3:.2f} us on {card}")
+              f"clock), plain {t[2]:.3f} ms, library {t[3] * 1e3:.2f} us, bound "
+              f"{bnd[0] * 1e3:.3f} us by {bnd[1]} on {card}")
         src, line = spd_meta[name]
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"brax_tracking_tpu_torch/ops/csrc/{src}",
-            "replaces": f"brax_tracking_tpu/ops/cholesky.py:{line}",
-            "launches": launches[name],
-            "max_abs_err": bm_reports[name]["max_abs_err"],
-            "ms": t[0],
-            "plain_ms": t[2],
-            "bound_ms": bnd[0],
-            "bound_by": bnd[1],
-            "library_ms": t[3],
-        })
+        entries.append(entry(name, src, f"cholesky.py:{line}", launches[name],
+                             rep["max_abs_err"], t[0], t[2], bnd[0], bnd[1], t[3]))
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    state = env.reset(gen, B_MAIN)
-    acts = [2.0 * torch.rand(B_MAIN, env.action_size, generator=gen, device="cuda") - 1.0
-            for _ in range(N_STEPS)]
-    state = env.step(state, acts[0])  # warmup
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for a in acts:
-        state = env.step(state, a)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    sps = B_MAIN * N_STEPS / dt
-    print(f"rollout: {sps:.0f} env-steps/s ({dt / N_STEPS * 1e3:.2f} ms per control step "
-          f"of {B_MAIN} envs) on {card}")
+    for model, env in envs.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        state = env.reset(gen, B_MAIN)
+        acts = [2.0 * torch.rand(B_MAIN, env.action_size, generator=gen, device="cuda") - 1.0
+                for _ in range(N_STEPS)]
+        state = env.step(state, acts[0])  # warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            state = env.step(state, a)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"{model} rollout: {B_MAIN * N_STEPS / dt:.0f} env-steps/s ({dt / N_STEPS * 1e3:.2f} "
+              f"ms per control step of {B_MAIN} envs) on {card}")
     for solver in ("cg", "newton"):
         ms = bm_ms_per_substep(solver, B_MAIN, 10, SEED + 2)
         print(f"ballmuscle {solver}: {ms:.2f} ms per substep of {B_MAIN} envs on {card}")
+    ms = newton_ms_per_substep(B_MAIN, 10, SEED + 2)
+    print(f"minirat_newton: {ms:.2f} ms per substep of {B_MAIN} envs on {card}")
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

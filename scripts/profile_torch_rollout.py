@@ -3,10 +3,11 @@
     python3 scripts/profile_torch_rollout.py [--model minirat] [--envs 2048] [--steps 3]
 
 Run from the root of a checkout on a machine with a CUDA card. ``--model
-minirat`` builds the same env as chip_smoke.py (GenericSingleClip +
-wrappers, 10 substeps) and a step is a control step; ``ballmuscle_cg`` and
-``ballmuscle_newton`` step chip_smoke.py's posed ballmuscle states through
-``physics.step`` and a step is one substep. It warms up, then profiles
+minirat`` and ``minirat_elliptic`` build the same envs as chip_smoke.py
+(GenericSingleClip + wrappers, 10 substeps) and a step is a control step;
+``ballmuscle_cg`` and ``ballmuscle_newton`` step chip_smoke.py's posed
+ballmuscle states, ``minirat_newton`` its seeded Newton minirat states,
+through ``physics.step`` and a step is one substep. It warms up, then profiles
 ``--steps`` steps with torch.profiler and prints one JSON line: wall ms per
 step (timed without the profiler, then with it), device busy ms per step
 (sum of the device times of CUDA kernels and copies; one stream, so they
@@ -33,8 +34,8 @@ import chip_smoke  # noqa: E402
 
 def _stepper(model: str, envs: int):
     """(advance, substeps per step) for the profiled model."""
-    if model == "minirat":
-        env = chip_smoke.make_env("cuda")
+    if model in ("minirat", "minirat_elliptic"):
+        env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
         box = [env.reset(gen, envs)]
         act = lambda: 2.0 * torch.rand(envs, env.action_size, generator=gen, device="cuda") - 1.0
@@ -45,12 +46,18 @@ def _stepper(model: str, envs: int):
         return advance, chip_smoke.N_SUBSTEPS
     from brax_tracking_tpu_torch.physics import step as pstep
 
-    m = chip_smoke.bm_model("cuda", model.split("_")[1])
-    box = [chip_smoke.bm_posed(m, envs)]
+    if model == "minirat_newton":
+        m = chip_smoke.load(model, "cuda")
+        box = [chip_smoke.random_states(m, envs, 0)]
+        lo, width = -0.3, 0.6
+    else:
+        m = chip_smoke.bm_model("cuda", model.split("_")[1])
+        box = [chip_smoke.bm_posed(m, envs)]
+        lo, width = -0.5, 1.5
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def advance():
-        ctrl = -0.5 + 1.5 * torch.rand(envs, m.nu, generator=gen, device="cuda")
+        ctrl = lo + width * torch.rand(envs, m.nu, generator=gen, device="cuda")
         box[0] = pstep.step(m, box[0].replace(ctrl=ctrl), device="cuda")
 
     return advance, 1
@@ -59,7 +66,8 @@ def _stepper(model: str, envs: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="minirat",
-                    choices=("minirat", "ballmuscle_cg", "ballmuscle_newton"))
+                    choices=("minirat", "minirat_elliptic", "minirat_newton",
+                             "ballmuscle_cg", "ballmuscle_newton"))
     ap.add_argument("--envs", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -98,7 +106,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     # the port's own kernels (ops/csrc), by device time per launch
     ours = {k: v for k, v in by_name.items() if any(
-        tag in k for tag in ("cg_fused_kernel", "spd_inverse_kernel", "spd_solve_kernel"))}
+        tag in k for tag in ("cg_fused_kernel", "cg_batched_kernel", "spd_inverse_kernel",
+                             "spd_solve_kernel", "factor_kernel", "solve_kernel"))}
     n_sub = args.steps * substeps
     print(json.dumps({
         "card": card,

@@ -154,11 +154,15 @@ def _variant(m, **changes):
 )
 def test_unported_features_raise(feature, monkeypatch):
     """Features the port does not cover raise NotImplementedError naming
-    the ROADMAP item, rather than computing something else. ``newton`` is
-    Newton on the kernel layout (the JAX package's fused branch);
-    ``smem_refused`` a model the JAX package sends to the kernel path whose
-    env does not fit one block's shared memory (here by shrinking the
-    limit): the port raises rather than run another algorithm."""
+    the ROADMAP item, rather than computing something else. ``elliptic`` is
+    elliptic cones with torsional friction (condim 4); ``newton`` is Newton
+    off the kernel layout (200 iterations, past the kernel's 128) on a model
+    with contacts, whose dense contact rows are not ported; ``smem_refused``
+    a model the JAX package sends to the kernel path whose env does not fit
+    one block's shared memory (here by shrinking the limit): the port raises
+    rather than run another algorithm."""
+    import dataclasses
+
     from brax_tracking_tpu_torch.ops import cg
     from brax_tracking_tpu_torch.physics import step
 
@@ -171,45 +175,64 @@ def test_unported_features_raise(feature, monkeypatch):
     gt[1] = TM.GEOM_SPHERE
     trn[0] = TM.TRN_SITE
     dyn[0] = 5  # mjDYN_USER
+    condim4 = dataclasses.replace(m.pairs, condim=np.full_like(m.pairs.condim, 4))
     changes = dict(
         slide=dict(jnt_type=jt),
         sensors=dict(nsensor=1),
         site_transmission=dict(actuator_trntype=trn),
         fluid=dict(has_fluid=True),
         user_dynamics=dict(actuator_dyntype=dyn),
-        elliptic=dict(opt=dict(cone=TM.CONE_ELLIPTIC)),
-        newton=dict(opt=dict(solver=TM.SOLVER_NEWTON)),
+        elliptic=dict(opt=dict(cone=TM.CONE_ELLIPTIC), pairs=condim4),
+        newton=dict(opt=dict(solver=TM.SOLVER_NEWTON, iterations=200)),
         geom_pair=dict(geom_type=gt),
         smem_refused=dict(),
     )[feature]
     if feature == "smem_refused":
         monkeypatch.setattr(cg, "H100_SMEM_PER_BLOCK", 1000)
     mv = _variant(m, **changes)
-    match = {"newton": r"B\.1\(c\)", "smem_refused": r"A\.10"}.get(feature, "ROADMAP.md")
+    match = {"elliptic": r"A\.12", "newton": r"A\.9", "smem_refused": r"A\.10"}.get(
+        feature, "ROADMAP.md"
+    )
     with pytest.raises(NotImplementedError, match=match):
         step.step(mv, step.make_data(mv, 2, device="cpu"), device="cpu")
 
 
+def _kernel_args(B=2):
+    """The solve kernel's arguments at B minirat states, elliptic model."""
+    from brax_tracking_tpu_torch.physics import constraint as Cn
+    from brax_tracking_tpu_torch.physics import solver as S
+    from brax_tracking_tpu_torch.physics import step
+
+    m = tspec.load_model(tspec.MINIRAT_ELLIPTIC_NPZ, device="cpu")
+    d = step.forward_to_constraint(m, step.make_data(m, B, device="cpu"))
+    return S._kernel_args(m, d, Cn.efc_layout(m))
+
+
 def test_solve_kernel_rejects_warmstart_and_stall_exit():
+    """The warmstart and the stall exit are ported (B.1(c)); the wrapper
+    rejects a warmstart of the wrong shape and a stall tolerance outside
+    [0, 1) before running anything."""
     from brax_tracking_tpu_torch.ops import cg
 
-    z = torch.zeros(1, 0)
-    kw = dict(iters=1, ls_iters=1, tol=0.0, dt=0.0, has_damping=False,
-              row_slot=(), sz=(), root_bounds=(), limit_dadr=(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cg.cg_solve_fused(*(z,) * 14, warmstart=z, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cg.cg_solve_fused(*(z,) * 14, stall_tol=1e-6, **kw)
+    args, kw = _kernel_args()
+    ws = torch.zeros(2, 10, dtype=torch.float64)
+    cg.cg_solve_fused(*args, warmstart=ws, stall_tol=4e-6, device="cpu", **kw)
+    with pytest.raises(ValueError, match="warmstart"):
+        cg.cg_solve_fused(*args, warmstart=ws[:, :3], device="cpu", **kw)
+    with pytest.raises(ValueError, match="stall_tol"):
+        cg.cg_solve_fused(*args, stall_tol=1.5, device="cpu", **kw)
 
 
 def test_solve_kernel_rejects_elliptic_rows():
-    """A non-empty elliptic activation (exists_con) is the one sign of
-    elliptic rows the solve takes, and it raises."""
+    """Elliptic rows are ported (B.1(b)); the wrapper rejects an activation
+    (exists_con) that does not match the elliptic statics, and a block that
+    does not fit the rows."""
     from brax_tracking_tpu_torch.ops import cg
 
-    z = torch.zeros(1, 0)
-    args = [z] * 14
-    args[7] = torch.zeros(1, 3, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cg.cg_solve_fused(*args, iters=1, ls_iters=1, tol=0.0, dt=0.0, has_damping=False,
-                          row_slot=(), sz=(), root_bounds=(), limit_dadr=(), device="cpu")
+    args, kw = _kernel_args()
+    out = cg.cg_solve_fused(*args, device="cpu", **kw)
+    assert out[1].shape == (2, 70)
+    with pytest.raises(ValueError, match="exists_con"):
+        cg.cg_solve_fused(*args, device="cpu", **dict(kw, ell_mu=(), ell_scale=()))
+    with pytest.raises(ValueError, match="does not fit"):
+        cg.cg_solve_fused(*args, device="cpu", **dict(kw, ell0=10))
