@@ -23,9 +23,12 @@ qM, M^-1 and J live in shared memory for the whole solve, so between the
 input reads and the result writes nothing touches device memory: the
 kernel reads its inputs once (~3.6 KB per env at the minirat). On the
 roofline a call is bound by its bytes, just above its FP32 operations;
-what the kernel actually waits on is the serial chain of small dependent
-reductions (matvecs, 14 + ls_iters line-search sums per iteration), which
-it keeps to shuffles within one warp. Envs that converge leave the
+what the kernel actually waits on is one env's chain of dependent steps:
+the assembly's loads, the sweep, and per iteration the products, the
+bracket, the line search and the step. The core keeps that chain short:
+independent sums share one warp butterfly, the 13 bracket candidates are
+evaluated in one pass, J^T f reduces 16 columns at a time, and the sweep
+of a matrix up to 32 wide runs in registers. Envs that converge leave the
 iteration loop early. The two entry points share one device-side core and
 differ only in how qM and J reach shared memory.
 
@@ -51,19 +54,24 @@ from brax_tracking_tpu_torch.physics import model as M
 MINVAL = M.MINVAL
 # floats of nv-length scratch vectors the kernel keeps per env (see the
 # layout in csrc/cg_fused.cu: x a0 mxa grad mgrad gradn mgradn p mp qfs
-# tmp rowbuf colbuf)
-_NVEC = 13
+# tmp rowbuf colbuf, then f and cdof, 6 each, staged for the assembly)
+_NVEC = 13 + 12
 H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
 
 
-def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0) -> int:
+def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
+                      ncon: int = 0) -> int:
     """Shared memory one env's block needs: qM, M^-1 and J (row stride
-    padded to odd), six nefc-vectors, the nv-vectors and four per-contact
-    vectors of the elliptic block (activation, mu and the two tangent
-    scales), all float32. The launch passes this size to the kernel, which
-    carves it up in this order (csrc/cg_fused.cu)."""
+    padded to odd), six nefc-vectors, the nv-vectors (with f and cdof
+    staged for the assembly) and four per-contact vectors of the elliptic
+    block (activation, mu and the two tangent scales), then for
+    cg_solve_fused the rest of the assembly's inputs (P A, nroots x 6
+    nefc-vectors, and the (ncon, nv) support masks), all float32. The launch
+    passes this size to the kernel, which carves it up in this order
+    (csrc/cg_fused.cu)."""
     ld = nv | 1
-    return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv + 4 * nell)
+    return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv + 4 * nell
+                + 6 * nroots * nefc + ncon * nv)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +138,8 @@ def _outputs(B, nv, nefc, like):
                 done=torch.empty(B, dtype=torch.bool, device=like.device))
 
 
-def _smem(name, nv, nefc, nell):
-    smem = kernel_smem_bytes(nv, nefc, nell)
+def _smem(name, nv, nefc, nell, nroots=0, ncon=0):
+    smem = kernel_smem_bytes(nv, nefc, nell, nroots, ncon)
     if smem > H100_SMEM_PER_BLOCK:
         raise ValueError(
             f"{name} kernel: nv={nv}, nefc={nefc} needs {smem} B of "
@@ -149,6 +157,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
     nefc = D.shape[1]
     nlim = jsign.shape[1]
     nroots = Bm.shape[1] // 6
+    ncon = md.shape[0]
     nell = exists_con.shape[1]
     fl = dict(f=f, cdof=cdof, Bm=Bm, jsign=jsign, D=D, aref=aref,
               qfrc_smooth=qfrc_smooth, qvel=qvel, damp=damp, md=md,
@@ -156,7 +165,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
     if warmstart is not None:
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_fused", fl, dict(exists=exists, exists_con=exists_con))
-    smem = _smem("cg_solve_fused", nv, nefc, nell)
+    smem = _smem("cg_solve_fused", nv, nefc, nell, nroots, ncon)
     row_slot, sz, root_of_dof, limit_dadr = tables
     outs = _outputs(B, nv, nefc, f)
     ptr = library.ptr
@@ -168,7 +177,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
         ws,
         *(ptr(t) for t in (row_slot, sz, root_of_dof, limit_dadr)),
         *(ptr(t) for t in outs.values()),
-        B, nv, nefc, nlim, nroots, nell, ell0, smem, iters, ls_iters,
+        B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, iters, ls_iters,
         int(has_damping), int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
         ctypes.c_void_p(stream),

@@ -15,18 +15,26 @@ Replaces the TPU kernels of ``brax_tracking_tpu/ops/cholesky.py``:
   ``dynamics.factor_m`` and the qLD branch of ``dynamics.solve_m``.
 
 Hopper design (``csrc/spd_inverse.cu``, ``csrc/spd_solve.cu``,
-``csrc/cholesky.cu``, the last two on the block-level pieces of
-``csrc/cholesky.cuh``): one block per matrix, the matrix in shared memory
+``csrc/cholesky.cu``): one block per matrix, the matrix in shared memory
 for the whole factor or sweep, each input read once and each output written
-once. The sweep is bound by its FP32 operations at rodent size, the
-Cholesky kernels by their bytes; at the ballmuscle's nv = 7 all are bound
-by launch latency. Each source says more.
+once. ``spd_solve`` and ``solve_batched`` run the block-level pieces of
+``csrc/cholesky.cuh`` (one pivot per step). ``factor_batched`` has a
+factor of its own: one warp per matrix in registers up to nv = 32, above
+that a blocked factor in panels of 16 rows with the trailing update in
+register tiles (``factor_geometry`` gives its launch). The sweep is bound
+by its FP32 operations at rodent size, the Cholesky kernels by their
+bytes; at the ballmuscle's nv = 7 all are bound by launch latency. Each
+source says more.
 
 ``sweep_inverse_reference``, ``cholesky_factor_reference``,
 ``cholesky_solve_reference`` and ``spd_solve_reference`` are the plain
-PyTorch versions, in the kernels' elimination order. A wrapper runs them
-only for tensors on the CPU; CUDA tensors go to the kernel (float32,
-contiguous) or the call raises.
+PyTorch versions: the functions each kernel computes, and its yardstick.
+They eliminate one pivot at a time; the kernels apply each entry's updates
+in the same pivot order but contract them to fused multiply-adds, use the
+hardware reciprocal square root and, in the blocked factor, group the
+pivots in panels, so they agree with the plain versions to rounding, not
+bitwise. A wrapper runs the plain versions only for tensors on the CPU;
+CUDA tensors go to the kernel (float32, contiguous) or the call raises.
 """
 
 from __future__ import annotations
@@ -53,10 +61,34 @@ def solve_smem_bytes(nv: int) -> int:
     return 4 * (nv * (nv | 1) + nv)
 
 
+# factor_batched: widths up to FACTOR_WARP_MAX take one warp per matrix and
+# no shared memory; wider ones the blocked factor in panels of FACTOR_NB rows
+# (csrc/cholesky.cu), where each thread solves at most one panel column
+FACTOR_WARP_MAX = 32
+FACTOR_NB = 16
+_FACTOR_WARPS_PER_BLOCK = 4
+
+
 def factor_smem_bytes(nv: int) -> int:
-    """Shared memory of one factor_batched block: the factor (row stride
-    nv | 1), float32."""
-    return 4 * nv * (nv | 1)
+    """Shared memory of one factor_batched block: none up to
+    FACTOR_WARP_MAX, else the matrix with rows and row stride padded to a
+    multiple of 4 (16-byte tiles), float32."""
+    if nv <= FACTOR_WARP_MAX:
+        return 0
+    ld = -(-nv // 4) * 4
+    return 4 * ld * ld
+
+
+def factor_geometry(B: int, nv: int) -> Tuple[int, int, int]:
+    """(blocks, threads per block, shared memory bytes per block) of a
+    factor_batched launch on B matrices of width nv: up to
+    FACTOR_WARP_MAX, 4 matrices per 128-thread block; above, one block per
+    matrix with enough threads for one panel column each (128 up to
+    nv = 144, else 256)."""
+    if nv <= FACTOR_WARP_MAX:
+        w = _FACTOR_WARPS_PER_BLOCK
+        return -(-B // w), 32 * w, 0
+    return B, (128 if nv - FACTOR_NB <= 128 else 256), factor_smem_bytes(nv)
 
 
 # ---------------------------------------------------------------------------
@@ -83,9 +115,11 @@ def sweep_inverse_reference(a: torch.Tensor) -> torch.Tensor:
 
 def cholesky_factor_reference(a: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor U (a = U^T U, zero below the diagonal) of SPD a
-    (B, n, n): right-looking, one pivot at a time (the TPU kernels'
-    ``_factor_kernel`` / ``_factor_ref_blocked``), in the CUDA kernels'
-    order."""
+    (B, n, n), from a's upper triangle: right-looking, one pivot at a time
+    (the function of the TPU kernels' ``_factor_kernel`` /
+    ``_factor_ref_blocked``). The CUDA kernels compute the same function
+    and apply each entry's updates in the same pivot order, but not
+    bitwise (module docstring)."""
     U = a.clone()
     for k in range(a.shape[-1]):
         U[:, k, k:] = U[:, k, k:] * torch.rsqrt(U[:, k, k])[:, None]
@@ -164,12 +198,12 @@ def _launch_solve(qM: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _launch_factor(qM: torch.Tensor) -> torch.Tensor:
     B, nv, _ = qM.shape
-    smem = factor_smem_bytes(nv)
+    _, threads, smem = factor_geometry(B, nv)
     _check_kernel_args("factor_batched", smem, qM=qM)
     U = torch.empty_like(qM)
     stream = torch.cuda.current_stream(qM.device).cuda_stream
     err = library.lib().cholesky_factor_launch(
-        library.ptr(qM), library.ptr(U), B, nv, smem, stream
+        library.ptr(qM), library.ptr(U), B, nv, threads, smem, stream
     )
     library.check("factor_batched", err)
     return U

@@ -16,25 +16,73 @@
 // warp owns one env and one block holds one warp. qM, M^-1 and J stay in
 // shared memory for the whole solve (row stride padded to an odd count so
 // lane-per-row reads are free of bank conflicts), so the kernel reads its
-// inputs once and writes its outputs once. What bounds it is the chain of
-// small dependent reductions (J p, M p, 14 + ls_iters line-search sums per
-// CG iteration), each a few shuffle steps; envs run concurrently across
-// warps (2048 envs = 2048 warps, ~16 per SM). A warp leaves the iteration
-// loop as soon as its env has converged: the frozen iterate is the result,
-// and the done flag it writes is the one the TPU kernel's freeze leaves.
+// inputs once and writes its outputs once. All 2048 envs are resident at
+// once (~16 warps per SM), so a launch lasts about as long as one env's
+// chain of dependent steps; the bytes and FP32 operations are 30-60x below
+// that. A warp leaves the iteration loop as soon as its env has converged:
+// the frozen iterate is the result, and the done flag it writes is the one
+// the TPU kernel's freeze leaves.
 //
+// What bounds it, and what the design does about it. clock64 stamps of PR
+// 3's kernel (scripts/stamp_solve_kernel.py; minirat, one warp per env)
+// split an env's 152K cycles into the assembly 17%, the sweep 16%, the 13
+// bracket evaluations 21%, the step with its nv column sums 19%. Each phase
+// is a chain of shared-memory round trips, warp barriers and 5-level
+// shuffle reductions, and the 16 warps of an SM share its shared-memory and
+// shuffle pipe, so the design cuts both the chain and the traffic:
+// - the assembly: every input of an env (f, cdof, P A, the support masks
+//   md, the tables, the per-env vectors) is staged in shared memory by one
+//   batch of cp.async copies, so it waits on one memory latency instead of
+//   one per J row and per md entry; qM one lane per row, J one lane per row
+//   with the row's six P A entries in registers; the dense kernel loads qM
+//   and J by the same copies;
+// - the sweep inverse of an n <= 16 matrix runs in registers (lane j holds
+//   column j, each pivot's column comes from lane k by shuffles: no barrier
+//   and no shared-memory traffic until the columns are written), wider ones
+//   in shared memory one row at a time, without an integer divide;
+// - reductions: xor butterflies with no broadcast from lane 0 (both
+//   partners add the same two values, so every lane holds bitwise the same
+//   sums and takes the same branches), and independent sums reduced
+//   together: p.Mp, p.mxa, phi'(0) and phi''(0) in one butterfly of four
+//   (phi'(0) and phi''(0) come out of the J p pass, each lane's own rows);
+//   each line-search step's (phi', phi'') as a pair; the two cost terms,
+//   |grad|^2 and Polak-Ribiere's numerator and denominator as five;
+// - the bracket: phi' at all 13 candidates in one pass over the rows (13
+//   partial sums per lane in registers), reduced by a transposing butterfly
+//   (16 shuffles for 13 sums) and handed to every lane by one ballot; the
+//   bracket and the line search read a lane's rows from registers (up to
+//   96 rows, without the elliptic block);
+// - J p and M p: p in registers (up to 16 dofs), one lane per output row;
+// - the step (up to 16 dofs) in one pass over the rows: J alpha p into
+//   J a - aref, each row's force and cost term, and its J^T force terms for
+//   all columns in registers, whose 16 column sums share one transposing
+//   butterfly (warp_sum_scatter16) instead of one reduction per column;
+//   lane v then forms M^-1 grad for its dof and keeps it in a register.
+//   The start without a warmstart takes the same pass (J a0 - aref). Wider
+//   models run the same steps as separate passes (J^T f 16 columns at a
+//   time);
+// - the line search: a converged step leaves (alpha, lo, hi) as they are,
+//   so every later step would repeat it, and the warp leaves the loop there
+//   (a Newton chunk's data needs about 2 of its 16 steps, chip_smoke.py's
+//   line_search_steps).
+// 2048 envs fit one wave (16 one-warp blocks per SM: the launch bound caps
+// the registers at 128, and the minirat's 11.2 KB of shared memory per env
+// leaves room), so a launch lasts about one env's chain.
+
 // The elliptic block. The TPU kernel permutes the block to [n*C][t1*C][t2*C]
 // for its sublanes; here each lane takes whole contacts in their input order
 // [n, t1, t2] (rows ell0 + 3c + {0, 1, 2}), so nothing is permuted. The
 // per-contact zone logic (bottom: three quadratics; middle: the cone's
 // quadratic in n - mu t; top: no force) adds into the same per-lane partial
 // sums as the quadratic rows, so the cost and each phi' / phi'' evaluation
-// stay one warp reduction. mu and the two tangent scales are a per-model
-// (3, nell) array, staged with each env's contact activation in shared
-// memory. The core is compiled twice (template kEll), so a model without the
-// block runs loops with no trace of it: with the block's code in every
-// phi' evaluation the minirat's solve took 94 us per launch instead of the
-// 83 us it took before the block existed (H100, 2048 envs).
+// share the quadratic rows' reductions; the bracket forms each contact's
+// direction terms once for its 13 candidates. mu and the two tangent scales
+// are a per-model (3, nell) array, staged with each env's contact
+// activation in shared memory. The core is compiled twice (template kEll),
+// so a model without the block runs loops with no trace of it: with the
+// block's code in every phi' evaluation the minirat's solve took 94 us per
+// launch instead of the 83 us it took before the block existed (H100, 2048
+// envs).
 //
 // Warmstart (mj_warmstart): the cost at the warmstart (one extra qM (ws - a0)
 // product) against the cost at qacc_smooth; the cheaper one starts CG. Only
@@ -43,11 +91,6 @@
 // improvement < stall_tol |cost| to the done flag. Both are compiled in only
 // where a launch asks for either (template kWarm; a Newton chunk asks for
 // both), so a plain CG launch runs none of their tests in its loops.
-//
-// Products: J x and M x put one lane on each output row (serial dot over
-// nv); J^T f reduces each column over the rows across the warp. Every
-// reduction ends with a broadcast from lane 0, so all lanes hold bitwise the
-// same scalars and take the same branches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,65 +100,210 @@ namespace {
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMinval = 1e-15f;
+// 16 one-warp blocks per SM hold 2048 envs in one wave on the H100's 132
+// SMs; the launch bound keeps the kernels within the 128 registers per
+// thread that allows
+constexpr int kBlocksPerSm = 16;
 
 __device__ inline int lead(int nv) { return nv | 1; }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// N independent warp sums by xor butterflies, issued together (5 levels for
+// all N). Every lane ends with bitwise the same sums: at each level the two
+// partners add the same two values, and IEEE addition commutes.
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&v)[N]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return __shfl_sync(kFull, v, 0);
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] += __shfl_xor_sync(kFull, v[k], o);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  float w[1] = {v};
+  warp_sums(w);
+  return w[0];
+}
+
+// The warp sums of 16 per-lane values by a transposing butterfly: at each
+// level a lane keeps half of its values and trades the other half with its
+// partner (8 + 4 + 2 + 1 + 1 shuffles instead of 16 x 5). Returns the sum of
+// v[lane >> 1]: lanes 2c and 2c + 1 hold column c, bitwise equal (their last
+// step adds the same two values).
+__device__ __forceinline__ float warp_sum_scatter16(const float (&v)[16], int lane) {
+  float w8[8], w4[4], w2[2];
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4, h1 = lane & 2;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    w8[q] = (h4 ? v[q + 8] : v[q]) + __shfl_xor_sync(kFull, h4 ? v[q] : v[q + 8], 16);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    w4[q] = (h3 ? w8[q + 4] : w8[q]) + __shfl_xor_sync(kFull, h3 ? w8[q] : w8[q + 4], 8);
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    w2[q] = (h2 ? w4[q + 2] : w4[q]) + __shfl_xor_sync(kFull, h2 ? w4[q] : w4[q + 2], 4);
+  float w1 = (h1 ? w2[1] : w2[0]) + __shfl_xor_sync(kFull, h1 ? w2[0] : w2[1], 2);
+  return w1 + __shfl_xor_sync(kFull, w1, 1);
+}
+
+__device__ __forceinline__ float dot_row(const float* a, const float* x, int n) {
+  float s = 0.f;
+  for (int j = 0; j < n; ++j) s += a[j] * x[j];
+  return s;
+}
+
+// a . x over n <= 16 columns with x in registers, in dot_row's order
+__device__ __forceinline__ float dot16(const float* a, const float (&x)[16], int n) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < n) s += a[j] * x[j];
+  return s;
 }
 
 // y[i] = sum_j A[i, j] x[j], A row-major with stride ld; one lane per row
 __device__ __forceinline__ void matvec(const float* A, int ld, const float* x,
                                        float* y, int nrow, int ncol, int lane) {
-  for (int i = lane; i < nrow; i += kWarp) {
-    const float* a = A + i * ld;
-    float s = 0.f;
-    for (int j = 0; j < ncol; ++j) s += a[j] * x[j];
-    y[i] = s;
-  }
+  for (int i = lane; i < nrow; i += kWarp) y[i] = dot_row(A + i * ld, x, ncol);
   __syncwarp();
 }
 
-// y[v] = sum_r J[r, v] f[r]; each column reduced across the warp
+// y[v] = sum_r J[r, v] f[r] for every column: each lane accumulates its
+// rows' terms for 16 columns in registers, and the 16 column sums are
+// reduced together (warp_sum_scatter16); lane 2c writes column c.
 __device__ __forceinline__ void matvec_t(const float* J, int ld, const float* f,
                                          float* y, int nrow, int ncol, int lane) {
-  for (int v = 0; v < ncol; ++v) {
-    float s = 0.f;
-    for (int r = lane; r < nrow; r += kWarp) s += J[r * ld + v] * f[r];
-    s = warp_sum(s);
-    if (lane == 0) y[v] = s;
+  for (int v0 = 0; v0 < ncol; v0 += 16) {
+    float acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] = 0.f;
+    for (int r = lane; r < nrow; r += kWarp) {
+      const float fr = f[r];
+      const float* a = J + r * ld + v0;
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        if (v0 + c < ncol) acc[c] += a[c] * fr;
+    }
+    const float sum = warp_sum_scatter16(acc, lane);
+    const int c = lane >> 1;
+    if (!(lane & 1) && v0 + c < ncol) y[v0 + c] = sum;
   }
   __syncwarp();
 }
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int n, int lane) {
-  float s = 0.f;
-  for (int i = lane; i < n; i += kWarp) s += a[i] * b[i];
-  return warp_sum(s);
-}
-
-// In-place SPD inverse by the sweep operator (same elimination order and
-// update formulas as the plain version).
-__device__ void sweep_inverse(float* S, int ld, int n, float* rowb, float* colb, int lane) {
+// S = A^-1 for SPD A (both n x n, stride ld) by the sweep operator, in the
+// plain version's elimination order and update formulas. Up to kSweepReg
+// wide in registers: lane j holds column j, and each pivot's column comes
+// from lane k by shuffles, with no shared-memory traffic or barrier until
+// the columns are written. Wider matrices in shared memory: per pivot the
+// pivot row and column are staged in rowb and colb, then each lane updates
+// its columns of every row (no integer divide per element).
+constexpr int kSweepReg = 16;
+__device__ void sweep_inverse(const float* A, float* S, int ld, int n, float* rowb,
+                              float* colb, int lane) {
+  if (n <= kSweepReg) {
+    const int j = lane < n ? lane : 0;  // lanes past n shadow column 0
+    float c[kSweepReg];
+#pragma unroll
+    for (int i = 0; i < kSweepReg; ++i) c[i] = (i < n) ? A[i * ld + j] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kSweepReg; ++k) {
+      if (k < n) {
+        const float dinv = 1.f / __shfl_sync(kFull, c[k], k);
+        const float rk = c[k] * dinv;  // S[k, j] / S[k, k]
+#pragma unroll
+        for (int i = 0; i < kSweepReg; ++i) {
+          if (i < n && i != k) {
+            const float ci = __shfl_sync(kFull, c[i], k);  // S[i, k]
+            c[i] = (j == k) ? -ci * dinv : c[i] - ci * rk;
+          }
+        }
+        c[k] = (j == k) ? dinv : rk;
+      }
+    }
+    if (lane < n) {
+#pragma unroll
+      for (int i = 0; i < kSweepReg; ++i)
+        if (i < n) S[i * ld + lane] = c[i];
+    }
+    __syncwarp();
+    return;
+  }
+  for (int i = 0; i < n; ++i)
+    for (int j = lane; j < n; j += kWarp) S[i * ld + j] = A[i * ld + j];
   for (int k = 0; k < n; ++k) {
+    __syncwarp();
     for (int i = lane; i < n; i += kWarp) {
       rowb[i] = S[k * ld + i];
       colb[i] = S[i * ld + k];
     }
     __syncwarp();
     const float dinv = 1.f / rowb[k];
-    for (int e = lane; e < n * n; e += kWarp) {
-      const int i = e / n, j = e - i * n;
-      float v;
-      if (i == k && j == k) v = dinv;
-      else if (i == k) v = rowb[j] * dinv;
-      else if (j == k) v = -colb[i] * dinv;
-      else v = S[i * ld + j] - colb[i] * (rowb[j] * dinv);
-      S[i * ld + j] = v;
+    for (int i = 0; i < n; ++i) {
+      const float ci = colb[i];
+      for (int j = lane; j < n; j += kWarp) {
+        float v;
+        if (i == k && j == k) v = dinv;
+        else if (i == k) v = rowb[j] * dinv;
+        else if (j == k) v = -ci * dinv;
+        else v = S[i * ld + j] - ci * (rowb[j] * dinv);
+        S[i * ld + j] = v;
+      }
     }
-    __syncwarp();
+  }
+  __syncwarp();
+}
+
+// 4 bytes from device to shared memory without passing through registers
+// (cp.async): a lane issues all its copies before it waits for any, so the
+// staging of an env's inputs costs about one memory latency.
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+#else
+  *static_cast<float*>(dst) = *static_cast<const float*>(src);
+#endif
+}
+
+// waits for every copy_async of this lane, then for the warp's
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+  __syncwarp();
+}
+
+// n 4-byte words src -> dst (both contiguous), asynchronously
+__device__ __forceinline__ void copy_vec(void* dst, const void* src, int n, int lane) {
+  for (int i = lane; i < n; i += kWarp)
+    copy_async(static_cast<float*>(dst) + i, static_cast<const float*>(src) + i);
+}
+
+// The row-major (nrow, ncol) src into dst (row stride ld), asynchronously:
+// consecutive lanes on consecutive elements.
+__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, int nrow,
+                                          int ncol, int lane) {
+  int i = lane / ncol, j = lane - i * ncol;
+  while (i < nrow) {
+    copy_async(dst + i * ld + j, src + i * ncol + j);
+    j += kWarp;
+    while (j >= ncol) {
+      j -= ncol;
+      ++i;
+    }
+  }
+}
+
+// n 0/1 bytes src -> dst as 1.f / 0.f, up to 8 loads in flight per lane
+__device__ __forceinline__ void load_flags(float* dst, const uint8_t* src, int n, int lane) {
+  for (int i0 = lane; i0 < n; i0 += 8 * kWarp) {
+    uint8_t v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = (i0 + q * kWarp < n) ? __ldg(src + i0 + q * kWarp) : 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (i0 + q * kWarp < n) dst[i0 + q * kWarp] = v[q] ? 1.f : 0.f;
   }
 }
 
@@ -143,12 +331,14 @@ struct Args {
 
 // The dynamic shared memory of one env's block, whose size the caller
 // computes (ops/cg.py::kernel_smem_bytes): qM, Mi (M^-1, later the damped
-// factor), J, six nefc-vectors, thirteen nv-vectors, four nell-vectors.
+// factor), J, six nefc-vectors, thirteen nv-vectors, four nell-vectors, and
+// f and cdof (6 x nv each) staged for the assembly.
 struct Smem {
   float *qM, *Mi, *J;
   float *Dv, *ar, *ex, *jar, *jarp, *force;
   float *x, *a0, *mxa, *grad, *mgrad, *gradn, *mgradn, *p, *mp, *qfs, *tmp, *rowb, *colb;
   float *econ, *mu, *sc1, *sc2;
+  float *fs, *cs;
 };
 
 __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
@@ -180,26 +370,24 @@ __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
   s.mu = s.econ + nell;
   s.sc1 = s.mu + nell;
   s.sc2 = s.sc1 + nell;
+  s.fs = s.sc2 + nell;
+  s.cs = s.fs + 6 * nv;
   return s;
 }
 
-// The per-env vectors into shared memory. Inputs are read through the
-// read-only cache (__ldg): the Args struct's pointers carry no __restrict__,
-// and plain loads through them cost the minirat's solve ~3% (H100).
+// The per-env vectors into shared memory: the floats by async copies, the
+// flags by batched loads issued while those copies are in flight; waits for
+// this launch's earlier copy_async calls too.
 __device__ __forceinline__ void load_env(const Args& a, const Smem& s, int b, int lane) {
-  for (int r = lane; r < a.nefc; r += kWarp) {
-    s.Dv[r] = __ldg(a.D + (size_t)b * a.nefc + r);
-    s.ar[r] = __ldg(a.aref + (size_t)b * a.nefc + r);
-    s.ex[r] = __ldg(a.exists + (size_t)b * a.nefc + r) ? 1.f : 0.f;
-  }
-  for (int v = lane; v < a.nv; v += kWarp) s.qfs[v] = __ldg(a.qfrc_smooth + (size_t)b * a.nv + v);
-  for (int c = lane; c < a.nell; c += kWarp) {
-    s.econ[c] = __ldg(a.exists_con + (size_t)b * a.nell + c) ? 1.f : 0.f;
-    s.mu[c] = __ldg(a.ell + c);
-    s.sc1[c] = __ldg(a.ell + a.nell + c);
-    s.sc2[c] = __ldg(a.ell + 2 * a.nell + c);
-  }
-  __syncwarp();
+  copy_vec(s.Dv, a.D + (size_t)b * a.nefc, a.nefc, lane);
+  copy_vec(s.ar, a.aref + (size_t)b * a.nefc, a.nefc, lane);
+  copy_vec(s.qfs, a.qfrc_smooth + (size_t)b * a.nv, a.nv, lane);
+  copy_vec(s.mu, a.ell, a.nell, lane);
+  copy_vec(s.sc1, a.ell + a.nell, a.nell, lane);
+  copy_vec(s.sc2, a.ell + 2 * a.nell, a.nell, lane);
+  load_flags(s.ex, a.exists + (size_t)b * a.nefc, a.nefc, lane);
+  load_flags(s.econ, a.exists_con + (size_t)b * a.nell, a.nell, lane);
+  copy_wait();
 }
 
 struct Phi {
@@ -247,11 +435,12 @@ __device__ __forceinline__ float ell_cost_force(const float* jar, const float* D
   return c;
 }
 
-// The constraint cost at jar (quadratic rows and, with kEll, the elliptic
-// block); with kForce the per-row forces go to `force`.
+// One lane's share of twice the constraint cost at jar (quadratic rows and,
+// with kEll, the elliptic block); with kForce the per-row forces go to
+// `force`. Ends with a __syncwarp.
 template <bool kEll, bool kForce>
-__device__ __forceinline__ float cost_force(const Args& a, const Smem& s, const float* jar,
-                                            float* force, int lane) {
+__device__ __forceinline__ float cost_part(const Args& a, const Smem& s, const float* jar,
+                                           float* force, int lane) {
   float c = 0.f;
   const float* Dv = s.Dv;
   const float* ex = s.ex;
@@ -267,7 +456,14 @@ __device__ __forceinline__ float cost_force(const Args& a, const Smem& s, const 
                         a.nell, a.ell0, lane);
   }
   __syncwarp();
-  return 0.5f * warp_sum(c);
+  return c;
+}
+
+// The constraint cost at jar, reduced over the warp.
+template <bool kEll, bool kForce>
+__device__ __forceinline__ float cost_force(const Args& a, const Smem& s, const float* jar,
+                                            float* force, int lane) {
+  return 0.5f * warp_sum(cost_part<kEll, kForce>(a, s, jar, force, lane));
 }
 
 // grad = mxa - J^T force into `grad`, M^-1 grad into `mgrad`
@@ -278,6 +474,60 @@ __device__ __forceinline__ void gradients(const Args& a, const Smem& s, const fl
   for (int v = lane; v < a.nv; v += kWarp) grad[v] = mxa[v] - s.tmp[v];
   __syncwarp();
   matvec(s.Mi, ld, grad, mgrad, a.nv, a.nv, lane);
+}
+
+// One pass over the rows for nv <= 16: each row's new jar = jar_of(r), its
+// force and cost term, and its J^T force terms for every column in
+// registers, so each row is visited once (the step, and the start without a
+// warmstart); the column sums are reduced together (warp_sum_scatter16)
+// into `jtf`, where lane 2c holds column c. Returns the lane's share of
+// twice the constraint cost.
+template <bool kEll, typename JarOf>
+__device__ __forceinline__ float rows_pass16(const Args& a, const Smem& s, JarOf jar_of,
+                                             float& jtf, int lane) {
+  const int nv = a.nv, ld = lead(nv), nefc = a.nefc;
+  float acc[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) acc[c] = 0.f;
+  auto add_row = [&](int r, float fr) {
+    const float* Jr = s.J + r * ld;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      if (c < nv) acc[c] += Jr[c] * fr;
+  };
+  float cost = 0.f;
+  for (int r = lane; r < nefc; r += kWarp) {
+    const float jr = jar_of(r);
+    s.jar[r] = jr;
+    const float act = (jr < 0.f) ? s.ex[r] : 0.f;
+    const float fr = -s.Dv[r] * jr * act;
+    s.force[r] = fr;
+    cost += act * s.Dv[r] * jr * jr;
+    add_row(r, fr);
+  }
+  if (kEll) {
+    __syncwarp();  // the elliptic rows' jar and zero forces, written above
+    cost += ell_cost_force(s.jar, s.Dv, s.econ, s.mu, s.sc1, s.sc2, s.force, a.nell, a.ell0,
+                           lane);
+    for (int k = lane; k < a.nell; k += kWarp) {
+      const int r = a.ell0 + 3 * k;
+      for (int q = 0; q < 3; ++q) add_row(r + q, s.force[r + q]);
+    }
+  }
+  jtf = warp_sum_scatter16(acc, lane);
+  __syncwarp();
+  return cost;
+}
+
+// For nv <= 16, from J^T force in `jtf` (lane 2c holds column c): grad = mxa
+// - J^T force into `grad`; returns M^-1 grad at lane v's dof (0 on lanes
+// past nv).
+__device__ __forceinline__ float grad16(const Args& a, const Smem& s, float jtf,
+                                        float* grad, int lane) {
+  const int nv = a.nv, c = lane >> 1;
+  if (!(lane & 1) && c < nv) grad[c] = s.mxa[c] - jtf;
+  __syncwarp();
+  return lane < nv ? dot_row(s.Mi + lane * lead(nv), grad, nv) : 0.f;
 }
 
 // One lane's share of the elliptic block's (phi', phi'') at alpha.
@@ -320,22 +570,57 @@ __device__ __forceinline__ Phi ell_dphi(const float* jar, const float* jarp, con
   return out;
 }
 
+// The lane's quadratic rows r = lane + 32 q, q < kRowCache, in registers
+// for the bracket and the line search (jar, J p, D J p, exists), where the
+// model has at most kRowCache * 32 rows; rows past nefc hold zeros, which
+// add exact zeros. Wider models, and models with the elliptic block (whose
+// rows are mostly elliptic, and whose bracket needs the registers), read the
+// rows from shared memory.
+constexpr int kRowCache = 3;
+struct RowCache {
+  float jr[kRowCache], jp[kRowCache], djp[kRowCache], e[kRowCache];
+  bool on;
+  template <bool kEll>
+  __device__ __forceinline__ void fill(const Smem& s, int nefc, int lane) {
+    on = !kEll && nefc <= kRowCache * kWarp;
+    if (!on) return;
+#pragma unroll
+    for (int q = 0; q < kRowCache; ++q) {
+      const int r = lane + q * kWarp;
+      const bool in = r < nefc;
+      jr[q] = in ? s.jar[r] : 0.f;
+      jp[q] = in ? s.jarp[r] : 0.f;
+      djp[q] = in ? s.Dv[r] * jp[q] : 0.f;
+      e[q] = in ? s.ex[r] : 0.f;
+    }
+  }
+};
+
+// one quadratic row's share of (phi', phi'') at alpha
+__device__ __forceinline__ void dphi_row(float jr, float jp, float djp, float e, float alpha,
+                                         float& d, float& dd) {
+  const float ja = jr + alpha * jp;
+  const float act = (ja < 0.f) ? e : 0.f;
+  d += act * djp * ja;
+  dd += act * djp * jp;
+}
+
 // (phi'(alpha), phi''(alpha)) along the search direction
 template <bool kEll>
-__device__ __forceinline__ Phi dphi(const Args& a, const Smem& s, float alpha, float gauss_p,
-                                    float pmp, int lane) {
+__device__ __forceinline__ Phi dphi(const Args& a, const Smem& s, const RowCache& rc, float alpha,
+                                    float gauss_p, float pmp, int lane) {
   const float* jar = s.jar;
   const float* jarp = s.jarp;
   const float* Dv = s.Dv;
   const float* ex = s.ex;
   const int nefc = a.nefc;
   float d = 0.f, dd = 0.f;
-  for (int r = lane; r < nefc; r += kWarp) {
-    const float ja = jar[r] + alpha * jarp[r];
-    const float act = (ja < 0.f) ? ex[r] : 0.f;
-    const float djp = Dv[r] * jarp[r];
-    d += act * djp * ja;
-    dd += act * djp * jarp[r];
+  if (rc.on) {
+#pragma unroll
+    for (int q = 0; q < kRowCache; ++q) dphi_row(rc.jr[q], rc.jp[q], rc.djp[q], rc.e[q], alpha, d, dd);
+  } else {
+    for (int r = lane; r < nefc; r += kWarp)
+      dphi_row(jar[r], jarp[r], Dv[r] * jarp[r], ex[r], alpha, d, dd);
   }
   if (kEll) {
     const Phi e = ell_dphi(jar, jarp, s.Dv, s.econ, s.mu, s.sc1, s.sc2, alpha, a.nell, a.ell0,
@@ -343,10 +628,81 @@ __device__ __forceinline__ Phi dphi(const Args& a, const Smem& s, float alpha, f
     d += e.d;
     dd += e.dd;
   }
+  float v[2] = {d, dd};
+  warp_sums(v);  // the pair in one butterfly
   Phi out;
-  out.d = gauss_p + alpha * pmp + warp_sum(d);
-  out.dd = pmp + warp_sum(dd);
+  out.d = gauss_p + alpha * pmp + v[0];
+  out.dd = pmp + v[1];
   return out;
+}
+
+// The bracket's candidate k, guess * 2^k (k < 13), formed where it is used
+// (a product with a power of two is exact, so every use is bitwise the same)
+__device__ __forceinline__ float candidate(float guess, int k) { return guess * (float)(1 << k); }
+
+// phi' at the 13 bracket candidates in one pass over the rows: each lane
+// keeps 13 partial sums in registers, reduced together by the transposing
+// butterfly; lane l tests candidate l >> 1 and a ballot hands every lane
+// the same mask: bit 2k is set where phi'(guess * 2^k) >= 0.
+template <bool kEll>
+__device__ __forceinline__ unsigned bracket(const Args& a, const Smem& s, const RowCache& rc,
+                                            float guess, float gauss_p, float pmp, int lane) {
+  const float* jar = s.jar;
+  const float* jarp = s.jarp;
+  const float* Dv = s.Dv;
+  const float* ex = s.ex;
+  const int nefc = a.nefc;
+  float d[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) d[k] = 0.f;
+  // one quadratic row's share of phi' at the 13 candidates
+  auto row = [&](float jr, float jp, float djp, float e) {
+#pragma unroll
+    for (int k = 0; k < 13; ++k) {
+      const float ja = jr + candidate(guess, k) * jp;
+      const float act = (ja < 0.f) ? e : 0.f;
+      d[k] += act * djp * ja;
+    }
+  };
+  if (rc.on) {
+#pragma unroll
+    for (int q = 0; q < kRowCache; ++q) row(rc.jr[q], rc.jp[q], rc.djp[q], rc.e[q]);
+  } else {
+    for (int r = lane; r < nefc; r += kWarp) row(jar[r], jarp[r], Dv[r] * jarp[r], ex[r]);
+  }
+  if (kEll) {
+    // the elliptic block: each lane's contacts, their direction-only terms
+    // formed once for all 13 candidates (ell_dphi's phi' per candidate)
+    for (int c = lane; c < a.nell; c += kWarp) {
+      if (s.econ[c] == 0.f) continue;
+      const int r = a.ell0 + 3 * c;
+      const float n0 = jar[r], t10 = jar[r + 1], t20 = jar[r + 2];
+      const float np = jarp[r], p1 = jarp[r + 1], p2 = jarp[r + 2];
+      const float mu = s.mu[c], sc1 = s.sc1[c], sc2 = s.sc2[c];
+      const float dn = Dv[r], d1 = Dv[r + 1], d2 = Dv[r + 2];
+      const float up1 = p1 * sc1, up2 = p2 * sc2;
+      const float dm = dn / fmaxf(1.f + mu * mu, kMinval);
+#pragma unroll
+      for (int k = 0; k < 13; ++k) {
+        const float ck = candidate(guess, k);
+        const float n = n0 + ck * np, t1 = t10 + ck * p1, t2 = t20 + ck * p2;
+        const float u1 = t1 * sc1, u2 = t2 * sc2;
+        const float t = sqrtf(fmaxf(u1 * u1 + u2 * u2, kMinval * kMinval));
+        const bool bottom = mu * n + t <= 0.f;
+        if (bottom) {
+          d[k] += dn * n * np + d1 * t1 * p1 + d2 * t2 * p2;
+        } else if (n < mu * t) {  // middle
+          const float nmt = n - mu * t;
+          const float tprime = (u1 * up1 + u2 * up2) / t;
+          d[k] += dm * nmt * (np - mu * tprime);
+        }
+      }
+    }
+  }
+  const float sum = warp_sum_scatter16(d, lane);
+  const int k = lane >> 1;
+  const bool pos = k < 13 && gauss_p + candidate(guess, k) * pmp + sum >= 0.f;
+  return __ballot_sync(kFull, pos);
 }
 
 // The solve once qM (also copied into Mi), J and the per-env vectors are in
@@ -360,7 +716,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
   const int ld = lead(nv);
 
   // ---- M^-1 (stays in shared memory) and qacc_smooth
-  sweep_inverse(s.Mi, ld, nv, s.rowb, s.colb, lane);
+  sweep_inverse(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
   matvec(s.Mi, ld, s.qfs, s.a0, nv, nv, lane);
 
   // ---- start at x = a0 (mxa = 0, so the gauss term is 0)
@@ -369,11 +725,31 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
     s.mxa[v] = 0.f;
   }
   __syncwarp();
-  matvec(s.J, ld, s.x, s.jar, nefc, nv, lane);
-  for (int r = lane; r < nefc; r += kWarp) s.jar[r] -= s.ar[r];
-  __syncwarp();
-  // without kWarm x = a0 is the start: its forces are formed here
-  float cost = cost_force<kEll, !kWarm>(a, s, s.jar, s.force, lane);
+  const bool narrow = nv <= 16;
+  float cost;
+  if (!kWarm && narrow) {
+    // x = a0 is the start: J x - aref, the forces, the cost and J^T force in
+    // one row pass (a0 in registers), then the gradients
+    float xr[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) xr[c] = c < nv ? s.a0[c] : 0.f;
+    float jtf;
+    cost = 0.5f * warp_sum(rows_pass16<kEll>(
+                      a, s, [&](int r) { return dot16(s.J + r * ld, xr, nv) - s.ar[r]; }, jtf,
+                      lane));
+    const float mg = grad16(a, s, jtf, s.grad, lane);
+    if (lane < nv) {
+      s.mgrad[lane] = mg;
+      s.p[lane] = -mg;
+    }
+    __syncwarp();
+  } else {
+    matvec(s.J, ld, s.x, s.jar, nefc, nv, lane);
+    for (int r = lane; r < nefc; r += kWarp) s.jar[r] -= s.ar[r];
+    __syncwarp();
+    // without kWarm x = a0 is the start: its forces are formed here
+    cost = cost_force<kEll, !kWarm>(a, s, s.jar, s.force, lane);
+  }
   if (kWarm && a.has_ws) {
     // candidate ws: x in p, qM (ws - a0) in mp, J ws - aref in jarp
     for (int v = lane; v < nv; v += kWarp) {
@@ -385,8 +761,10 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
     matvec(s.J, ld, s.p, s.jarp, nefc, nv, lane);
     for (int r = lane; r < nefc; r += kWarp) s.jarp[r] -= s.ar[r];
     __syncwarp();
-    const float cost_w =
-        cost_force<kEll, false>(a, s, s.jarp, nullptr, lane) + 0.5f * dot(s.tmp, s.mp, nv, lane);
+    float cw[2] = {cost_part<kEll, false>(a, s, s.jarp, nullptr, lane), 0.f};
+    for (int v = lane; v < nv; v += kWarp) cw[1] += s.tmp[v] * s.mp[v];
+    warp_sums(cw);
+    const float cost_w = 0.5f * cw[0] + 0.5f * cw[1];
     if (cost_w < cost) {  // uniform: every lane holds the same costs
       for (int v = lane; v < nv; v += kWarp) {
         s.x[v] = s.p[v];
@@ -397,85 +775,137 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
       cost = cost_w;
     }
   }
-  if (kWarm) cost_force<kEll, true>(a, s, s.jar, s.force, lane);  // the chosen start
-  gradients(a, s, s.mxa, s.grad, s.mgrad, lane);
-  for (int v = lane; v < nv; v += kWarp) s.p[v] = -s.mgrad[v];
-  __syncwarp();
+  if (kWarm) cost_part<kEll, true>(a, s, s.jar, s.force, lane);  // the chosen start's forces
+  if (kWarm || !narrow) {
+    gradients(a, s, s.mxa, s.grad, s.mgrad, lane);
+    for (int v = lane; v < nv; v += kWarp) s.p[v] = -s.mgrad[v];
+    __syncwarp();
+  }
 
   bool done = false;
   const int iters = a.iters, ls_iters = a.ls_iters;
   const float tol = a.tol, stall_tol = a.stall_tol;
   for (int it = 0; it < iters; ++it) {
     if (done) break;  // frozen: later iterations would not change the iterate
-    matvec(s.J, ld, s.p, s.jarp, nefc, nv, lane);
-    matvec(s.qM, ld, s.p, s.mp, nv, nv, lane);
-    const float pmp = dot(s.p, s.mp, nv, lane);
-    const float gauss_p = dot(s.p, s.mxa, nv, lane);
-
-    const Phi ph0 = dphi<kEll>(a, s, 0.f, gauss_p, pmp, lane);
-    const float guess = fmaxf(-ph0.d / fmaxf(ph0.dd, kMinval), kMinval);
-    // bracket: phi' at guess * 2^k, k = 0..12 (kept in registers: every
-    // lane holds the same reduced values)
-    float cv[13];
-    bool pv[13];
-    float pw = 1.f;
+    // J p (one lane per row) with the lane's share of phi'(0) and phi''(0)
+    // on its own rows, M p (one lane per dof) with its share of p.Mp and
+    // p.mxa; the four sums reduced together
+    // (p in registers up to 16 dofs)
+    float pr[16];
 #pragma unroll
-    for (int k = 0; k < 13; ++k) {
-      cv[k] = guess * pw;
-      pv[k] = dphi<kEll>(a, s, cv[k], gauss_p, pmp, lane).d >= 0.f;
-      pw *= 2.f;
+    for (int c = 0; c < 16; ++c) pr[c] = (narrow && c < nv) ? s.p[c] : 0.f;
+    auto dotp = [&](const float* row) {
+      return narrow ? dot16(row, pr, nv) : dot_row(row, s.p, nv);
+    };
+    float r4[4] = {0.f, 0.f, 0.f, 0.f};  // p.Mp, p.mxa, phi'(0), phi''(0)
+    for (int r = lane; r < nefc; r += kWarp) {
+      const float jp = dotp(s.J + r * ld);
+      s.jarp[r] = jp;
+      const float jr = s.jar[r];
+      const float act = (jr < 0.f) ? s.ex[r] : 0.f;
+      const float djp = s.Dv[r] * jp;
+      r4[2] += act * djp * jr;
+      r4[3] += act * djp * jp;
     }
-    float hi = cv[12];
+    for (int v = lane; v < nv; v += kWarp) {
+      const float mp = dotp(s.qM + v * ld);
+      s.mp[v] = mp;
+      r4[0] += s.p[v] * mp;
+      r4[1] += s.p[v] * s.mxa[v];
+    }
+    __syncwarp();
+    if (kEll) {
+      const Phi e = ell_dphi(s.jar, s.jarp, s.Dv, s.econ, s.mu, s.sc1, s.sc2, 0.f, a.nell,
+                             a.ell0, lane);
+      r4[2] += e.d;
+      r4[3] += e.dd;
+    }
+    warp_sums(r4);
+    const float pmp = r4[0], gauss_p = r4[1];
+    const float d0 = gauss_p + r4[2], dd0 = pmp + r4[3];
+    const float guess = fmaxf(-d0 / fmaxf(dd0, kMinval), kMinval);
+
+    // bracket: phi' at guess * 2^k, k = 0..12, in one pass (every lane
+    // holds the same mask)
+    RowCache rc;
+    rc.fill<kEll>(s, nefc, lane);
+    const unsigned pos = bracket<kEll>(a, s, rc, guess, gauss_p, pmp, lane);
+    float hi = candidate(guess, 12);
 #pragma unroll
     for (int k = 0; k < 13; ++k)
-      if (pv[k]) hi = fminf(hi, cv[k]);
+      if ((pos >> (2 * k)) & 1u) hi = fminf(hi, candidate(guess, k));
     float lo = 0.f;
 #pragma unroll
     for (int k = 0; k < 13; ++k)
-      if (!pv[k] && cv[k] < hi) lo = fmaxf(lo, cv[k]);
+      if (!((pos >> (2 * k)) & 1u) && candidate(guess, k) < hi) lo = fmaxf(lo, candidate(guess, k));
     float alpha = fminf(guess, hi);
-    const float d0_scale = fabsf(ph0.d) * stall_tol;
+    const float d0_scale = fabsf(d0) * stall_tol;
     for (int l = 0; l < ls_iters; ++l) {
-      const Phi ph = dphi<kEll>(a, s, alpha, gauss_p, pmp, lane);
-      const bool conv =
-          fabsf(ph.d) < tol || (kWarm && stall_tol > 0.f && fabsf(ph.d) < d0_scale);
+      const Phi ph = dphi<kEll>(a, s, rc, alpha, gauss_p, pmp, lane);
+      // a converged step leaves (alpha, lo, hi) as they are, so every later
+      // step would evaluate the same alpha again: leave (uniform, as every
+      // lane holds the same sums)
+      if (fabsf(ph.d) < tol || (kWarm && stall_tol > 0.f && fabsf(ph.d) < d0_scale)) break;
       const float lo2 = (ph.d < 0.f) ? alpha : lo;
       const float hi2 = (ph.d >= 0.f) ? alpha : hi;
       const float newton = alpha - ph.d / fmaxf(ph.dd, kMinval);
       const bool inside = (newton > lo2) && (newton < hi2);
-      const float alpha2 = inside ? newton : 0.5f * (lo2 + hi2);
-      if (!conv) {
-        alpha = alpha2;
-        lo = lo2;
-        hi = hi2;
-      }
+      alpha = inside ? newton : 0.5f * (lo2 + hi2);
+      lo = lo2;
+      hi = hi2;
     }
 
-    // step, then the cost, forces and gradients at the new iterate
+    // step, then the cost (constraint and gauss terms), forces and
+    // gradients at the new iterate; the two cost terms, |grad|^2 and
+    // Polak-Ribiere's numerator and denominator reduced together
+    float t5[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     for (int v = lane; v < nv; v += kWarp) {
       s.x[v] += alpha * s.p[v];
       s.mxa[v] += alpha * s.mp[v];
+      t5[1] += (s.x[v] - s.a0[v]) * s.mxa[v];
     }
-    for (int r = lane; r < nefc; r += kWarp) s.jar[r] += alpha * s.jarp[r];
-    __syncwarp();
-    float cost_new = cost_force<kEll, true>(a, s, s.jar, s.force, lane);
-    float g = 0.f;
-    for (int v = lane; v < nv; v += kWarp) g += (s.x[v] - s.a0[v]) * s.mxa[v];
-    cost_new += 0.5f * warp_sum(g);
-    gradients(a, s, s.mxa, s.gradn, s.mgradn, lane);
-
+    float mgn = 0.f;  // narrow: M^-1 grad at the lane's dof
+    if (narrow) {
+      // one row pass; grad = mxa - J^T force and M^-1 grad on lane v's dof
+      float jtf;
+      t5[0] = rows_pass16<kEll>(
+          a, s, [&](int r) { return s.jar[r] + alpha * s.jarp[r]; }, jtf, lane);
+      mgn = grad16(a, s, jtf, s.gradn, lane);
+      if (lane < nv) {
+        const float gn = s.gradn[lane];
+        t5[2] = gn * gn;
+        t5[3] = gn * (mgn - s.mgrad[lane]);
+        t5[4] = s.grad[lane] * s.mgrad[lane];
+      }
+    } else {
+      for (int r = lane; r < nefc; r += kWarp) s.jar[r] += alpha * s.jarp[r];
+      __syncwarp();
+      t5[0] = cost_part<kEll, true>(a, s, s.jar, s.force, lane);
+      gradients(a, s, s.mxa, s.gradn, s.mgradn, lane);
+      for (int v = lane; v < nv; v += kWarp) {
+        const float gn = s.gradn[v];
+        t5[2] += gn * gn;
+        t5[3] += gn * (s.mgradn[v] - s.mgrad[v]);
+        t5[4] += s.grad[v] * s.mgrad[v];
+      }
+    }
+    warp_sums(t5);
+    const float cost_new = 0.5f * t5[0] + 0.5f * t5[1];
     const float improvement = cost - cost_new;
-    const float gradnorm = sqrtf(dot(s.gradn, s.gradn, nv, lane));
-    float num = 0.f, den = 0.f;
-    for (int v = lane; v < nv; v += kWarp) {
-      num += s.gradn[v] * (s.mgradn[v] - s.mgrad[v]);
-      den += s.grad[v] * s.mgrad[v];
-    }
-    const float beta = fmaxf(0.f, warp_sum(num) / fmaxf(warp_sum(den), kMinval));
-    for (int v = lane; v < nv; v += kWarp) {
-      s.p[v] = -s.mgradn[v] + beta * s.p[v];
-      s.grad[v] = s.gradn[v];
-      s.mgrad[v] = s.mgradn[v];
+    const float gradnorm = sqrtf(t5[2]);
+    const float beta = fmaxf(0.f, t5[3] / fmaxf(t5[4], kMinval));
+    if (narrow) {
+      if (lane < nv) {
+        s.p[lane] = -mgn + beta * s.p[lane];
+        s.grad[lane] = s.gradn[lane];
+        s.mgrad[lane] = mgn;
+      }
+    } else {
+      for (int v = lane; v < nv; v += kWarp) {
+        s.p[v] = -s.mgradn[v] + beta * s.p[v];
+        s.grad[v] = s.gradn[v];
+        s.mgrad[v] = s.mgradn[v];
+      }
     }
     __syncwarp();
     cost = cost_new;
@@ -538,13 +968,13 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
 }
 
 template <bool kEll, bool kWarm>
-__global__ void __launch_bounds__(kWarp)
+__global__ void __launch_bounds__(kWarp, kBlocksPerSm)
 cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ cdof,
                 const float* __restrict__ Bm, const float* __restrict__ jsign,
                 const float* __restrict__ md, const float* __restrict__ armature,
                 const int* __restrict__ row_slot, const int* __restrict__ sz,
                 const int* __restrict__ root_of_dof, const int* __restrict__ limit_dadr,
-                int nlim, int nroots) {
+                int nlim, int nroots, int ncon) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc;
@@ -556,46 +986,90 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
   const float* cb = cdof + (size_t)b * 6 * nv;
   const float* Bmb = Bm + (size_t)b * nroots * 6 * nefc;
 
-  // ---- qM from (crb_f, cdof): j ancestor-or-self of i <=> i in [j, j+sz_j)
-  for (int e = lane; e < nv * nv; e += kWarp) {
-    const int i = e / nv, j = e - i * nv;
-    float v = 0.f;
-    if (i >= j && i < j + sz[j]) {
-      float acc = 0.f;
-      for (int c = 0; c < 6; ++c) acc += fb[c * nv + i] * cb[c * nv + j];
-      v += acc;
+  // every input of the assembly into shared memory at once: f, cdof, P A
+  // and md past the core's layout, the tables in buffers the core fills
+  // only later
+  float* const bm_s = s.cs + 6 * nv;                    // (nroots * 6, nefc)
+  float* const md_s = bm_s + nroots * 6 * nefc;         // (ncon, nv)
+  int* const slot_s = reinterpret_cast<int*>(s.force);  // nefc
+  int* const dadr_s = reinterpret_cast<int*>(s.jarp);   // nlim <= nefc
+  float* const jsign_s = s.jar;                         // nlim
+  int* const sz_s = reinterpret_cast<int*>(s.grad);     // nv
+  int* const root_s = reinterpret_cast<int*>(s.mgrad);  // nv
+  float* const arm_s = s.gradn;                         // nv
+  copy_vec(s.fs, fb, 6 * nv, lane);
+  copy_vec(s.cs, cb, 6 * nv, lane);
+  copy_vec(bm_s, Bmb, nroots * 6 * nefc, lane);
+  copy_vec(md_s, md, ncon * nv, lane);
+  copy_vec(slot_s, row_slot, nefc, lane);
+  copy_vec(dadr_s, limit_dadr, nlim, lane);
+  copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, lane);
+  copy_vec(sz_s, sz, nv, lane);
+  copy_vec(root_s, root_of_dof, nv, lane);
+  copy_vec(arm_s, armature, nv, lane);
+  load_env(a, s, b, lane);  // waits for all of them
+
+  // ---- qM from (crb_f, cdof), one lane per row i: j ancestor-or-self of i
+  // <=> i in [j, j + sz_j)
+  for (int i = lane; i < nv; i += kWarp) {
+    float fi[6], ci[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      fi[c] = s.fs[c * nv + i];
+      ci[c] = s.cs[c * nv + i];
     }
-    if (j > i && j < i + sz[i]) {
-      float acc = 0.f;
-      for (int c = 0; c < 6; ++c) acc += cb[c * nv + i] * fb[c * nv + j];
-      v += acc;
+    const int szi = sz_s[i];
+    for (int j = 0; j < nv; ++j) {
+      float v = 0.f;
+      if (i >= j && i < j + sz_s[j]) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc += fi[c] * s.cs[c * nv + j];
+        v += acc;
+      }
+      if (j > i && j < i + szi) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc += ci[c] * s.fs[c * nv + j];
+        v += acc;
+      }
+      if (i == j) v += arm_s[i];
+      s.qM[i * ld + j] = v;
     }
-    if (i == j) v += armature[i];
-    s.qM[i * ld + j] = v;
-    s.Mi[i * ld + j] = v;
   }
-  // ---- J: contact rows from Bm = P A and cdof, masked by md; limit rows
+  // ---- J, one lane per row: contact rows from Bm = P A and cdof, masked by
+  // md (the row's six Bm entries of a root stay in registers); limit rows
   // are one-hot jsign at their dof
-  for (int e = lane; e < nefc * nv; e += kWarp) {
-    const int r = e / nv, v = e - r * nv;
-    const int slot = row_slot[r];
-    float val = 0.f;
-    if (slot >= 0) {
-      const float* bm = Bmb + root_of_dof[v] * 6 * nefc + r;
-      float acc = 0.f;
-      for (int c = 0; c < 6; ++c) acc += bm[c * nefc] * cb[c * nv + v];
-      val = acc * md[slot * nv + v];
+  for (int r = lane; r < nefc; r += kWarp) {
+    const int slot = slot_s[r];
+    float* Jr = s.J + r * ld;
+    if (slot < 0) {
+      for (int v = 0; v < nv; ++v) Jr[v] = 0.f;
+      continue;
     }
-    s.J[r * ld + v] = val;
+    const float* mdr = md_s + slot * nv;
+    int root = -1;
+    float bm[6];
+    for (int v = 0; v < nv; ++v) {
+      const int rv = root_s[v];
+      if (rv != root) {
+        root = rv;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) bm[c] = bm_s[(rv * 6 + c) * nefc + r];
+      }
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) acc += bm[c] * s.cs[c * nv + v];
+      Jr[v] = acc * mdr[v];
+    }
   }
-  load_env(a, s, b, lane);
-  for (int i = lane; i < nlim; i += kWarp) s.J[i * ld + limit_dadr[i]] = jsign[(size_t)b * nlim + i];
+  for (int i = lane; i < nlim; i += kWarp) s.J[i * ld + dadr_s[i]] = jsign_s[i];
   __syncwarp();
   cg_core<kEll, kWarm>(a, s, b, lane);
 }
 
 template <bool kEll, bool kWarm>
-__global__ void __launch_bounds__(kWarp)
+__global__ void __launch_bounds__(kWarp, kBlocksPerSm)
 cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict__ J) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
@@ -606,16 +1080,9 @@ cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict_
 
   const float* qMb = qM + (size_t)b * nv * nv;
   const float* Jb = J + (size_t)b * nefc * nv;
-  for (int e = lane; e < nv * nv; e += kWarp) {
-    const int i = e / nv, j = e - i * nv;
-    s.qM[i * ld + j] = qMb[e];
-    s.Mi[i * ld + j] = qMb[e];
-  }
-  for (int e = lane; e < nefc * nv; e += kWarp) {
-    const int r = e / nv, v = e - r * nv;
-    s.J[r * ld + v] = Jb[e];
-  }
-  load_env(a, s, b, lane);
+  copy_rows(s.qM, ld, qMb, nv, nv, lane);
+  copy_rows(s.J, ld, Jb, nefc, nv, lane);
+  load_env(a, s, b, lane);  // waits for all of them
   cg_core<kEll, kWarm>(a, s, b, lane);
 }
 
@@ -673,7 +1140,7 @@ extern "C" int cg_fused_launch(
     const float* armature, const float* ell, const float* warmstart, const int* row_slot,
     const int* sz, const int* root_of_dof, const int* limit_dadr, float* qacc, float* force,
     float* qfrc, float* a0, float* qvel_new, uint8_t* done, int B, int nv, int nefc,
-    int nlim, int nroots, int nell, int ell0, int smem, int iters, int ls_iters,
+    int nlim, int nroots, int ncon, int nell, int ell0, int smem, int iters, int ls_iters,
     int has_damping, int has_ws, float tol, float dt, float stall_tol, void* stream) {
   if (B == 0) return 0;
   const bool warm = has_ws || stall_tol > 0.f;
@@ -685,7 +1152,8 @@ extern "C" int cg_fused_launch(
                            qacc, force, qfrc, a0, qvel_new, done, nv, nefc, nell, ell0, iters,
                            ls_iters, has_damping, has_ws, tol, dt, stall_tol);
   kernel<<<B, kWarp, smem, (cudaStream_t)stream>>>(
-      a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, nlim, nroots);
+      a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, nlim, nroots,
+      ncon);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,10 @@
-// Block-level Cholesky pieces shared by the SPD solve (spd_solve.cu) and the
-// separate factor and solve kernels (cholesky.cu), for Hopper (sm_90a).
+// Block-level Cholesky pieces for Hopper (sm_90a). spd_solve.cu runs all of
+// them (load_matrix, factor_upper, forward_subst, backward_subst);
+// cholesky.cu's solve_kernel runs all but factor_upper. factor_batched
+// (cholesky.cu's factor_kernel_warp and factor_kernel_blocked) runs none:
+// its factor was redesigned around the latency of the one-pivot-per-step
+// factor below (three barriers and a shared-memory read-modify-write chain
+// per pivot), which spd_solve keeps until its own redesign.
 //
 // One block owns one matrix in shared memory with the odd row stride
 // ld = nv | 1 (row and column walks free of bank conflicts). Threads tile the

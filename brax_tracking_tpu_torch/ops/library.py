@@ -30,11 +30,11 @@ H100_SMEM_PER_BLOCK = 232448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each launch function (see its source)
 _SIGNATURES = {
-    "cg_fused_launch": [_P] * 25 + [_I] * 12 + [_F] * 3 + [_P],
+    "cg_fused_launch": [_P] * 25 + [_I] * 13 + [_F] * 3 + [_P],
     "cg_batched_launch": [_P] * 17 + [_I] * 10 + [_F] * 3 + [_P],
     "spd_inverse_launch": [_P] * 4 + [_I] * 4 + [_P],
     "spd_solve_launch": [_P] * 3 + [_I] * 3 + [_P],
-    "cholesky_factor_launch": [_P] * 2 + [_I] * 3 + [_P],
+    "cholesky_factor_launch": [_P] * 2 + [_I] * 4 + [_P],
     "cholesky_solve_launch": [_P] * 3 + [_I] * 3 + [_P],
 }
 

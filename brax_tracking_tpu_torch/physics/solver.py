@@ -263,7 +263,8 @@ def _kernel_args(m: M.Model, d: M.Data, layout: Cn.EfcLayout):
     memory raises."""
     st = _solve_statics(m, layout)
     nell = len(st["kw"]["ell_mu"])
-    smem = ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell)
+    smem = ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell,
+                                    len(st["kw"]["root_bounds"]), m.ncon)
     if smem > ops_cg.H100_SMEM_PER_BLOCK:
         M.unported(
             f"the solve kernel for an env of {smem} B (one block holds "

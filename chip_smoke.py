@@ -132,6 +132,17 @@ SPD_ABS = 1e-3
 SPD_ABS_BM = 1e-4
 SPD_KERNELS = ("spd_inverse", "spd_inverse2", "spd_solve")
 CHOL_KERNELS = ("factor_batched", "solve_batched")
+# factor_batched changes design at nv = 32 (one warp per matrix below, the
+# blocked factor in panels of 16 rows above), its warp path at 8 and 16,
+# its shared-memory row padding at multiples of 4 and its blocked path's
+# 128 / 256 threads at 144: the Cholesky kernels are also held, by the same
+# gates, on seeded SPD matrices at the widths on either side of each edge
+CHOL_EDGE_SIZES = (16, 17, 31, 32, 33, 47, 48, 49, 84, 85, 144, 145)
+# The dense solve kernel at a rodent-like size (rodent_like_case): nv = 73
+# (the rodent's dofs), 296 rows of which 4 are scalar limits, ~140 KB of
+# shared memory per env, seeded; its J^T f runs five 16-column chunks where
+# the minirat's runs one. Scored like the minirat's cases.
+RODENT_LIKE = {"nv": 73, "nefc": 296, "nlim": 4}
 # ballmuscle slice: 20 substeps of 2048 envs per solver; its first substep
 # of 8 envs on the card (float32) against the CPU (float64). A CPU float32
 # rehearsal of that substep (64 envs, both solvers) is off float64 by
@@ -277,6 +288,43 @@ def dense_case(args, kw):
             {k: v for k, v in kw.items() if k in keep})
 
 
+def rodent_like_case(device, B, seed, iters=None):
+    """cg_solve_batched's arguments (float32) and keywords for a seeded
+    dense problem at a rodent-like size (RODENT_LIKE): qM = Q diag(lam) Q^T
+    with lam log-uniform in [1, SPD_COND]; the first nlim rows of J one-hot
+    +-1 at distinct dofs (scalar limits), the others with half their dofs in
+    the support, N(0, 2 / nv) there; D in [0.5, 2]; aref = J qacc_smooth
+    plus noise of the same spread, so that about half of the rows start
+    active; 5% of the rows absent. CG 4/4 as the minirat (or ``iters``),
+    tolerance 1e-8 x mean diag(qM) x nv (MuJoCo's scaling), undamped."""
+    nv, nefc, nlim = RODENT_LIKE["nv"], RODENT_LIKE["nefc"], RODENT_LIKE["nlim"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(generator=g, device=device, dtype=torch.float64)
+    Q, _ = torch.linalg.qr(torch.randn(B, nv, nv, **f64))
+    lam = SPD_COND ** torch.rand(B, nv, **f64)
+    qM = (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
+    qM = 0.5 * (qM + qM.transpose(-1, -2))
+    a0 = torch.randn(B, nv, **f64)
+    J = torch.randn(B, nefc, nv, **f64) * (torch.rand(B, nefc, nv, **f64) < 0.5) * (2.0 / nv) ** 0.5
+    dadr = torch.randperm(nv, generator=g, device=device)[:nlim]
+    J[:, :nlim] = 0.0
+    J[:, torch.arange(nlim, device=device), dadr] = 1.0 - 2.0 * (torch.rand(B, nlim, **f64) < 0.5).double()
+    jar0 = (J @ a0[..., None])[..., 0]
+    aref = jar0 + jar0.std(-1, keepdim=True) * torch.randn(B, nefc, **f64)
+    D = 0.5 + 1.5 * torch.rand(B, nefc, **f64)
+    exists = torch.rand(B, nefc, **f64) > 0.05
+    qfs = (qM @ a0[..., None])[..., 0]
+    qvel = torch.randn(B, nv, **f64)
+    tol = 1e-8 * float(qM.diagonal(dim1=-2, dim2=-1).mean()) * nv
+    f32 = lambda t: t.float().contiguous()
+    args = [f32(qM), f32(J), f32(D), f32(aref), exists.contiguous(),
+            torch.zeros(B, 0, dtype=torch.bool, device=device), f32(qfs), f32(qvel),
+            torch.zeros(nv, device=device)]
+    kw = {"iters": 4 if iters is None else iters, "ls_iters": 4, "tol": tol, "dt": 0.002,
+          "has_damping": False, "ell0": 0, "ell_mu": (), "ell_scale": (), "stall_tol": 0.0}
+    return args, kw
+
+
 def cast(args, dtype):
     return [a.to(dtype) if a.is_floating_point() else a for a in args]
 
@@ -311,14 +359,19 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
     """Kernel and float32 plain version against a float64 plain run on the
     same inputs (the solve at state ``seed`` of ``model``, see solve_case;
     ``iters`` overrides the CG iteration count; ``batched`` runs
-    cg_solve_batched on the dense qM and J of the same call). Returns the
+    cg_solve_batched on the dense qM and J of the same call; ``model`` =
+    "rodent_like" runs cg_solve_batched on rodent_like_case). Returns the
     error report and (model, args, kw, kernel outputs)."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
-    m, args, kw = solve_case(device, model, B, seed, damped, iters)
     kernel, plain_fn = ops_cg.cg_solve_fused, ops_cg.cg_solve_fused_reference
-    if batched:
-        args, kw = dense_case(args, kw)
+    if model == "rodent_like":
+        m, (args, kw) = None, rodent_like_case(device, B, seed, iters)
+    else:
+        m, args, kw = solve_case(device, model, B, seed, damped, iters)
+        if batched:
+            args, kw = dense_case(args, kw)
+    if batched or m is None:
         kernel, plain_fn = ops_cg.cg_solve_batched, ops_cg.cg_solve_batched_reference
     ref = outputs(plain_fn(*cast(args, torch.float64), **cast_kw(kw, torch.float64)))
     plain = outputs(plain_fn(*args, **kw))
@@ -898,20 +951,24 @@ def device_ms(fn, tag, reps=20):
     """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
     name holds ``tag``, from torch.profiler: at the ballmuscle's nv = 7 a
     launch takes less device time than the host needs to issue it, so CUDA
-    events around a loop of launches time the host."""
+    events around a loop of launches time the host. The profiler may drop
+    an event now and then (seen once in 20 launches), so a profile that
+    does not see exactly ``reps`` launches is taken once more; a second
+    miss fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ts = [e.device_time_total for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and tag in e.name]
-    if len(ts) != reps:
-        fail(f"the profiler saw {len(ts)} launches of {tag}, expected {reps}")
-    return sum(ts) / reps / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ts = [e.device_time_total for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and tag in e.name]
+        if len(ts) == reps:
+            return sum(ts) / reps / 1e3
+    fail(f"the profiler saw {len(ts)} launches of {tag} twice, expected {reps}")
 
 
 def spd_times(name, M, b, damp):
@@ -1032,10 +1089,29 @@ def iterations_run(args, kw, batched=False):
     return its
 
 
-def kernel_bound(args, kw, its, batched=False):
+def line_search_steps(args, kw, batched=False):
+    """Line-search steps per CG iteration each env needs (the kernel leaves
+    the line search at its first converged step, whose later steps would
+    change nothing): the least k for which the float32 plain version with
+    ls_iters = k gives the same qacc as with the full count, so every
+    iteration of the env converged within k steps (an upper count)."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    plain = ops_cg.cg_solve_batched_reference if batched else ops_cg.cg_solve_fused_reference
+    full = plain(*args, **kw)[0]
+    steps = torch.full((full.shape[0],), float(kw["ls_iters"]), device=full.device)
+    same = torch.ones_like(steps, dtype=torch.bool)
+    for k in range(kw["ls_iters"] - 1, 0, -1):
+        same &= (plain(*args, **dict(kw, ls_iters=k))[0] == full).all(-1)
+        steps[same] = float(k)
+    return steps
+
+
+def kernel_bound(args, kw, its, ls_steps, batched=False):
     """Least time of one call on an H100: max(bytes / HBM rate, FLOPs /
     FP32 rate), counting each input read once and each output written once,
-    and the FLOPs of the iterations this data needs. For cg_solve_fused qM
+    and the FLOPs of the CG iterations (``its``) and line-search steps per
+    iteration (``ls_steps``) this data needs, per env. For cg_solve_fused qM
     is assembled only at its lower-triangle ancestor pairs (it is symmetric
     and zero elsewhere) and J only at its nonzeros (the md support of the
     contact rows, one entry per limit row); for cg_solve_batched the J
@@ -1072,7 +1148,6 @@ def kernel_bound(args, kw, its, batched=False):
         ins.append(ws)
     nbytes = sum(t.numel() * t.element_size() for t in ins) + 12 * nell  # ell table
     nbytes += B * (4 * (4 * nv + nefc) + 1)  # qacc qfrc a0 qvel_new, force, done
-    ls = kw["ls_iters"]
     nquad = nefc - 3 * nell
     cost = 6 * nquad + 30 * nell
     per_env = (
@@ -1085,25 +1160,29 @@ def kernel_bound(args, kw, its, batched=False):
     )
     per_iter = (
         4 * j_nnz + 4 * nv * nv + 20 * nv  # J p, J^T f, M p, M^-1 grad, dots
-        + (6 * nquad + 30 * nell) * (1 + 13 + ls) + 4 * nefc + cost  # phi', step, cost
+        + (6 * nquad + 30 * nell) * (1 + 13) + 4 * nefc + cost  # phi', step, cost
     )
-    flops = float(B * per_env + its.sum().item() * per_iter)
+    flops = float(B * per_env + its.sum().item() * per_iter
+                  + (its * ls_steps).sum().item() * (6 * nquad + 30 * nell))  # line search
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
 def fused_times(args, kw, batched=False):
-    """(kernel ms per launch, plain ms, bound ms, bound by, bytes, FLOPs,
-    mean CG iterations) of cg_solve_fused, or cg_solve_batched, on these
-    inputs."""
+    """(kernel device ms per launch, plain ms, bound ms, bound by, bytes,
+    FLOPs, mean CG iterations) of cg_solve_fused, or cg_solve_batched, on
+    these inputs. The kernel by torch.profiler: the host's launch path takes
+    about as long as a launch, so CUDA events around a loop of launches would
+    time the host."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
     plain = ops_cg.cg_solve_batched_reference if batched else ops_cg.cg_solve_fused_reference
-    k_ms = time_cuda(kernel_launch(args, kw, batched), 100)
+    tag = "cg_batched_kernel" if batched else "cg_fused_kernel"
+    k_ms = device_ms(kernel_launch(args, kw, batched), tag, 100)
     p_ms = time_cuda(lambda: plain(*args, **kw), 5)
     its = iterations_run(args, kw, batched)
-    bound = kernel_bound(args, kw, its, batched)
+    bound = kernel_bound(args, kw, its, line_search_steps(args, kw, batched), batched)
     return (k_ms, p_ms) + bound + (float(its.mean()),)
 
 
@@ -1140,8 +1219,9 @@ def main() -> int:
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
+        nroots = len(S._fused_statics(m, layout)["root_bounds"])
         print(f"{model}: kernel shared memory per env "
-              f"{ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell)} B (nv={m.nv}, "
+              f"{ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell, nroots, m.ncon)} B (nv={m.nv}, "
               f"nefc={layout.nefc}, elliptic contacts {nell})")
 
     # 3. kernels against their plain versions
@@ -1162,6 +1242,9 @@ def main() -> int:
                      ("minirat_elliptic", B_MAIN - 1)]:
         batched[model, B] = phase_kernel_vs_plain("cuda", B, False, SEED, None, model,
                                                   batched=True)
+    rodent = {}
+    for B, iters in ((B_MAIN, None), (B_MAIN - 1, None), (B_MAIN, CONVERGED_ITERS)):
+        rodent[B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, "rodent_like")
     spd_cases = {}
     for nv in SPD_SIZES:
         for B in (B_MAIN, B_MAIN - 1):
@@ -1170,6 +1253,11 @@ def main() -> int:
                 phase_spd_vs_plain(name, *chol_inputs(name, M, b, damp), "seeded", SPD_ABS)
             if B == B_MAIN:
                 spd_cases[nv] = (M, b, damp)
+    for nv in CHOL_EDGE_SIZES:
+        for B in (B_MAIN, B_MAIN - 1):
+            M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)
+            for name in CHOL_KERNELS:
+                phase_spd_vs_plain(name, *chol_inputs(name, M, b, damp), "panel edge", SPD_ABS)
     bm = bm_model("cuda", "newton")
     dbm = pstep.forward_to_constraint(bm, bm_posed(bm, B_MAIN))
     bm_inputs = (dbm.qM.contiguous(), dbm.qfrc_smooth.contiguous(),
@@ -1273,6 +1361,11 @@ def main() -> int:
                 "cg_solve_batched", "cg_fused.cu", "cg.py:552", launches["cg_solve_batched"],
                 max(report[n]["kernel_max"] for n in SCORED), k_ms, p_ms, bound_ms, bound_by,
                 None))
+    _, (_, args, kw, _) = rodent[B_MAIN, None]
+    k_ms = device_ms(kernel_launch(args, kw, batched=True), "cg_batched_kernel", 5)
+    print(f"cg_solve_batched on the rodent-like case (nv={RODENT_LIKE['nv']}, "
+          f"nefc={RODENT_LIKE['nefc']}): {k_ms * 1e3:.1f} us/launch on the device at "
+          f"B={B_MAIN} on {card}")
     spd_meta = {
         "spd_inverse": ("spd_inverse.cu", 362),
         "spd_inverse2": ("spd_inverse.cu", 388),

@@ -1,0 +1,202 @@
+"""Split one solve-kernel launch into phases by clock64 stamps, per env.
+
+    python3 scripts/stamp_solve_kernel.py [--root DIR]
+
+Copies ``DIR``'s ``brax_tracking_tpu_torch/ops/csrc/cg_fused.cu`` (default:
+this checkout's) to ``runs/stamp/`` with a ``clock64()`` stamp at each phase
+boundary of ``cg_core`` and its two kernels, builds the copy with ``nvcc``
+into a library of its own and runs it on chip_smoke.py's seeded states
+(2048 envs) of the three ``cg_solve_fused`` instances: (a) the minirat,
+(b) the elliptic minirat, (c) a Newton chunk. Lane 0 of each env adds the
+cycles since the last stamp to its phase:
+
+- ``assembly``: qM and J (or their dense loads) and the per-env vectors;
+- ``sweep``: M^-1;
+- ``start``: qacc_smooth, the first J x, the cost and the gradients;
+- per CG iteration: ``products`` (J p, M p and their dots), ``phi0``
+  (phi'(0) and the first guess), ``bracket`` (phi' at the 13 candidates),
+  ``ls`` (the line search), ``step`` (the new iterate's cost, forces and
+  gradients);
+- ``outputs``: J^T force and the writes; ``euler``: the velocity update.
+
+A core that forms J p, M p and phi'(0) in one row pass has one phase,
+``products_phi0``, for the two. Which layout the source has is read from
+its anchors; every anchor of that layout must be found, so an edit of the
+core that moves one fails here rather than folding a phase into another.
+
+Prints one JSON line per instance: the mean cycles per env of each phase,
+their shares, the mean CG iterations, and the unstamped kernel's device us
+per launch (torch.profiler, the tree's own library) beside the stamped
+copy's.
+The copy never enters the tree's sources; ``runs/`` is not committed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+import torch
+
+from ab_solve_kernel import device_us
+
+PHASES = ("assembly", "sweep", "start", "products", "phi0", "bracket", "ls", "step",
+          "outputs", "euler")
+NSLOT = len(PHASES) + 1  # the last slot counts CG iterations
+# the line that ends the products where they have a pass of their own, and
+# the one that reads their sums where they share phi'(0)'s pass
+SPLIT_PRODUCTS = r"^    const float gauss_p = dot\(s\.p, s\.mxa, nv, lane\);$"
+FUSED_PRODUCTS = r"^    const float pmp = r4\[0\], gauss_p = r4\[1\];$"
+
+STAMPS = """
+constexpr int kNStamp = %d;
+__device__ long long* g_stamp;
+struct Stamps {
+  long long c[kNStamp];
+  long long last;
+  __device__ __forceinline__ void init() {
+    for (int k = 0; k < kNStamp; ++k) c[k] = 0;
+    last = clock64();
+  }
+  __device__ __forceinline__ void mark(int k) {
+    __syncwarp();
+    const long long now = clock64();
+    c[k] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void write(int b, int lane) {
+    if (lane == 0 && g_stamp)
+      for (int k = 0; k < kNStamp; ++k) g_stamp[(size_t)b * kNStamp + k] = c[k];
+  }
+};
+""" % NSLOT
+
+
+def stamped_source(src: str) -> tuple[str, tuple[str, ...]]:
+    """``src`` with the stamps inserted after (or before) anchor lines of
+    the solve core, and the phases it reports; raises if an anchor of the
+    core's layout is missing or found more often than expected."""
+    split = len(re.findall(SPLIT_PRODUCTS, src, flags=re.M))
+    fused = len(re.findall(FUSED_PRODUCTS, src, flags=re.M))
+    if (split, fused) not in ((1, 0), (0, 1)):
+        raise ValueError(f"products anchors found {split} (own pass) and {fused} (shared "
+                         "with phi'(0)) times; expected one of them once")
+
+    def after(pattern, text, count=1):
+        nonlocal src
+        new, n = re.subn(pattern, lambda m: m.group(0) + text, src, flags=re.M)
+        if n != count:
+            raise ValueError(f"anchor {pattern!r} found {n} times")
+        src = new
+
+    def before(pattern, text, count=1):
+        nonlocal src
+        new, n = re.subn(pattern, lambda m: text + m.group(0), src, flags=re.M)
+        if n != count:
+            raise ValueError(f"anchor {pattern!r} found {n} times")
+        src = new
+
+    ph = {p: k for k, p in enumerate(PHASES)}
+    mark = lambda p: f"\n  st.mark({ph[p]});"
+    after(r"^constexpr float kMinval = .*;$", STAMPS)
+    after(r"void cg_core\(const Args& a, const Smem& s, int b, int lane", ", Stamps& st")
+    after(r"^  sweep_inverse\(.*\);$", mark("sweep"))
+    before(r"^  bool done = false;$", f"  st.mark({ph['start']});\n")
+    after(r"^    if \(done\) break;.*$", f"\n    st.c[{NSLOT - 1}] += 1;")
+    if split:
+        after(SPLIT_PRODUCTS, mark("products"))
+    after(r"^    const float guess = .*;$", mark("phi0"))
+    before(r"^    float alpha = fminf\(guess, hi\);$", f"    st.mark({ph['bracket']});\n")
+    before(r"^    // step, then the cost", f"    st.mark({ph['ls']});\n")
+    after(r"improvement < stall_tol \* fabsf\(cost_new\)\);$", mark("step"))
+    after(r"^  if \(lane == 0\) a\.done\[b\] = done \? 1 : 0;$", mark("outputs"))
+    after(r"qvel_new\[v\] = __ldg\(qvel \+ v\) \+ a\.dt \* s\.x\[v\];\n  \}",
+          mark("euler") + "\n  st.write(b, lane);")
+    after(r"^  const Smem s = carve\(sm, nv, nefc, a\.nell\);$", "\n  Stamps st;\n  st.init();",
+          count=2)
+    before(r"^  cg_core<kEll, kWarm>\(a, s, b, lane\);$", "  st.mark(0);\n", count=2)
+    src = src.replace("  cg_core<kEll, kWarm>(a, s, b, lane);", "  cg_core<kEll, kWarm>(a, s, b, lane, st);")
+    after(r"^\}  // namespace$", """
+
+extern "C" int stamp_set(long long* p) {
+  return (int)cudaMemcpyToSymbol(g_stamp, &p, sizeof(p));
+}""")
+    if split:
+        return src, PHASES
+    return src, tuple("products_phi0" if p == "phi0" else p for p in PHASES if p != "products")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--root", default=here)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from brax_tracking_tpu_torch.ops import library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    csrc = os.path.join(root, "brax_tracking_tpu_torch", "ops", "csrc")
+    out_dir = os.path.join(here, "runs", "stamp")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = re.sub(r"\W", "_", os.path.relpath(root, here)).strip("_") or "tree"
+    cu = os.path.join(out_dir, f"cg_stamped_{tag}.cu")
+    with open(os.path.join(csrc, "cg_fused.cu")) as f:
+        text, phases = stamped_source(f.read())
+    slots = [PHASES.index("phi0" if p == "products_phi0" else p) for p in phases]
+    with open(cu, "w") as f:
+        f.write(text)
+    so = os.path.join(out_dir, f"libstamped_{tag}.so")
+    subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), "-O3",
+                    "-gencode=arch=compute_90a,code=sm_90a", "-I", csrc, "-shared",
+                    "-Xcompiler", "-fPIC", "-o", so, cu], check=True, timeout=600)
+    stamped = ctypes.CDLL(so)
+    for name in ("cg_fused_launch", "cg_batched_launch"):
+        getattr(stamped, name).argtypes = library._SIGNATURES[name]
+        getattr(stamped, name).restype = ctypes.c_int
+    stamped.stamp_set.argtypes = [ctypes.c_void_p]
+    stamped.stamp_set.restype = ctypes.c_int
+    library.build()
+    own = library._LIB
+    card = cs.card_line()
+    for key, model in (("a", "minirat"), ("b", "minirat_elliptic"), ("c", "minirat_newton")):
+        library._LIB = own
+        _, kargs, kw = cs.solve_case("cuda", model, cs.B_MAIN, cs.SEED)
+        launch = cs.kernel_launch(kargs, kw)
+        t_own = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(3))
+        library._LIB = stamped
+        t_stamped = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(3))
+        buf = torch.zeros(cs.B_MAIN, NSLOT, dtype=torch.int64, device="cuda")
+        if stamped.stamp_set(ctypes.c_void_p(buf.data_ptr())) != 0:
+            cs.fail("stamp_set failed")
+        launch()
+        torch.cuda.synchronize()
+        stamped.stamp_set(ctypes.c_void_p(None))
+        c = buf.double()
+        mean = c[:, slots].mean(0)
+        print(json.dumps({
+            "root": root, "instance": key, "model": model, "card": card,
+            "iters": kw["iters"], "ls_iters": kw["ls_iters"],
+            "mean_cg_iterations": float(c[:, -1].mean()),
+            "kernel_us": t_own, "stamped_kernel_us": t_stamped,
+            "cycles_per_env": float(mean.sum()),
+            "cycles": {p: float(v) for p, v in zip(phases, mean)},
+            "share": {p: float(v / mean.sum()) for p, v in zip(phases, mean)},
+        }), flush=True)
+    library._LIB = own
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

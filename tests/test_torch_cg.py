@@ -172,11 +172,28 @@ def test_port_statics_and_wrapper_dispatch(case):
 
 def test_kernel_smem_rule():
     """The Hopper eligibility rule: one env's qM, M^-1 and J fit a block's
-    shared memory. The minirat needs ~7.5 KB; a rodent-size model
-    (nv=73, ~300 rows) ~140 KB; a model with 1000 rows does not fit."""
-    assert tcg.kernel_smem_bytes(10, 92) == 7656
+    shared memory. The minirat needs ~8 KB; a rodent-size model
+    (nv=73, ~300 rows) ~144 KB; a model with 1000 rows does not fit."""
+    assert tcg.kernel_smem_bytes(10, 92) == 8136
     assert tcg.kernel_smem_bytes(73, 300) <= tcg.H100_SMEM_PER_BLOCK
     assert tcg.kernel_smem_bytes(73, 1000) > tcg.H100_SMEM_PER_BLOCK
+
+
+def test_kernel_smem_fused_staging():
+    """cg_solve_fused stages the rest of the assembly's inputs (P A: 6
+    nefc-vectors per root; md: ncon x nv) past the core's layout. The
+    minirat (one root, 22 contact slots) then needs 11,224 B, and the
+    solver's eligibility check counts them; at most 13,312 B (the H100's
+    228 KB per SM over 16 blocks, less the 1 KB reserved per block)
+    leaves the 16 one-warp blocks per SM that hold 2048 envs in one wave."""
+    assert tcg.kernel_smem_bytes(10, 92, 0, 1, 22) == 8136 + 4 * (6 * 92 + 22 * 10) == 11224
+    assert tcg.kernel_smem_bytes(10, 92, 0, 1, 22) <= 228 * 1024 // 16 - 1024
+    m = tspec.load_model(device="cpu")
+    layout = tCn.efc_layout(m)
+    st = tS._solve_statics(m, layout)
+    assert (len(st["kw"]["root_bounds"]), m.ncon, m.nv, layout.nefc) == (1, 22, 10, 92)
+    for nv in (10, 73):
+        assert tcg.kernel_smem_bytes(nv, 300, 0, 1, 70) <= tcg.H100_SMEM_PER_BLOCK
 
 
 def test_float32_error_is_rounding_not_conditioning(capsys):

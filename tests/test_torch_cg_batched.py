@@ -137,3 +137,44 @@ def test_wrapper_dispatch_and_checks(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcg.cg_solve_batched(*t.values(), **kw)
+
+
+def test_rodent_like_case():
+    """chip_smoke.py's dense solve case at a rodent-like size
+    (``rodent_like_case``: nv = 73, 296 rows, the first 4 scalar limits), at
+    B = 6 on the CPU: qM symmetric positive definite with condition number
+    within SPD_COND, the limit rows one-hot +-1 at distinct dofs, one env's
+    shared memory under the H100's block; the float64 plain solve converged
+    at CONVERGED_ITERS with active and inactive rows in every env; and the
+    plain version at the case's 4/4 iterations against the JAX kernel in
+    interpret mode on the same float64 inputs (the float32 inputs widened),
+    at this file's tolerance."""
+    import chip_smoke as cs
+
+    B, nv, nefc, nlim = 6, cs.RODENT_LIKE["nv"], cs.RODENT_LIKE["nefc"], cs.RODENT_LIKE["nlim"]
+    args, kw = cs.rodent_like_case("cpu", B, 0)
+    qM, J, D, aref, exists, econ, qfs, qvel, damp = cs.cast(args, torch.float64)
+    assert tuple(J.shape) == (B, nefc, nv) and econ.shape == (B, 0)
+    assert tcg.kernel_smem_bytes(nv, nefc) <= tcg.H100_SMEM_PER_BLOCK
+    torch.testing.assert_close(qM, qM.transpose(1, 2), rtol=0, atol=0)
+    lam = torch.linalg.eigvalsh(qM)
+    assert lam.min() > 0 and (lam[:, -1] / lam[:, 0]).max() <= 1.01 * cs.SPD_COND
+    lim = J[:, :nlim]
+    assert torch.all((lim != 0).sum(-1) == 1) and torch.all(lim.abs().sum(-1) == 1)
+    assert torch.all(lim.abs().sum(1) <= 1)  # distinct dofs
+    assert torch.all(D > 0) and exists.any(-1).all()
+
+    conv = tcg.cg_solve_batched_reference(
+        qM, J, D, aref, exists, econ, qfs, qvel, damp, **dict(kw, iters=cs.CONVERGED_ITERS))
+    assert conv[5].all()
+    active = ((J @ conv[0][..., None])[..., 0] - aref < 0) & exists
+    assert torch.all(active.any(-1)) and torch.all((~active).any(-1))
+
+    tout = tcg.cg_solve_batched(qM, J, D, aref, exists, econ, qfs, qvel, damp, device="cpu", **kw)
+    kout = jcg.cg_solve_batched(
+        *(jnp.asarray(t.numpy()) for t in (qM, J, D, aref, exists, econ, qfs, qvel, damp)), **kw,
+        unroll_iters=False, unroll_ls=False, interpret=True,
+    )
+    for nm, k, t in zip(NAMES, kout, tout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(k), rtol=RTOL, atol=ATOL, err_msg=nm)
+    np.testing.assert_array_equal(tout[5].numpy(), np.asarray(kout[5]))

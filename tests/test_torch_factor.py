@@ -80,11 +80,40 @@ def test_wrappers_dispatch_and_check(monkeypatch):
         tchol._launch_factor(M)
     with pytest.raises(ValueError, match="contiguous"):
         tchol._launch_solve_factor(U.float().transpose(1, 2), b.float())
-    assert tchol.factor_smem_bytes(146) == 4 * 146 * 147 <= tchol.H100_SMEM_PER_BLOCK
+    assert tchol.factor_smem_bytes(146) == 4 * 148 * 148 <= tchol.H100_SMEM_PER_BLOCK
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: tchol.factor_batched(M), lambda: tchol.solve_batched(U, b)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+@pytest.mark.parametrize("B", [1, 2047, 2048])
+def test_factor_geometry(B):
+    """factor_batched's launch (csrc/cholesky.cu) at every width up to 160:
+    up to FACTOR_WARP_MAX one warp per matrix, 4 per 128-thread block, and
+    no shared memory; above, one block per matrix holding the matrix with
+    rows and row stride padded to a multiple of 4 (16-byte tiles) within
+    the H100's block, with a thread for every panel column (nv - 16) and
+    at most 256 threads."""
+    for nv in range(1, 161):
+        blocks, threads, smem = tchol.factor_geometry(B, nv)
+        assert smem == tchol.factor_smem_bytes(nv) <= tchol.H100_SMEM_PER_BLOCK
+        if nv <= tchol.FACTOR_WARP_MAX:
+            assert (blocks, threads, smem) == (-(-B // 4), 128, 0)
+        else:
+            ld = -(-nv // 4) * 4
+            assert ld % 4 == 0 and nv <= ld < nv + 4 and smem == 4 * ld * ld
+            assert blocks == B and threads % 32 == 0
+            assert nv - tchol.FACTOR_NB <= threads <= 256
+
+
+def test_factor_launch_refuses_oversize():
+    """The widest matrix whose padded copy fits one block is nv = 240; a
+    wider one raises before any launch."""
+    assert tchol.factor_smem_bytes(240) <= tchol.H100_SMEM_PER_BLOCK
+    assert tchol.factor_smem_bytes(241) > tchol.H100_SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        tchol._launch_factor(torch.zeros(1, 241, 241))
 
 
 def _minirat_qM(B=6):
