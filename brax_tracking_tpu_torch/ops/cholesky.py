@@ -14,27 +14,37 @@ Replaces the TPU kernels of ``brax_tracking_tpu/ops/cholesky.py``:
   names, the upper factor U (M = U^T U) written out and the solve from it:
   ``dynamics.factor_m`` and the qLD branch of ``dynamics.solve_m``.
 
-Hopper design (``csrc/spd_inverse.cu``, ``csrc/spd_solve.cu``,
-``csrc/cholesky.cu``): one block per matrix, the matrix in shared memory
-for the whole factor or sweep, each input read once and each output written
-once. ``spd_solve`` and ``solve_batched`` run the block-level pieces of
-``csrc/cholesky.cuh`` (one pivot per step). ``factor_batched`` has a
-factor of its own: one warp per matrix in registers up to nv = 32, above
-that a blocked factor in panels of 16 rows with the trailing update in
-register tiles (``factor_geometry`` gives its launch). The sweep is bound
-by its FP32 operations at rodent size, the Cholesky kernels by their
-bytes; at the ballmuscle's nv = 7 all are bound by launch latency. Each
-source says more.
+Hopper design (``csrc/spd_inverse.cu``, ``csrc/cholesky.cu`` on the
+pieces of ``csrc/cholesky.cuh``). The sweep: one block per matrix, the
+matrix in shared memory for the whole sweep. The Cholesky kernels share one
+factor and read only the upper triangle of their matrix: up to nv = 32 a
+matrix lives in the registers of one warp (or of a segment of 8 or 16
+lanes, several matrices per warp, for the solves), lane c holding column c
+of the triangle, with no shared memory and no barrier; the factor and both
+substitutions are right-looking with one shuffle per step, and the solves
+keep row c of U beside column c so that the backward pass needs one
+shuffle per step too. Above that one block per matrix in shared memory, in
+panels of 16 rows: the factor's diagonal block and both substitutions'
+triangles in one warp's registers, the rest of each panel's work as a
+16-term update by every thread, two barriers per panel. ``factor_batched``
+writes U; ``spd_solve`` factors on the same code and keeps U on chip;
+``solve_batched`` stages only U's upper triangle, by panels, one panel of
+rows at a time. ``factor_geometry``, ``spd_solve_geometry`` and
+``solve_geometry`` give the launches. The sweep is bound by its FP32
+operations at rodent size, the Cholesky kernels by their bytes (the SPD
+solve by its operations at nv = 146); at the ballmuscle's nv = 7 and the
+minirat's 10 all are bound by launch latency. Each source says more.
 
 ``sweep_inverse_reference``, ``cholesky_factor_reference``,
 ``cholesky_solve_reference`` and ``spd_solve_reference`` are the plain
 PyTorch versions: the functions each kernel computes, and its yardstick.
-They eliminate one pivot at a time; the kernels apply each entry's updates
-in the same pivot order but contract them to fused multiply-adds, use the
-hardware reciprocal square root and, in the blocked factor, group the
-pivots in panels, so they agree with the plain versions to rounding, not
-bitwise. A wrapper runs the plain versions only for tensors on the CPU;
-CUDA tensors go to the kernel (float32, contiguous) or the call raises.
+They eliminate one pivot at a time. The kernels apply each entry's updates
+in the same pivot order, but contract them to fused multiply-adds, use the
+hardware reciprocal square root, multiply by reciprocals where the plain
+versions divide and, in the blocked factor, group the pivots in panels, so
+they agree with the plain versions to rounding, not bitwise. A wrapper runs
+the plain versions only for tensors on the CPU; CUDA tensors go to the
+kernel (float32, contiguous) or the call raises.
 """
 
 from __future__ import annotations
@@ -53,12 +63,6 @@ def inverse_smem_bytes(nv: int) -> int:
     """Shared memory of one spd_inverse block: the matrix (row stride
     nv | 1) and the pivot row and column, float32."""
     return 4 * (nv * (nv | 1) + 2 * nv)
-
-
-def solve_smem_bytes(nv: int) -> int:
-    """Shared memory of one spd_solve or solve_batched block: the factor
-    (row stride nv | 1) and the right-hand side, float32."""
-    return 4 * (nv * (nv | 1) + nv)
 
 
 # factor_batched: widths up to FACTOR_WARP_MAX take one warp per matrix and
@@ -89,6 +93,57 @@ def factor_geometry(B: int, nv: int) -> Tuple[int, int, int]:
         w = _FACTOR_WARPS_PER_BLOCK
         return -(-B // w), 32 * w, 0
     return B, (128 if nv - FACTOR_NB <= 128 else 256), factor_smem_bytes(nv)
+
+
+def spd_solve_smem_bytes(nv: int) -> int:
+    """Shared memory of one spd_solve block: none up to FACTOR_WARP_MAX,
+    else the factor's padded matrix (factor_smem_bytes) and the
+    right-hand side (ld floats), float32."""
+    if nv <= FACTOR_WARP_MAX:
+        return 0
+    ld = -(-nv // 4) * 4
+    return factor_smem_bytes(nv) + 4 * ld
+
+
+def solve_smem_bytes(nv: int) -> int:
+    """Shared memory of one solve_batched block: none up to
+    FACTOR_WARP_MAX, else U's upper triangle by panels of FACTOR_NB rows
+    (panel p, from row k0 = FACTOR_NB p, as rows of nv - k0 floats from
+    column k0) and the right-hand side, float32."""
+    if nv <= FACTOR_WARP_MAX:
+        return 0
+    k0 = (nv - 1) // FACTOR_NB * FACTOR_NB  # the last panel
+    return 4 * (k0 * nv - k0 * (k0 - FACTOR_NB) // 2 + (nv - k0) ** 2 + nv)
+
+
+def solve_segment(nv: int) -> int:
+    """Lanes per matrix of the register solves (nv <= FACTOR_WARP_MAX): 8
+    up to nv = 8, 16 up to 16, else a whole warp."""
+    return 8 if nv <= 8 else (16 if nv <= 16 else 32)
+
+
+def _solve_warp_geometry(B: int, nv: int) -> Tuple[int, int, int]:
+    per_block = _FACTOR_WARPS_PER_BLOCK * 32 // solve_segment(nv)
+    return -(-B // per_block), 32 * _FACTOR_WARPS_PER_BLOCK, 0
+
+
+def spd_solve_geometry(B: int, nv: int) -> Tuple[int, int, int]:
+    """(blocks, threads per block, shared memory bytes per block) of an
+    spd_solve launch on B systems of width nv: up to FACTOR_WARP_MAX,
+    128-thread blocks of solve_segment(nv) lanes per system; above, one
+    block per system with factor_batched's threads."""
+    if nv <= FACTOR_WARP_MAX:
+        return _solve_warp_geometry(B, nv)
+    return B, factor_geometry(B, nv)[1], spd_solve_smem_bytes(nv)
+
+
+def solve_geometry(B: int, nv: int) -> Tuple[int, int, int]:
+    """(blocks, threads per block, shared memory bytes per block) of a
+    solve_batched launch on B systems of width nv: up to FACTOR_WARP_MAX
+    as spd_solve; above, one 128-thread block per system."""
+    if nv <= FACTOR_WARP_MAX:
+        return _solve_warp_geometry(B, nv)
+    return B, 128, solve_smem_bytes(nv)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +184,10 @@ def cholesky_factor_reference(a: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_solve_reference(U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solves U^T U x = b for upper U (B, n, n), b (B, n): both
-    substitutions right-looking, in the CUDA kernels' order."""
+    """Solves U^T U x = b for upper U (B, n, n), b (B, n), from U's upper
+    triangle: both substitutions right-looking, one pivot at a time (the
+    function of the TPU kernel's ``_solve_kernel``). The CUDA kernel
+    computes the same function, not bitwise (module docstring)."""
     y = b.clone()
     n = U.shape[-1]
     for k in range(n):
@@ -145,8 +202,9 @@ def cholesky_solve_reference(U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def spd_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solves a x = b for SPD a (B, n, n), b (B, n): the factor and both
-    substitutions, as the fused kernel computes them."""
+    """Solves a x = b for SPD a (B, n, n), b (B, n), from a's upper
+    triangle: the factor and both substitutions (the function of the TPU
+    kernel's ``_factor_solve_kernel``)."""
     return cholesky_solve_reference(cholesky_factor_reference(a), b)
 
 
@@ -185,12 +243,12 @@ def _launch_inverse(qM: torch.Tensor, damp: torch.Tensor, ninv: int):
 
 def _launch_solve(qM: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     B, nv, _ = qM.shape
-    smem = solve_smem_bytes(nv)
+    _, threads, smem = spd_solve_geometry(B, nv)
     _check_kernel_args("spd_solve", smem, qM=qM, b=b)
     x = torch.empty_like(b)
     stream = torch.cuda.current_stream(qM.device).cuda_stream
     err = library.lib().spd_solve_launch(
-        library.ptr(qM), library.ptr(b), library.ptr(x), B, nv, smem, stream
+        library.ptr(qM), library.ptr(b), library.ptr(x), B, nv, threads, smem, stream
     )
     library.check("spd_solve", err)
     return x
@@ -211,12 +269,12 @@ def _launch_factor(qM: torch.Tensor) -> torch.Tensor:
 
 def _launch_solve_factor(U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     B, nv, _ = U.shape
-    smem = solve_smem_bytes(nv)
+    _, threads, smem = solve_geometry(B, nv)
     _check_kernel_args("solve_batched", smem, U=U, b=b)
     x = torch.empty_like(b)
     stream = torch.cuda.current_stream(U.device).cuda_stream
     err = library.lib().cholesky_solve_launch(
-        library.ptr(U), library.ptr(b), library.ptr(x), B, nv, smem, stream
+        library.ptr(U), library.ptr(b), library.ptr(x), B, nv, threads, smem, stream
     )
     library.check("solve_batched", err)
     return x

@@ -18,7 +18,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(
     os.path.join(_CSRC, f)
-    for f in ("cg_fused.cu", "spd_inverse.cu", "spd_solve.cu", "cholesky.cu")
+    for f in ("cg_fused.cu", "spd_inverse.cu", "cholesky.cu")
 )
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
@@ -33,9 +33,9 @@ _SIGNATURES = {
     "cg_fused_launch": [_P] * 25 + [_I] * 13 + [_F] * 3 + [_P],
     "cg_batched_launch": [_P] * 17 + [_I] * 10 + [_F] * 3 + [_P],
     "spd_inverse_launch": [_P] * 4 + [_I] * 4 + [_P],
-    "spd_solve_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "spd_solve_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cholesky_factor_launch": [_P] * 2 + [_I] * 4 + [_P],
-    "cholesky_solve_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "cholesky_solve_launch": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

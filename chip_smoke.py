@@ -15,7 +15,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
    on the dense qM and J of the minirat and the elliptic minirat; the SPD
    inverse, the paired inverse, the SPD solve, the Cholesky factor and the
    solve from it on seeded SPD matrices at nv = 7, 73 and 146 (B=2048 and
-   B=2047) and on the ballmuscle's own mass matrices;
+   B=2047) and on the ballmuscle's own mass matrices, the three Cholesky
+   kernels also at the widths on either side of each of their design
+   edges, and with NaN below the diagonal (which they must not read);
 4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
    AutoResetWrapperTracking, 10 substeps) for 20 control steps, on the
    minirat (the main path) and on the elliptic minirat, counts the kernel
@@ -36,8 +38,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
    states: one launch each of the factor and the solve kernel;
 8. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the SPD and Cholesky
-   kernels' device time by torch.profiler), and the rollouts and substeps
-   on the host clock.
+   kernels' and their library calls' device time by torch.profiler), and
+   the rollouts and substeps on the host clock.
 
 It needs nothing beyond the checkout (the models are the frozen
 ``assets/*.npz``; weights and states come from seeds), exits non-zero if
@@ -132,12 +134,17 @@ SPD_ABS = 1e-3
 SPD_ABS_BM = 1e-4
 SPD_KERNELS = ("spd_inverse", "spd_inverse2", "spd_solve")
 CHOL_KERNELS = ("factor_batched", "solve_batched")
-# factor_batched changes design at nv = 32 (one warp per matrix below, the
-# blocked factor in panels of 16 rows above), its warp path at 8 and 16,
-# its shared-memory row padding at multiples of 4 and its blocked path's
-# 128 / 256 threads at 144: the Cholesky kernels are also held, by the same
-# gates, on seeded SPD matrices at the widths on either side of each edge
-CHOL_EDGE_SIZES = (16, 17, 31, 32, 33, 47, 48, 49, 84, 85, 144, 145)
+# The Cholesky kernels (spd_solve, factor_batched, solve_batched) change
+# design at nv = 32 (registers below, panels of 16 rows in shared memory
+# above), their register paths at 8 and 16 (and the solves' lanes per
+# matrix with them), the blocked paths at every multiple of 16 (a partial
+# last panel), the shared-memory row padding at multiples of 4 and the
+# factor's 128 / 256 threads at 144: they are also held, by the same gates,
+# on seeded SPD matrices at the widths on either side of each edge. They
+# read only the upper triangle of their matrix: with NaN in the strict lower
+# triangle every output must be finite and bitwise the clean input's.
+CHOL_EDGE_KERNELS = ("spd_solve",) + CHOL_KERNELS
+CHOL_EDGE_SIZES = (8, 9, 16, 17, 31, 32, 33, 47, 48, 49, 84, 85, 144, 145)
 # The dense solve kernel at a rodent-like size (rodent_like_case): nv = 73
 # (the rodent's dofs), 296 rows of which 4 are scalar limits, ~140 KB of
 # shared memory per env, seeded; its J^T f runs five 16-column chunks where
@@ -740,6 +747,23 @@ def phase_spd_vs_plain(name, M, b, damp, case, abs_bound):
     return report
 
 
+def phase_upper_only(name, M, b, damp):
+    """A Cholesky kernel (spd_solve, factor_batched or solve_batched) on
+    (M, b) and on M with NaN in its strict lower triangle (M is the factor
+    U for solve_batched); fails unless every output of the second run is
+    finite and bitwise equal to the first's. Launches made here do not
+    count."""
+    fn = counted()[name]
+    launches = fn.launches
+    clean = spd_run(name, M, b, damp, "kernel")
+    lower = torch.ones(M.shape[-1], M.shape[-1], dtype=torch.bool, device=M.device).tril(-1)
+    dirty = spd_run(name, M.masked_fill(lower, float("nan")), b, damp, "kernel")
+    fn.launches = launches
+    if not all(bool(torch.isfinite(d).all()) and torch.equal(c, d) for c, d in zip(clean, dirty)):
+        fail(f"{name}, B={M.shape[0]}, nv={M.shape[-1]}: NaN below the diagonal changed the "
+             f"output")
+
+
 def bm_model(device, solver, dtype=None):
     from brax_tracking_tpu_torch.physics import spec
 
@@ -922,21 +946,25 @@ def phase_smooth(device, B, seed):
 def spd_bound(name, B, nv):
     """Least time (ms) of one call on an H100 and what bounds it:
     max(bytes / HBM rate, FP32 operations / FP32 rate). Bytes: each input
-    read once, each output written once. Operations, per matrix: nv^3 +
+    read once, each output written once; the Cholesky functions
+    (spd_solve, factor_batched, solve_batched) need only the upper triangle
+    of their matrix, nv (nv + 1) / 2 floats, and factor_batched writes all
+    nv^2 of U. Operations, per matrix: nv^3 +
     2 nv^2 + nv per inverse (the symmetric sweep: per pivot a reciprocal,
     the pivot row scaled, one multiply-add on each entry of a triangle;
     Cholesky inversion, potrf + potri, also costs nv^3); the Cholesky
     nv^3 / 3 + nv^2 / 2 + nv (factor_batched), the two substitutions 2 nv^2
     (solve_batched), both for spd_solve."""
     mat = 4 * B * nv * nv
+    tri = 4 * B * nv * (nv + 1) // 2
     if name == "spd_solve":
-        nbytes = mat + 2 * 4 * B * nv
+        nbytes = tri + 2 * 4 * B * nv
         flops = B * (nv**3 / 3 + 2.5 * nv * nv + nv)
     elif name == "factor_batched":
-        nbytes = 2 * mat
+        nbytes = tri + mat
         flops = B * (nv**3 / 3 + 0.5 * nv * nv + nv)
     elif name == "solve_batched":
-        nbytes = mat + 2 * 4 * B * nv
+        nbytes = tri + 2 * 4 * B * nv
         flops = B * 2 * nv * nv
     else:
         ninv = 2 if name == "spd_inverse2" else 1
@@ -947,36 +975,59 @@ def spd_bound(name, B, nv):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def device_ms(fn, tag, reps=20):
-    """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
-    name holds ``tag``, from torch.profiler: at the ballmuscle's nv = 7 a
-    launch takes less device time than the host needs to issue it, so CUDA
-    events around a loop of launches time the host. The profiler may drop
-    an event now and then (seen once in 20 launches), so a profile that
-    does not see exactly ``reps`` launches is taken once more; a second
-    miss fails."""
+# torch.profiler keeps only the device events that fall inside its window
+# once their timestamps are moved to the host's clock, and on the H100 that
+# move has put a launch a few milliseconds before its own host-side launch
+# call, so a session with little idle time around the work lost some of
+# them; idle time at both ends keeps them all
+PROFILE_MARGIN_S = 0.05
+
+
+def profile_device(fn, reps):
+    """(name, device us) of every CUDA kernel and copy that ``reps`` calls
+    of ``fn`` launch (after one warm call), from torch.profiler with
+    PROFILE_MARGIN_S of idle time at both ends of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, tag, reps=20):
+    """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
+    name holds ``tag`` (profile_device): at the ballmuscle's nv = 7 a launch
+    takes less device time than the host needs to issue it, so CUDA events
+    around a loop of launches time the host. A profile that does not see
+    exactly ``reps`` launches is taken once more; a second miss fails."""
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ts = [e.device_time_total for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and tag in e.name]
+        ts = [t for name, t in profile_device(fn, reps) if tag in name]
         if len(ts) == reps:
             return sum(ts) / reps / 1e3
     fail(f"the profiler saw {len(ts)} launches of {tag} twice, expected {reps}")
 
 
-def spd_times(name, M, b, damp):
-    """(kernel device ms per launch, kernel host-clock ms per launch, plain
-    ms, library ms) on the same inputs (M is the factor for solve_batched).
-    The kernel is timed by its launch alone; the library call is the one
-    PyTorch call computing the same function (torch.linalg.inv, twice for
-    the pair, torch.linalg.solve, torch.linalg.cholesky or
+def library_device_ms(fn, reps=20):
+    """Mean device time (ms) per call of ``fn``: the sum of every CUDA
+    kernel and copy that the calls launched (profile_device)."""
+    ts = [t for _, t in profile_device(fn, reps)]
+    if not ts:
+        fail("the profiler saw no device time of the library call")
+    return sum(ts) / reps / 1e3
+
+
+def spd_calls(name, M, b, damp):
+    """(kernel launch, library call, profiler tag of the kernel) of ``name``
+    on (M, b, damp) (M is the factor for solve_batched): the launch alone,
+    and the one PyTorch call computing the same function (torch.linalg.inv,
+    twice for the pair, torch.linalg.solve, torch.linalg.cholesky or
     torch.cholesky_solve), which the port never calls."""
     from brax_tracking_tpu_torch.ops import cholesky as ops_chol
 
@@ -996,12 +1047,20 @@ def spd_times(name, M, b, damp):
         zero = torch.zeros_like(damp)
         kern = lambda: ops_chol._launch_inverse(M, zero, 1)
         lib = lambda: torch.linalg.inv(M)
-    plain = lambda: spd_run(name, M, b, damp, "plain")
-    reps = 50 if M.shape[-1] <= 73 else 10
     tag = {"spd_solve": "spd_solve_kernel", "factor_batched": "factor_kernel",
            "solve_batched": "solve_kernel"}.get(name, "spd_inverse_kernel")
+    return kern, lib, tag
+
+
+def spd_times(name, M, b, damp):
+    """(kernel device ms per launch, kernel host-clock ms per launch, plain
+    ms, library host-clock ms, library device ms) on the same inputs
+    (spd_calls)."""
+    kern, lib, tag = spd_calls(name, M, b, damp)
+    plain = lambda: spd_run(name, M, b, damp, "plain")
+    reps = 50 if M.shape[-1] <= 73 else 10
     return (device_ms(kern, tag), time_cuda(kern, reps), time_cuda(plain, 3),
-            time_cuda(lib, reps))
+            time_cuda(lib, reps), library_device_ms(lib))
 
 
 def bm_ms_per_substep(solver, B, n, seed):
@@ -1256,8 +1315,13 @@ def main() -> int:
     for nv in CHOL_EDGE_SIZES:
         for B in (B_MAIN, B_MAIN - 1):
             M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)
-            for name in CHOL_KERNELS:
-                phase_spd_vs_plain(name, *chol_inputs(name, M, b, damp), "panel edge", SPD_ABS)
+            for name in CHOL_EDGE_KERNELS:
+                phase_spd_vs_plain(name, *chol_inputs(name, M, b, damp), "design edge", SPD_ABS)
+    for nv in sorted(set(SPD_SIZES + CHOL_EDGE_SIZES + (10,))):
+        for B in (B_MAIN, B_MAIN - 1):
+            M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)
+            for name in CHOL_EDGE_KERNELS:
+                phase_upper_only(name, *chol_inputs(name, M, b, damp))
     bm = bm_model("cuda", "newton")
     dbm = pstep.forward_to_constraint(bm, bm_posed(bm, B_MAIN))
     bm_inputs = (dbm.qM.contiguous(), dbm.qfrc_smooth.contiguous(),
@@ -1369,34 +1433,35 @@ def main() -> int:
     spd_meta = {
         "spd_inverse": ("spd_inverse.cu", 362),
         "spd_inverse2": ("spd_inverse.cu", 388),
-        "spd_solve": ("spd_solve.cu", 489),
+        "spd_solve": ("cholesky.cu", 489),
         "factor_batched": ("cholesky.cu", 180),
         "solve_batched": ("cholesky.cu", 206),
     }
+    # each kernel at nv = 7, 73 and 146 on seeded matrices, then at its
+    # path's shape: the ballmuscle's own mass matrices (nv=7) for the SPD
+    # kernels, the minirat's (nv=10) for the factor and the solve; B=2048.
+    # The JSON line holds the path's shape.
     for name in SPD_KERNELS + CHOL_KERNELS:
-        for nv in SPD_SIZES:
-            t = spd_times(name, *chol_inputs(name, *spd_cases[nv]))
-            bnd = spd_bound(name, B_MAIN, nv)
-            print(f"{name} nv={nv} B={B_MAIN}: kernel {t[0] * 1e3:.2f} us/launch on the "
-                  f"device ({t[1] * 1e3:.2f} us/launch on the host clock), plain "
-                  f"{t[2]:.3f} ms, library {t[3] * 1e3:.2f} us, bound {bnd[0] * 1e3:.2f} us by "
-                  f"{bnd[1]} ({bnd[2]} B, {bnd[3]:.3e} FLOP) on {card}")
-        # the JSON line holds each kernel at its path's shape: the
-        # ballmuscle's own mass matrices (nv=7) for the SPD kernels, the
-        # minirat's (nv=10) for the factor and the solve; B=2048
+        timed = [(nv, chol_inputs(name, *spd_cases[nv]), None) for nv in SPD_SIZES]
         if name in CHOL_KERNELS:
-            ins, where, nv, rep = (qM, rhs, mr_damp), "minirat", qM.shape[-1], chol_reports[name]
+            timed.append((qM.shape[-1], chol_inputs(name, qM, rhs, mr_damp), "minirat"))
         else:
-            ins, where, nv, rep = bm_inputs, "ballmuscle", bm.nv, bm_reports[name]
-        t = spd_times(name, *chol_inputs(name, *ins))
-        bnd = spd_bound(name, B_MAIN, nv)
-        print(f"{name} on the {where}'s qM (nv={nv}, B={B_MAIN}): kernel "
-              f"{t[0] * 1e3:.2f} us/launch on the device ({t[1] * 1e3:.2f} us on the host "
-              f"clock), plain {t[2]:.3f} ms, library {t[3] * 1e3:.2f} us, bound "
-              f"{bnd[0] * 1e3:.3f} us by {bnd[1]} on {card}")
-        src, line = spd_meta[name]
-        entries.append(entry(name, src, f"cholesky.py:{line}", launches[name],
-                             rep["max_abs_err"], t[0], t[2], bnd[0], bnd[1], t[3]))
+            timed.append((bm.nv, chol_inputs(name, *bm_inputs), "ballmuscle"))
+        for nv, ins, where in timed:
+            t = spd_times(name, *ins)
+            bnd = spd_bound(name, B_MAIN, nv)
+            shape = (f"nv={nv} B={B_MAIN}" if where is None
+                     else f"on the {where}'s qM (nv={nv}, B={B_MAIN})")
+            print(f"{name} {shape}: kernel {t[0] * 1e3:.2f} us/launch on the device "
+                  f"({t[1] * 1e3:.2f} us/launch on the host clock), plain {t[2]:.3f} ms, "
+                  f"library {t[4] * 1e3:.2f} us on the device ({t[3] * 1e3:.2f} us on the "
+                  f"host clock), bound {bnd[0] * 1e3:.3f} us by {bnd[1]} ({bnd[2]} B, "
+                  f"{bnd[3]:.3e} FLOP) on {card}")
+            if where is not None:
+                rep = chol_reports[name] if name in CHOL_KERNELS else bm_reports[name]
+                src, line = spd_meta[name]
+                entries.append(entry(name, src, f"cholesky.py:{line}", launches[name],
+                                     rep["max_abs_err"], t[0], t[2], bnd[0], bnd[1], t[4]))
 
     for model, env in envs.items():
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)

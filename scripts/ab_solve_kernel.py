@@ -12,8 +12,8 @@ within it. Prints one JSON line:
 
 - ``ptxas``: registers per thread, stack frame and spill bytes of every
   kernel instance (and of every device function left out of line) of the
-  tree's ``ops/csrc/cg_fused.cu`` and ``cholesky.cu``, from
-  ``nvcc -Xptxas -v``;
+  tree's ``ops/csrc/cg_fused.cu``, ``cholesky.cu`` and, where the tree has
+  it, ``spd_solve.cu``, from ``nvcc -Xptxas -v``;
 - ``seeded_us``: device us per launch of each solve-kernel instance alone
   (torch.profiler over 100 launches, ``--reps`` times: the host's launch
   path takes about as long as a launch now, so CUDA events around a loop
@@ -22,16 +22,22 @@ within it. Prints one JSON line:
   (b) on the elliptic minirat, (c) on a Newton chunk (warmstart, stall
   exit, 16 line-search steps), and ``cg_solve_batched`` on the dense qM and
   J of (a) and (b);
-- ``factor_us`` / ``spd_solve_us``: device us per launch (torch.profiler,
-  ``--reps`` runs of 20 launches) of ``factor_batched`` at nv 7, 10, 73,
-  144 (the widest on 128 threads) and 146 and of ``spd_solve`` at 7, 73 and 146 on seeded SPD matrices (2048),
-  and ``factor_library_us`` (CUDA events) of ``torch.linalg.cholesky`` on
-  the same matrices;
+- ``factor_us`` / ``spd_solve_us`` / ``solve_us``: device us per launch
+  (torch.profiler, ``--reps`` runs of 20 launches) of ``factor_batched``
+  at nv 7, 10, 73, 144 (the widest on 128 threads) and 146, of
+  ``spd_solve`` and of ``solve_batched`` (from the float64 factor, stored
+  in float32) at 7, 10, 73 and 146 on seeded SPD matrices (2048);
+  ``factor_library_us`` (CUDA events) and ``factor_library_device_us`` of
+  ``torch.linalg.cholesky``, ``spd_solve_library_device_us`` of
+  ``torch.linalg.solve`` and ``solve_library_device_us`` of
+  ``torch.cholesky_solve`` on the same inputs (device time: every kernel
+  and copy the call launches, torch.profiler);
 - ``occupancy_us``: device us per launch of (a) on the first 132 (one env
-  per SM), 528 and 2048 of those envs, and of ``factor_batched`` at nv 73
-  and 146 on 132, 792 and 2048 matrices: a time that stays flat as
-  the launch fills the card is one block's chain of dependent steps, a time
-  that grows with it is a shared resource;
+  per SM), 528 and 2048 of those envs, and of ``factor_batched``,
+  ``spd_solve`` and ``solve_batched`` at nv 73 and 146 on 132, 792 and
+  2048 matrices: a time that stays flat as the launch fills the card is one
+  block's chain of dependent steps, a time that grows with it is a shared
+  resource;
 - ``rollout_inputs_us``: (a)'s device us on the inputs of the last substep of 22
   control steps of the 2048-env tracking rollout (captured at the wrapper);
 - ``in_rollout_us``: device us per launch of (a) from torch.profiler over
@@ -48,6 +54,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -55,9 +62,10 @@ SOLVE_CASES = (("a", "minirat", False), ("b", "minirat_elliptic", False),
                ("c", "minirat_newton", False), ("batched_a", "minirat", True),
                ("batched_b", "minirat_elliptic", True))
 FACTOR_SIZES = (7, 10, 73, 144, 146)
-SPD_SOLVE_SIZES = (7, 73, 146)
+SOLVE_SIZES = (7, 10, 73, 146)  # spd_solve and solve_batched
 OCCUPANCY_ENVS = (132, 528, 2048)
-OCCUPANCY_FACTOR = {73: (132, 792, 2048), 146: (132, 792, 2048)}
+OCCUPANCY_CHOL = {73: (132, 792, 2048), 146: (132, 792, 2048)}
+PROFILE_MARGIN_S = 0.05
 
 
 def ptxas(root: str, name: str) -> dict:
@@ -89,27 +97,42 @@ def ptxas(root: str, name: str) -> dict:
     return info
 
 
-def device_us(fn, tag: str, reps: int = 20) -> float:
-    """Mean device us per call of ``fn`` of the CUDA kernels whose name
-    holds ``tag`` (torch.profiler). The profiler drops an event now and
-    then, so a profile that does not see exactly ``reps`` launches is taken
-    once more; a second miss raises. Its own copy
-    (scripts/stamp_solve_kernel.py shares it), so that it times an older
-    tree's kernels the same way."""
+def profile_device(fn, reps: int):
+    """(name, device us) of every CUDA kernel and copy that ``reps`` calls
+    of ``fn`` launch (after one warm call), from torch.profiler with idle
+    time at both ends of the window (chip_smoke.py's PROFILE_MARGIN_S says
+    why). Its own copy (scripts/stamp_solve_kernel.py shares it), so that it
+    times an older tree's kernels the same way."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_us(fn, tag: str, reps: int = 20) -> float:
+    """Mean device us per call of ``fn`` of the CUDA kernels whose name
+    holds ``tag`` (profile_device). A profile that does not see exactly
+    ``reps`` launches is taken once more; a second miss raises."""
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ts = [e.device_time_total for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and tag in e.name]
+        ts = [t for name, t in profile_device(fn, reps) if tag in name]
         if len(ts) == reps:
             return sum(ts) / reps
     raise RuntimeError(f"the profiler saw {len(ts)} launches of {tag} twice, expected {reps}")
+
+
+def all_device_us(fn, reps: int = 20) -> float:
+    """Mean device us per call of ``fn``: every CUDA kernel and copy the
+    calls launch (profile_device); for a library call that launches
+    several."""
+    return sum(t for _, t in profile_device(fn, reps)) / reps
 
 
 def main() -> int:
@@ -132,8 +155,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     library.build()
+    csrc = os.path.join(root, "brax_tracking_tpu_torch", "ops", "csrc")
     report = {"root": root, "card": cs.card_line(),
-              "ptxas": {f: ptxas(root, f) for f in ("cg_fused.cu", "cholesky.cu")}}
+              "ptxas": {f: ptxas(root, f) for f in ("cg_fused.cu", "cholesky.cu", "spd_solve.cu")
+                        if os.path.exists(os.path.join(csrc, f))}}
     seeded = {}
     for key, model, batched in SOLVE_CASES:
         _, kargs, kw = cs.solve_case("cuda", model, cs.B_MAIN, cs.SEED)
@@ -143,31 +168,46 @@ def main() -> int:
         tag = "cg_batched_kernel" if batched else "cg_fused_kernel"
         seeded[key] = [device_us(launch, tag, 100) for _ in range(args.reps)]
     report["seeded_us"] = seeded
-    factor, lib, spd = {}, {}, {}
-    for nv in sorted(set(FACTOR_SIZES) | set(SPD_SOLVE_SIZES)):
+    keys = ("factor_us", "factor_library_us", "factor_library_device_us", "spd_solve_us",
+            "spd_solve_library_device_us", "solve_us", "solve_library_device_us")
+    chol = {k: {} for k in keys}
+    reps = range(args.reps)
+    for nv in sorted(set(FACTOR_SIZES) | set(SOLVE_SIZES)):
         M, b, _ = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
         if nv in FACTOR_SIZES:
             kern = lambda: ops_chol._launch_factor(M)
-            factor[nv] = [device_us(kern, "factor_kernel") for _ in range(args.reps)]
-            lib[nv] = [cs.time_cuda(lambda: torch.linalg.cholesky(M), 20) * 1e3
-                       for _ in range(args.reps)]
-        if nv in SPD_SOLVE_SIZES:
+            lib = lambda: torch.linalg.cholesky(M)
+            chol["factor_us"][nv] = [device_us(kern, "factor_kernel") for _ in reps]
+            chol["factor_library_us"][nv] = [cs.time_cuda(lib, 20) * 1e3 for _ in reps]
+            chol["factor_library_device_us"][nv] = [all_device_us(lib) for _ in reps]
+        if nv in SOLVE_SIZES:
+            U = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()
             kern = lambda: ops_chol._launch_solve(M, b)
-            spd[nv] = [device_us(kern, "spd_solve_kernel") for _ in range(args.reps)]
-    report.update(factor_us=factor, factor_library_us=lib, spd_solve_us=spd)
+            chol["spd_solve_us"][nv] = [device_us(kern, "spd_solve_kernel") for _ in reps]
+            chol["spd_solve_library_device_us"][nv] = [
+                all_device_us(lambda: torch.linalg.solve(M, b[..., None])) for _ in reps]
+            kern = lambda: ops_chol._launch_solve_factor(U, b)
+            chol["solve_us"][nv] = [device_us(kern, "solve_kernel") for _ in reps]
+            chol["solve_library_device_us"][nv] = [
+                all_device_us(lambda: torch.cholesky_solve(b[..., None], U, upper=True))
+                for _ in reps]
+    report.update(chol)
     occ = {}
     _, kargs, kw = cs.solve_case("cuda", "minirat", cs.B_MAIN, cs.SEED)
     for B in OCCUPANCY_ENVS:
         part = [t[:B] if t.shape[0] == cs.B_MAIN else t for t in kargs]
         launch = cs.kernel_launch([t.contiguous() for t in part], kw)
         occ[f"a/{B}"] = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(args.reps))
-    for nv, counts in OCCUPANCY_FACTOR.items():
-        M, _, _ = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
+    for nv, counts in OCCUPANCY_CHOL.items():
+        M, b, _ = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
+        U = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()
         for B in counts:
-            Mb = M[:B].contiguous()
-            occ[f"factor{nv}/{B}"] = min(
-                device_us(lambda: ops_chol._launch_factor(Mb), "factor_kernel")
-                for _ in range(args.reps))
+            Mb, Ub, bb = M[:B].contiguous(), U[:B].contiguous(), b[:B].contiguous()
+            for key, launch, tag in (
+                    ("factor", lambda: ops_chol._launch_factor(Mb), "factor_kernel"),
+                    ("spd_solve", lambda: ops_chol._launch_solve(Mb, bb), "spd_solve_kernel"),
+                    ("solve", lambda: ops_chol._launch_solve_factor(Ub, bb), "solve_kernel")):
+                occ[f"{key}{nv}/{B}"] = min(device_us(launch, tag) for _ in reps)
     report["occupancy_us"] = occ
     if args.seeded_only:
         print(json.dumps(report))

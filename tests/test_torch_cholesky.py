@@ -4,7 +4,9 @@ versions against the JAX package's Pallas kernels, float64 on the CPU.
 The JAX kernels run with ``interpret=True`` as tests/test_ops_cholesky.py
 runs them; under ``jax_enable_x64`` they compute in float64, within ~1e-16
 of numpy. Seeded SPD matrices at nv in {7 (ballmuscle), 13} and B in
-{5, 130} (130 crosses the TPU kernels' 128-env lane padding). Tolerance
+{5, 130} (130 crosses the TPU kernels' 128-env lane padding); the SPD
+solve also at (nv, B) = (33, 8) and (73, 130), past the CUDA kernel's
+register path (nv <= 32) into its blocked one. Tolerance
 1e-10 relative to the largest entry: both sides are float64 eliminations of
 well-conditioned matrices (condition number < ~10), so anything above
 rounding (~1e-15) is a fault; 1e-10 leaves room for the two elimination
@@ -21,6 +23,7 @@ from brax_tracking_tpu_torch.ops import cholesky as tchol
 
 RTOL = 1e-10
 SHAPES = [(7, 5), (7, 130), (13, 5), (13, 130)]
+SOLVE_SHAPES = SHAPES + [(33, 8), (73, 130)]
 
 
 def _case(nv, B, seed=0):
@@ -52,7 +55,7 @@ def test_inverse2_matches_jax_kernel(nv, B):
         _close(o.numpy(), r)
 
 
-@pytest.mark.parametrize("nv,B", SHAPES)
+@pytest.mark.parametrize("nv,B", SOLVE_SHAPES)
 def test_solve_matches_jax_kernel(nv, B):
     M, b, _ = _case(nv, B)
     ref = jchol.factor_solve_batched(jnp.asarray(M), jnp.asarray(b), interpret=True)
@@ -101,7 +104,17 @@ def test_wrappers_check_their_arguments(monkeypatch):
 
 def test_shared_memory_rule():
     """One block holds one matrix: rodent_pair's nv = 146 fits a block of
-    the H100 (85.8 KB of 227 KB), nv = 240 does not."""
+    the H100 (85.8 KB of 227 KB for the sweep), nv = 240 does not. The SPD
+    solve holds the factor's padded matrix and the right-hand side (88.2
+    KB at 146); the solve from U only U's upper triangle by panels of 16
+    rows (each panel's rows from its first column: 146 x 147 / 2 floats
+    plus 9 panels' lower 16 x 16 triangles and the last one's, 2 x 2) and
+    the right-hand side (47.8 KB), so that 4 of its blocks share an SM's
+    228 KB (1 KB of it reserved per block). Up to nv = 32 the Cholesky
+    solves use no shared memory."""
     assert tchol.inverse_smem_bytes(146) == 4 * (146 * 147 + 2 * 146)
-    assert tchol.solve_smem_bytes(146) <= tchol.H100_SMEM_PER_BLOCK
     assert tchol.inverse_smem_bytes(240) > tchol.H100_SMEM_PER_BLOCK
+    assert tchol.spd_solve_smem_bytes(146) == 4 * (148 * 148 + 148) <= tchol.H100_SMEM_PER_BLOCK
+    assert tchol.solve_smem_bytes(146) == 4 * (146 * 147 // 2 + 9 * 120 + 1 + 146)
+    assert 4 * (tchol.solve_smem_bytes(146) + 1024) <= 228 * 1024
+    assert tchol.spd_solve_smem_bytes(32) == tchol.solve_smem_bytes(32) == 0

@@ -116,6 +116,65 @@ def test_factor_launch_refuses_oversize():
         tchol._launch_factor(torch.zeros(1, 241, 241))
 
 
+@pytest.mark.parametrize("B", [1, 2047, 2048])
+def test_solve_geometry(B):
+    """spd_solve's and solve_batched's launches (csrc/cholesky.cu) at every
+    width up to 160: up to FACTOR_WARP_MAX 128-thread blocks of 8, 16 or 32
+    lanes per system (4 warps of 4, 2 or 1 systems) and no shared memory;
+    above, one block per system, spd_solve with factor_batched's threads and
+    its padded matrix plus the right-hand side, solve_batched with 128
+    threads and U's upper triangle by panels of 16 rows (each panel's rows
+    from its first column) plus the right-hand side."""
+    for nv in range(1, 161):
+        spd, chol = tchol.spd_solve_geometry(B, nv), tchol.solve_geometry(B, nv)
+        assert spd[2] == tchol.spd_solve_smem_bytes(nv) <= tchol.H100_SMEM_PER_BLOCK
+        assert chol[2] == tchol.solve_smem_bytes(nv) <= tchol.H100_SMEM_PER_BLOCK
+        if nv <= tchol.FACTOR_WARP_MAX:
+            lanes = 8 if nv <= 8 else (16 if nv <= 16 else 32)
+            assert tchol.solve_segment(nv) == lanes
+            assert spd == chol == (-(-B // (128 // lanes)), 128, 0)
+        else:
+            ld = -(-nv // 4) * 4
+            _, threads, _ = tchol.factor_geometry(B, nv)
+            assert spd == (B, threads, 4 * (ld * ld + ld))
+            k0 = (nv - 1) // 16 * 16
+            panels = sum(min(16, nv - p) * (nv - p) for p in range(0, nv, 16))
+            assert panels == k0 * nv - k0 * (k0 - 16) // 2 + (nv - k0) ** 2
+            assert chol == (B, 128, 4 * (panels + nv))
+
+
+def test_solve_launches_refuse_oversize():
+    """The widest system whose padded factor fits one block is nv = 240
+    for spd_solve; solve_batched's triangle by panels fits up to nv = 332.
+    A wider one raises before any launch."""
+    assert tchol.spd_solve_smem_bytes(240) <= tchol.H100_SMEM_PER_BLOCK
+    assert tchol.spd_solve_smem_bytes(241) > tchol.H100_SMEM_PER_BLOCK
+    assert tchol.solve_smem_bytes(332) <= tchol.H100_SMEM_PER_BLOCK
+    assert tchol.solve_smem_bytes(333) > tchol.H100_SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        tchol._launch_solve(torch.zeros(1, 241, 241), torch.zeros(1, 241))
+    with pytest.raises(ValueError, match="shared memory"):
+        tchol._launch_solve_factor(torch.zeros(1, 333, 333), torch.zeros(1, 333))
+
+
+@pytest.mark.parametrize("nv", [7, 33])
+def test_plain_versions_read_only_the_upper_triangle(nv):
+    """The factor, the solve from U and the SPD solve give bitwise the same
+    result with NaN in the strict lower triangle of their matrix: they are
+    functions of its upper triangle (the CUDA kernels are held to the same
+    on the card by chip_smoke.py)."""
+    M, b = (torch.as_tensor(a) for a in _case(5, nv, seed=3))
+    lower = torch.ones(nv, nv, dtype=torch.bool).tril(-1)
+    U = tchol.cholesky_factor_reference(M)
+    for fn, args in ((tchol.cholesky_factor_reference, (M,)),
+                     (tchol.cholesky_solve_reference, (U, b)),
+                     (tchol.spd_solve_reference, (M, b))):
+        clean = fn(*args)
+        dirty = fn(args[0].masked_fill(lower, float("nan")), *args[1:])
+        assert torch.isfinite(dirty).all()
+        torch.testing.assert_close(dirty, clean, rtol=0, atol=0)
+
+
 def _minirat_qM(B=6):
     jm = jspec.build_model("builtin:minirat.xml", solver="cg", iterations=4, ls_iterations=4,
                            dtype=jnp.float64)
