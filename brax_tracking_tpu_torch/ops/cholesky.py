@@ -15,25 +15,29 @@ Replaces the TPU kernels of ``brax_tracking_tpu/ops/cholesky.py``:
   ``dynamics.factor_m`` and the qLD branch of ``dynamics.solve_m``.
 
 Hopper design (``csrc/spd_inverse.cu``, ``csrc/cholesky.cu`` on the
-pieces of ``csrc/cholesky.cuh``). The sweep: one block per matrix, the
-matrix in shared memory for the whole sweep. The Cholesky kernels share one
-factor and read only the upper triangle of their matrix: up to nv = 32 a
-matrix lives in the registers of one warp (or of a segment of 8 or 16
-lanes, several matrices per warp, for the solves), lane c holding column c
-of the triangle, with no shared memory and no barrier; the factor and both
-substitutions are right-looking with one shuffle per step, and the solves
-keep row c of U beside column c so that the backward pass needs one
-shuffle per step too. Above that one block per matrix in shared memory, in
-panels of 16 rows: the factor's diagonal block and both substitutions'
-triangles in one warp's registers, the rest of each panel's work as a
-16-term update by every thread, two barriers per panel. ``factor_batched``
-writes U; ``spd_solve`` factors on the same code and keeps U on chip;
-``solve_batched`` stages only U's upper triangle, by panels, one panel of
-rows at a time. ``factor_geometry``, ``spd_solve_geometry`` and
-``solve_geometry`` give the launches. The sweep is bound by its FP32
-operations at rodent size, the Cholesky kernels by their bytes (the SPD
-solve by its operations at nv = 146); at the ballmuscle's nv = 7 and the
-minirat's 10 all are bound by launch latency. Each source says more.
+pieces of ``csrc/cholesky.cuh``). Up to nv = 32 a matrix lives in the
+registers of a segment of 8, 16 or 32 lanes (several matrices per warp at
+the engine's widths), lane c holding column c, with no shared memory and no
+barrier, and each step takes what it needs from another lane by shuffles.
+The sweep inverts one (matrix, inverse) unit per segment, the pair's two
+units in one launch, pivot k's column coming from lane k. The Cholesky
+kernels share one factor and read only the upper triangle of their matrix:
+the factor and both substitutions are right-looking with one shuffle per
+step, and the solves keep row c of U beside column c so that the backward
+pass needs one shuffle per step too. Above that one block per matrix (per
+unit for the sweep) in shared memory, in panels of 16 pivots: one warp
+works the panel's 16 x 16 diagonal block in registers, and the rest of the
+panel's work is a 16-deep update by every thread in 4 x 4 register tiles,
+two barriers per panel. The sweep replays the block's 16 steps on the
+panel's rows and columns, so every entry gets the scalar sweep's updates in
+its order. ``factor_batched`` writes U; ``spd_solve`` factors on the same
+code and keeps U on chip; ``solve_batched`` stages only U's upper triangle,
+by panels, one panel of rows at a time. ``inverse_geometry``,
+``factor_geometry``, ``spd_solve_geometry`` and ``solve_geometry`` give the
+launches. All are bound by their bytes from nv ~ 12 up (the pair of
+inverses and the SPD solve by their operations at nv = 146) and by launch
+latency at the ballmuscle's nv = 7 and the minirat's 10. Each source says
+more.
 
 ``sweep_inverse_reference``, ``cholesky_factor_reference``,
 ``cholesky_solve_reference`` and ``spd_solve_reference`` are the plain
@@ -41,7 +45,7 @@ PyTorch versions: the functions each kernel computes, and its yardstick.
 They eliminate one pivot at a time. The kernels apply each entry's updates
 in the same pivot order, but contract them to fused multiply-adds, use the
 hardware reciprocal square root, multiply by reciprocals where the plain
-versions divide and, in the blocked factor, group the pivots in panels, so
+versions divide and, in the blocked paths, group the pivots in panels, so
 they agree with the plain versions to rounding, not bitwise. A wrapper runs
 the plain versions only for tensors on the CPU; CUDA tensors go to the
 kernel (float32, contiguous) or the call raises.
@@ -57,12 +61,35 @@ from brax_tracking_tpu_torch.device import check_device, resolve_device
 from brax_tracking_tpu_torch.ops import library
 
 H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
+# spd_inverse: widths up to INVERSE_WARP_MAX are swept in registers, wider
+# ones in shared memory in panels of INVERSE_NB pivots (csrc/spd_inverse.cu)
+INVERSE_WARP_MAX = 32
+INVERSE_NB = 16
 
 
 def inverse_smem_bytes(nv: int) -> int:
-    """Shared memory of one spd_inverse block: the matrix (row stride
-    nv | 1) and the pivot row and column, float32."""
-    return 4 * (nv * (nv | 1) + 2 * nv)
+    """Shared memory of one spd_inverse block: none up to INVERSE_WARP_MAX,
+    else the matrix with rows and row stride padded to a multiple of 4
+    (16-byte tiles), each panel step's scaled pivot row and negated pivot
+    column outside the panel (INVERSE_NB x ld each) and the pivot block's
+    steps (2 x INVERSE_NB x INVERSE_NB), float32."""
+    if nv <= INVERSE_WARP_MAX:
+        return 0
+    ld = -(-nv // 4) * 4
+    return 4 * (ld * ld + 2 * INVERSE_NB * ld + 2 * INVERSE_NB * INVERSE_NB)
+
+
+def inverse_geometry(B: int, nv: int, ninv: int) -> Tuple[int, int, int]:
+    """(blocks, threads per block, shared memory bytes per block) of a
+    spd_inverse launch on B matrices of width nv, ninv inverses each (1:
+    M^-1; 2: also (M + diag(damp))^-1), one unit of work per (matrix,
+    inverse): up to INVERSE_WARP_MAX, 128-thread blocks of
+    solve_segment(nv) lanes per unit (as the register solves); above, one
+    block per unit, 128 threads up to nv = 80 and 256 above."""
+    units = B * ninv
+    if nv <= INVERSE_WARP_MAX:
+        return _solve_warp_geometry(units, nv)
+    return units, (128 if nv <= 80 else 256), inverse_smem_bytes(nv)
 
 
 # factor_batched: widths up to FACTOR_WARP_MAX take one warp per matrix and
@@ -168,6 +195,52 @@ def sweep_inverse_reference(a: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _sweep_inverse_panels_reference(a: torch.Tensor, nb: int = INVERSE_NB) -> torch.Tensor:
+    """Batched SPD inverse (B, n, n) by the sweep in panels of nb pivots,
+    grouped as the CUDA kernel groups it above INVERSE_WARP_MAX (no wrapper
+    calls it): per panel the pivot block (the last partial one padded with
+    the identity) is swept one pivot at a time, the same steps are replayed
+    on the panel's rows and on its columns outside the block, recording each
+    step's scaled pivot row Rk and pivot column Ck outside the panel, and
+    the rest takes the panel's nb updates at once, S -= Ck^T Rk. Every entry
+    receives the scalar sweep's updates in its pivot order, so this is
+    ``sweep_inverse_reference`` regrouped; the TPU kernel's
+    ``sweep_invert_ref`` computes the same function through the block's
+    explicit inverse."""
+    s = a.clone()
+    B, n, _ = a.shape
+    for kb in range(0, n, nb):
+        b = min(nb, n - kb)
+        p = slice(kb, kb + b)
+        rest = torch.cat([torch.arange(kb), torch.arange(kb + b, n)]).to(a.device)
+        A = torch.eye(nb, dtype=a.dtype, device=a.device).repeat(B, 1, 1)
+        A[:, :b, :b] = s[:, p, p]
+        rows = a.new_zeros(B, nb, n - b)  # the panel's rows outside the block
+        rows[:, :b] = s[:, p][:, :, rest]
+        cols = a.new_zeros(B, n - b, nb)  # the panel's columns outside the block
+        cols[:, :, :b] = s[:, rest][:, :, p]
+        Rk = a.new_empty(B, nb, n - b)
+        Ck = a.new_empty(B, nb, n - b)
+        for k in range(nb):
+            dinv = 1.0 / A[:, k, k]
+            acol, arow_d = A[:, :, k].clone(), A[:, k, :] * dinv[:, None]
+            Rk[:, k] = rows[:, k] * dinv[:, None]
+            rows = rows - acol[:, :, None] * Rk[:, k, None, :]
+            rows[:, k] = Rk[:, k]
+            Ck[:, k] = cols[:, :, k]
+            cols = cols - Ck[:, k, :, None] * arow_d[:, None, :]
+            cols[:, :, k] = -Ck[:, k] * dinv[:, None]
+            A = A - acol[:, :, None] * arow_d[:, None, :]
+            A[:, k, :] = arow_d
+            A[:, :, k] = -acol * dinv[:, None]
+            A[:, k, k] = dinv
+        s[:, rest[:, None], rest[None, :]] -= Ck.transpose(1, 2) @ Rk
+        s[:, p, rest] = rows[:, :b]
+        s[:, rest, p] = cols[:, :, :b]
+        s[:, p, p] = A[:, :b, :b]
+    return s
+
+
 def cholesky_factor_reference(a: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor U (a = U^T U, zero below the diagonal) of SPD a
     (B, n, n), from a's upper triangle: right-looking, one pivot at a time
@@ -226,16 +299,18 @@ def _check_kernel_args(name, smem, **tensors):
         )
 
 
-def _launch_inverse(qM: torch.Tensor, damp: torch.Tensor, ninv: int):
-    """The sweep kernel on (B, nv, nv): (M^-1,) or (M^-1, (M + diag(damp))^-1)."""
+def _launch_inverse(qM: torch.Tensor, damp, ninv: int):
+    """The sweep kernel on (B, nv, nv): (M^-1,) (ninv 1, damp None) or
+    (M^-1, (M + diag(damp))^-1) (ninv 2)."""
     B, nv, _ = qM.shape
-    smem = inverse_smem_bytes(nv)
-    _check_kernel_args("spd_inverse", smem, qM=qM, damp=damp)
+    _, threads, smem = inverse_geometry(B, nv, ninv)
+    tensors = {"qM": qM} if damp is None else {"qM": qM, "damp": damp}
+    _check_kernel_args("spd_inverse", smem, **tensors)
     outs = tuple(torch.empty_like(qM) for _ in range(ninv))
     stream = torch.cuda.current_stream(qM.device).cuda_stream
     err = library.lib().spd_inverse_launch(
-        library.ptr(qM), library.ptr(damp), library.ptr(outs[0]),
-        library.ptr(outs[-1]), B, nv, ninv, smem, stream,
+        library.ptr(qM), None if damp is None else library.ptr(damp), library.ptr(outs[0]),
+        library.ptr(outs[-1]), B, nv, ninv, threads, smem, stream,
     )
     library.check("spd_inverse", err)
     return outs
@@ -301,7 +376,7 @@ def spd_inverse(qM: torch.Tensor, device="cuda") -> torch.Tensor:
     check_device(dev, qM=qM)
     if dev.type == "cpu":
         return sweep_inverse_reference(qM)
-    (out,) = _launch_inverse(qM, qM.new_zeros(qM.shape[-1]), 1)
+    (out,) = _launch_inverse(qM, None, 1)
     spd_inverse.launches += 1
     return out
 

@@ -15,9 +15,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
    on the dense qM and J of the minirat and the elliptic minirat; the SPD
    inverse, the paired inverse, the SPD solve, the Cholesky factor and the
    solve from it on seeded SPD matrices at nv = 7, 73 and 146 (B=2048 and
-   B=2047) and on the ballmuscle's own mass matrices, the three Cholesky
-   kernels also at the widths on either side of each of their design
-   edges, and with NaN below the diagonal (which they must not read);
+   B=2047) and on the ballmuscle's own mass matrices, all five also at
+   the widths on either side of each of their design edges, and the three
+   Cholesky kernels with NaN below the diagonal (which they must not read);
 4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
    AutoResetWrapperTracking, 10 substeps) for 20 control steps, on the
    minirat (the main path) and on the elliptic minirat, counts the kernel
@@ -145,6 +145,13 @@ CHOL_KERNELS = ("factor_batched", "solve_batched")
 # triangle every output must be finite and bitwise the clean input's.
 CHOL_EDGE_KERNELS = ("spd_solve",) + CHOL_KERNELS
 CHOL_EDGE_SIZES = (8, 9, 16, 17, 31, 32, 33, 47, 48, 49, 84, 85, 144, 145)
+# The inverses (spd_inverse, spd_inverse2) change design at the same widths
+# up to 49 (their register sweep's segments at 8 and 16, the blocked sweep's
+# panels of 16 pivots above 32, its row padding at multiples of 4); 144 /
+# 145 add a full and a one-pivot last panel on 256 threads. They read the
+# whole matrix, so they have no NaN-below-the-diagonal gate.
+INV_EDGE_KERNELS = ("spd_inverse", "spd_inverse2")
+INV_EDGE_SIZES = tuple(n for n in CHOL_EDGE_SIZES if n <= 49) + (144, 145)
 # The dense solve kernel at a rodent-like size (rodent_like_case): nv = 73
 # (the rodent's dofs), 296 rows of which 4 are scalar limits, ~140 KB of
 # shared memory per env, seeded; its J^T f runs five 16-column chunks where
@@ -1044,8 +1051,7 @@ def spd_calls(name, M, b, damp):
         kern = lambda: ops_chol._launch_inverse(M, damp, 2)
         lib = lambda: (torch.linalg.inv(M), torch.linalg.inv(M + torch.diag(damp)))
     else:
-        zero = torch.zeros_like(damp)
-        kern = lambda: ops_chol._launch_inverse(M, zero, 1)
+        kern = lambda: ops_chol._launch_inverse(M, None, 1)
         lib = lambda: torch.linalg.inv(M)
     tag = {"spd_solve": "spd_solve_kernel", "factor_batched": "factor_kernel",
            "solve_batched": "solve_kernel"}.get(name, "spd_inverse_kernel")
@@ -1317,6 +1323,11 @@ def main() -> int:
             M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)
             for name in CHOL_EDGE_KERNELS:
                 phase_spd_vs_plain(name, *chol_inputs(name, M, b, damp), "design edge", SPD_ABS)
+    for nv in INV_EDGE_SIZES:
+        for B in (B_MAIN, B_MAIN - 1):
+            M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)
+            for name in INV_EDGE_KERNELS:
+                phase_spd_vs_plain(name, M, b, damp, "design edge", SPD_ABS)
     for nv in sorted(set(SPD_SIZES + CHOL_EDGE_SIZES + (10,))):
         for B in (B_MAIN, B_MAIN - 1):
             M, b, damp = spd_inputs("cuda", nv, B, SEED + nv)

@@ -1,5 +1,5 @@
-"""Time the solve kernel's instances and the Cholesky factor, for comparing
-two trees on one card.
+"""Time the solve kernel's instances, the Cholesky kernels and the SPD
+inverses, for comparing two trees on one card.
 
     python3 scripts/ab_solve_kernel.py [--root DIR] [--reps 3] [--seeded-only]
 
@@ -12,8 +12,8 @@ within it. Prints one JSON line:
 
 - ``ptxas``: registers per thread, stack frame and spill bytes of every
   kernel instance (and of every device function left out of line) of the
-  tree's ``ops/csrc/cg_fused.cu``, ``cholesky.cu`` and, where the tree has
-  it, ``spd_solve.cu``, from ``nvcc -Xptxas -v``;
+  tree's ``ops/csrc/cg_fused.cu``, ``cholesky.cu``, ``spd_inverse.cu``
+  and, where the tree has it, ``spd_solve.cu``, from ``nvcc -Xptxas -v``;
 - ``seeded_us``: device us per launch of each solve-kernel instance alone
   (torch.profiler over 100 launches, ``--reps`` times: the host's launch
   path takes about as long as a launch now, so CUDA events around a loop
@@ -32,12 +32,19 @@ within it. Prints one JSON line:
   ``torch.linalg.solve`` and ``solve_library_device_us`` of
   ``torch.cholesky_solve`` on the same inputs (device time: every kernel
   and copy the call launches, torch.profiler);
+- ``inverse_us`` / ``inverse2_us``: device us per launch of ``spd_inverse``
+  and ``spd_inverse2`` (the kernels whose name holds ``spd_inverse``, so a
+  tree's extra fill launch is not counted) at nv 7, 10, 73 and 146 on the
+  same matrices, through the public wrappers so that an older tree is
+  timed the same way; ``inverse_library_device_us`` of
+  ``torch.linalg.inv`` on them (the pair's is twice that, on M and on M +
+  diag(damp));
 - ``occupancy_us``: device us per launch of (a) on the first 132 (one env
   per SM), 528 and 2048 of those envs, and of ``factor_batched``,
-  ``spd_solve`` and ``solve_batched`` at nv 73 and 146 on 132, 792 and
-  2048 matrices: a time that stays flat as the launch fills the card is one
-  block's chain of dependent steps, a time that grows with it is a shared
-  resource;
+  ``spd_solve``, ``solve_batched``, ``spd_inverse`` and ``spd_inverse2``
+  at nv 73 and 146 on 132, 792 and 2048 matrices: a time that stays flat
+  as the launch fills the card is one block's chain of dependent steps, a
+  time that grows with it is a shared resource;
 - ``rollout_inputs_us``: (a)'s device us on the inputs of the last substep of 22
   control steps of the 2048-env tracking rollout (captured at the wrapper);
 - ``in_rollout_us``: device us per launch of (a) from torch.profiler over
@@ -62,7 +69,7 @@ SOLVE_CASES = (("a", "minirat", False), ("b", "minirat_elliptic", False),
                ("c", "minirat_newton", False), ("batched_a", "minirat", True),
                ("batched_b", "minirat_elliptic", True))
 FACTOR_SIZES = (7, 10, 73, 144, 146)
-SOLVE_SIZES = (7, 10, 73, 146)  # spd_solve and solve_batched
+SOLVE_SIZES = (7, 10, 73, 146)  # spd_solve, solve_batched and the inverses
 OCCUPANCY_ENVS = (132, 528, 2048)
 OCCUPANCY_CHOL = {73: (132, 792, 2048), 146: (132, 792, 2048)}
 PROFILE_MARGIN_S = 0.05
@@ -157,7 +164,8 @@ def main() -> int:
     library.build()
     csrc = os.path.join(root, "brax_tracking_tpu_torch", "ops", "csrc")
     report = {"root": root, "card": cs.card_line(),
-              "ptxas": {f: ptxas(root, f) for f in ("cg_fused.cu", "cholesky.cu", "spd_solve.cu")
+              "ptxas": {f: ptxas(root, f)
+                        for f in ("cg_fused.cu", "cholesky.cu", "spd_inverse.cu", "spd_solve.cu")
                         if os.path.exists(os.path.join(csrc, f))}}
     seeded = {}
     for key, model, batched in SOLVE_CASES:
@@ -169,11 +177,12 @@ def main() -> int:
         seeded[key] = [device_us(launch, tag, 100) for _ in range(args.reps)]
     report["seeded_us"] = seeded
     keys = ("factor_us", "factor_library_us", "factor_library_device_us", "spd_solve_us",
-            "spd_solve_library_device_us", "solve_us", "solve_library_device_us")
+            "spd_solve_library_device_us", "solve_us", "solve_library_device_us", "inverse_us",
+            "inverse2_us", "inverse_library_device_us")
     chol = {k: {} for k in keys}
     reps = range(args.reps)
     for nv in sorted(set(FACTOR_SIZES) | set(SOLVE_SIZES)):
-        M, b, _ = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
+        M, b, damp = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
         if nv in FACTOR_SIZES:
             kern = lambda: ops_chol._launch_factor(M)
             lib = lambda: torch.linalg.cholesky(M)
@@ -191,6 +200,14 @@ def main() -> int:
             chol["solve_library_device_us"][nv] = [
                 all_device_us(lambda: torch.cholesky_solve(b[..., None], U, upper=True))
                 for _ in reps]
+            chol["inverse_us"][nv] = [
+                device_us(lambda: ops_chol.spd_inverse(M, device="cuda"), "spd_inverse")
+                for _ in reps]
+            chol["inverse2_us"][nv] = [
+                device_us(lambda: ops_chol.spd_inverse2(M, damp, device="cuda"), "spd_inverse")
+                for _ in reps]
+            chol["inverse_library_device_us"][nv] = [
+                all_device_us(lambda: torch.linalg.inv(M)) for _ in reps]
     report.update(chol)
     occ = {}
     _, kargs, kw = cs.solve_case("cuda", "minirat", cs.B_MAIN, cs.SEED)
@@ -199,14 +216,17 @@ def main() -> int:
         launch = cs.kernel_launch([t.contiguous() for t in part], kw)
         occ[f"a/{B}"] = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(args.reps))
     for nv, counts in OCCUPANCY_CHOL.items():
-        M, b, _ = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
+        M, b, damp = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
         U = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()
         for B in counts:
             Mb, Ub, bb = M[:B].contiguous(), U[:B].contiguous(), b[:B].contiguous()
             for key, launch, tag in (
                     ("factor", lambda: ops_chol._launch_factor(Mb), "factor_kernel"),
                     ("spd_solve", lambda: ops_chol._launch_solve(Mb, bb), "spd_solve_kernel"),
-                    ("solve", lambda: ops_chol._launch_solve_factor(Ub, bb), "solve_kernel")):
+                    ("solve", lambda: ops_chol._launch_solve_factor(Ub, bb), "solve_kernel"),
+                    ("inverse", lambda: ops_chol.spd_inverse(Mb, device="cuda"), "spd_inverse"),
+                    ("inverse2", lambda: ops_chol.spd_inverse2(Mb, damp, device="cuda"),
+                     "spd_inverse")):
                 occ[f"{key}{nv}/{B}"] = min(device_us(launch, tag) for _ in reps)
     report["occupancy_us"] = occ
     if args.seeded_only:
