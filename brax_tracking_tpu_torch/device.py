@@ -36,3 +36,10 @@ def check_device(device: torch.device, **tensors) -> None:
     for name, t in tensors.items():
         if t is not None and not same_device(t.device, device):
             raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def synchronize(device: torch.device) -> None:
+    """Waits for the card's queued work (host clocks end here); a no-op on
+    the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,123 @@
+"""Checkpoint and resume of the full training state, and pickled params.
+
+Counterpart of ``brax_tracking_tpu/training/checkpoint.py``. A checkpoint
+is a directory holding one ``torch.save`` file with the whole training
+state: the policy and value parameters, the Adam moments and step, the
+normalizer and ``env_steps``. The JAX package writes orbax directories,
+and restores the reference's bare ``(normalizer, params)`` layout too;
+neither is read here (no orbax on the card): restoring one raises
+(ROADMAP A.13).
+
+``save_params`` / ``load_params`` pickle numpy arrays, as the JAX
+package's do (brax.io.model parity): a ``(normalizer, policy)`` pair goes
+out as the normalizer's fields and the policy's ``{"kernel", "bias"}``
+list.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+from typing import Any, Optional
+
+import torch
+
+from brax_tracking_tpu_torch.physics import model as M
+from brax_tracking_tpu_torch.training import running_statistics
+
+STATE_FILE = "training_state.pt"
+_KEYS = {"params", "optimizer_state", "normalizer_params", "env_steps"}
+
+
+def save_checkpoint(path: str, training_state: Any) -> None:
+    """Writes ``training_state`` (``params``: a module, ``optimizer``,
+    ``normalizer_params``, ``env_steps``) into the directory ``path``."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    torch.save(
+        {
+            "params": training_state.params.state_dict(),
+            "optimizer_state": training_state.optimizer.state_dict(),
+            "normalizer_params": dataclasses.asdict(training_state.normalizer_params),
+            "env_steps": int(training_state.env_steps),
+        },
+        os.path.join(path, STATE_FILE),
+    )
+
+
+def restore_checkpoint(path: str, target: Any) -> Any:
+    """Restores the checkpoint at ``path`` into ``target``, a training state
+    of the same networks: its module and optimizer are loaded in place,
+    and the state is returned with the restored normalizer and
+    ``env_steps``."""
+    path = os.path.abspath(path)
+    if checkpoint_layout(path) != "full":
+        M.unported(
+            f"restoring {path}, which holds no {STATE_FILE} (orbax checkpoints of "
+            "the JAX package and the reference's (normalizer, params) layout)",
+            "§A.13",
+        )
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    target.params.load_state_dict(saved["params"])
+    target.optimizer.load_state_dict(saved["optimizer_state"])
+    norm = target.normalizer_params
+    normalizer = running_statistics.RunningStatisticsState(**{
+        k: v.to(device=getattr(norm, k).device, dtype=getattr(norm, k).dtype)
+        for k, v in saved["normalizer_params"].items()
+    })
+    return dataclasses.replace(target, normalizer_params=normalizer, env_steps=saved["env_steps"])
+
+
+def checkpoint_layout(path: str) -> str:
+    """``"full"`` for a directory holding this package's training state,
+    ``"unknown"`` for anything else (an orbax directory of the JAX
+    package, a partial write), so callers fail loudly on it."""
+    f = os.path.join(os.path.abspath(path), STATE_FILE)
+    if not os.path.isfile(f):
+        return "unknown"
+    try:
+        saved = torch.load(f, map_location="cpu", weights_only=True)
+    except (RuntimeError, pickle.UnpicklingError, EOFError):
+        return "unknown"
+    return "full" if isinstance(saved, dict) and _KEYS <= saved.keys() else "unknown"
+
+
+def latest_checkpoint(root: str) -> Optional[str]:
+    """Newest step-named subdirectory under ``root`` (restart-from-latest)."""
+    if not os.path.isdir(root):
+        return None
+    steps = [d for d in os.listdir(root) if d.isdigit()]
+    if not steps:
+        return None
+    return os.path.join(root, max(steps, key=int))
+
+
+def _to_numpy(obj: Any) -> Any:
+    from brax_tracking_tpu_torch.agents.ppo import networks
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, networks.MLP):
+        return networks.params_to_numpy(obj)
+    if isinstance(obj, running_statistics.RunningStatisticsState):
+        return running_statistics.state_to_numpy(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to_numpy(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _to_numpy(v) for k, v in obj.items()}
+    return obj
+
+
+def save_params(path: str, params: Any) -> None:
+    """Pickles ``params`` as numpy (tensors, MLPs and normalizer states
+    converted, tuples, lists and dicts walked)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(_to_numpy(params), f)
+
+
+def load_params(path: str) -> Any:
+    """Reads back what ``save_params`` wrote (numpy arrays)."""
+    with open(path, "rb") as f:
+        return pickle.load(f)

@@ -36,7 +36,17 @@ Run from the root of a checkout on a machine with a CUDA card. It
    against the CPU in float64;
 7. runs the smooth dynamics (dense qM, factor_m, solve_m) on 2048 minirat
    states: one launch each of the factor and the solve kernel;
-8. times every kernel, its plain version and a PyTorch library call
+8. trains PPO (agents/ppo/train.py::train) on the minirat tracking env at
+   the flagship's widths (MLPs 256 x 256, 2048 envs, batch 2048, unroll
+   16) for two training steps with an eval before and after, the counts set
+   to 0 just before: exact cg_solve_fused launches (10 per control step and
+   one per reset) and no other kernel, finite metrics, the env steps asked
+   for, training/sps against the host clock, a bitwise checkpoint round
+   trip; then an eval episode that must roll done envs back, and the first
+   minibatch's loss and gradients against the CPU in float64; it prints
+   the collect and learn rates, ms per control step and per minibatch
+   update, and eval/sps;
+9. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the SPD and Cholesky
    kernels' and their library calls' device time by torch.profiler), and
    the rollouts and substeps on the host clock.
@@ -455,15 +465,15 @@ def synth_clip_qpos(qpos0, T=128, walk=0.1):
     return qpos
 
 
-def make_env(device, dtype=None, model="minirat"):
+def tracking_env(device, dtype=None, model="minirat"):
     """The tracking env of a CG minirat file (``minirat`` or
-    ``minirat_elliptic``) under the training wrappers."""
+    ``minirat_elliptic``), unwrapped."""
     from brax_tracking_tpu_torch.data import clips
-    from brax_tracking_tpu_torch.envs import tracking, wrappers
+    from brax_tracking_tpu_torch.envs import tracking
 
     m = load(model, device, dtype)
     clip = clips.process_clip(m, torch.as_tensor(synth_clip_qpos(m.qpos0.cpu().numpy())))
-    env = tracking.GenericSingleClip(
+    return tracking.GenericSingleClip(
         reference_clip=clip,
         mjcf_path=f"builtin:{model}.xml",
         device=device,
@@ -477,7 +487,13 @@ def make_env(device, dtype=None, model="minirat"):
         pos_reward_weight=1.0,
         strict_name_lookup=True,
     )
-    return wrappers.wrap(env, episode_length=1000)
+
+
+def make_env(device, dtype=None, model="minirat"):
+    """tracking_env under the training wrappers."""
+    from brax_tracking_tpu_torch.envs import wrappers
+
+    return wrappers.wrap(tracking_env(device, dtype, model), episode_length=1000)
 
 
 def phase_rollout(device, B, seed, model="minirat"):
@@ -950,6 +966,287 @@ def phase_smooth(device, B, seed):
     return counts, res, d.qM.contiguous(), d.qLD.contiguous(), d.qfrc_smooth.contiguous()
 
 
+# ---------------------------------------------------------------------------
+# the PPO trainer
+# ---------------------------------------------------------------------------
+
+# train() on the minirat tracking env (tracking_env, unwrapped: train()
+# wraps it), float32 on the card. Kept at the flagship's widths
+# (configs/train/train_rodent.yaml): MLPs (256, 256), 2048 envs, batch 2048,
+# unroll 16, lr 3e-4, entropy 1e-3, discount 0.99, clipping 0.3, normalized
+# observations, 128 eval envs. Cut to the run's time (PPO_CUTS: the full
+# value of each cut), two training steps of 2 unrolls x 16 control steps.
+PPO_HIDDEN = (256, 256)
+PPO_ARGS = dict(num_envs=2048, batch_size=2048, unroll_length=16, learning_rate=3e-4,
+                entropy_cost=1e-3, discounting=0.99, clipping_epsilon=0.3,
+                normalize_observations=True, num_eval_envs=128, num_minibatches=2,
+                num_updates_per_batch=2, episode_length=32, num_evals=2)
+PPO_CUTS = {"num_minibatches": 32, "num_updates_per_batch": 16, "episode_length": 250,
+            "num_evals": 300}
+PPO_TRAIN_STEPS = 2
+# The first minibatch (2048 rows x 16 steps) of a training step on the card
+# against the port's CPU float64 run on the same rows, params, normalizer
+# and draws: the loss's relative gap, and each gradient tensor's max abs gap
+# over its float64 max abs. A CPU float32 rehearsal of the same comparison
+# (ppo_first_minibatch("cpu", seed, ..., dtype=torch.float32) at these
+# widths, seeds 0 and 1) is off float64 by 2.43e-7 / 2.50e-7 (loss) and
+# 5.99e-6 / 4.99e-6 (gradients); the limits leave 36x and 33x the larger.
+PPO_LOSS_REL = 9e-6
+PPO_GRAD_REL = 2e-4
+# training/sps against the host clock between the two progress reports,
+# less the eval between them
+PPO_SPS_REL = 0.05
+
+
+def ppo_geometry(args):
+    """(env steps per training step, unrolls per training step, rows)."""
+    rows = args["batch_size"] * args["num_minibatches"]
+    return rows * args["unroll_length"], rows // args["num_envs"], rows
+
+
+def ppo_expected_launches(args, train_steps):
+    """cg_solve_fused launches of one train() run: one per substep of every
+    training and eval control step, and one per reset (its forward): the
+    training envs' reset and each eval's (with num_evals > 1, one before
+    training and one after each of num_evals - 1 epochs)."""
+    _, n_unrolls, _ = ppo_geometry(args)
+    evals = max(args["num_evals"] - 1, 1) + (args["num_evals"] > 1)
+    control = train_steps * n_unrolls * args["unroll_length"] + evals * args["episode_length"]
+    return N_SUBSTEPS * control + 1 + evals
+
+
+def ppo_state(env_obs, action_size, hidden, lr, device, dtype, seed):
+    """A fresh TrainingState of the trainer's shape."""
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.training import gradients, running_statistics
+
+    net = pn.make_ppo_networks(env_obs, action_size, pn.normalize_preprocessor, hidden, hidden,
+                               generator=torch.Generator(device=device).manual_seed(seed),
+                               device=device, dtype=dtype)
+    return pt.TrainingState(
+        params=net, optimizer=gradients.make_optimizer(net.parameters(), lr),
+        normalizer_params=running_statistics.init_state(
+            torch.zeros(env_obs, dtype=net.policy.layers[0].weight.dtype, device=device)),
+        env_steps=0)
+
+
+def ppo_loss_fn(args):
+    """compute_ppo_loss with train()'s hyperparameters for ``args``."""
+    import functools
+
+    from brax_tracking_tpu_torch.agents.ppo import losses as pl
+
+    return functools.partial(pl.compute_ppo_loss, entropy_cost=args["entropy_cost"],
+                             discounting=args["discounting"],
+                             clipping_epsilon=args["clipping_epsilon"])
+
+
+def _tensors(ts):
+    """Every tensor of a training state, by name."""
+    out = {f"params.{k}": v for k, v in ts.params.state_dict().items()}
+    for i, st in ts.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    out.update({f"normalizer.{k}": getattr(ts.normalizer_params, k)
+                for k in ("count", "mean", "summed_variance", "std")})
+    return out
+
+
+def phase_ppo(device, seed, args=PPO_ARGS, hidden=PPO_HIDDEN, train_steps=PPO_TRAIN_STEPS,
+              dtype=None):
+    """train() once on the minirat tracking env, the counts set to 0 just
+    before: exactly ppo_expected_launches cg_solve_fused launches and no
+    other kernel (on the card), every metric finite, the env steps asked
+    for, training/sps within PPO_SPS_REL of the host clock, params moved
+    from their init, a bitwise checkpoint round trip (Adam step included)
+    and eval/avg_episode_length in (0, episode_length]. Returns the run's
+    numbers, the env, the trained (normalizer, policy), make_policy and the
+    networks' init state dict."""
+    import functools
+    import tempfile
+
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.training import checkpoint as pc
+
+    env = tracking_env(device, dtype)
+    steps_per, _, _ = ppo_geometry(args)
+    num_timesteps = train_steps * steps_per
+    nets = []
+
+    def factory(*a, **kw):
+        net = pn.make_ppo_networks(*a, policy_hidden_layer_sizes=hidden,
+                                   value_hidden_layer_sizes=hidden, **kw)
+        nets.append((net, {k: v.detach().clone() for k, v in net.state_dict().items()}))
+        return net
+
+    reports, clock = [], []
+
+    def progress(step, metrics):
+        clock.append(time.perf_counter())
+        reports.append((step, metrics))
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        make_policy, (normalizer, policy), metrics = pt.train(
+            env, num_timesteps, network_factory=factory, progress_fn=progress,
+            checkpoint_dir=ckpt, seed=seed, device=device, **args)
+        synchronize(device)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        expected = dict.fromkeys(counts, 0) | {
+            "cg_solve_fused": ppo_expected_launches(args, train_steps)}
+        if torch.device(device).type == "cuda" and counts != expected:
+            fail(f"ppo launches {counts}, expected {expected}")
+
+        if [s for s, _ in reports] != [0, num_timesteps]:
+            fail(f"ppo progress at steps {[s for s, _ in reports]}, expected [0, {num_timesteps}]")
+        for step, m in reports:
+            bad = [k for k, v in m.items() if not np.isfinite(v)]
+            if bad:
+                fail(f"ppo metrics not finite at step {step}: {bad}")
+        sps = metrics["training/sps"]
+        window = clock[1] - clock[0] - metrics["eval/epoch_eval_time"]
+        host_sps = num_timesteps / window
+        if abs(host_sps - sps) > PPO_SPS_REL * sps:
+            fail(f"training/sps {sps:.1f} against {host_sps:.1f} on the host clock")
+        avg_len = metrics["eval/avg_episode_length"]
+        if not 0 < avg_len <= args["episode_length"]:
+            fail(f"eval/avg_episode_length {avg_len} outside (0, {args['episode_length']}]")
+
+        net, init = nets[0]
+        for part in ("policy", "value"):
+            if all(torch.equal(v, init[k]) for k, v in net.state_dict().items()
+                   if k.startswith(part)):
+                fail(f"ppo {part} params did not move from their init")
+
+        path = pc.latest_checkpoint(ckpt)
+        if path is None or os.path.basename(path) != str(num_timesteps):
+            fail(f"ppo checkpoint {path}, expected one at step {num_timesteps}")
+        obs_size, action_size = net.policy.layers[0].in_features, env.action_size
+        make = functools.partial(ppo_state, obs_size, action_size, hidden,
+                                 args["learning_rate"], device, dtype)
+        restored = pc.restore_checkpoint(path, make(seed + 1))
+        saved = torch.load(os.path.join(path, pc.STATE_FILE), map_location=device,
+                           weights_only=True)
+        live = {f"params.{k}": v for k, v in net.state_dict().items()}
+        live.update({f"normalizer.{k}": getattr(normalizer, k)
+                     for k in ("count", "mean", "summed_variance", "std")})
+        for i, st in saved["optimizer_state"]["state"].items():
+            live.update({f"adam.{i}.{k}": v for k, v in st.items()})
+        back = _tensors(restored)
+        updates = train_steps * args["num_minibatches"] * args["num_updates_per_batch"]
+        steps = {int(v) for k, v in back.items() if k.endswith(".step")}
+        if back.keys() != live.keys() or steps != {updates} or restored.env_steps != num_timesteps:
+            fail(f"ppo checkpoint restore: Adam steps {steps} (expected {updates}), env_steps "
+                 f"{restored.env_steps}")
+        pc.save_checkpoint(os.path.join(ckpt, "again"), restored)
+        again = _tensors(pc.restore_checkpoint(os.path.join(ckpt, "again"), make(seed + 2)))
+        for k, v in live.items():
+            v = v.cpu()  # Adam's step lives on the host
+            if not (torch.equal(back[k].cpu(), v) and torch.equal(again[k].cpu(), v)):
+                fail(f"ppo checkpoint round trip changed {k}")
+    return dict(counts=counts, seconds=seconds, metrics=metrics, host_sps=host_sps,
+                num_timesteps=num_timesteps, tensors=len(live)), env, (normalizer, policy), \
+        make_policy, init
+
+
+def ppo_first_minibatch(device, seed, init, env=None, args=PPO_ARGS, hidden=PPO_HIDDEN,
+                        dtype=None):
+    """One training step's rollout_step and learn_step, timed (host clock to
+    a synchronize), from the networks' init on fresh draws; the first
+    minibatch's loss and gradients, before the learn step, against the
+    port's CPU float64 run on the same rows, params, normalizer and draws.
+    Returns (loss gap, gradient gap, collect s, learn s)."""
+    import copy
+
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.envs import wrappers
+    from brax_tracking_tpu_torch.training import running_statistics
+
+    env = tracking_env(device, dtype) if env is None else env
+    wenv = wrappers.wrap(env, episode_length=args["episode_length"])
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    state = wenv.reset(gen, args["num_envs"])
+    obs_size, action_size, fdtype = state.obs.shape[-1], wenv.action_size, state.obs.dtype
+    ts = ppo_state(obs_size, action_size, hidden, args["learning_rate"], device, fdtype, seed)
+    ts.params.load_state_dict(init)
+    steps_per, n_unrolls, rows = ppo_geometry(args)
+    T = args["unroll_length"]
+    loss_fn = ppo_loss_fn(args)
+    eps = pt.rollout_draws(gen, n_unrolls, T, args["num_envs"], action_size, fdtype)
+    synchronize(device)
+    t0 = time.perf_counter()
+    _, data, normalizer = pt.rollout_step(wenv, pn.make_inference_fn(ts.params), ts, state, eps)
+    synchronize(device)
+    collect = time.perf_counter() - t0
+    perms, ent = pt.learn_draws(gen, args["num_updates_per_batch"], args["num_minibatches"], rows,
+                                T, action_size, fdtype)
+    first = perms[0].reshape(args["num_minibatches"], -1)[0]
+    mb = data.map(lambda x: x[first])
+
+    def loss_grads(net, norm, mb, eps):
+        net.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(net, norm, mb, eps)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach().to("cpu", torch.float64)
+                             for k, p in net.named_parameters()}
+
+    loss, grads = loss_grads(ts.params, normalizer, mb, ent[0, 0])
+    to64 = lambda x: x.detach().to("cpu", torch.float64) if x.is_floating_point() else x.cpu()
+    net64 = copy.deepcopy(ts.params).to("cpu", torch.float64)
+    norm64 = running_statistics.RunningStatisticsState(
+        **{k: to64(getattr(normalizer, k)) for k in ("count", "mean", "summed_variance", "std")})
+    loss64, grads64 = loss_grads(net64, norm64, mb.map(to64), to64(ent[0, 0]))
+    loss_gap = abs(loss - loss64) / abs(loss64)
+    grad_gap = max(float((grads[k] - g).abs().max() / g.abs().max()) for k, g in grads64.items())
+
+    synchronize(device)
+    t0 = time.perf_counter()
+    pt.learn_step(ts, data, normalizer, perms, ent, loss_fn, steps_per)
+    synchronize(device)
+    return loss_gap, grad_gap, collect, time.perf_counter() - t0
+
+
+def phase_ppo_eval_rollback(env, make_policy, params, seed, args=PPO_ARGS):
+    """One eval episode of the trained policy as the Evaluator runs it
+    (training wrappers under EvalWrapper): every env done at a step is back
+    at its reset-time observation after it, every env is done at the
+    episode's last step, and the mean episode length is in (0,
+    episode_length]. Returns (envs done before the last step, mean
+    episode length)."""
+    from brax_tracking_tpu_torch.envs import wrappers
+    from brax_tracking_tpu_torch.training import acting
+
+    eenv = acting.EvalWrapper(wrappers.wrap(env, episode_length=args["episode_length"]))
+    gen = torch.Generator(device=env.device).manual_seed(seed + 4)
+    state = eenv.reset(gen, args["num_eval_envs"])
+    snap = state.info["autoreset_snapshot"]["obs"]
+    policy = make_policy(params)
+    early = 0
+    with torch.no_grad():
+        for t in range(args["episode_length"]):
+            eps = torch.randn((args["num_eval_envs"], eenv.action_size), generator=gen,
+                              dtype=state.obs.dtype, device=env.device)
+            state = eenv.step(state, policy(state.obs, eps)[0])
+            done = state.done.bool()
+            if not torch.equal(state.obs[done], snap[done]):
+                fail(f"eval envs done at step {t} are not back at their reset observation")
+            if t < args["episode_length"] - 1:
+                early += int(done.sum())
+    if not state.done.bool().all():
+        fail("eval envs not done at the episode's last step")
+    avg = float(state.info["eval_metrics"].episode_steps.mean())
+    if not 0 < avg <= args["episode_length"]:
+        fail(f"eval mean episode length {avg} outside (0, {args['episode_length']}]")
+    return early, avg
+
+
 def spd_bound(name, B, nv):
     """Least time (ms) of one call on an H100 and what bounds it:
     max(bytes / HBM rate, FP32 operations / FP32 rate). Bytes: each input
@@ -1355,11 +1652,6 @@ def main() -> int:
         expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": N_STEPS * N_SUBSTEPS}
         if counts != expected:
             fail(f"kernel launches in the {model} rollout: {counts}, expected {expected}")
-        if model == "minirat":
-            launches["cg_solve_fused"] = counts["cg_solve_fused"]
-            # cg_solve_batched lies on no step path (the JAX package has
-            # no caller either): the main path's count of it is 0 (gated)
-            launches["cg_solve_batched"] = counts["cg_solve_batched"]
         print(f"{model} rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
               f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
               f"{touching:.4f}")
@@ -1407,7 +1699,49 @@ def main() -> int:
                                              "minirat qM", SPD_ABS_BM)
                     for name in CHOL_KERNELS}
 
-    # 8. times
+    # 8. the PPO trainer on the minirat tracking env (the main path)
+    t_ppo = time.perf_counter()
+    ppo, ppo_env, ppo_params, ppo_make_policy, ppo_init = phase_ppo("cuda", SEED)
+    # cg_solve_batched lies on no step path (the JAX package has no caller
+    # either): the main path's count of it is 0 (gated)
+    launches.update(cg_solve_fused=ppo["counts"]["cg_solve_fused"],
+                    cg_solve_batched=ppo["counts"]["cg_solve_batched"])
+    a, m = PPO_ARGS, ppo["metrics"]
+    steps_per, n_unrolls, rows = ppo_geometry(a)
+    print(f"ppo: kept at the flagship's widths: MLPs {PPO_HIDDEN}, " + ", ".join(
+        f"{k} {a[k]}" for k in a if k not in PPO_CUTS))
+    print("ppo: cut to the run's time: " + ", ".join(
+        f"{k} {a[k]} (full {v})" for k, v in PPO_CUTS.items())
+        + f"; {PPO_TRAIN_STEPS} training steps of {n_unrolls} unrolls, num_timesteps "
+        f"{ppo['num_timesteps']}")
+    print(f"ppo train(): {ppo['seconds']:.1f} s, kernel launches {ppo['counts']} (expected "
+          f"cg_solve_fused {ppo_expected_launches(a, PPO_TRAIN_STEPS)}: 10 per control step and "
+          f"one per reset), env_steps {ppo['num_timesteps']}, checkpoint round trip bitwise "
+          f"({ppo['tensors']} tensors); training/sps {m['training/sps']:.1f} (host clock "
+          f"{ppo['host_sps']:.1f}), eval/sps {m['eval/sps']:.1f}, eval/episode_reward "
+          f"{m['eval/episode_reward']:.3f}, eval/avg_episode_length "
+          f"{m['eval/avg_episode_length']:.3f} on {card}")
+    early, avg_len = phase_ppo_eval_rollback(ppo_env, ppo_make_policy, ppo_params, SEED)
+    print(f"ppo eval rollout: {a['num_eval_envs']} envs x {a['episode_length']} control steps, "
+          f"{early} done (and rolled back) before the last step, mean episode length "
+          f"{avg_len:.3f}")
+    loss_gap, grad_gap, collect, learn = ppo_first_minibatch("cuda", SEED, ppo_init, ppo_env)
+    print("ppo_first_minibatch_vs_cpu_f64 " + json.dumps({
+        "loss_rel": loss_gap, "loss_limit": PPO_LOSS_REL, "grad_rel": grad_gap,
+        "grad_limit": PPO_GRAD_REL}))
+    if loss_gap > PPO_LOSS_REL or grad_gap > PPO_GRAD_REL:
+        fail(f"ppo first minibatch on the card against the CPU in float64: loss {loss_gap:.3e} "
+             f"(limit {PPO_LOSS_REL:.1e}), gradients {grad_gap:.3e} (limit {PPO_GRAD_REL:.1e})")
+    T, U, M = a["unroll_length"], a["num_updates_per_batch"], a["num_minibatches"]
+    print(f"ppo training step of {a['num_envs']} envs ({steps_per} env steps): collect "
+          f"{steps_per / collect:.1f} env-steps/s, learn {steps_per / learn:.1f}, both "
+          f"{steps_per / (collect + learn):.1f}; {collect / (n_unrolls * T) * 1e3:.2f} ms per "
+          f"control step inside rollout_step; {learn / (U * M) * 1e3:.2f} ms per learner "
+          f"minibatch update of {rows // M} rows x {T} steps on {card}")
+    print(f"ppo eval/sps {m['eval/sps']:.1f} ({a['num_eval_envs']} envs) on {card}")
+    print(f"ppo phase: {time.perf_counter() - t_ppo:.1f} s on {card}")
+
+    # 9. times
     entries = []
     for model, key in (("minirat", ("minirat", B_MAIN, False, None)),
                        ("minirat_elliptic", ("minirat_elliptic", B_MAIN, False, None)),

@@ -8,8 +8,12 @@ minirat`` and ``minirat_elliptic`` build the same envs as chip_smoke.py
 ``ballmuscle_cg`` and ``ballmuscle_newton`` step chip_smoke.py's posed
 ballmuscle states, ``minirat_newton`` its seeded Newton minirat states,
 through ``physics.step`` and a step is one substep. It warms up, then profiles
-``--steps`` steps with torch.profiler and prints one JSON line: wall ms per
-step (timed without the profiler, then with it), device busy ms per step
+``--steps`` steps with torch.profiler and prints one JSON line. ``--model
+minirat_ppo`` profiles training steps of chip_smoke.py's PPO geometry
+(``rollout_step`` and ``learn_step``: 2 unrolls of 16 control steps, then
+2 passes of 2 minibatch updates through MLPs 256 x 256); a step is one
+training step. The line holds: wall ms per step (timed without the
+profiler, then with it), device busy ms per step
 (sum of the device times of CUDA kernels and copies; one stream, so they
 do not overlap), the device idle share against the unprofiled wall time,
 device ops and device-to-host reads per substep, the device time per
@@ -32,8 +36,37 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 
+def _ppo_stepper(envs: int):
+    """(advance one training step, substeps per training step)."""
+    from brax_tracking_tpu_torch.agents.ppo import networks, train
+    from brax_tracking_tpu_torch.envs import wrappers
+
+    a = dict(chip_smoke.PPO_ARGS, num_envs=envs)
+    env = wrappers.wrap(chip_smoke.tracking_env("cuda"), episode_length=a["episode_length"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    A, T = env.action_size, a["unroll_length"]
+    state = env.reset(gen, envs)
+    dtype = state.obs.dtype
+    box = [state, chip_smoke.ppo_state(env.observation_size, A, chip_smoke.PPO_HIDDEN,
+                                       a["learning_rate"], "cuda", dtype, 0)]
+    steps_per, n_unrolls, rows = chip_smoke.ppo_geometry(a)
+    make_policy = networks.make_inference_fn(box[1].params)
+    loss_fn = chip_smoke.ppo_loss_fn(a)
+
+    def advance():
+        eps = train.rollout_draws(gen, n_unrolls, T, envs, A, dtype)
+        box[0], data, normalizer = train.rollout_step(env, make_policy, box[1], box[0], eps)
+        perms, ent = train.learn_draws(gen, a["num_updates_per_batch"], a["num_minibatches"],
+                                       rows, T, A, dtype)
+        box[1], _ = train.learn_step(box[1], data, normalizer, perms, ent, loss_fn, steps_per)
+
+    return advance, n_unrolls * T * chip_smoke.N_SUBSTEPS
+
+
 def _stepper(model: str, envs: int):
     """(advance, substeps per step) for the profiled model."""
+    if model == "minirat_ppo":
+        return _ppo_stepper(envs)
     if model in ("minirat", "minirat_elliptic"):
         env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -67,7 +100,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="minirat",
                     choices=("minirat", "minirat_elliptic", "minirat_newton",
-                             "ballmuscle_cg", "ballmuscle_newton"))
+                             "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo"))
     ap.add_argument("--envs", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
