@@ -1,11 +1,15 @@
 """Core motion-tracking MDP over a batch of envs.
 
 Counterpart of ``brax_tracking_tpu/envs/tracking.py`` (``TrackingEnv``,
-``GenericSingleClip``): the same frame clock, six tracking reward terms,
-termination (with the NaN guard) and reference-window observation, with
-the same reference quirks (exp(-k * (sum diff)^2); free-root envs track
-qpos[7:]). Indices into the clip clamp to its range, as the JAX package's
-gathers do.
+``GenericSingleClip``, ``MultiClipMixin``, ``GenericMultiClip``): the same
+frame clock, six tracking reward terms, termination (with the NaN guard)
+and reference-window observation, with the same reference quirks
+(exp(-k * (sum diff)^2); free-root envs track qpos[7:]). Indices into the
+clip clamp to its range, as the JAX package's gathers do.
+
+Every reference read goes through ``_ref_rows``: a single-clip env indexes
+the clip's frames, a multi-clip env gathers ``ref.x[clip_idx, frame]``
+over its stacked clips with each env's ``info["clip_idx"]``.
 """
 
 from __future__ import annotations
@@ -103,7 +107,7 @@ class TrackingEnv(PipelineEnv):
 
         self._has_free_root = model.njnt > 0 and int(model.jnt_type[0]) == M.JNT_FREE
         self._ref_traj = reference_clip.to(model.device, model.dtype)
-        self._n_frames_clip = int(self._ref_traj.joints.shape[0])
+        self._n_frames_clip = int(self._ref_traj.joints.shape[-2])
         self._ref_len = ref_len
         self._too_far_dist = too_far_dist
         self._bad_pose_dist = bad_pose_dist
@@ -143,24 +147,36 @@ class TrackingEnv(PipelineEnv):
     def _frame(self, cur_frame: torch.Tensor) -> torch.Tensor:
         return torch.clamp(cur_frame.long(), 0, self._n_frames_clip - 1)
 
-    def reset(self, generator: torch.Generator, batch_size: int) -> State:
+    def _ref_rows(self, x: torch.Tensor, info: dict, frames: torch.Tensor) -> torch.Tensor:
+        """The reference field ``x`` at each env's ``frames`` ((B,) or (B, L))."""
+        return x[frames]
+
+    def _start_frames(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         lo_f, hi_f = self._start_frame_range
-        start_frame = torch.randint(
+        return torch.randint(
             lo_f, hi_f, (batch_size,), generator=generator, device=self.device
         ).to(torch.int32)
-        return self.reset_to_frame(start_frame, generator)
 
-    def reset_to_frame(self, start_frame: torch.Tensor, generator: torch.Generator) -> State:
+    def _reset_noise(self, generator: torch.Generator, batch_size: int):
+        """qpos0 and zero qvel, each plus uniform noise."""
         m = self.model
-        B = start_frame.shape[0]
         low, hi = -self._reset_noise_scale, self._reset_noise_scale
         u = lambda n: low + (hi - low) * torch.rand(
-            B, n, generator=generator, dtype=m.dtype, device=self.device
+            batch_size, n, generator=generator, dtype=m.dtype, device=self.device
         )
-        return self.init_state(start_frame, m.qpos0 + u(m.nq), u(m.nv))
+        return m.qpos0 + u(m.nq), u(m.nv)
+
+    def reset(self, generator: torch.Generator, batch_size: int) -> State:
+        return self.reset_to_frame(self._start_frames(generator, batch_size), generator)
+
+    def reset_to_frame(self, start_frame: torch.Tensor, generator: torch.Generator) -> State:
+        return self.init_state(start_frame, *self._reset_noise(generator, start_frame.shape[0]))
 
     def init_state(self, start_frame: torch.Tensor, qpos: torch.Tensor, qvel: torch.Tensor) -> State:
         """Batched state at ``start_frame`` from given (noisy) qpos and qvel."""
+        return self._init_state(start_frame, qpos, qvel, {})
+
+    def _init_state(self, start_frame, qpos, qvel, extra_info: dict) -> State:
         dtype = self.model.dtype
         B = qpos.shape[0]
         data = self.pipeline_init(qpos, qvel)
@@ -172,10 +188,11 @@ class TrackingEnv(PipelineEnv):
             "summed_pos_distance": zero,
             "quat_distance": zero,
             "joint_distance": zero,
+            **extra_info,
         }
         return State(
             pipeline_state=data,
-            obs=self._get_obs(data, start_frame),
+            obs=self._get_obs(data, info),
             reward=zero,
             done=zero,
             metrics={k: zero for k in _METRICS},
@@ -202,12 +219,13 @@ class TrackingEnv(PipelineEnv):
 
         ref = self._ref_traj
         if ref.position is not None:
-            pos_distance = qpos[:, :3] - ref.position[cur]
+            pos_distance = qpos[:, :3] - self._ref_rows(ref.position, info, cur)
             pos_reward = self._pos_reward_weight * torch.exp(
                 -400.0 * torch.sum(pos_distance, -1) ** 2
             )
             quat_distance = torch.sum(
-                btm.bounded_quat_dist(qpos[:, 3:7], ref.quaternion[cur]) ** 2, -1
+                btm.bounded_quat_dist(qpos[:, 3:7], self._ref_rows(ref.quaternion, info, cur))
+                ** 2, -1
             )
             quat_reward = self._quat_reward_weight * torch.exp(-4.0 * quat_distance)
         else:
@@ -215,14 +233,15 @@ class TrackingEnv(PipelineEnv):
             quat_distance = pos_reward = quat_reward = zero
 
         qpos_joints = qpos if self._joint_full_qpos else qpos[:, 7:]
-        joint_distance = torch.sum(qpos_joints - ref.joints[cur], -1) ** 2
+        joint_distance = torch.sum(qpos_joints - self._ref_rows(ref.joints, info, cur), -1) ** 2
         joint_reward = self._joint_reward_weight * torch.exp(-0.5 * joint_distance)
         info["joint_distance"] = joint_distance
 
         angvel_reward = self._angvel_reward_weight * torch.exp(
-            -0.5 * torch.sum(qvel[:, 3:6] - ref.angular_velocity[cur], -1) ** 2
+            -0.5 * torch.sum(qvel[:, 3:6] - self._ref_rows(ref.angular_velocity, info, cur), -1)
+            ** 2
         )
-        track_bodypos = ref.body_positions[cur]
+        track_bodypos = self._ref_rows(ref.body_positions, info, cur)
         bi = self.model.idx(self._body_idxs)
         ei = self.model.idx(self._endeff_idxs)
         bodypos_reward = self._bodypos_reward_weight * torch.exp(
@@ -250,7 +269,7 @@ class TrackingEnv(PipelineEnv):
         bad_quat = torch.where(quat_distance > self._bad_quat_dist, one, zero)
         ctrl_cost = self._ctrl_cost_weight * torch.sum(action**2, -1)
 
-        obs = self._get_obs(data, info["cur_frame"])
+        obs = self._get_obs(data, info)
         reward = (
             joint_reward + pos_reward + quat_reward + angvel_reward
             + bodypos_reward + endeff_reward + healthy_reward - ctrl_cost
@@ -289,27 +308,30 @@ class TrackingEnv(PipelineEnv):
         )
 
     # ------------------------------------------------------------------
-    def _get_obs(self, data: M.Data, cur_frame: torch.Tensor) -> torch.Tensor:
+    def _get_obs(self, data: M.Data, info: dict) -> torch.Tensor:
         ref = self._ref_traj
         L = self._ref_len
-        start = torch.clamp(cur_frame.long() + 1, 0, self._n_frames_clip - L)
+        start = torch.clamp(info["cur_frame"].long() + 1, 0, self._n_frames_clip - L)
         idx = start[:, None] + torch.arange(L, device=self.device)  # (B, L)
         qpos = data.qpos
         quat = qpos[:, None, 3:7]
 
         parts = [qpos, data.qvel]
         if self._include_root_obs and ref.position is not None:
-            track_pos_local = btm.rotate(ref.position[idx] - qpos[:, None, :3], quat)
-            quat_dist = btm.relative_quat(quat.expand(-1, L, -1), ref.quaternion[idx])
+            track_pos_local = btm.rotate(
+                self._ref_rows(ref.position, info, idx) - qpos[:, None, :3], quat)
+            quat_dist = btm.relative_quat(
+                quat.expand(-1, L, -1), self._ref_rows(ref.quaternion, info, idx))
             parts += [track_pos_local.flatten(1), quat_dist.flatten(1)]
         qpos_joints = qpos if self._joint_full_qpos else qpos[:, 7:]
-        joint_dist = (ref.joints[idx] - qpos_joints[:, None, :])[
+        joint_dist = (self._ref_rows(ref.joints, info, idx) - qpos_joints[:, None, :])[
             :, :, self.model.idx(self._joint_cols)
         ]
         parts.append(joint_dist.flatten(1))
         bi = self.model.idx(self._body_idxs)
         body_pos_dist_local = btm.rotate(
-            (ref.body_positions[idx] - data.xpos[:, None])[:, :, bi], quat[:, :, None, :]
+            (self._ref_rows(ref.body_positions, info, idx) - data.xpos[:, None])[:, :, bi],
+            quat[:, :, None, :],
         )
         parts.append(body_pos_dist_local.flatten(1))
         return torch.cat(parts, dim=-1)
@@ -353,3 +375,69 @@ class GenericSingleClip(TrackingEnv):
             model=model, reference_clip=reference_clip, free_jnt=free_jnt,
             device=device, **kwargs,
         )
+
+
+class MultiClipMixin:
+    """Per-env clip selection over a stacked ReferenceClip ``(n_clips, T,
+    ...)``.
+
+    Each env's clip index rides in ``state.info["clip_idx"]`` (``(B,)``
+    int32) and every reference read gathers that clip's rows. ``reset``
+    draws each env's clip after its start frame; ``reset_to_clip`` pins
+    given clips; ``reset_to_frame`` (the deterministic eval's entry) pins
+    clip 0, as it pins the frame. A step leaves ``clip_idx`` as it is, and
+    so does the auto-reset rollback: an env keeps its clip for the episode.
+    """
+
+    def _init_multiclip(self) -> None:
+        joints = self._ref_traj.joints
+        if joints.dim() != 3:
+            raise ValueError(
+                "a multi-clip env needs clips stacked on a leading axis (stack_clips); "
+                f"got joints of shape {tuple(joints.shape)}"
+            )
+        self._n_clips = int(joints.shape[0])
+
+    def _ref_rows(self, x: torch.Tensor, info: dict, frames: torch.Tensor) -> torch.Tensor:
+        clip_idx = info["clip_idx"]
+        if frames.dim() == 2:
+            clip_idx = clip_idx[:, None]
+        return x[clip_idx, frames]
+
+    def reset(self, generator: torch.Generator, batch_size: int) -> State:
+        start_frame = self._start_frames(generator, batch_size)
+        clip_idx = torch.randint(
+            0, self._n_clips, (batch_size,), generator=generator, device=self.device
+        )
+        return self._reset_clip(start_frame, clip_idx, generator)
+
+    def reset_to_clip(self, clip_idx: torch.Tensor, generator: torch.Generator) -> State:
+        """Reset with each env pinned to its ``clip_idx`` ((B,)), random start
+        frames: the per-clip eval's entry."""
+        start_frame = self._start_frames(generator, clip_idx.shape[0])
+        return self._reset_clip(start_frame, clip_idx, generator)
+
+    def reset_to_frame(self, start_frame: torch.Tensor, generator: torch.Generator) -> State:
+        return self._reset_clip(start_frame, torch.zeros_like(start_frame), generator)
+
+    def _reset_clip(self, start_frame, clip_idx, generator) -> State:
+        qpos, qvel = self._reset_noise(generator, start_frame.shape[0])
+        return self.init_state(start_frame, qpos, qvel, clip_idx)
+
+    def init_state(self, start_frame: torch.Tensor, qpos: torch.Tensor, qvel: torch.Tensor,
+                   clip_idx: torch.Tensor) -> State:
+        """Batched state at ``start_frame`` of clips ``clip_idx`` from given
+        (noisy) qpos and qvel."""
+        clip_idx = clip_idx.to(device=self.device, dtype=torch.int32)
+        if clip_idx.numel() and not 0 <= int(clip_idx.min()) <= int(clip_idx.max()) < self._n_clips:
+            raise ValueError(f"clip indices outside [0, {self._n_clips})")
+        return self._init_state(start_frame, qpos, qvel, {"clip_idx": clip_idx})
+
+
+class GenericMultiClip(MultiClipMixin, GenericSingleClip):
+    """Multi-clip tracking env over a frozen model file; ``reference_clip``
+    is a stacked clip (``stack_clips``)."""
+
+    def __init__(self, reference_clip: ReferenceClip, **kwargs):
+        super().__init__(reference_clip=reference_clip, **kwargs)
+        self._init_multiclip()

@@ -1,8 +1,9 @@
 """Training wrapper stack, batch-first.
 
 Counterpart of ``brax_tracking_tpu/envs/wrappers.py``: ``EpisodeWrapper``
-(step counting + truncation) and ``AutoResetWrapperTracking`` (roll done
-envs back to their reset-time state, tracking clock included). The envs
+(step counting + truncation), ``AutoResetWrapperTracking`` (roll done
+envs back to their reset-time state, tracking clock included) and
+``RenderRolloutWrapperTracking`` (deterministic resets at frame 0). The envs
 are already batched, so the JAX package's ``VmapWrapper`` has no
 counterpart; per-env randomized models are not ported.
 """
@@ -107,3 +108,13 @@ class AutoResetWrapperTracking(Wrapper):
         return state.replace(
             pipeline_state=data, obs=merge(snap["obs"], state.obs), info=info
         )
+
+
+class RenderRolloutWrapperTracking(Wrapper):
+    """Deterministic eval resets: every env starts at frame 0 (and clip 0 in
+    a multi-clip env), with the reset noise drawn from ``generator``."""
+
+    def reset(self, generator: torch.Generator, batch_size: int) -> State:
+        env = self.unwrapped
+        start_frame = torch.zeros(batch_size, dtype=torch.int32, device=env.device)
+        return env.reset_to_frame(start_frame, generator)

@@ -11,7 +11,9 @@ neither is read here (no orbax on the card): restoring one raises
 ``save_params`` / ``load_params`` pickle numpy arrays, as the JAX
 package's do (brax.io.model parity): a ``(normalizer, policy)`` pair goes
 out as the normalizer's fields and the policy's ``{"kernel", "bias"}``
-list.
+list. ``load_params`` also reads the JAX package's snapshots (its
+``RunningStatisticsState`` is read as the same dict of fields), and
+``load_policy`` turns either into the port's ``(normalizer state, MLP)``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Optional
 
 import torch
 
+from brax_tracking_tpu_torch.data import pickles
 from brax_tracking_tpu_torch.physics import model as M
 from brax_tracking_tpu_torch.training import running_statistics
 
@@ -117,7 +120,38 @@ def save_params(path: str, params: Any) -> None:
         pickle.dump(_to_numpy(params), f)
 
 
+class _NumpyFields:
+    """Stand-in for a pickled dataclass of numpy arrays: unpickling sets its
+    fields as attributes."""
+
+
+# the JAX package's normalizer state, as its pickles name it
+_JAX_NORMALIZER = ("brax_tracking_tpu.training.running_statistics", "RunningStatisticsState")
+
+
+def _plain(obj: Any) -> Any:
+    if isinstance(obj, _NumpyFields):
+        return dict(vars(obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_plain(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    return obj
+
+
 def load_params(path: str) -> Any:
-    """Reads back what ``save_params`` wrote (numpy arrays)."""
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    """Reads back what ``save_params`` (this package's or the JAX
+    package's) wrote: numpy arrays, a normalizer state as a dict of its
+    fields. Only numpy globals and the JAX normalizer class are read."""
+    return _plain(pickles.load(path, {_JAX_NORMALIZER: _NumpyFields}))
+
+
+def load_policy(path: str, device="cuda", dtype=None):
+    """A ``(normalizer, policy)`` snapshot as the port's
+    ``(RunningStatisticsState, MLP)`` on ``device``: the params
+    ``make_policy`` takes."""
+    from brax_tracking_tpu_torch.agents.ppo import networks
+
+    normalizer, policy = load_params(path)
+    return (running_statistics.state_from_numpy(normalizer, device=device, dtype=dtype),
+            networks.params_from_numpy(policy, device=device, dtype=dtype))

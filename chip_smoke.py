@@ -38,7 +38,7 @@ Run from the root of a checkout on a machine with a CUDA card. It
    states: one launch each of the factor and the solve kernel;
 8. trains PPO (agents/ppo/train.py::train) on the minirat tracking env at
    the flagship's widths (MLPs 256 x 256, 2048 envs, batch 2048, unroll
-   16) for two training steps with an eval before and after, the counts set
+   16) for one training step with an eval before and after, the counts set
    to 0 just before: exact cg_solve_fused launches (10 per control step and
    one per reset) and no other kernel, finite metrics, the env steps asked
    for, training/sps against the host clock, a bitwise checkpoint round
@@ -46,7 +46,18 @@ Run from the root of a checkout on a machine with a CUDA card. It
    minibatch's loss and gradients against the CPU in float64; it prints
    the collect and learn rates, ms per control step and per minibatch
    update, and eval/sps;
-9. times every kernel, its plain version and a PyTorch library call
+9. runs the driver (harness/driver.py::main, the main path) twice at the
+   same widths, each in a temporary base_dir, the counts set to 0 just
+   before: (i) one clip, read from the committed data/Minirat/clips/0.p
+   (nothing may be written there), two training steps; (ii) four clips,
+   built and cached as .npz, one training step: exact cg_solve_fused
+   launches and no other kernel, every artifact, finite logged numbers, the
+   run config read back as written, (ii) every clip drawn, per-clip rewards
+   logged and one control step of 8 envs on clips 0-3 against the CPU in
+   float64; it prints each run's seconds, training/sps, eval/sps and the
+   callback's seconds per rollout; the kernels line's cg_solve_fused
+   launches are the two runs';
+10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the SPD and Cholesky
    kernels' and their library calls' device time by torch.profiler), and
    the rollouts and substeps on the host clock.
@@ -975,7 +986,8 @@ def phase_smooth(device, B, seed):
 # (configs/train/train_rodent.yaml): MLPs (256, 256), 2048 envs, batch 2048,
 # unroll 16, lr 3e-4, entropy 1e-3, discount 0.99, clipping 0.3, normalized
 # observations, 128 eval envs. Cut to the run's time (PPO_CUTS: the full
-# value of each cut), two training steps of 2 unrolls x 16 control steps.
+# value of each cut), one training step of 2 unrolls x 16 control steps
+# (the driver's run (i) takes two at these widths).
 PPO_HIDDEN = (256, 256)
 PPO_ARGS = dict(num_envs=2048, batch_size=2048, unroll_length=16, learning_rate=3e-4,
                 entropy_cost=1e-3, discounting=0.99, clipping_epsilon=0.3,
@@ -983,7 +995,7 @@ PPO_ARGS = dict(num_envs=2048, batch_size=2048, unroll_length=16, learning_rate=
                 num_updates_per_batch=2, episode_length=32, num_evals=2)
 PPO_CUTS = {"num_minibatches": 32, "num_updates_per_batch": 16, "episode_length": 250,
             "num_evals": 300}
-PPO_TRAIN_STEPS = 2
+PPO_TRAIN_STEPS = 1
 # The first minibatch (2048 rows x 16 steps) of a training step on the card
 # against the port's CPU float64 run on the same rows, params, normalizer
 # and draws: the loss's relative gap, and each gradient tensor's max abs gap
@@ -1245,6 +1257,209 @@ def phase_ppo_eval_rollback(env, make_policy, params, seed, args=PPO_ARGS):
     if not 0 < avg <= args["episode_length"]:
         fail(f"eval mean episode length {avg} outside (0, {args['episode_length']}]")
     return early, avg
+
+
+# ---------------------------------------------------------------------------
+# the driver (harness/driver.py::main), the port's main path since slice 8
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# configs/train/train_rodent.yaml's widths (MLPs 256 x 256, 2048 envs,
+# batch 2048, unroll 16, 128 eval envs) on the minirat, cut as PPO_ARGS is
+# (PPO_CUTS): (i) single clip, two training steps and evals at 0 and
+# 131,072 steps; (ii) four clips, one training step and one eval
+DRIVER_ARGV = ["train=train_rodent", "dataset=minirat", "train.env_name=single_clip_tracking",
+               "train.num_minibatches=2", "train.num_updates_per_batch=2",
+               "train.force_episode_length=true", "train.episode_length=32",
+               "train.num_timesteps=131072", "train.eval_every=65536"]
+DRIVER_MULTI = ["dataset.n_clips=4", "train.env_name=multi_clip_tracking",
+                "train.num_timesteps=65536"]
+MC_ENVS = 8
+# One control step of MC_ENVS multi-clip envs (clips 0-3 twice) on the card
+# against the port's CPU float64 run from the same state and action: the
+# max abs gap of obs and of reward. A CPU float32 rehearsal
+# (mc_step_vs_cpu("cpu", cfg, torch.float32) on (ii)'s config, seeds 0-2)
+# is off float64 by at most 6.63e-6 (obs) and 1.71e-6 (reward); the limits
+# leave 35x.
+MC_STEP_ATOL = {"obs": 2.3e-4, "reward": 6e-5}
+
+
+def driver_expected_launches(cfg, n_steps):
+    """cg_solve_fused launches of one driver run: train()'s
+    (ppo_expected_launches: 10 per control step of training and evals, one
+    per reset) and the callback's after each of the max(num_evals - 1, 1)
+    epochs: a reset and ``n_steps`` control steps of the deterministic
+    rollout, and for a multi-clip env as many of the per-clip rollout.
+    Building the clips runs kinematics only."""
+    tr = cfg["train"]
+    args = {k: int(tr[k]) for k in ("num_envs", "batch_size", "num_minibatches",
+                                    "unroll_length", "episode_length")}
+    args["num_evals"] = max(int(tr["num_timesteps"]) // int(tr["eval_every"]), 1)
+    steps_per, _, _ = ppo_geometry(args)
+    epochs = max(args["num_evals"] - 1, 1)
+    train_steps = epochs * -(-int(tr["num_timesteps"]) // (epochs * steps_per))
+    rollouts = 1 + (int(cfg["dataset"].get("n_clips", 1)) > 1)
+    return (ppo_expected_launches(args, train_steps)
+            + epochs * rollouts * (1 + N_SUBSTEPS * n_steps))
+
+
+def _numbers(node, path=""):
+    """(path, value) of every number in a JSON record."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _numbers(v, f"{path}/{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _numbers(v, f"{path}[{i}]")
+    elif isinstance(node, (int, float)) and not isinstance(node, bool):
+        yield path, node
+
+
+def _tree(root):
+    """Every file under ``root`` with its size and modification time."""
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
+    """One control step of MC_ENVS envs of (ii)'s multi-clip env, pinned to
+    clips 0-3, on ``device`` (``dtype``), run again by the port on the CPU in
+    float64 from the same state and action; returns the gaps."""
+    from brax_tracking_tpu_torch.harness import driver
+
+    env = driver.build_env_from_cfg(cfg, device, dtype)
+    n_clips = int(cfg["dataset"]["n_clips"])
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    idx = torch.arange(MC_ENVS, device=device) % n_clips
+    state = env.reset_to_clip(idx, gen)
+    action = 2.0 * torch.rand(MC_ENVS, env.action_size, generator=gen, device=device,
+                              dtype=state.obs.dtype) - 1.0
+    out = env.step(state, action)
+    cpu = lambda t: t.detach().to("cpu", torch.float64)
+    env64 = driver.build_env_from_cfg(cfg, "cpu")
+    d = state.pipeline_state
+    s = env64.step(env64.init_state(state.info["cur_frame"].cpu(), cpu(d.qpos), cpu(d.qvel),
+                                    idx.cpu()), cpu(action))
+    return {"obs": float((s.obs - cpu(out.obs)).abs().max()),
+            "reward": float((s.reward - cpu(out.reward)).abs().max()),
+            "done_mismatch": int((s.done != cpu(out.done)).sum()),
+            "clips": sorted(set(out.info["clip_idx"].tolist()))}
+
+
+def phase_driver(device, multi):
+    """harness.driver.main once, (i) single clip reading the committed
+    data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
+    temporary data_dir, in a temporary paths.base_dir, the counts set to 0
+    just before: exactly driver_expected_launches cg_solve_fused launches and
+    no other kernel (on the card), every artifact written, every logged
+    number finite, the run config read back as written, (i) nothing written
+    under data/Minirat, (ii) every clip drawn at the training reset,
+    eval/episode_reward_clip0..3 logged and one control step held against
+    the CPU in float64. Returns the run's numbers."""
+    import tempfile
+
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.envs import registry, tracking
+    from brax_tracking_tpu_torch.harness import config as hc
+    from brax_tracking_tpu_torch.harness import driver
+
+    tag = "multi-clip" if multi else "single clip"
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "run")
+        data_dir = os.path.join(tmp, "data") if multi else os.path.join(ROOT, "data", "Minirat")
+        argv = DRIVER_ARGV + (DRIVER_MULTI if multi else []) + [
+            f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
+        cfg = hc.load_config(argv)
+        ds, tr = cfg["dataset"], cfg["train"]
+        m = load("minirat", "cpu")
+        per_frame = round(1.0 / (ds["mocap_hz"] * float(m.opt.timestep)))
+        n_steps = ((ds["clip_length"] - ds["ref_traj_length"])
+                   * (per_frame // ds["env_args"]["physics_steps_per_control_step"]))
+        before = _tree(data_dir) if not multi else None
+        drawn = []
+
+        class Recording(tracking.GenericMultiClip):
+            def reset(self, generator, batch_size):
+                state = super().reset(generator, batch_size)
+                drawn.append(state.info["clip_idx"])
+                return state
+
+        if multi:
+            registry.register_environment("multi_clip_tracking", Recording)
+        try:
+            synchronize(device)
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = driver.main(argv, device=device)
+            synchronize(device)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            registry.register_environment("multi_clip_tracking", tracking.GenericMultiClip)
+        expected = dict.fromkeys(counts, 0) | {
+            "cg_solve_fused": driver_expected_launches(cfg, n_steps)}
+        if torch.device(device).type == "cuda" and counts != expected:
+            fail(f"driver ({tag}) launches {counts}, expected {expected}")
+
+        run = f"{tr['env_name']}_{tr['task_name']}_{tr['version']}"
+        with open(os.path.join(base, "logs", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps = sorted({r["_step"] for r in records if "rollout/summed_pos_distance_mean" in r})
+        final = int(tr["num_timesteps"])
+        if steps != [final]:
+            fail(f"driver ({tag}) callback at steps {steps}, expected [{final}]")
+        need = ["run_config.yaml", "logs/metrics.jsonl", f"ckpt/{final}/training_state.pt",
+                f"ckpt/{run}/{final}", f"ckpt/{run}/final", f"ckpt/{run}/rollout_{final}.p",
+                f"figures/perframe_{final}.csv"]
+        missing = [p for p in need if not os.path.isfile(os.path.join(base, p))]
+        if missing:
+            fail(f"driver ({tag}) wrote no {missing}")
+        logged = {k for r in records for k in r}
+        want = {"eval/episode_reward", "training/sps"} | (
+            {f"eval/episode_reward_clip{j}" for j in range(ds["n_clips"])} if multi else set())
+        if not want <= logged:
+            fail(f"driver ({tag}) logged no {sorted(want - logged)}")
+        bad = [p for r in records for p, v in _numbers(r) if not np.isfinite(v)]
+        if bad:
+            fail(f"driver ({tag}) logged numbers not finite: {bad}")
+        back = hc.read_yaml(os.path.join(base, "run_config.yaml"))
+        if not back == cfg == records[0]["_config"]:
+            fail(f"driver ({tag}) run_config.yaml reads back other than the config")
+
+        # the callback's seconds from the log's stamps: the eval's progress
+        # record, then (ii) the per-clip record, then the rollout's stats
+        at = [i for i, r in enumerate(records) if r.get("_step") == final
+              and "eval/episode_reward" in r][-1]
+        ts = [r["_ts"] for r in records[at:at + 3]]
+        if multi:
+            per_clip_s, rollout_s = ts[1] - ts[0], ts[2] - ts[1]
+        else:
+            per_clip_s, rollout_s = None, ts[1] - ts[0]
+        report = dict(seconds=seconds, counts=counts, expected=expected["cg_solve_fused"],
+                      metrics=metrics, n_steps=n_steps, rollout_s=rollout_s,
+                      per_clip_s=per_clip_s)
+        if multi:
+            clips = torch.bincount(drawn[0].cpu().long(), minlength=ds["n_clips"]).tolist()
+            if drawn[0].numel() != tr["num_envs"] or 0 in clips:
+                fail(f"driver (multi-clip) training reset drew clips {clips}")
+            built = sorted(os.listdir(os.path.join(data_dir, "clips")))
+            if built != [f"{j}.npz" for j in range(ds["n_clips"])]:
+                fail(f"driver (multi-clip) cached {built}")
+            gaps = mc_step_vs_cpu(device, cfg)
+            if (gaps["obs"] > MC_STEP_ATOL["obs"] or gaps["reward"] > MC_STEP_ATOL["reward"]
+                    or gaps["done_mismatch"] or gaps["clips"] != list(range(ds["n_clips"]))):
+                fail(f"driver (multi-clip): a control step on the card differs from the CPU "
+                     f"float64 run: {gaps} (limits {MC_STEP_ATOL})")
+            report.update(clips_drawn=clips, step_gaps=gaps)
+        else:
+            after = _tree(data_dir)
+            if after != before or os.path.join(data_dir, "clips", "0.p") not in after:
+                fail(f"driver (single clip) changed {data_dir}: {sorted(set(after) ^ set(before))}")
+    return report
 
 
 def spd_bound(name, B, nv):
@@ -1560,6 +1775,9 @@ def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
+    # the driver logs to wandb where it imports; a run here has no login, so
+    # wandb runs as a no-op unless the caller set a mode
+    os.environ.setdefault("WANDB_MODE", "disabled")
     t_start = time.perf_counter()
     from brax_tracking_tpu_torch.ops import cg as ops_cg
     from brax_tracking_tpu_torch.ops import library
@@ -1704,8 +1922,7 @@ def main() -> int:
     ppo, ppo_env, ppo_params, ppo_make_policy, ppo_init = phase_ppo("cuda", SEED)
     # cg_solve_batched lies on no step path (the JAX package has no caller
     # either): the main path's count of it is 0 (gated)
-    launches.update(cg_solve_fused=ppo["counts"]["cg_solve_fused"],
-                    cg_solve_batched=ppo["counts"]["cg_solve_batched"])
+    launches.update(cg_solve_batched=ppo["counts"]["cg_solve_batched"])
     a, m = PPO_ARGS, ppo["metrics"]
     steps_per, n_unrolls, rows = ppo_geometry(a)
     print(f"ppo: kept at the flagship's widths: MLPs {PPO_HIDDEN}, " + ", ".join(
@@ -1741,7 +1958,33 @@ def main() -> int:
     print(f"ppo eval/sps {m['eval/sps']:.1f} ({a['num_eval_envs']} envs) on {card}")
     print(f"ppo phase: {time.perf_counter() - t_ppo:.1f} s on {card}")
 
-    # 9. times
+    # 9. the driver, harness/driver.py::main (the main path): (i) single clip
+    # from the committed clip cache, (ii) four clips
+    t_drv = time.perf_counter()
+    driver_launches = {}
+    for multi in (False, True):
+        r = phase_driver("cuda", multi)
+        tag = "multi-clip" if multi else "single clip"
+        driver_launches[tag] = r["counts"]["cg_solve_fused"]
+        m = r["metrics"]
+        per_clip = (f", per-clip rollout ({4 * 32} envs x {r['n_steps']} control steps) "
+                    f"{r['per_clip_s']:.2f} s" if multi else "")
+        print(f"driver ({tag}): main() {r['seconds']:.1f} s, kernel launches {r['counts']} "
+              f"(expected cg_solve_fused {r['expected']}: train()'s and one reset and 10 per "
+              f"control step of each callback rollout), training/sps "
+              f"{m['training/sps']:.1f}, eval/sps {m['eval/sps']:.1f}, eval/episode_reward "
+              f"{m['eval/episode_reward']:.3f}; training/walltime "
+              f"{m['training/walltime']:.2f} s, eval/walltime {m['eval/walltime']:.2f} s; "
+              f"callback: deterministic rollout (1 env x {r['n_steps']} control steps) "
+              f"{r['rollout_s']:.2f} s{per_clip} on {card}")
+        if multi:
+            print(f"driver (multi-clip): training reset drew clips {r['clips_drawn']}")
+            print("driver_multiclip_step_vs_cpu_f64 " + json.dumps(r["step_gaps"]))
+    launches["cg_solve_fused"] = sum(driver_launches.values())
+    print(f"driver phase: {time.perf_counter() - t_drv:.1f} s, cg_solve_fused launches "
+          f"{driver_launches} on {card}")
+
+    # 10. times
     entries = []
     for model, key in (("minirat", ("minirat", B_MAIN, False, None)),
                        ("minirat_elliptic", ("minirat_elliptic", B_MAIN, False, None)),

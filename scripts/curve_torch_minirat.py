@@ -4,9 +4,11 @@
 
 Trains ``brax_tracking_tpu_torch``'s ``train()`` on the minirat single-clip
 tracking env (configs/dataset/minirat.yaml: CG 4/4, 10 substeps, the
-harness's synthetic 64-frame clip walking 0.2 m along x) on the card in
-float32, and writes one JSON line per eval to ``DIR/metrics.jsonl``
-(default ``runs/curve_torch_minirat``), the first line the run's config.
+driver's synthetic 64-frame clip walking 0.2 m along x, built by
+``harness.driver.build_env_from_cfg`` and cached in ``DIR/data``) on the
+card in float32, and writes one JSON line per eval to
+``DIR/metrics.jsonl`` (default ``runs/curve_torch_minirat``), the first
+line the run's config.
 Each eval is also printed, with the card's name and power limit.
 
 The config follows the JAX package's CPU curve
@@ -26,28 +28,12 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-# configs/dataset/minirat.yaml
-ENV_ARGS = dict(
-    mjcf_path="builtin:minirat.xml", scale_factor=1.0, solver="cg", iterations=4,
-    ls_iterations=4, torque_actuators=False, physics_steps_per_control_step=10,
-    too_far_dist=0.1, bad_pose_dist=1000.0, bad_quat_dist=1000.0, ctrl_cost_weight=0.01,
-    pos_reward_weight=1.0, quat_reward_weight=1.0, joint_reward_weight=10.0,
-    angvel_reward_weight=1.0, bodypos_reward_weight=1.0, endeff_reward_weight=1.0,
-    healthy_reward=0.25, healthy_z_range=(0.02, 0.5), terminate_when_unhealthy=True,
-    free_jnt=True, center_of_mass="torso", strict_name_lookup=True,
-    end_eff_names=["leg_FL", "leg_FR", "leg_BL", "leg_BR"],
-    appendage_names=["leg_FL", "leg_FR", "leg_BL", "leg_BR"],
-    body_names=["torso", "leg_FL", "leg_FR", "leg_BL", "leg_BR"],
-    joint_names=["hip_FL", "hip_FR", "hip_BL", "hip_BR"],
-)
-CLIP_LENGTH, MOCAP_HZ, REF_LEN = 64, 50, 5
 TRAIN = dict(num_envs=2048, batch_size=512, num_minibatches=4, num_updates_per_batch=4,
              unroll_length=16, episode_length=64, learning_rate=3e-4, entropy_cost=1e-3,
              discounting=0.99, clipping_epsilon=0.3, reward_scaling=1.0,
@@ -56,20 +42,14 @@ HIDDEN = (64, 64)
 NUM_TIMESTEPS, EVAL_EVERY = 1_048_576, 131_072
 
 
-def make_env(device):
-    """The harness's synthetic demo clip 0 (``_build_one_clip``): qpos0
-    lifted 1 cm, walking 0.2 m along x over 64 frames."""
-    from brax_tracking_tpu_torch.data import clips
-    from brax_tracking_tpu_torch.envs import tracking
-    from brax_tracking_tpu_torch.physics import spec
+def make_env(device, data_dir):
+    """The driver's minirat env (configs/dataset/minirat.yaml) on its
+    synthetic demo clip 0: qpos0 lifted 1 cm, walking 0.2 m along x over 64
+    frames, cached under ``data_dir``. Returns (dataset config, env)."""
+    from brax_tracking_tpu_torch.harness import config, driver
 
-    m = spec.load_model(spec.MINIRAT_NPZ, device=device)
-    qpos = np.tile(m.qpos0.cpu().numpy().astype(np.float64), (CLIP_LENGTH, 1))
-    qpos[:, 2] += 0.01
-    qpos[:, 0] += np.linspace(0.0, 0.2, CLIP_LENGTH)
-    clip = clips.process_clip(m, torch.as_tensor(qpos), dt=1.0 / MOCAP_HZ)
-    return tracking.GenericSingleClip(reference_clip=clip, mocap_hz=MOCAP_HZ, ref_len=REF_LEN,
-                                      device=device, **ENV_ARGS)
+    cfg = config.load_config(["train=smoke", "dataset=minirat", f"paths.data_dir={data_dir}"])
+    return cfg["dataset"], driver.build_env_from_cfg(cfg, device)
 
 
 def main(argv=None) -> int:
@@ -86,11 +66,12 @@ def main(argv=None) -> int:
     print(card, flush=True)
     num_evals = args.num_timesteps // EVAL_EVERY + 1
     os.makedirs(args.out, exist_ok=True)
+    dataset, env = make_env(args.device, os.path.join(args.out, "data"))
     path = os.path.join(args.out, "metrics.jsonl")
     with open(path, "w") as f:
         f.write(json.dumps({"_config": dict(TRAIN, hidden=HIDDEN, num_timesteps=args.num_timesteps,
-                                            num_evals=num_evals, seed=args.seed, env=ENV_ARGS,
-                                            clip_length=CLIP_LENGTH, card=card)}) + "\n")
+                                            num_evals=num_evals, seed=args.seed, dataset=dataset,
+                                            card=card)}) + "\n")
     t0 = time.perf_counter()
 
     def progress(step, metrics):
@@ -103,7 +84,7 @@ def main(argv=None) -> int:
               flush=True)
 
     train.train(
-        make_env(args.device), num_timesteps=args.num_timesteps, num_evals=num_evals,
+        env, num_timesteps=args.num_timesteps, num_evals=num_evals,
         network_factory=functools.partial(networks.make_ppo_networks,
                                           policy_hidden_layer_sizes=HIDDEN,
                                           value_hidden_layer_sizes=HIDDEN),
