@@ -18,10 +18,12 @@ Replaces the TPU kernels ``brax_tracking_tpu/ops/cg.py::cg_solve_fused``
      by Cholesky factor and substitution when the model has damping, else
      qvel + h qacc.
 
-Hopper design (``csrc/cg_fused.cu``): one warp per env, one env per block;
-qM, M^-1 and J live in shared memory for the whole solve, so between the
-input reads and the result writes nothing touches device memory: the
-kernel reads its inputs once (~3.6 KB per env at the minirat). On the
+Hopper design (``csrc/cg_fused.cu``): one warp per env, one env per block.
+In layout 1 qM, M^-1 and J live in shared memory for the whole solve, so
+between the input reads and the result writes nothing touches device
+memory: the kernel reads its inputs once (~3.6 KB per env at the minirat).
+An env whose J does not fit (rodent_pair) runs in layout 2, with J in
+device memory (``kernel_layout`` decides, in one place). On the
 roofline a call is bound by its bytes, just above its FP32 operations;
 what the kernel actually waits on is one env's chain of dependent steps:
 the assembly's loads, the sweep, and per iteration the products, the
@@ -61,8 +63,8 @@ H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
 
 def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
                       ncon: int = 0) -> int:
-    """Shared memory one env's block needs: qM, M^-1 and J (row stride
-    padded to odd), six nefc-vectors, the nv-vectors (with f and cdof
+    """Shared memory one env's block needs in layout 1: qM, M^-1 and J (row
+    stride padded to odd), six nefc-vectors, the nv-vectors (with f and cdof
     staged for the assembly) and four per-contact vectors of the elliptic
     block (activation, mu and the two tangent scales), then for
     cg_solve_fused the rest of the assembly's inputs (P A, nroots x 6
@@ -72,6 +74,37 @@ def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
     ld = nv | 1
     return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv + 4 * nell
                 + 6 * nroots * nefc + ncon * nv)
+
+
+def kernel_layout(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
+                  ncon: int = 0) -> Tuple[int, int]:
+    """The solve kernel's layout for one env, and its shared memory per
+    block: the one rule the wrappers and the solver's dispatch share.
+
+    - Layout 1 where the whole env fits one block (``kernel_smem_bytes``):
+      the minirat (11,224 B), a rodent-size env (nv 73, one root, 70 slots).
+    - Layout 2 where qM, M^-1 and the vectors fit but J does not:
+      4 (2 nv ld + 6 nefc + 25 nv + 4 nell) <= 232,448 B, ld = nv | 1. J,
+      and for cg_solve_fused P A and md, stay in device memory; the fused
+      kernel assembles J into a (B, nefc, nv) float32 scratch that
+      ``_launch`` allocates per call: 352.8 MB at rodent_pair's 590 rows and
+      1024 envs, 705.7 MB at 2048 envs. The bound reaches nv = 163 with up
+      to 149 rows, nv = 159 at the pair's 590 rows (the stand-in: nv 146,
+      200,456 B).
+    - Above that it raises ``NotImplementedError`` (ROADMAP.md §A.10: a
+      layout over a thread-block cluster).
+    """
+    one = kernel_smem_bytes(nv, nefc, nell, nroots, ncon)
+    if one <= H100_SMEM_PER_BLOCK:
+        return 1, one
+    two = 4 * (2 * nv * (nv | 1) + 6 * nefc + _NVEC * nv + 4 * nell)
+    if two <= H100_SMEM_PER_BLOCK:
+        return 2, two
+    M.unported(
+        f"the solve kernel for an env of nv={nv}, nefc={nefc}: {two} B of shared memory "
+        f"per block without J (one block holds {H100_SMEM_PER_BLOCK} B), a cluster layout",
+        "§A.10",
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -138,21 +171,13 @@ def _outputs(B, nv, nefc, like):
                 done=torch.empty(B, dtype=torch.bool, device=like.device))
 
 
-def _smem(name, nv, nefc, nell, nroots=0, ncon=0):
-    smem = kernel_smem_bytes(nv, nefc, nell, nroots, ncon)
-    if smem > H100_SMEM_PER_BLOCK:
-        raise ValueError(
-            f"{name} kernel: nv={nv}, nefc={nefc} needs {smem} B of "
-            f"shared memory per block (limit {H100_SMEM_PER_BLOCK})"
-        )
-    return smem
-
-
 def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
             damp, md, armature, ell, warmstart, tables, *, ell0, iters,
             ls_iters, tol, dt, has_damping, stall_tol):
     """``cg_solve_fused``'s kernel on prepared arguments (Bm = P A, the int
-    tables, the (3, nell) friction table, the warmstart or None)."""
+    tables, the (3, nell) friction table, the warmstart or None). In layout
+    2 it allocates the (B, nefc, nv) float32 scratch for J: 352.8 MB at
+    rodent_pair's 590 rows and 1024 envs, 705.7 MB at 2048."""
     B, _, nv = f.shape
     nefc = D.shape[1]
     nlim = jsign.shape[1]
@@ -165,11 +190,14 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
     if warmstart is not None:
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_fused", fl, dict(exists=exists, exists_con=exists_con))
-    smem = _smem("cg_solve_fused", nv, nefc, nell, nroots, ncon)
+    layout, smem = kernel_layout(nv, nefc, nell, nroots, ncon)
     row_slot, sz, root_of_dof, limit_dadr = tables
     outs = _outputs(B, nv, nefc, f)
     ptr = library.ptr
     ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
+    # layout 2: each env's J in device memory (kernel_layout gives its size),
+    # held here until the launch is queued
+    jbuf = torch.empty(B, nefc, nv, dtype=f.dtype, device=f.device) if layout == 2 else None
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = library.lib().cg_fused_launch(
         *(ptr(t) for t in (f, cdof, Bm, jsign, D, aref, exists, exists_con,
@@ -177,7 +205,8 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
         ws,
         *(ptr(t) for t in (row_slot, sz, root_of_dof, limit_dadr)),
         *(ptr(t) for t in outs.values()),
-        B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, iters, ls_iters,
+        ptr(jbuf) if jbuf is not None else ctypes.c_void_p(None),
+        B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, layout, iters, ls_iters,
         int(has_damping), int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
         ctypes.c_void_p(stream),
@@ -197,7 +226,7 @@ def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
     if warmstart is not None:
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_batched", fl, dict(exists=exists, exists_con=exists_con))
-    smem = _smem("cg_solve_batched", nv, nefc, nell)
+    layout, smem = kernel_layout(nv, nefc, nell)
     outs = _outputs(B, nv, nefc, qM)
     ptr = library.ptr
     ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
@@ -207,7 +236,7 @@ def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
                            qvel, damp, ell)),
         ws,
         *(ptr(t) for t in outs.values()),
-        B, nv, nefc, nell, ell0, smem, iters, ls_iters, int(has_damping),
+        B, nv, nefc, nell, ell0, smem, layout, iters, ls_iters, int(has_damping),
         int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
         ctypes.c_void_p(stream),

@@ -68,6 +68,22 @@
 // 2048 envs fit one wave (16 one-warp blocks per SM: the launch bound caps
 // the registers at 128, and the minirat's 11.2 KB of shared memory per env
 // leaves room), so a launch lasts about one env's chain.
+//
+// Layout 2, for envs whose J does not fit one block (rodent_pair: nv = 146,
+// 590 rows, 642 KB in layout 1). The block keeps qM, M^-1 and the vectors
+// in shared memory (200 KB at the pair) and J in device memory: the fused
+// kernel assembles it into a per-env scratch (B, nefc, nv) that the wrapper
+// allocates, the dense kernel reads its input J in place. P A and the
+// support masks md are read through the read-only cache where the assembly
+// uses them, not staged. Every J access stays one lane per row, so each
+// lane streams its own rows through L1; the RowCache is off at that many
+// rows, so the bracket and the line search read jar, J p, D and the flags
+// from shared memory as before. One block fills an SM's shared memory, so
+// 132 envs run at once: a 1024-env launch takes 8 waves of one env's chain,
+// each one warp on its SM, and M^-1 takes sweep_inverse_batched, whose
+// shared-memory round trips are batched over rows. The template switch kL2
+// compiles the layout in, so layout 1's code, registers and occupancy stay
+// as they were.
 
 // The elliptic block. The TPU kernel permutes the block to [n*C][t1*C][t2*C]
 // for its sublanes; here each lane takes whole contacts in their input order
@@ -102,7 +118,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMinval = 1e-15f;
 // 16 one-warp blocks per SM hold 2048 envs in one wave on the H100's 132
 // SMs; the launch bound keeps the kernels within the 128 registers per
-// thread that allows
+// thread that allows. Layout 2 holds one block per SM.
 constexpr int kBlocksPerSm = 16;
 
 __device__ inline int lead(int nv) { return nv | 1; }
@@ -253,6 +269,73 @@ __device__ void sweep_inverse(const float* A, float* S, int ld, int n, float* ro
   __syncwarp();
 }
 
+// Layout 2's sweep of a matrix wider than kSweepReg, with sweep_inverse's
+// elimination order and update formulas, so every entry takes the same
+// float operations. sweep_inverse's loop is one dependent chain of
+// shared-memory round trips per entry: the compiler cannot move the next
+// entry's loads above this entry's store (they may alias), and with one
+// warp on the SM nothing hides the latency (clock64 stamps on an H100 at
+// nv = 146: that sweep was 83-87% of an env's 16-17M cycles in layout 2,
+// scripts/stamp_solve_kernel.py --pair). Here each lane keeps its
+// columns' S[k, j] / S[k, k] in registers, and a batch of kSweepRows rows
+// is loaded before any of it is stored. On an H100 that took a 1024-env
+// pair launch from 68.4 to 55.5 ms with bitwise the same outputs; the
+// sweep is still ~80% of the env's cycles, one warp's instruction stream
+// (the next redesign: several warps per env, ROADMAP B.1(d)). A lane holds
+// kSweepCols columns: n <= 192, past layout 2's largest env (nv = 163).
+constexpr int kSweepCols = 6;
+constexpr int kSweepRows = 8;
+__device__ void sweep_inverse_batched(const float* A, float* S, int ld, int n, float* rowb,
+                                      float* colb, int lane) {
+  for (int i = 0; i < n; ++i)
+    for (int j = lane; j < n; j += kWarp) S[i * ld + j] = A[i * ld + j];
+  for (int k = 0; k < n; ++k) {
+    __syncwarp();
+    for (int i = lane; i < n; i += kWarp) {
+      rowb[i] = S[k * ld + i];
+      colb[i] = S[i * ld + k];
+    }
+    __syncwarp();
+    const float dinv = 1.f / rowb[k];
+    float rk[kSweepCols];  // S[k, j] / S[k, k] at the lane's columns
+#pragma unroll
+    for (int q = 0; q < kSweepCols; ++q) {
+      const int j = lane + q * kWarp;
+      rk[q] = j < n ? rowb[j] * dinv : 0.f;
+    }
+    for (int i0 = 0; i0 < n; i0 += kSweepRows) {
+      float ci[kSweepRows], v[kSweepRows][kSweepCols];
+#pragma unroll
+      for (int r = 0; r < kSweepRows; ++r) {
+        const int i = i0 + r;
+        ci[r] = i < n ? colb[i] : 0.f;
+#pragma unroll
+        for (int q = 0; q < kSweepCols; ++q) {
+          const int j = lane + q * kWarp;
+          v[r][q] = (i < n && j < n) ? S[i * ld + j] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kSweepRows; ++r) {
+        const int i = i0 + r;
+#pragma unroll
+        for (int q = 0; q < kSweepCols; ++q) {
+          const int j = lane + q * kWarp;
+          if (i < n && j < n) {
+            float x;
+            if (i == k && j == k) x = dinv;
+            else if (i == k) x = rk[q];
+            else if (j == k) x = -ci[r] * dinv;
+            else x = v[r][q] - ci[r] * rk[q];
+            S[i * ld + j] = x;
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
 // 4 bytes from device to shared memory without passing through registers
 // (cp.async): a lane issues all its copies before it waits for any, so the
 // staging of an env's inputs costs about one memory latency.
@@ -334,20 +417,24 @@ struct Args {
 // factor), J, six nefc-vectors, thirteen nv-vectors, four nell-vectors, and
 // f and cdof (6 x nv each) staged for the assembly.
 struct Smem {
-  float *qM, *Mi, *J;
+  float *qM, *Mi, *J;  // J: shared memory (layout 1) or device memory (layout 2)
+  int ldj;             // J's row stride
   float *Dv, *ar, *ex, *jar, *jarp, *force;
   float *x, *a0, *mxa, *grad, *mgrad, *gradn, *mgradn, *p, *mp, *qfs, *tmp, *rowb, *colb;
   float *econ, *mu, *sc1, *sc2;
   float *fs, *cs;
 };
 
+// Layout 2 (kL2) leaves J out; the kernel points s.J at device memory.
+template <bool kL2>
 __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
   const int ld = lead(nv);
   Smem s;
   s.qM = sm;
   s.Mi = s.qM + nv * ld;
-  s.J = s.Mi + nv * ld;
-  s.Dv = s.J + nefc * ld;
+  s.J = kL2 ? nullptr : s.Mi + nv * ld;
+  s.ldj = kL2 ? nv : ld;
+  s.Dv = s.Mi + nv * ld + (kL2 ? 0 : nefc * ld);
   s.ar = s.Dv + nefc;
   s.ex = s.ar + nefc;
   s.jar = s.ex + nefc;
@@ -470,7 +557,7 @@ __device__ __forceinline__ float cost_force(const Args& a, const Smem& s, const 
 __device__ __forceinline__ void gradients(const Args& a, const Smem& s, const float* mxa,
                                           float* grad, float* mgrad, int lane) {
   const int ld = lead(a.nv);
-  matvec_t(s.J, ld, s.force, s.tmp, a.nefc, a.nv, lane);
+  matvec_t(s.J, s.ldj, s.force, s.tmp, a.nefc, a.nv, lane);
   for (int v = lane; v < a.nv; v += kWarp) grad[v] = mxa[v] - s.tmp[v];
   __syncwarp();
   matvec(s.Mi, ld, grad, mgrad, a.nv, a.nv, lane);
@@ -485,12 +572,12 @@ __device__ __forceinline__ void gradients(const Args& a, const Smem& s, const fl
 template <bool kEll, typename JarOf>
 __device__ __forceinline__ float rows_pass16(const Args& a, const Smem& s, JarOf jar_of,
                                              float& jtf, int lane) {
-  const int nv = a.nv, ld = lead(nv), nefc = a.nefc;
+  const int nv = a.nv, nefc = a.nefc;
   float acc[16];
 #pragma unroll
   for (int c = 0; c < 16; ++c) acc[c] = 0.f;
   auto add_row = [&](int r, float fr) {
-    const float* Jr = s.J + r * ld;
+    const float* Jr = s.J + r * s.ldj;
 #pragma unroll
     for (int c = 0; c < 16; ++c)
       if (c < nv) acc[c] += Jr[c] * fr;
@@ -706,17 +793,22 @@ __device__ __forceinline__ unsigned bracket(const Args& a, const Smem& s, const 
 }
 
 // The solve once qM (also copied into Mi), J and the per-env vectors are in
-// shared memory; writes every output of env b. kEll (nell > 0) compiles the
-// elliptic block in: without it the quadratic rows' loops carry no trace of
-// it. kWarm (a warmstart or stall_tol > 0) compiles in the warmstart select
-// and the stall exit.
-template <bool kEll, bool kWarm>
+// shared memory (or J in device memory, kL2); writes every output of env b.
+// kEll (nell > 0) compiles the elliptic block in: without it the quadratic
+// rows' loops carry no trace of it. kWarm (a warmstart or stall_tol > 0)
+// compiles in the warmstart select and the stall exit. kL2 (layout 2) takes
+// the batched sweep.
+template <bool kEll, bool kWarm, bool kL2>
 __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int lane) {
   const int nv = a.nv, nefc = a.nefc;
   const int ld = lead(nv);
 
   // ---- M^-1 (stays in shared memory) and qacc_smooth
-  sweep_inverse(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
+  if (kL2 && nv > kSweepReg) {
+    sweep_inverse_batched(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
+  } else {
+    sweep_inverse(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
+  }
   matvec(s.Mi, ld, s.qfs, s.a0, nv, nv, lane);
 
   // ---- start at x = a0 (mxa = 0, so the gauss term is 0)
@@ -735,7 +827,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
     for (int c = 0; c < 16; ++c) xr[c] = c < nv ? s.a0[c] : 0.f;
     float jtf;
     cost = 0.5f * warp_sum(rows_pass16<kEll>(
-                      a, s, [&](int r) { return dot16(s.J + r * ld, xr, nv) - s.ar[r]; }, jtf,
+                      a, s, [&](int r) { return dot16(s.J + r * s.ldj, xr, nv) - s.ar[r]; }, jtf,
                       lane));
     const float mg = grad16(a, s, jtf, s.grad, lane);
     if (lane < nv) {
@@ -744,7 +836,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
     }
     __syncwarp();
   } else {
-    matvec(s.J, ld, s.x, s.jar, nefc, nv, lane);
+    matvec(s.J, s.ldj, s.x, s.jar, nefc, nv, lane);
     for (int r = lane; r < nefc; r += kWarp) s.jar[r] -= s.ar[r];
     __syncwarp();
     // without kWarm x = a0 is the start: its forces are formed here
@@ -758,7 +850,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
     }
     __syncwarp();
     matvec(s.qM, ld, s.tmp, s.mp, nv, nv, lane);
-    matvec(s.J, ld, s.p, s.jarp, nefc, nv, lane);
+    matvec(s.J, s.ldj, s.p, s.jarp, nefc, nv, lane);
     for (int r = lane; r < nefc; r += kWarp) s.jarp[r] -= s.ar[r];
     __syncwarp();
     float cw[2] = {cost_part<kEll, false>(a, s, s.jarp, nullptr, lane), 0.f};
@@ -799,7 +891,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
     };
     float r4[4] = {0.f, 0.f, 0.f, 0.f};  // p.Mp, p.mxa, phi'(0), phi''(0)
     for (int r = lane; r < nefc; r += kWarp) {
-      const float jp = dotp(s.J + r * ld);
+      const float jp = dotp(s.J + r * s.ldj);
       s.jarp[r] = jp;
       const float jr = s.jar[r];
       const float act = (jr < 0.f) ? s.ex[r] : 0.f;
@@ -914,7 +1006,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
   }
 
   // ---- outputs: qacc, efc_force, qfrc_constraint = J^T force, qacc_smooth
-  matvec_t(s.J, ld, s.force, s.tmp, nefc, nv, lane);
+  matvec_t(s.J, s.ldj, s.force, s.tmp, nefc, nv, lane);
   for (int v = lane; v < nv; v += kWarp) {
     a.qacc[(size_t)b * nv + v] = s.x[v];
     a.qfrc[(size_t)b * nv + v] = s.tmp[v];
@@ -967,28 +1059,36 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
   }
 }
 
-template <bool kEll, bool kWarm>
-__global__ void __launch_bounds__(kWarp, kBlocksPerSm)
+// A read of an assembly input: staged in shared memory (layout 1) or in
+// device memory through the read-only cache (layout 2).
+template <bool kGlobal>
+__device__ __forceinline__ float rd(const float* p) {
+  return kGlobal ? __ldg(p) : *p;
+}
+
+template <bool kEll, bool kWarm, bool kL2>
+__global__ void __launch_bounds__(kWarp, kL2 ? 1 : kBlocksPerSm)
 cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ cdof,
                 const float* __restrict__ Bm, const float* __restrict__ jsign,
                 const float* __restrict__ md, const float* __restrict__ armature,
                 const int* __restrict__ row_slot, const int* __restrict__ sz,
                 const int* __restrict__ root_of_dof, const int* __restrict__ limit_dadr,
-                int nlim, int nroots, int ncon) {
+                float* jscratch, int nlim, int nroots, int ncon) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc;
   const int ld = lead(nv);
   extern __shared__ float sm[];
-  const Smem s = carve(sm, nv, nefc, a.nell);
+  Smem s = carve<kL2>(sm, nv, nefc, a.nell);
+  if (kL2) s.J = jscratch + (size_t)b * nefc * nv;
 
   const float* fb = f + (size_t)b * 6 * nv;
   const float* cb = cdof + (size_t)b * 6 * nv;
   const float* Bmb = Bm + (size_t)b * nroots * 6 * nefc;
 
-  // every input of the assembly into shared memory at once: f, cdof, P A
-  // and md past the core's layout, the tables in buffers the core fills
-  // only later
+  // every input of the assembly into shared memory at once: f, cdof and,
+  // in layout 1, P A and md past the core's layout; the tables in buffers
+  // the core fills only later
   float* const bm_s = s.cs + 6 * nv;                    // (nroots * 6, nefc)
   float* const md_s = bm_s + nroots * 6 * nefc;         // (ncon, nv)
   int* const slot_s = reinterpret_cast<int*>(s.force);  // nefc
@@ -999,8 +1099,10 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
   float* const arm_s = s.gradn;                         // nv
   copy_vec(s.fs, fb, 6 * nv, lane);
   copy_vec(s.cs, cb, 6 * nv, lane);
-  copy_vec(bm_s, Bmb, nroots * 6 * nefc, lane);
-  copy_vec(md_s, md, ncon * nv, lane);
+  if (!kL2) {
+    copy_vec(bm_s, Bmb, nroots * 6 * nefc, lane);
+    copy_vec(md_s, md, ncon * nv, lane);
+  }
   copy_vec(slot_s, row_slot, nefc, lane);
   copy_vec(dadr_s, limit_dadr, nlim, lane);
   copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, lane);
@@ -1008,6 +1110,8 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
   copy_vec(root_s, root_of_dof, nv, lane);
   copy_vec(arm_s, armature, nv, lane);
   load_env(a, s, b, lane);  // waits for all of them
+  const float* const bm_src = kL2 ? Bmb : bm_s;
+  const float* const md_src = kL2 ? md : md_s;
 
   // ---- qM from (crb_f, cdof), one lane per row i: j ancestor-or-self of i
   // <=> i in [j, j + sz_j)
@@ -1042,12 +1146,12 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
   // are one-hot jsign at their dof
   for (int r = lane; r < nefc; r += kWarp) {
     const int slot = slot_s[r];
-    float* Jr = s.J + r * ld;
+    float* Jr = s.J + r * s.ldj;
     if (slot < 0) {
       for (int v = 0; v < nv; ++v) Jr[v] = 0.f;
       continue;
     }
-    const float* mdr = md_s + slot * nv;
+    const float* mdr = md_src + slot * nv;
     int root = -1;
     float bm[6];
     for (int v = 0; v < nv; ++v) {
@@ -1055,35 +1159,39 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
       if (rv != root) {
         root = rv;
 #pragma unroll
-        for (int c = 0; c < 6; ++c) bm[c] = bm_s[(rv * 6 + c) * nefc + r];
+        for (int c = 0; c < 6; ++c) bm[c] = rd<kL2>(bm_src + (rv * 6 + c) * nefc + r);
       }
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < 6; ++c) acc += bm[c] * s.cs[c * nv + v];
-      Jr[v] = acc * mdr[v];
+      Jr[v] = acc * rd<kL2>(mdr + v);
     }
   }
-  for (int i = lane; i < nlim; i += kWarp) s.J[i * ld + dadr_s[i]] = jsign_s[i];
-  __syncwarp();
-  cg_core<kEll, kWarm>(a, s, b, lane);
+  for (int i = lane; i < nlim; i += kWarp) s.J[i * s.ldj + dadr_s[i]] = jsign_s[i];
+  __syncwarp();  // orders the J rows (either memory) for the lanes that read them
+  cg_core<kEll, kWarm, kL2>(a, s, b, lane);
 }
 
-template <bool kEll, bool kWarm>
-__global__ void __launch_bounds__(kWarp, kBlocksPerSm)
+template <bool kEll, bool kWarm, bool kL2>
+__global__ void __launch_bounds__(kWarp, kL2 ? 1 : kBlocksPerSm)
 cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict__ J) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc;
   const int ld = lead(nv);
   extern __shared__ float sm[];
-  const Smem s = carve(sm, nv, nefc, a.nell);
+  Smem s = carve<kL2>(sm, nv, nefc, a.nell);
 
   const float* qMb = qM + (size_t)b * nv * nv;
   const float* Jb = J + (size_t)b * nefc * nv;
   copy_rows(s.qM, ld, qMb, nv, nv, lane);
-  copy_rows(s.J, ld, Jb, nefc, nv, lane);
+  if (kL2) {
+    s.J = const_cast<float*>(Jb);  // read in place; cg_core never writes J
+  } else {
+    copy_rows(s.J, ld, Jb, nefc, nv, lane);
+  }
   load_env(a, s, b, lane);  // waits for all of them
-  cg_core<kEll, kWarm>(a, s, b, lane);
+  cg_core<kEll, kWarm, kL2>(a, s, b, lane);
 }
 
 Args make_args(const float* D, const float* aref, const uint8_t* exists,
@@ -1131,29 +1239,41 @@ int allow_smem(Kernel kernel, int smem) {
 }  // namespace
 
 // Each launch function starts one warp per env on `stream` with `smem` bytes
-// of dynamic shared memory per block and returns the cudaGetLastError() code
-// of the launch (0 on success). `warmstart` may be null when has_ws is 0.
+// of dynamic shared memory per block in `layout` 1 or 2 (ops/cg.py::
+// kernel_layout) and returns the cudaGetLastError() code of the launch (0
+// on success). `warmstart` may be null when has_ws is 0; `jscratch`, the
+// fused kernel's (B, nefc, nv) J in layout 2, may be null in layout 1.
 extern "C" int cg_fused_launch(
     const float* f, const float* cdof, const float* Bm, const float* jsign,
     const float* D, const float* aref, const uint8_t* exists, const uint8_t* exists_con,
     const float* qfrc_smooth, const float* qvel, const float* damp, const float* md,
     const float* armature, const float* ell, const float* warmstart, const int* row_slot,
     const int* sz, const int* root_of_dof, const int* limit_dadr, float* qacc, float* force,
-    float* qfrc, float* a0, float* qvel_new, uint8_t* done, int B, int nv, int nefc,
-    int nlim, int nroots, int ncon, int nell, int ell0, int smem, int iters, int ls_iters,
-    int has_damping, int has_ws, float tol, float dt, float stall_tol, void* stream) {
+    float* qfrc, float* a0, float* qvel_new, uint8_t* done, float* jscratch, int B, int nv,
+    int nefc, int nlim, int nroots, int ncon, int nell, int ell0, int smem, int layout,
+    int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt, float stall_tol,
+    void* stream) {
   if (B == 0) return 0;
+  if (layout != 1 && layout != 2) return (int)cudaErrorInvalidValue;
+  if (layout == 2 && jscratch == nullptr) return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
-  auto kernel = nell ? (warm ? cg_fused_kernel<true, true> : cg_fused_kernel<true, false>)
-                     : (warm ? cg_fused_kernel<false, true> : cg_fused_kernel<false, false>);
+  auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
+    return nell ? (warm ? k11 : k10) : (warm ? k01 : k00);
+  };
+  auto kernel = layout == 2
+                    ? pick(cg_fused_kernel<true, true, true>, cg_fused_kernel<true, false, true>,
+                           cg_fused_kernel<false, true, true>, cg_fused_kernel<false, false, true>)
+                    : pick(cg_fused_kernel<true, true, false>, cg_fused_kernel<true, false, false>,
+                           cg_fused_kernel<false, true, false>,
+                           cg_fused_kernel<false, false, false>);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   const Args a = make_args(D, aref, exists, exists_con, qfrc_smooth, qvel, damp, ell, warmstart,
                            qacc, force, qfrc, a0, qvel_new, done, nv, nefc, nell, ell0, iters,
                            ls_iters, has_damping, has_ws, tol, dt, stall_tol);
   kernel<<<B, kWarp, smem, (cudaStream_t)stream>>>(
-      a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, nlim, nroots,
-      ncon);
+      a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, jscratch, nlim,
+      nroots, ncon);
   return (int)cudaGetLastError();
 }
 
@@ -1162,12 +1282,20 @@ extern "C" int cg_batched_launch(
     const uint8_t* exists_con, const float* qfrc_smooth, const float* qvel, const float* damp,
     const float* ell, const float* warmstart, float* qacc, float* force, float* qfrc, float* a0,
     float* qvel_new, uint8_t* done, int B, int nv, int nefc, int nell, int ell0, int smem,
-    int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt, float stall_tol,
-    void* stream) {
+    int layout, int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt,
+    float stall_tol, void* stream) {
   if (B == 0) return 0;
+  if (layout != 1 && layout != 2) return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
-  auto kernel = nell ? (warm ? cg_batched_kernel<true, true> : cg_batched_kernel<true, false>)
-                     : (warm ? cg_batched_kernel<false, true> : cg_batched_kernel<false, false>);
+  auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
+    return nell ? (warm ? k11 : k10) : (warm ? k01 : k00);
+  };
+  auto kernel =
+      layout == 2
+          ? pick(cg_batched_kernel<true, true, true>, cg_batched_kernel<true, false, true>,
+                 cg_batched_kernel<false, true, true>, cg_batched_kernel<false, false, true>)
+          : pick(cg_batched_kernel<true, true, false>, cg_batched_kernel<true, false, false>,
+                 cg_batched_kernel<false, true, false>, cg_batched_kernel<false, false, false>);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   const Args a = make_args(D, aref, exists, exists_con, qfrc_smooth, qvel, damp, ell, warmstart,

@@ -6,12 +6,13 @@ Counterpart of ``brax_tracking_tpu/physics/solver.py``. Dispatch follows
 
 - CG on the kernel layout (one-sided quadratic rows built from limits and
   contacts, plus at most one contiguous block of dim-3 elliptic contacts;
-  the minirat, the elliptic minirat, the rodent, the fly) goes through
-  ``_solve_quad``, which calls the solve kernel (ops/cg.py
-  ``cg_solve_fused``) once. A model the rule sends there but whose env does
-  not fit one block's shared memory on the H100 raises: the XLA-CG path
-  warmstarts where the kernel's CG call does not, so it would compute
-  something else.
+  the minirat, the elliptic minirat, the rodent, the fly, rodent_pair)
+  goes through ``_solve_quad``, which calls the solve kernel (ops/cg.py
+  ``cg_solve_fused``) once, in the layout ``ops_cg.kernel_layout`` picks:
+  the whole env in one block's shared memory, or J in device memory for
+  the pair. A model the rule sends there but too large for both layouts
+  raises: the XLA-CG path warmstarts where the kernel's CG call does not,
+  so it would compute something else.
 - Newton on the kernel layout goes through ``_solve_newton_fused``: the
   JAX package's batched branch for such models, which is CG with warmstart
   and the float32 stall exit in chunks of the same kernel, not
@@ -259,17 +260,12 @@ def _solve_statics(m: M.Model, layout: Cn.EfcLayout) -> dict:
 
 def _kernel_args(m: M.Model, d: M.Data, layout: Cn.EfcLayout):
     """The solve kernel's positional arguments at the state ``d`` and its
-    static keywords. A model whose env does not fit one block's shared
-    memory raises."""
+    static keywords. The kernel's layout rule (``ops_cg.kernel_layout``)
+    decides here too, so a model too large for both layouts raises before
+    anything is computed."""
     st = _solve_statics(m, layout)
     nell = len(st["kw"]["ell_mu"])
-    smem = ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell,
-                                    len(st["kw"]["root_bounds"]), m.ncon)
-    if smem > ops_cg.H100_SMEM_PER_BLOCK:
-        M.unported(
-            f"the solve kernel for an env of {smem} B (one block holds "
-            f"{ops_cg.H100_SMEM_PER_BLOCK} B): its second layout", "§A.10",
-        )
+    ops_cg.kernel_layout(m.nv, layout.nefc, nell, len(st["kw"]["root_bounds"]), m.ncon)
     B = d.qpos.shape[0]
     exists = d.efc_pos < d.efc_margin
     if st["quad_mask"] is not None:

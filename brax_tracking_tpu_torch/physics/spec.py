@@ -40,6 +40,14 @@ MINIRAT_ELLIPTIC_NPZ = os.path.join(ASSETS, "minirat_elliptic.npz")
 # Newton/100), on the solve kernel's layout
 MINIRAT_NEWTON_NPZ = os.path.join(ASSETS, "minirat_newton.npz")
 MINIRAT_NEWTON_OPTIONS = dict(solver="newton", iterations=100, ls_iterations=50)
+# the two-rat stand-in at rodent_pair's sizes (assets/make_ratpair.py writes
+# the MJCF): frozen with the dataset config's CG 4/4, with elliptic cones,
+# and for Newton at the pair XML's own default budget (Newton/100)
+RATPAIR_XML = os.path.join(ASSETS, "ratpair.xml")
+RATPAIR_NPZ = os.path.join(ASSETS, "ratpair.npz")
+RATPAIR_ELLIPTIC_XML = os.path.join(ASSETS, "ratpair_elliptic.xml")
+RATPAIR_ELLIPTIC_NPZ = os.path.join(ASSETS, "ratpair_elliptic.npz")
+RATPAIR_NEWTON_NPZ = os.path.join(ASSETS, "ratpair_newton.npz")
 # ballmuscle: ball joints with limits, a fixed tendon, muscles and a
 # filterexact actuator, frozen once per solver of the engine slice
 BALLMUSCLE_XML = os.path.join(ASSETS, "ballmuscle.xml")

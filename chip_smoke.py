@@ -18,13 +18,23 @@ Run from the root of a checkout on a machine with a CUDA card. It
    B=2047) and on the ballmuscle's own mass matrices, all five also at
    the widths on either side of each of their design edges, and the three
    Cholesky kernels with NaN below the diagonal (which they must not read);
+   and the solve kernel's layout 2 (J in device memory) on the two-rat
+   stand-in at rodent_pair's sizes (assets/ratpair*.xml, nv 146, 590 rows)
+   at B=1024 and B=1023 and converged, on its elliptic file and on a chunk
+   of its Newton dispatch, the dense-input kernel on its dense qM and J, on
+   a seeded pair-size case at B=1024 and B=1023 and at layout 2's design
+   edges (the widest env of layout 1, the first past it, the widest of
+   layout 2);
 4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
    AutoResetWrapperTracking, 10 substeps) for 20 control steps, on the
    minirat (the main path) and on the elliptic minirat, counts the kernel
    launches of each run and checks its first step on 8 envs against the
    same step run on the CPU in float64; then holds the elliptic minirat's
    constraint rows and one converged substep at seeded contact states
-   against the CPU in float64;
+   against the CPU in float64; then rolls out 1024 envs of the rodent_pair
+   env on the stand-in (configs/dataset/rodent_pair.yaml, 5 substeps) for
+   10 control steps, exactly 5 launches per control step, and checks its
+   first step on 8 envs against the CPU in float64;
 5. steps 2048 ballmuscle envs (ball-joint limits, a fixed tendon, muscles)
    20 substeps under CG (the XLA-CG path: spd_inverse2 once per substep)
    and under Newton (spd_solve 2 + iterations per substep), counts the
@@ -56,7 +66,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    logged and one control step of 8 envs on clips 0-3 against the CPU in
    float64; it prints each run's seconds, training/sps, eval/sps and the
    callback's seconds per rollout; the kernels line's cg_solve_fused
-   launches are the two runs';
+   launches are the two runs'; then once more with train=train_pair
+   dataset=rodent_pair on the stand-in at train_pair's widths (1024 envs),
+   cut the same way, its clip cut to 24 frames: exact launches, all of them
+   in layout 2 (the kernels line's layout-2 row);
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the SPD and Cholesky
    kernels' and their library calls' device time by torch.profiler), and
@@ -178,6 +191,32 @@ INV_EDGE_SIZES = tuple(n for n in CHOL_EDGE_SIZES if n <= 49) + (144, 145)
 # shared memory per env, seeded; its J^T f runs five 16-column chunks where
 # the minirat's runs one. Scored like the minirat's cases.
 RODENT_LIKE = {"nv": 73, "nefc": 296, "nlim": 4}
+
+# rodent_pair: the two-rat stand-in (assets/ratpair*.xml: nv 146, 114 contact
+# slots, 590 rows pyramidal, 476 elliptic) runs the solve kernel's layout 2
+# (J in device memory), at the pair config's 1024 envs and 5 substeps per
+# control step. The same cases as the minirat's hold layout 2: (a) at B_PAIR
+# and B_PAIR - 1 and converged, (b) on the elliptic file, (c) a Newton chunk.
+# The dense kernel is held at the pair's size (PAIR_LIKE: its 134 limit
+# rows) and at layout 2's design edges (l2_edges): at the pair's 590 rows,
+# the widest env layout 1 holds, the first past it, and the widest layout 2
+# holds. The first control step of the pair env on the card against the
+# CPU in float64: like the minirat's it is a fall that touches no floor (the
+# stand-in's feet hover 5 mm above it at qpos0). A CPU float32 rehearsal of
+# that step (first_step_gaps on a float32 CPU env, 8 envs, seeds 0-2) is
+# off float64 by at most 9.66e-6 (obs) and 2.05e-6 (reward); the limits
+# leave ~35x.
+B_PAIR = 1024
+PAIR_MODELS = ("ratpair", "ratpair_elliptic", "ratpair_newton")
+PAIR_LIKE = {"nv": 146, "nefc": 590, "nlim": 134}
+PAIR_ROWS = 590
+PAIR_STEP_ATOL = {"obs": 3.4e-4, "reward": 7.2e-5}
+# the pair env as a user builds it: configs/dataset/rodent_pair.yaml (CG 4/4,
+# 5 substeps per control step) with the stand-in, and train_pair's widths
+PAIR_ARGV = ["train=train_pair", "dataset=rodent_pair",
+             "dataset.env_args.mjcf_path=builtin:ratpair.xml"]
+PAIR_SUBSTEPS = 5
+PAIR_STEPS = 10
 # ballmuscle slice: 20 substeps of 2048 envs per solver; its first substep
 # of 8 envs on the card (float32) against the CPU (float64). A CPU float32
 # rehearsal of that substep (64 envs, both solvers) is off float64 by
@@ -243,26 +282,36 @@ def card_line() -> str:
 
 
 def load(model, device, dtype=None):
-    """One of the port's minirat files: pyramidal CG 4/4 (the main path),
-    elliptic CG 4/4, or Newton/100 with 50 line-search steps."""
+    """One of the port's frozen files: the minirat's (pyramidal CG 4/4, the
+    main path; elliptic CG 4/4; Newton/100 with 50 line-search steps) or the
+    two-rat stand-in's at rodent_pair's sizes, frozen the same three ways
+    ("ratpair", "ratpair_elliptic", "ratpair_newton")."""
     from brax_tracking_tpu_torch.physics import spec
 
-    if model == "minirat_newton":
-        return spec.load_model(spec.MINIRAT_NEWTON_NPZ, device=device, dtype=dtype,
-                               **spec.MINIRAT_NEWTON_OPTIONS)
-    npz = spec.MINIRAT_ELLIPTIC_NPZ if model == "minirat_elliptic" else spec.MINIRAT_NPZ
-    return spec.load_model(npz, device=device, dtype=dtype)
+    npz, options = {
+        "minirat": (spec.MINIRAT_NPZ, {}),
+        "minirat_elliptic": (spec.MINIRAT_ELLIPTIC_NPZ, {}),
+        "minirat_newton": (spec.MINIRAT_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
+        "ratpair": (spec.RATPAIR_NPZ, {}),
+        "ratpair_elliptic": (spec.RATPAIR_ELLIPTIC_NPZ, {}),
+        "ratpair_newton": (spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
+    }[model]
+    return spec.load_model(npz, device=device, dtype=dtype, **options)
 
 
 def random_states(m, B, seed, drop=0.01, vel=0.5):
-    """Seeded minirat states with the root pushed into the floor (contacts),
-    as the JAX package's fused-kernel tests build them."""
+    """Seeded states with every free root pushed into the floor (contacts)
+    and the hinges perturbed, as the JAX package's fused-kernel tests build
+    them (one root: the root's z and qpos[7:])."""
     from brax_tracking_tpu_torch.physics import step as pstep
 
     rng = np.random.RandomState(seed)
     qpos = np.tile(m.qpos0.cpu().numpy().astype(np.float64)[None], (B, 1))
-    qpos[:, 2] -= drop
-    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (B, m.nq - 7))
+    jt, qadr = np.asarray(m.jnt_type), np.asarray(m.jnt_qposadr)
+    free = qadr[jt == 0]
+    hinge = np.setdiff1d(np.arange(m.nq), (free[:, None] + np.arange(7)).ravel())
+    qpos[:, free + 2] -= drop
+    qpos[:, hinge] += rng.uniform(-0.05, 0.05, (B, hinge.size))
     t = lambda a: torch.as_tensor(a, dtype=m.dtype, device=m.device)
     d = pstep.make_data(m, B, device=m.device)
     return d.replace(
@@ -276,7 +325,7 @@ def solve_case(device, model, B, seed, damped=False, iters=None):
     """The solve kernel's arguments as the solver passes them, at seeded
     float32 states of ``model``: the one cg_solve_fused call of a CG file
     (with an optional seeded damping, or ``iters`` CG iterations), or for
-    ``minirat_newton`` one chunk of the Newton dispatch (K = 4, 16
+    a Newton file one chunk of the Newton dispatch (K = 4, 16
     line-search steps, the stall exit) warmstarted from the qacc of a
     substep run just before on the card (its launches are set back).
     Elliptic states get faster joints (contacts in all three cone zones)."""
@@ -286,15 +335,16 @@ def solve_case(device, model, B, seed, damped=False, iters=None):
     from brax_tracking_tpu_torch.physics import step as pstep
 
     m = load(model, device, torch.float32)
-    d = random_states(m, B, seed, vel=1.0 if model == "minirat_elliptic" else 0.5)
-    if model == "minirat_newton":
+    d = random_states(m, B, seed, vel=1.0 if model.endswith("elliptic") else 0.5)
+    newton = model.endswith("newton")
+    if newton:
         launches = ops_cg.cg_solve_fused.launches
         d = pstep.step(m, d, device=device)
         ops_cg.cg_solve_fused.launches = launches
     d = pstep.forward_to_constraint(m, d)
     args, kw = S._kernel_args(m, d, Cn.efc_layout(m))
     args, kw = list(args), dict(kw)
-    if model == "minirat_newton":
+    if newton:
         kw.update(iters=4, ls_iters=min(kw["ls_iters"], 16), has_damping=False,
                   stall_tol=S.STALL_TOL_F32, warmstart=d.qacc_warmstart.contiguous())
     if damped:
@@ -323,16 +373,18 @@ def dense_case(args, kw):
             {k: v for k, v in kw.items() if k in keep})
 
 
-def rodent_like_case(device, B, seed, iters=None):
+def rodent_like_case(device, B, seed, iters=None, size=None):
     """cg_solve_batched's arguments (float32) and keywords for a seeded
-    dense problem at a rodent-like size (RODENT_LIKE): qM = Q diag(lam) Q^T
+    dense problem at a rodent-like size (RODENT_LIKE, or ``size``, one of
+    seeded_dense()'s): qM = Q diag(lam) Q^T
     with lam log-uniform in [1, SPD_COND]; the first nlim rows of J one-hot
     +-1 at distinct dofs (scalar limits), the others with half their dofs in
     the support, N(0, 2 / nv) there; D in [0.5, 2]; aref = J qacc_smooth
     plus noise of the same spread, so that about half of the rows start
     active; 5% of the rows absent. CG 4/4 as the minirat (or ``iters``),
     tolerance 1e-8 x mean diag(qM) x nv (MuJoCo's scaling), undamped."""
-    nv, nefc, nlim = RODENT_LIKE["nv"], RODENT_LIKE["nefc"], RODENT_LIKE["nlim"]
+    size = size or RODENT_LIKE
+    nv, nefc, nlim = size["nv"], size["nefc"], size["nlim"]
     g = torch.Generator(device=device).manual_seed(seed)
     f64 = dict(generator=g, device=device, dtype=torch.float64)
     Q, _ = torch.linalg.qr(torch.randn(B, nv, nv, **f64))
@@ -358,6 +410,33 @@ def rodent_like_case(device, B, seed, iters=None):
     kw = {"iters": 4 if iters is None else iters, "ls_iters": 4, "tol": tol, "dt": 0.002,
           "has_damping": False, "ell0": 0, "ell_mu": (), "ell_scale": (), "stall_tol": 0.0}
     return args, kw
+
+
+def l2_edges(nefc=PAIR_ROWS):
+    """At ``nefc`` rows (no elliptic block, no fused staging): the widest nv
+    in layout 1, the first past it and the widest in layout 2
+    (ops/cg.py::kernel_layout)."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    def layout(nv):
+        try:
+            return ops_cg.kernel_layout(nv, nefc)[0]
+        except NotImplementedError:
+            return 3
+
+    nvs = range(1, 512)
+    last1 = max(nv for nv in nvs if layout(nv) == 1)
+    last2 = max(nv for nv in nvs if layout(nv) == 2)
+    return last1, last1 + 1, last2
+
+
+def seeded_dense():
+    """The seeded dense cases of cg_solve_batched by name: RODENT_LIKE,
+    PAIR_LIKE and layout 2's design edges at the pair's rows."""
+    last1, first2, last2 = l2_edges()
+    edge = lambda nv: {"nv": nv, "nefc": PAIR_ROWS, "nlim": 4}
+    return {"rodent_like": RODENT_LIKE, "pair_like": PAIR_LIKE, "l1_last": edge(last1),
+            "l2_first": edge(first2), "l2_last": edge(last2)}
 
 
 def cast(args, dtype):
@@ -394,14 +473,16 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
     """Kernel and float32 plain version against a float64 plain run on the
     same inputs (the solve at state ``seed`` of ``model``, see solve_case;
     ``iters`` overrides the CG iteration count; ``batched`` runs
-    cg_solve_batched on the dense qM and J of the same call; ``model`` =
-    "rodent_like" runs cg_solve_batched on rodent_like_case). Returns the
-    error report and (model, args, kw, kernel outputs)."""
+    cg_solve_batched on the dense qM and J of the same call; a ``model``
+    named in seeded_dense(), e.g. "rodent_like", runs cg_solve_batched on
+    rodent_like_case at that size). Returns the error report and (model,
+    args, kw, kernel outputs)."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
     kernel, plain_fn = ops_cg.cg_solve_fused, ops_cg.cg_solve_fused_reference
-    if model == "rodent_like":
-        m, (args, kw) = None, rodent_like_case(device, B, seed, iters)
+    dense = seeded_dense()
+    if model in dense:
+        m, (args, kw) = None, rodent_like_case(device, B, seed, iters, dense[model])
     else:
         m, args, kw = solve_case(device, model, B, seed, damped, iters)
         if batched:
@@ -500,15 +581,32 @@ def tracking_env(device, dtype=None, model="minirat"):
     )
 
 
+def pair_env(device, dtype=None):
+    """The rodent_pair env on the stand-in, unwrapped, built by the driver's
+    own builder from PAIR_ARGV; its synthetic clip is built and cached in a
+    temporary data_dir (the committed data/RodentPair clip is the real
+    pair's, another model)."""
+    import tempfile
+
+    from brax_tracking_tpu_torch.harness import config as hc
+    from brax_tracking_tpu_torch.harness import driver
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = hc.load_config(PAIR_ARGV + [f"paths.data_dir={tmp}"])
+        return driver.build_env_from_cfg(cfg, device, dtype)
+
+
 def make_env(device, dtype=None, model="minirat"):
-    """tracking_env under the training wrappers."""
+    """tracking_env (or, for "ratpair", pair_env) under the training
+    wrappers."""
     from brax_tracking_tpu_torch.envs import wrappers
 
-    return wrappers.wrap(tracking_env(device, dtype, model), episode_length=1000)
+    env = pair_env(device, dtype) if model == "ratpair" else tracking_env(device, dtype, model)
+    return wrappers.wrap(env, episode_length=1000)
 
 
-def phase_rollout(device, B, seed, model="minirat"):
-    """Reset + N_STEPS control steps of B envs; returns the launch counts of
+def phase_rollout(device, B, seed, model="minirat", n_steps=N_STEPS):
+    """Reset + ``n_steps`` control steps of B envs; returns the launch counts of
     the steps (every kernel, set to 0 just before), the first step's inputs
     and outputs, the final state and the share of envs with contact forces
     at the last step (which must reach ROLLOUT_MIN_CONTACT)."""
@@ -519,7 +617,7 @@ def phase_rollout(device, B, seed, model="minirat"):
     state = env.reset(gen, B)
     actions = [
         2.0 * torch.rand(B, env.action_size, generator=gen, device=device) - 1.0
-        for _ in range(N_STEPS)
+        for _ in range(n_steps)
     ]
     first_in = state
     reset_counts()
@@ -543,21 +641,28 @@ def phase_rollout(device, B, seed, model="minirat"):
 def phase_first_step_on_cpu(first_in, action, first_out, n, model="minirat"):
     """The first control step of ``n`` envs run again by the port on the CPU
     in float64; returns the max obs and reward gaps."""
+    gaps = first_step_gaps(first_in, action, first_out, n, model)
+    atol = PAIR_STEP_ATOL if model == "ratpair" else dict.fromkeys(("obs", "reward"),
+                                                                   STEP_ATOL[model])
+    if gaps["obs"] > atol["obs"] or gaps["reward"] > atol["reward"] or gaps["done_mismatch"]:
+        fail(f"{model}: first control step on the card differs from the CPU float64 "
+             f"run: {gaps} (limits {atol})")
+    return gaps
+
+
+def first_step_gaps(first_in, action, first_out, n, model="minirat"):
+    """The gaps of phase_first_step_on_cpu, ungated (the CPU float32
+    rehearsal of a limit passes a float32 CPU run as the card's)."""
     env = make_env("cpu", model=model)
     d = first_in.pipeline_state
     cpu = lambda t: t[:n].detach().to("cpu", torch.float64)
     s = env.init_state(first_in.info["cur_frame"][:n].cpu(), cpu(d.qpos), cpu(d.qvel))
     s = env.step(s, cpu(action))
-    gaps = {
+    return {
         "obs": float((s.obs - cpu(first_out.obs)).abs().max()),
         "reward": float((s.reward - cpu(first_out.reward)).abs().max()),
         "done_mismatch": int((s.done != cpu(first_out.done)).sum()),
     }
-    atol = STEP_ATOL[model]
-    if gaps["obs"] > atol or gaps["reward"] > atol or gaps["done_mismatch"]:
-        fail(f"{model}: first control step on the card differs from the CPU float64 "
-             f"run: {gaps} (limit {atol})")
-    return gaps
 
 
 def converged(m):
@@ -1016,7 +1121,7 @@ def ppo_geometry(args):
     return rows * args["unroll_length"], rows // args["num_envs"], rows
 
 
-def ppo_expected_launches(args, train_steps):
+def ppo_expected_launches(args, train_steps, substeps=N_SUBSTEPS):
     """cg_solve_fused launches of one train() run: one per substep of every
     training and eval control step, and one per reset (its forward): the
     training envs' reset and each eval's (with num_evals > 1, one before
@@ -1024,7 +1129,7 @@ def ppo_expected_launches(args, train_steps):
     _, n_unrolls, _ = ppo_geometry(args)
     evals = max(args["num_evals"] - 1, 1) + (args["num_evals"] > 1)
     control = train_steps * n_unrolls * args["unroll_length"] + evals * args["episode_length"]
-    return N_SUBSTEPS * control + 1 + evals
+    return substeps * control + 1 + evals
 
 
 def ppo_state(env_obs, action_size, hidden, lr, device, dtype, seed):
@@ -1274,6 +1379,16 @@ DRIVER_ARGV = ["train=train_rodent", "dataset=minirat", "train.env_name=single_c
                "train.num_timesteps=131072", "train.eval_every=65536"]
 DRIVER_MULTI = ["dataset.n_clips=4", "train.env_name=multi_clip_tracking",
                 "train.num_timesteps=65536"]
+# the pair's driver run: configs/train/train_pair.yaml's widths (MLPs 256 x
+# 256, 1024 envs, batch 1024, unroll 16, 128 eval envs) on the stand-in, cut
+# as PPO_ARGS is (2 minibatches, 2 updates, episode_length 32): one training
+# step (32,768 env steps) with evals before and after it; the clip cut to 24
+# frames (2 control steps each), so the callback's B = 1 rollout takes 38
+# control steps
+PAIR_DRIVER_ARGV = PAIR_ARGV + [
+    "train.num_minibatches=2", "train.num_updates_per_batch=2",
+    "train.force_episode_length=true", "train.episode_length=32",
+    "train.num_timesteps=32768", "train.eval_every=32768", "dataset.clip_length=24"]
 MC_ENVS = 8
 # One control step of MC_ENVS multi-clip envs (clips 0-3 twice) on the card
 # against the port's CPU float64 run from the same state and action: the
@@ -1299,8 +1414,9 @@ def driver_expected_launches(cfg, n_steps):
     epochs = max(args["num_evals"] - 1, 1)
     train_steps = epochs * -(-int(tr["num_timesteps"]) // (epochs * steps_per))
     rollouts = 1 + (int(cfg["dataset"].get("n_clips", 1)) > 1)
-    return (ppo_expected_launches(args, train_steps)
-            + epochs * rollouts * (1 + N_SUBSTEPS * n_steps))
+    substeps = int(cfg["dataset"]["env_args"]["physics_steps_per_control_step"])
+    return (ppo_expected_launches(args, train_steps, substeps)
+            + epochs * rollouts * (1 + substeps * n_steps))
 
 
 def _numbers(node, path=""):
@@ -1350,10 +1466,12 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
             "clips": sorted(set(out.info["clip_idx"].tolist()))}
 
 
-def phase_driver(device, multi):
+def phase_driver(device, multi, pair=False):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
-    temporary data_dir, in a temporary paths.base_dir, the counts set to 0
+    temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
+    (PAIR_DRIVER_ARGV; its clip built and cached in a temporary data_dir),
+    in a temporary paths.base_dir, the counts set to 0
     just before: exactly driver_expected_launches cg_solve_fused launches and
     no other kernel (on the card), every artifact written, every logged
     number finite, the run config read back as written, (i) nothing written
@@ -1367,19 +1485,20 @@ def phase_driver(device, multi):
     from brax_tracking_tpu_torch.harness import config as hc
     from brax_tracking_tpu_torch.harness import driver
 
-    tag = "multi-clip" if multi else "single clip"
+    tag = "pair" if pair else "multi-clip" if multi else "single clip"
+    committed = not (multi or pair)
     with tempfile.TemporaryDirectory() as tmp:
         base = os.path.join(tmp, "run")
-        data_dir = os.path.join(tmp, "data") if multi else os.path.join(ROOT, "data", "Minirat")
-        argv = DRIVER_ARGV + (DRIVER_MULTI if multi else []) + [
+        data_dir = os.path.join(ROOT, "data", "Minirat") if committed else os.path.join(tmp, "data")
+        argv = (PAIR_DRIVER_ARGV if pair else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
             f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
-        m = load("minirat", "cpu")
+        m = load("ratpair" if pair else "minirat", "cpu")
         per_frame = round(1.0 / (ds["mocap_hz"] * float(m.opt.timestep)))
         n_steps = ((ds["clip_length"] - ds["ref_traj_length"])
                    * (per_frame // ds["env_args"]["physics_steps_per_control_step"]))
-        before = _tree(data_dir) if not multi else None
+        before = _tree(data_dir) if committed else None
         drawn = []
 
         class Recording(tracking.GenericMultiClip):
@@ -1455,6 +1574,10 @@ def phase_driver(device, multi):
                 fail(f"driver (multi-clip): a control step on the card differs from the CPU "
                      f"float64 run: {gaps} (limits {MC_STEP_ATOL})")
             report.update(clips_drawn=clips, step_gaps=gaps)
+        elif pair:
+            built = sorted(os.listdir(os.path.join(data_dir, "clips")))
+            if built != ["0.npz"]:
+                fail(f"driver (pair) cached {built}")
         else:
             after = _tree(data_dir)
             if after != before or os.path.join(data_dir, "clips", "0.p") not in after:
@@ -1746,17 +1869,17 @@ def kernel_bound(args, kw, its, ls_steps, batched=False):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def fused_times(args, kw, batched=False):
+def fused_times(args, kw, batched=False, reps=100):
     """(kernel device ms per launch, plain ms, bound ms, bound by, bytes,
     FLOPs, mean CG iterations) of cg_solve_fused, or cg_solve_batched, on
-    these inputs. The kernel by torch.profiler: the host's launch path takes
-    about as long as a launch, so CUDA events around a loop of launches would
-    time the host."""
+    these inputs. The kernel by torch.profiler over ``reps`` launches: the
+    host's launch path takes about as long as a minirat launch, so CUDA
+    events around a loop of launches would time the host."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
     plain = ops_cg.cg_solve_batched_reference if batched else ops_cg.cg_solve_fused_reference
     tag = "cg_batched_kernel" if batched else "cg_fused_kernel"
-    k_ms = device_ms(kernel_launch(args, kw, batched), tag, 100)
+    k_ms = device_ms(kernel_launch(args, kw, batched), tag, reps)
     p_ms = time_cuda(lambda: plain(*args, **kw), 5)
     its = iterations_run(args, kw, batched)
     bound = kernel_bound(args, kw, its, line_search_steps(args, kw, batched), batched)
@@ -1795,14 +1918,15 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    for model in MODELS:
+    for model in MODELS + PAIR_MODELS:
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
         nroots = len(S._fused_statics(m, layout)["root_bounds"])
-        print(f"{model}: kernel shared memory per env "
-              f"{ops_cg.kernel_smem_bytes(m.nv, layout.nefc, nell, nroots, m.ncon)} B (nv={m.nv}, "
-              f"nefc={layout.nefc}, elliptic contacts {nell})")
+        kl, smem = ops_cg.kernel_layout(m.nv, layout.nefc, nell, nroots, m.ncon)
+        print(f"{model}: kernel layout {kl}, shared memory per env {smem} B (nv={m.nv}, "
+              f"nefc={layout.nefc}, elliptic contacts {nell}, roots {nroots}, contact slots "
+              f"{m.ncon})")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1825,6 +1949,23 @@ def main() -> int:
     rodent = {}
     for B, iters in ((B_MAIN, None), (B_MAIN - 1, None), (B_MAIN, CONVERGED_ITERS)):
         rodent[B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, "rodent_like")
+    # layout 2 (J in device memory): the stand-in's (a), (b), (c) and its
+    # dense qM and J, the pair-size dense case and the design edges
+    t_l2 = time.perf_counter()
+    pair = {}
+    for model, B, iters in [
+        ("ratpair", B_PAIR, None), ("ratpair", B_PAIR - 1, None),
+        ("ratpair", B_PAIR, CONVERGED_ITERS), ("ratpair_elliptic", B_PAIR, None),
+        ("ratpair_newton", B_PAIR, None),
+    ]:
+        pair[model, B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, model)
+    pair["ratpair", "dense"] = phase_kernel_vs_plain("cuda", B_PAIR, False, SEED, None, "ratpair",
+                                                     batched=True)
+    for model, B in [("pair_like", B_PAIR), ("pair_like", B_PAIR - 1), ("l1_last", B_PAIR),
+                     ("l2_first", B_PAIR), ("l2_last", B_PAIR)]:
+        pair[model, B] = phase_kernel_vs_plain("cuda", B, False, SEED, None, model)
+    print(f"layout 2 against the plain versions: {time.perf_counter() - t_l2:.1f} s (edges at "
+          f"{PAIR_ROWS} rows: nv {l2_edges()})")
     spd_cases = {}
     for nv in SPD_SIZES:
         for B in (B_MAIN, B_MAIN - 1):
@@ -1880,6 +2021,21 @@ def main() -> int:
           f"{counts}; active elliptic contacts per zone (bottom, middle, top) in the "
           f"float64 solution of {ELL_ROW_ENVS} envs {zones}")
     print("minirat_elliptic_contact_substep_vs_cpu_f64 " + json.dumps(gaps))
+    # the rodent_pair env on the stand-in (layout 2), built from its config
+    t0 = time.perf_counter()
+    _, counts, first_in, a0, first_out, last, touching = phase_rollout(
+        "cuda", B_PAIR, SEED, "ratpair", PAIR_STEPS)
+    torch.cuda.synchronize()
+    print(f"ratpair rollout: {B_PAIR} envs x {PAIR_STEPS} control steps x {PAIR_SUBSTEPS} "
+          f"substeps, first run {time.perf_counter() - t0:.1f} s, kernel launches {counts}")
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": PAIR_STEPS * PAIR_SUBSTEPS}
+    if counts != expected:
+        fail(f"kernel launches in the ratpair rollout: {counts}, expected {expected}")
+    print(f"ratpair rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
+          f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
+          f"{touching:.4f}")
+    gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS, "ratpair")
+    print("ratpair_first_step_vs_cpu_f64 " + json.dumps(gaps))
 
     # 5. the ballmuscle slice, CG (i) and Newton (ii)
     for solver, kernel in (("cg", "spd_inverse2"), ("newton", "spd_solve")):
@@ -1983,6 +2139,19 @@ def main() -> int:
     launches["cg_solve_fused"] = sum(driver_launches.values())
     print(f"driver phase: {time.perf_counter() - t_drv:.1f} s, cg_solve_fused launches "
           f"{driver_launches} on {card}")
+    # the rodent_pair driver run on the stand-in: every solve in layout 2
+    t_pair = time.perf_counter()
+    r = phase_driver("cuda", False, pair=True)
+    launches["cg_solve_fused (layout 2)"] = r["counts"]["cg_solve_fused"]
+    m = r["metrics"]
+    print(f"driver (pair): main() {r['seconds']:.1f} s, kernel launches {r['counts']} (expected "
+          f"cg_solve_fused {r['expected']}: train()'s and one reset and 5 per control step of the "
+          f"callback rollout), training/sps {m['training/sps']:.1f}, eval/sps "
+          f"{m['eval/sps']:.1f}, eval/episode_reward {m['eval/episode_reward']:.3f}; "
+          f"training/walltime {m['training/walltime']:.2f} s, eval/walltime "
+          f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
+          f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
+    print(f"pair driver phase: {time.perf_counter() - t_pair:.1f} s on {card}")
 
     # 10. times
     entries = []
@@ -2018,6 +2187,25 @@ def main() -> int:
     print(f"cg_solve_batched on the rodent-like case (nv={RODENT_LIKE['nv']}, "
           f"nefc={RODENT_LIKE['nefc']}): {k_ms * 1e3:.1f} us/launch on the device at "
           f"B={B_MAIN} on {card}")
+    # layout 2 at B_PAIR: the stand-in's (a), (b), (c) and the pair-size
+    # dense case; the JSON line holds (a) and the dense case
+    for key, batched, name in (
+        (("ratpair", B_PAIR, None), False, "cg_solve_fused (layout 2)"),
+        (("ratpair_elliptic", B_PAIR, None), False, None),
+        (("ratpair_newton", B_PAIR, None), False, None),
+        (("pair_like", B_PAIR), True, "cg_solve_batched (layout 2)"),
+    ):
+        report, (_, args, kw, _) = pair[key]
+        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw, batched, 10)
+        kern = "cg_solve_batched" if batched else "cg_solve_fused"
+        print(f"{kern} layout 2 on {key[0]}: {k_ms * 1e3:.1f} us/launch at B={B_PAIR} (plain "
+              f"{p_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, "
+              f"{flops:.3e} FLOP, mean CG iterations {its:.2f}) on {card}")
+        if name is not None:
+            n = launches["cg_solve_fused (layout 2)"] if not batched else launches["cg_solve_batched"]
+            entries.append(entry(name, "cg_fused.cu", "cg.py:552" if batched else "cg.py:863", n,
+                                 max(report[nm]["kernel_max"] for nm in SCORED), k_ms, p_ms,
+                                 bound_ms, bound_by, None))
     spd_meta = {
         "spd_inverse": ("spd_inverse.cu", 362),
         "spd_inverse2": ("spd_inverse.cu", 388),

@@ -5,6 +5,8 @@
 Run from the root of a checkout on a machine with a CUDA card. ``--model
 minirat`` and ``minirat_elliptic`` build the same envs as chip_smoke.py
 (GenericSingleClip + wrappers, 10 substeps) and a step is a control step;
+so does ``ratpair``: the rodent_pair env on the two-rat stand-in (5
+substeps, the solve kernel's layout 2), at 1024 envs unless ``--envs``;
 ``ballmuscle_cg`` and ``ballmuscle_newton`` step chip_smoke.py's posed
 ballmuscle states, ``minirat_newton`` its seeded Newton minirat states,
 through ``physics.step`` and a step is one substep. It warms up, then profiles
@@ -67,7 +69,7 @@ def _stepper(model: str, envs: int):
     """(advance, substeps per step) for the profiled model."""
     if model == "minirat_ppo":
         return _ppo_stepper(envs)
-    if model in ("minirat", "minirat_elliptic"):
+    if model in ("minirat", "minirat_elliptic", "ratpair"):
         env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
         box = [env.reset(gen, envs)]
@@ -76,7 +78,7 @@ def _stepper(model: str, envs: int):
         def advance():
             box[0] = env.step(box[0], act())
 
-        return advance, chip_smoke.N_SUBSTEPS
+        return advance, chip_smoke.PAIR_SUBSTEPS if model == "ratpair" else chip_smoke.N_SUBSTEPS
     from brax_tracking_tpu_torch.physics import step as pstep
 
     if model == "minirat_newton":
@@ -100,10 +102,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="minirat",
                     choices=("minirat", "minirat_elliptic", "minirat_newton",
-                             "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo"))
-    ap.add_argument("--envs", type=int, default=2048)
+                             "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo", "ratpair"))
+    ap.add_argument("--envs", type=int, default=None,
+                    help="envs (default 1024 for ratpair, the pair config's, else 2048)")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
+    if args.envs is None:
+        args.envs = chip_smoke.B_PAIR if args.model == "ratpair" else chip_smoke.B_MAIN
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile

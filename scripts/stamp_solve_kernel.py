@@ -7,8 +7,9 @@ this checkout's) to ``runs/stamp/`` with a ``clock64()`` stamp at each phase
 boundary of ``cg_core`` and its two kernels, builds the copy with ``nvcc``
 into a library of its own and runs it on chip_smoke.py's seeded states
 (2048 envs) of the three ``cg_solve_fused`` instances: (a) the minirat,
-(b) the elliptic minirat, (c) a Newton chunk. Lane 0 of each env adds the
-cycles since the last stamp to its phase:
+(b) the elliptic minirat, (c) a Newton chunk; with ``--pair``, the same
+three on the two-rat stand-in (1024 envs, layout 2: J in device memory).
+Lane 0 of each env adds the cycles since the last stamp to its phase:
 
 - ``assembly``: qM and J (or their dense loads) and the per-env vectors;
 - ``sweep``: M^-1;
@@ -105,7 +106,7 @@ def stamped_source(src: str) -> tuple[str, tuple[str, ...]]:
     mark = lambda p: f"\n  st.mark({ph[p]});"
     after(r"^constexpr float kMinval = .*;$", STAMPS)
     after(r"void cg_core\(const Args& a, const Smem& s, int b, int lane", ", Stamps& st")
-    after(r"^  sweep_inverse\(.*\);$", mark("sweep"))
+    before(r"^  matvec\(s\.Mi, ld, s\.qfs, s\.a0, nv, nv, lane\);$", f"  st.mark({ph['sweep']});\n")
     before(r"^  bool done = false;$", f"  st.mark({ph['start']});\n")
     after(r"^    if \(done\) break;.*$", f"\n    st.c[{NSLOT - 1}] += 1;")
     if split:
@@ -117,10 +118,11 @@ def stamped_source(src: str) -> tuple[str, tuple[str, ...]]:
     after(r"^  if \(lane == 0\) a\.done\[b\] = done \? 1 : 0;$", mark("outputs"))
     after(r"qvel_new\[v\] = __ldg\(qvel \+ v\) \+ a\.dt \* s\.x\[v\];\n  \}",
           mark("euler") + "\n  st.write(b, lane);")
-    after(r"^  const Smem s = carve\(sm, nv, nefc, a\.nell\);$", "\n  Stamps st;\n  st.init();",
+    after(r"^  Smem s = carve<kL2>\(sm, nv, nefc, a\.nell\);$", "\n  Stamps st;\n  st.init();",
           count=2)
-    before(r"^  cg_core<kEll, kWarm>\(a, s, b, lane\);$", "  st.mark(0);\n", count=2)
-    src = src.replace("  cg_core<kEll, kWarm>(a, s, b, lane);", "  cg_core<kEll, kWarm>(a, s, b, lane, st);")
+    before(r"^  cg_core<kEll, kWarm, kL2>\(a, s, b, lane\);$", "  st.mark(0);\n", count=2)
+    src = src.replace("  cg_core<kEll, kWarm, kL2>(a, s, b, lane);",
+                      "  cg_core<kEll, kWarm, kL2>(a, s, b, lane, st);")
     after(r"^\}  // namespace$", """
 
 extern "C" int stamp_set(long long* p) {
@@ -135,6 +137,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--root", default=here)
+    ap.add_argument("--pair", action="store_true",
+                    help="the stand-in's instances (layout 2) instead of the minirat's")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -170,14 +174,15 @@ def main() -> int:
     library.build()
     own = library._LIB
     card = cs.card_line()
-    for key, model in (("a", "minirat"), ("b", "minirat_elliptic"), ("c", "minirat_newton")):
+    family, B, reps = ("ratpair", cs.B_PAIR, 10) if args.pair else ("minirat", cs.B_MAIN, 100)
+    for key, model in (("a", family), ("b", f"{family}_elliptic"), ("c", f"{family}_newton")):
         library._LIB = own
-        _, kargs, kw = cs.solve_case("cuda", model, cs.B_MAIN, cs.SEED)
+        _, kargs, kw = cs.solve_case("cuda", model, B, cs.SEED)
         launch = cs.kernel_launch(kargs, kw)
-        t_own = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(3))
+        t_own = min(device_us(launch, "cg_fused_kernel", reps) for _ in range(3))
         library._LIB = stamped
-        t_stamped = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(3))
-        buf = torch.zeros(cs.B_MAIN, NSLOT, dtype=torch.int64, device="cuda")
+        t_stamped = min(device_us(launch, "cg_fused_kernel", reps) for _ in range(3))
+        buf = torch.zeros(B, NSLOT, dtype=torch.int64, device="cuda")
         if stamped.stamp_set(ctypes.c_void_p(buf.data_ptr())) != 0:
             cs.fail("stamp_set failed")
         launch()

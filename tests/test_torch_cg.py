@@ -25,6 +25,7 @@ from brax_tracking_tpu_torch.ops import cg as tcg
 from brax_tracking_tpu_torch.physics import constraint as tCn
 from brax_tracking_tpu_torch.physics import solver as tS
 from brax_tracking_tpu_torch.physics import spec as tspec
+from brax_tracking_tpu_torch.physics import step as tstep
 
 RTOL, ATOL = 1e-9, 1e-11
 NAMES = ("qacc", "efc_force", "qfrc_constraint", "qacc_smooth", "qvel_new")
@@ -272,3 +273,35 @@ def test_float32_error_is_rounding_not_conditioning(capsys):
               f"1e-7 input noise {e_perturbed:.3e}")
     assert e_port32 > 100 * e_perturbed and e_jax32 > 100 * e_perturbed
     assert 0.2 < e_port32 / e_jax32 < 5.0
+
+
+def test_kernel_layout_rule(monkeypatch):
+    """ops/cg.py::kernel_layout, the one rule the wrappers and the solver's
+    dispatch share: layout 1 (the whole env in one block) for the minirat,
+    the ballmuscle's sizes and a rodent-size env (nv 73, one root, 70 slots);
+    layout 2 (J in device memory) for the two-rat stand-in, pyramidal and
+    elliptic; NotImplementedError naming §A.10 past layout 2's bound
+    (4 (2 nv ld + 6 nefc + 25 nv + 4 nell) <= 232,448 B: nv 159 at the
+    pair's 590 rows, nv 163 up to 149 rows)."""
+    assert tcg.kernel_layout(10, 92, 0, 1, 22) == (1, 11224)
+    bm = tspec.load_model(tspec.BALLMUSCLE_NPZ["cg"], device="cpu", solver="cg")
+    assert tcg.kernel_layout(bm.nv, tCn.efc_layout(bm).nefc, 0, 1, bm.ncon)[0] == 1
+    assert tcg.kernel_layout(73, 300, 0, 1, 70)[0] == 1
+    for npz, nell, smem in ((tspec.RATPAIR_NPZ, 0, 200456), (tspec.RATPAIR_ELLIPTIC_NPZ, 114, 199544)):
+        m = tspec.load_model(npz, device="cpu")
+        nefc = tCn.efc_layout(m).nefc
+        assert tcg.kernel_smem_bytes(m.nv, nefc, nell, 2, m.ncon) > tcg.H100_SMEM_PER_BLOCK
+        assert tcg.kernel_layout(m.nv, nefc, nell, 2, m.ncon) == (2, smem)
+    assert tcg.kernel_layout(159, 590)[0] == 2
+    assert tcg.kernel_layout(163, 149) == (2, 4 * 58107)
+    for nv, nefc in ((160, 590), (163, 150), (164, 0)):
+        with pytest.raises(NotImplementedError, match=r"A\.10"):
+            tcg.kernel_layout(nv, nefc)
+    # the solver's dispatch asks the same rule
+    m = tspec.load_model(tspec.RATPAIR_NPZ, device="cpu")
+    d = tstep.forward_to_constraint(m, tstep.make_data(m, 2, device="cpu"))
+    tS._kernel_args(m, d, tCn.efc_layout(m))
+    monkeypatch.setattr(tcg, "H100_SMEM_PER_BLOCK", 150_000)
+    with pytest.raises(NotImplementedError, match=r"A\.10"):
+        tS._kernel_args(m, d, tCn.efc_layout(m))
+

@@ -178,3 +178,31 @@ def test_rodent_like_case():
     for nm, k, t in zip(NAMES, kout, tout):
         np.testing.assert_allclose(t.numpy(), np.asarray(k), rtol=RTOL, atol=ATOL, err_msg=nm)
     np.testing.assert_array_equal(tout[5].numpy(), np.asarray(kout[5]))
+
+
+def test_pair_like_case():
+    """chip_smoke.py's dense solve case at the pair's size (``PAIR_LIKE``:
+    nv 146, 590 rows of which 134 are scalar limits, layout 2), at B = 2 on
+    the CPU: the limit rows one-hot at distinct dofs, the env past layout 1;
+    the plain version at the case's 4/4 iterations against the JAX kernel
+    in interpret mode on the same float64 inputs, at this file's
+    tolerance; and layout 2's design edges at the pair's rows."""
+    import chip_smoke as cs
+
+    nv, nefc, nlim = cs.PAIR_LIKE["nv"], cs.PAIR_LIKE["nefc"], cs.PAIR_LIKE["nlim"]
+    args, kw = cs.rodent_like_case("cpu", 2, 0, None, cs.PAIR_LIKE)
+    qM, J, D, aref, exists, econ, qfs, qvel, damp = cs.cast(args, torch.float64)
+    assert tuple(J.shape) == (2, nefc, nv)
+    assert tcg.kernel_layout(nv, nefc)[0] == 2
+    lim = J[:, :nlim]
+    assert torch.all(lim.abs().sum(-1) == 1) and torch.all(lim.abs().sum(1) <= 1)
+    tout = tcg.cg_solve_batched(qM, J, D, aref, exists, econ, qfs, qvel, damp, device="cpu", **kw)
+    kout = jcg.cg_solve_batched(
+        *(jnp.asarray(t.numpy()) for t in (qM, J, D, aref, exists, econ, qfs, qvel, damp)), **kw,
+        unroll_iters=False, unroll_ls=False, interpret=True,
+    )
+    for nm, k, t in zip(NAMES, kout, tout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(k), rtol=RTOL, atol=ATOL, err_msg=nm)
+    last1, first2, last2 = cs.l2_edges(nefc)
+    assert (last1, first2, last2) == (71, 72, 159)
+    assert [tcg.kernel_layout(n, nefc)[0] for n in (last1, first2, last2)] == [1, 2, 2]
