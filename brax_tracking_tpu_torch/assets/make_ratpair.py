@@ -1,5 +1,6 @@
-"""Writes ``ratpair.xml`` and ``ratpair_elliptic.xml``: a two-rat stand-in
-at the sizes of the rodent_pair scene (configs/dataset/rodent_pair.yaml).
+"""Writes ``ratpair.xml`` and ``ratpair_elliptic.xml``, a two-rat stand-in
+at the sizes of the rodent_pair scene (configs/dataset/rodent_pair.yaml),
+and ``rat.xml``, one of its rats alone on the floor.
 
     python -m brax_tracking_tpu_torch.assets.make_ratpair
 
@@ -24,6 +25,12 @@ slots each:
   bit 2), less the three pairs that two ``<exclude>`` body pairs remove
   (rat 0's skull against rat 1's skull, two geoms, and jaw): 33 cross-body
   pairs between the two roots.
+
+``rat.xml`` is rat 0 alone (nq 74, nv 73 = 6 + 67 hinges: the rodent's
+width, whose MJCF is not in the repository either), its 12 floor geoms
+against the floor (24 contact slots, 163 rows under pyramidal CG 4/4) and
+its 30 motors: a stand-in at the flagship rodent's width for the solve
+kernel's wide layout 1.
 """
 
 from __future__ import annotations
@@ -203,14 +210,16 @@ def _v(xs) -> str:
     return " ".join(f"{x:g}" for x in xs)
 
 
-def ratpair_xml(cone: str = "pyramidal") -> str:
+def ratpair_xml(cone: str = "pyramidal", rats: int = 2) -> str:
     """The stand-in's MJCF text; ``cone`` "elliptic" gives the same model
-    with elliptic friction cones."""
+    with elliptic friction cones, ``rats`` 1 rat 0 alone (``rat.xml``)."""
     cone_attr = ' cone="elliptic"' if cone == "elliptic" else ""
+    what = ("Two-rat stand-in for the rodent_pair scene at its sizes" if rats == 2
+            else "One rat of the two-rat stand-in, alone on the floor")
     lines = [
-        "<!-- Two-rat stand-in for the rodent_pair scene at its sizes; written by",
+        f"<!-- {what}; written by",
         "     brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
-        '<mujoco model="ratpair">',
+        f'<mujoco model="{"ratpair" if rats == 2 else "rat"}">',
         f'  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"{cone_attr}/>',
         "  <default>",
         '    <joint armature="5e-5"/>',
@@ -221,26 +230,32 @@ def ratpair_xml(cone: str = "pyramidal") -> str:
         f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
         f'conaffinity="0"/>',
     ]
-    for idx, y0 in ((0, 0.06), (1, -0.06)):
+    for idx, y0 in ((0, 0.06), (1, -0.06))[:rats]:
         lines += _Rat(idx).build(y0)
     lines.append("  </worldbody>")
-    lines.append("  <contact>")
-    lines += [f'    <exclude body1="{a}" body2="{b}"/>' for a, b in EXCLUDES]
-    lines.append("  </contact>")
+    if rats == 2:
+        lines.append("  <contact>")
+        lines += [f'    <exclude body1="{a}" body2="{b}"/>' for a, b in EXCLUDES]
+        lines.append("  </contact>")
     lines.append("  <actuator>")
-    lines += [f'    <motor name="{j}-{i}" joint="{j}-{i}"/>' for i in (0, 1) for j in MOTORS]
+    lines += [f'    <motor name="{j}-{i}" joint="{j}-{i}"/>' for i in range(rats) for j in MOTORS]
     lines.append("  </actuator>")
     lines.append("</mujoco>")
     return "\n".join(lines) + "\n"
 
 
+# the files write() makes: name, cone, rats
+FILES = (("ratpair.xml", "pyramidal", 2), ("ratpair_elliptic.xml", "elliptic", 2),
+         ("rat.xml", "pyramidal", 1))
+
+
 def write(directory: str = HERE):
-    """Writes both files into ``directory``; returns their paths."""
+    """Writes the three files into ``directory``; returns their paths."""
     out = []
-    for name, cone in (("ratpair.xml", "pyramidal"), ("ratpair_elliptic.xml", "elliptic")):
+    for name, cone, rats in FILES:
         path = os.path.join(directory, name)
         with open(path, "w") as f:
-            f.write(ratpair_xml(cone))
+            f.write(ratpair_xml(cone, rats))
         out.append(path)
     return out
 

@@ -18,21 +18,25 @@ Replaces the TPU kernels ``brax_tracking_tpu/ops/cg.py::cg_solve_fused``
      by Cholesky factor and substitution when the model has damping, else
      qvel + h qacc.
 
-Hopper design (``csrc/cg_fused.cu``): one warp per env, one env per block.
-In layout 1 qM, M^-1 and J live in shared memory for the whole solve, so
-between the input reads and the result writes nothing touches device
-memory: the kernel reads its inputs once (~3.6 KB per env at the minirat).
-An env whose J does not fit (rodent_pair) runs in layout 2, with J in
-device memory (``kernel_layout`` decides, in one place). On the
-roofline a call is bound by its bytes, just above its FP32 operations;
-what the kernel actually waits on is one env's chain of dependent steps:
-the assembly's loads, the sweep, and per iteration the products, the
-bracket, the line search and the step. The core keeps that chain short:
-independent sums share one warp butterfly, the 13 bracket candidates are
-evaluated in one pass, J^T f reduces 16 columns at a time, and the sweep
-of a matrix up to 32 wide runs in registers. Envs that converge leave the
-iteration loop early. The two entry points share one device-side core and
-differ only in how qM and J reach shared memory.
+Hopper design (``csrc/cg_fused.cu``): one env per block. In layout 1 qM,
+M^-1 and J live in shared memory for the whole solve, so between the input
+reads and the result writes nothing touches device memory: the kernel
+reads its inputs once (~3.6 KB per env at the minirat). An env whose J
+does not fit (rodent_pair) runs in layout 2, with J in device memory. An
+env small enough to share its SM with others (the minirat: 16 per SM)
+runs on one warp; one that shares it with fewer than two others runs on a
+block of ``WIDE_WARPS`` warps, which sweeps M^-1 in panels over the whole
+block and spreads J p, M p and J^T f over it (``kernel_layout`` decides
+both, in one place). On the roofline a call is bound by its bytes or its
+FP32 operations; what the kernel actually waits on is one env's chain of
+dependent steps: the assembly's loads, the sweep, and per iteration the
+products, the bracket, the line search and the step. The core keeps that
+chain short: independent sums share one butterfly, the 13 bracket
+candidates are evaluated in one pass, J^T f reduces several columns at a
+time, and the one-warp sweep of a matrix up to 16 wide runs in registers.
+Envs that converge leave the iteration loop early. The two entry points
+share one device-side core per block shape and differ only in how qM and J
+reach it.
 
 ``cg_solve_fused_reference`` and ``cg_solve_batched_reference`` are the
 plain PyTorch versions of the same functions (dense assembly + ``_cg_arrays``,
@@ -59,6 +63,21 @@ MINVAL = M.MINVAL
 # tmp rowbuf colbuf, then f and cdof, 6 each, staged for the assembly)
 _NVEC = 13 + 12
 H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
+# an H100 SM's shared memory, and what each resident block reserves of it
+H100_SMEM_PER_SM = 233472
+_SMEM_RESERVED_PER_BLOCK = 1024
+# warps per env of the wide core by layout (csrc/cg_fused.cu,
+# CG_WIDE_WARPS_L1 / _L2), from the sweep over 4, 8 and 16 on the card
+# (PERF.md: the pair's layout 2 is fastest on 16, the one rat's layout 1
+# on 8)
+WIDE_WARPS = {1: 8, 2: 16}
+# the one-warp layout-1 block above which an env runs wide: the largest of
+# which three fit an SM (PERF.md: at 590 rows the one-warp core still
+# matches the wide one at three blocks per SM, nv 20, and loses at two, nv
+# 24)
+WIDE_ABOVE_SMEM = H100_SMEM_PER_SM // 3 - _SMEM_RESERVED_PER_BLOCK
+# the wide sweep's pivots per panel
+_WIDE_PANEL = 8
 
 
 def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
@@ -76,32 +95,59 @@ def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
                 + 6 * nroots * nefc + ncon * nv)
 
 
-def kernel_layout(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
-                  ncon: int = 0) -> Tuple[int, int]:
-    """The solve kernel's layout for one env, and its shared memory per
-    block: the one rule the wrappers and the solver's dispatch share.
+def wide_smem_bytes(nv: int, nefc: int, nell: int = 0, l2: bool = False) -> int:
+    """Shared memory of one env's block in the wide core (any warp count):
+    qM (nv x ldm, ldm = nv rounded up to a multiple of 4) and
+    qfrc_smooth; in layout 1 J (row stride nv | 1); D, aref, exists and the
+    elliptic block's four vectors; the done flag; then, 16-byte aligned,
+    M^-1 (ldm x ldm) and the vectors the sweep does not read (jar, jarp,
+    force at a multiple of 4 each; twelve nv-vectors at stride ldm), which
+    the sweep's panel buffers (2 x 8 x ldm + 2 x 8 x 8) overlay and extend
+    where they are larger. P A and md are read from device memory, and the
+    fused kernel stages f, cdof and its tables over M^-1 before the sweep.
+    The kernel carves it in this order (csrc/cg_fused.cu::carve_wide,
+    wide_smem_floats)."""
+    ldm, nefc4 = (nv + 3) & ~3, (nefc + 3) & ~3
+    head = nv * ldm + ldm + (0 if l2 else nefc * (nv | 1)) + 3 * nefc + 4 * nell + 1
+    rest = max(3 * nefc4 + 12 * ldm, 2 * _WIDE_PANEL * ldm + 2 * _WIDE_PANEL ** 2)
+    return 4 * (((head + 3) & ~3) + ldm * ldm + rest)
 
-    - Layout 1 where the whole env fits one block (``kernel_smem_bytes``):
-      the minirat (11,224 B), a rodent-size env (nv 73, one root, 70 slots).
-    - Layout 2 where qM, M^-1 and the vectors fit but J does not:
-      4 (2 nv ld + 6 nefc + 25 nv + 4 nell) <= 232,448 B, ld = nv | 1. J,
-      and for cg_solve_fused P A and md, stay in device memory; the fused
-      kernel assembles J into a (B, nefc, nv) float32 scratch that
-      ``_launch`` allocates per call: 352.8 MB at rodent_pair's 590 rows and
-      1024 envs, 705.7 MB at 2048 envs. The bound reaches nv = 163 with up
-      to 149 rows, nv = 159 at the pair's 590 rows (the stand-in: nv 146,
-      200,456 B).
+
+def kernel_layout(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
+                  ncon: int = 0) -> Tuple[int, int, int]:
+    """The solve kernel's layout for one env, its shared memory per block
+    and its warps per env: the one rule the wrappers and the solver's
+    dispatch share.
+
+    - Layout 1 on one warp where the whole env fits a block of which at
+      least three share an SM (``kernel_smem_bytes`` <= ``WIDE_ABOVE_SMEM``,
+      76,800 B): the minirat (11,224 B, 16 envs per SM), the ballmuscle.
+    - Otherwise the wide core, ``WIDE_WARPS[layout]`` warps per env (8 in
+      layout 1, 16 in layout 2; ``wide_smem_bytes``): layout 1 where the
+      env fits a block (a rodent-size env: nv 73, one root, 70 slots; the
+      one-rat stand-in ``assets/rat.xml``; at 590 rows nv 24 to 72), else
+      layout 2 where qM, M^-1 and the vectors fit but J does not. In
+      layout 2 J stays in device memory: the fused kernel assembles it
+      dof-major into a (B, nefc, nv) float32 scratch that ``_launch``
+      allocates per call (352.8 MB at rodent_pair's 590 rows and 1024
+      envs, 705.7 MB at 2048), and the dense kernel copies its J into one
+      of the same size. Layout 2 reaches nv = 160 at the pair's 590 rows
+      (up to 804 rows) and nv = 164 up to 364 rows, past every env the
+      one-warp layout 2 held (nv 159 at 590 rows, nv 163 up to 149).
     - Above that it raises ``NotImplementedError`` (ROADMAP.md §A.10: a
       layout over a thread-block cluster).
     """
     one = kernel_smem_bytes(nv, nefc, nell, nroots, ncon)
-    if one <= H100_SMEM_PER_BLOCK:
-        return 1, one
-    two = 4 * (2 * nv * (nv | 1) + 6 * nefc + _NVEC * nv + 4 * nell)
-    if two <= H100_SMEM_PER_BLOCK:
-        return 2, two
+    if one <= min(H100_SMEM_PER_BLOCK, WIDE_ABOVE_SMEM):
+        return 1, one, 1
+    wide1 = wide_smem_bytes(nv, nefc, nell)
+    if wide1 <= H100_SMEM_PER_BLOCK:
+        return 1, wide1, WIDE_WARPS[1]
+    wide2 = wide_smem_bytes(nv, nefc, nell, l2=True)
+    if wide2 <= H100_SMEM_PER_BLOCK:
+        return 2, wide2, WIDE_WARPS[2]
     M.unported(
-        f"the solve kernel for an env of nv={nv}, nefc={nefc}: {two} B of shared memory "
+        f"the solve kernel for an env of nv={nv}, nefc={nefc}: {wide2} B of shared memory "
         f"per block without J (one block holds {H100_SMEM_PER_BLOCK} B), a cluster layout",
         "§A.10",
     )
@@ -176,8 +222,9 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
             ls_iters, tol, dt, has_damping, stall_tol):
     """``cg_solve_fused``'s kernel on prepared arguments (Bm = P A, the int
     tables, the (3, nell) friction table, the warmstart or None). In layout
-    2 it allocates the (B, nefc, nv) float32 scratch for J: 352.8 MB at
-    rodent_pair's 590 rows and 1024 envs, 705.7 MB at 2048."""
+    2 it allocates the (B, nefc, nv) float32 scratch for J (the kernel keeps
+    each env's J there dof-major): 352.8 MB at rodent_pair's 590 rows and
+    1024 envs, 705.7 MB at 2048."""
     B, _, nv = f.shape
     nefc = D.shape[1]
     nlim = jsign.shape[1]
@@ -190,7 +237,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
     if warmstart is not None:
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_fused", fl, dict(exists=exists, exists_con=exists_con))
-    layout, smem = kernel_layout(nv, nefc, nell, nroots, ncon)
+    layout, smem, warps = kernel_layout(nv, nefc, nell, nroots, ncon)
     row_slot, sz, root_of_dof, limit_dadr = tables
     outs = _outputs(B, nv, nefc, f)
     ptr = library.ptr
@@ -206,7 +253,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
         *(ptr(t) for t in (row_slot, sz, root_of_dof, limit_dadr)),
         *(ptr(t) for t in outs.values()),
         ptr(jbuf) if jbuf is not None else ctypes.c_void_p(None),
-        B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, layout, iters, ls_iters,
+        B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, layout, warps, iters, ls_iters,
         int(has_damping), int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
         ctypes.c_void_p(stream),
@@ -218,7 +265,9 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
 def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
                     damp, ell, warmstart, *, ell0, iters, ls_iters, tol, dt,
                     has_damping, stall_tol):
-    """``cg_solve_batched``'s kernel on prepared arguments."""
+    """``cg_solve_batched``'s kernel on prepared arguments. In layout 2 it
+    allocates a (B, nefc, nv) float32 scratch, into which the kernel copies
+    each env's J dof-major."""
     B, nefc, nv = J.shape
     nell = exists_con.shape[1]
     fl = dict(qM=qM, J=J, D=D, aref=aref, qfrc_smooth=qfrc_smooth, qvel=qvel,
@@ -226,17 +275,19 @@ def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
     if warmstart is not None:
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_batched", fl, dict(exists=exists, exists_con=exists_con))
-    layout, smem = kernel_layout(nv, nefc, nell)
+    layout, smem, warps = kernel_layout(nv, nefc, nell)
     outs = _outputs(B, nv, nefc, qM)
     ptr = library.ptr
     ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
+    jbuf = torch.empty(B, nefc, nv, dtype=qM.dtype, device=qM.device) if layout == 2 else None
     stream = torch.cuda.current_stream(qM.device).cuda_stream
     err = library.lib().cg_batched_launch(
         *(ptr(t) for t in (qM, J, D, aref, exists, exists_con, qfrc_smooth,
                            qvel, damp, ell)),
         ws,
         *(ptr(t) for t in outs.values()),
-        B, nv, nefc, nell, ell0, smem, layout, iters, ls_iters, int(has_damping),
+        ptr(jbuf) if jbuf is not None else ctypes.c_void_p(None),
+        B, nv, nefc, nell, ell0, smem, layout, warps, iters, ls_iters, int(has_damping),
         int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
         ctypes.c_void_p(stream),

@@ -69,21 +69,17 @@
 // the registers at 128, and the minirat's 11.2 KB of shared memory per env
 // leaves room), so a launch lasts about one env's chain.
 //
-// Layout 2, for envs whose J does not fit one block (rodent_pair: nv = 146,
-// 590 rows, 642 KB in layout 1). The block keeps qM, M^-1 and the vectors
-// in shared memory (200 KB at the pair) and J in device memory: the fused
-// kernel assembles it into a per-env scratch (B, nefc, nv) that the wrapper
-// allocates, the dense kernel reads its input J in place. P A and the
-// support masks md are read through the read-only cache where the assembly
-// uses them, not staged. Every J access stays one lane per row, so each
-// lane streams its own rows through L1; the RowCache is off at that many
-// rows, so the bracket and the line search read jar, J p, D and the flags
-// from shared memory as before. One block fills an SM's shared memory, so
-// 132 envs run at once: a 1024-env launch takes 8 waves of one env's chain,
-// each one warp on its SM, and M^-1 takes sweep_inverse_batched, whose
-// shared-memory round trips are batched over rows. The template switch kL2
-// compiles the layout in, so layout 1's code, registers and occupancy stay
-// as they were.
+// An env that shares an SM with fewer than two others (ops/cg.py::
+// kernel_layout: layout 2, and layout 1 above a width) runs the wide core: one block of
+// several warps per env (see "The wide core" below). Layout 2, for envs
+// whose J does not fit one block (rodent_pair: nv = 146, 590 rows, 642 KB
+// in layout 1), keeps qM, M^-1 and the vectors in shared memory and J in
+// device memory: the fused kernel assembles it into a per-env scratch that
+// the wrapper allocates, the dense kernel copies its input there. One
+// warp per env on its SM (the first layout 2) left a 1024-env pair launch at
+// 55.5 ms, 78-83% of an env's cycles in the sweep inverse (PERF.md). The
+// template switch kW (warps per env) compiles the two cores apart, so the
+// one-warp instances' code, registers and occupancy stay as they were.
 
 // The elliptic block. The TPU kernel permutes the block to [n*C][t1*C][t2*C]
 // for its sublanes; here each lane takes whole contacts in their input order
@@ -111,6 +107,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -118,7 +116,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMinval = 1e-15f;
 // 16 one-warp blocks per SM hold 2048 envs in one wave on the H100's 132
 // SMs; the launch bound keeps the kernels within the 128 registers per
-// thread that allows. Layout 2 holds one block per SM.
+// thread that allows. A wide block holds its SM alone.
 constexpr int kBlocksPerSm = 16;
 
 __device__ inline int lead(int nv) { return nv | 1; }
@@ -269,73 +267,6 @@ __device__ void sweep_inverse(const float* A, float* S, int ld, int n, float* ro
   __syncwarp();
 }
 
-// Layout 2's sweep of a matrix wider than kSweepReg, with sweep_inverse's
-// elimination order and update formulas, so every entry takes the same
-// float operations. sweep_inverse's loop is one dependent chain of
-// shared-memory round trips per entry: the compiler cannot move the next
-// entry's loads above this entry's store (they may alias), and with one
-// warp on the SM nothing hides the latency (clock64 stamps on an H100 at
-// nv = 146: that sweep was 83-87% of an env's 16-17M cycles in layout 2,
-// scripts/stamp_solve_kernel.py --pair). Here each lane keeps its
-// columns' S[k, j] / S[k, k] in registers, and a batch of kSweepRows rows
-// is loaded before any of it is stored. On an H100 that took a 1024-env
-// pair launch from 68.4 to 55.5 ms with bitwise the same outputs; the
-// sweep is still ~80% of the env's cycles, one warp's instruction stream
-// (the next redesign: several warps per env, ROADMAP B.1(d)). A lane holds
-// kSweepCols columns: n <= 192, past layout 2's largest env (nv = 163).
-constexpr int kSweepCols = 6;
-constexpr int kSweepRows = 8;
-__device__ void sweep_inverse_batched(const float* A, float* S, int ld, int n, float* rowb,
-                                      float* colb, int lane) {
-  for (int i = 0; i < n; ++i)
-    for (int j = lane; j < n; j += kWarp) S[i * ld + j] = A[i * ld + j];
-  for (int k = 0; k < n; ++k) {
-    __syncwarp();
-    for (int i = lane; i < n; i += kWarp) {
-      rowb[i] = S[k * ld + i];
-      colb[i] = S[i * ld + k];
-    }
-    __syncwarp();
-    const float dinv = 1.f / rowb[k];
-    float rk[kSweepCols];  // S[k, j] / S[k, k] at the lane's columns
-#pragma unroll
-    for (int q = 0; q < kSweepCols; ++q) {
-      const int j = lane + q * kWarp;
-      rk[q] = j < n ? rowb[j] * dinv : 0.f;
-    }
-    for (int i0 = 0; i0 < n; i0 += kSweepRows) {
-      float ci[kSweepRows], v[kSweepRows][kSweepCols];
-#pragma unroll
-      for (int r = 0; r < kSweepRows; ++r) {
-        const int i = i0 + r;
-        ci[r] = i < n ? colb[i] : 0.f;
-#pragma unroll
-        for (int q = 0; q < kSweepCols; ++q) {
-          const int j = lane + q * kWarp;
-          v[r][q] = (i < n && j < n) ? S[i * ld + j] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kSweepRows; ++r) {
-        const int i = i0 + r;
-#pragma unroll
-        for (int q = 0; q < kSweepCols; ++q) {
-          const int j = lane + q * kWarp;
-          if (i < n && j < n) {
-            float x;
-            if (i == k && j == k) x = dinv;
-            else if (i == k) x = rk[q];
-            else if (j == k) x = -ci[r] * dinv;
-            else x = v[r][q] - ci[r] * rk[q];
-            S[i * ld + j] = x;
-          }
-        }
-      }
-    }
-  }
-  __syncwarp();
-}
-
 // 4 bytes from device to shared memory without passing through registers
 // (cp.async): a lane issues all its copies before it waits for any, so the
 // staging of an env's inputs costs about one memory latency.
@@ -358,19 +289,20 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // n 4-byte words src -> dst (both contiguous), asynchronously
-__device__ __forceinline__ void copy_vec(void* dst, const void* src, int n, int lane) {
-  for (int i = lane; i < n; i += kWarp)
+__device__ __forceinline__ void copy_vec(void* dst, const void* src, int n, int lane,
+                                         int step = kWarp) {
+  for (int i = lane; i < n; i += step)
     copy_async(static_cast<float*>(dst) + i, static_cast<const float*>(src) + i);
 }
 
 // The row-major (nrow, ncol) src into dst (row stride ld), asynchronously:
-// consecutive lanes on consecutive elements.
+// consecutive threads on consecutive elements (step threads in all).
 __device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, int nrow,
-                                          int ncol, int lane) {
+                                          int ncol, int lane, int step = kWarp) {
   int i = lane / ncol, j = lane - i * ncol;
   while (i < nrow) {
     copy_async(dst + i * ld + j, src + i * ncol + j);
-    j += kWarp;
+    j += step;
     while (j >= ncol) {
       j -= ncol;
       ++i;
@@ -379,14 +311,15 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, 
 }
 
 // n 0/1 bytes src -> dst as 1.f / 0.f, up to 8 loads in flight per lane
-__device__ __forceinline__ void load_flags(float* dst, const uint8_t* src, int n, int lane) {
-  for (int i0 = lane; i0 < n; i0 += 8 * kWarp) {
+__device__ __forceinline__ void load_flags(float* dst, const uint8_t* src, int n, int lane,
+                                           int step = kWarp) {
+  for (int i0 = lane; i0 < n; i0 += 8 * step) {
     uint8_t v[8];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = (i0 + q * kWarp < n) ? __ldg(src + i0 + q * kWarp) : 0;
+    for (int q = 0; q < 8; ++q) v[q] = (i0 + q * step < n) ? __ldg(src + i0 + q * step) : 0;
 #pragma unroll
     for (int q = 0; q < 8; ++q)
-      if (i0 + q * kWarp < n) dst[i0 + q * kWarp] = v[q] ? 1.f : 0.f;
+      if (i0 + q * step < n) dst[i0 + q * step] = v[q] ? 1.f : 0.f;
   }
 }
 
@@ -418,23 +351,21 @@ struct Args {
 // f and cdof (6 x nv each) staged for the assembly.
 struct Smem {
   float *qM, *Mi, *J;  // J: shared memory (layout 1) or device memory (layout 2)
-  int ldj;             // J's row stride
+  int ldj;             // J's row stride in shared memory
   float *Dv, *ar, *ex, *jar, *jarp, *force;
   float *x, *a0, *mxa, *grad, *mgrad, *gradn, *mgradn, *p, *mp, *qfs, *tmp, *rowb, *colb;
   float *econ, *mu, *sc1, *sc2;
   float *fs, *cs;
 };
 
-// Layout 2 (kL2) leaves J out; the kernel points s.J at device memory.
-template <bool kL2>
 __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
   const int ld = lead(nv);
   Smem s;
   s.qM = sm;
   s.Mi = s.qM + nv * ld;
-  s.J = kL2 ? nullptr : s.Mi + nv * ld;
-  s.ldj = kL2 ? nv : ld;
-  s.Dv = s.Mi + nv * ld + (kL2 ? 0 : nefc * ld);
+  s.J = s.Mi + nv * ld;
+  s.ldj = ld;
+  s.Dv = s.J + nefc * ld;
   s.ar = s.Dv + nefc;
   s.ex = s.ar + nefc;
   s.jar = s.ex + nefc;
@@ -464,16 +395,18 @@ __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
 
 // The per-env vectors into shared memory: the floats by async copies, the
 // flags by batched loads issued while those copies are in flight; waits for
-// this launch's earlier copy_async calls too.
-__device__ __forceinline__ void load_env(const Args& a, const Smem& s, int b, int lane) {
-  copy_vec(s.Dv, a.D + (size_t)b * a.nefc, a.nefc, lane);
-  copy_vec(s.ar, a.aref + (size_t)b * a.nefc, a.nefc, lane);
-  copy_vec(s.qfs, a.qfrc_smooth + (size_t)b * a.nv, a.nv, lane);
-  copy_vec(s.mu, a.ell, a.nell, lane);
-  copy_vec(s.sc1, a.ell + a.nell, a.nell, lane);
-  copy_vec(s.sc2, a.ell + 2 * a.nell, a.nell, lane);
-  load_flags(s.ex, a.exists + (size_t)b * a.nefc, a.nefc, lane);
-  load_flags(s.econ, a.exists_con + (size_t)b * a.nell, a.nell, lane);
+// this launch's earlier copy_async calls too (this thread's; its warp's
+// after the __syncwarp: a block of several warps adds a __syncthreads).
+__device__ __forceinline__ void load_env(const Args& a, const Smem& s, int b, int lane,
+                                         int step = kWarp) {
+  copy_vec(s.Dv, a.D + (size_t)b * a.nefc, a.nefc, lane, step);
+  copy_vec(s.ar, a.aref + (size_t)b * a.nefc, a.nefc, lane, step);
+  copy_vec(s.qfs, a.qfrc_smooth + (size_t)b * a.nv, a.nv, lane, step);
+  copy_vec(s.mu, a.ell, a.nell, lane, step);
+  copy_vec(s.sc1, a.ell + a.nell, a.nell, lane, step);
+  copy_vec(s.sc2, a.ell + 2 * a.nell, a.nell, lane, step);
+  load_flags(s.ex, a.exists + (size_t)b * a.nefc, a.nefc, lane, step);
+  load_flags(s.econ, a.exists_con + (size_t)b * a.nell, a.nell, lane, step);
   copy_wait();
 }
 
@@ -792,23 +725,18 @@ __device__ __forceinline__ unsigned bracket(const Args& a, const Smem& s, const 
   return __ballot_sync(kFull, pos);
 }
 
-// The solve once qM (also copied into Mi), J and the per-env vectors are in
-// shared memory (or J in device memory, kL2); writes every output of env b.
-// kEll (nell > 0) compiles the elliptic block in: without it the quadratic
-// rows' loops carry no trace of it. kWarm (a warmstart or stall_tol > 0)
-// compiles in the warmstart select and the stall exit. kL2 (layout 2) takes
-// the batched sweep.
-template <bool kEll, bool kWarm, bool kL2>
+// The solve of one warp once qM, J and the per-env vectors are in shared
+// memory; writes every output of env b. kEll (nell > 0) compiles the
+// elliptic block in: without it the quadratic rows' loops carry no trace of
+// it. kWarm (a warmstart or stall_tol > 0) compiles in the warmstart select
+// and the stall exit.
+template <bool kEll, bool kWarm>
 __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int lane) {
   const int nv = a.nv, nefc = a.nefc;
   const int ld = lead(nv);
 
   // ---- M^-1 (stays in shared memory) and qacc_smooth
-  if (kL2 && nv > kSweepReg) {
-    sweep_inverse_batched(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
-  } else {
-    sweep_inverse(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
-  }
+  sweep_inverse(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
   matvec(s.Mi, ld, s.qfs, s.a0, nv, nv, lane);
 
   // ---- start at x = a0 (mxa = 0, so the gauss term is 0)
@@ -1059,36 +987,471 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
   }
 }
 
-// A read of an assembly input: staged in shared memory (layout 1) or in
-// device memory through the read-only cache (layout 2).
-template <bool kGlobal>
-__device__ __forceinline__ float rd(const float* p) {
-  return kGlobal ? __ldg(p) : *p;
+// ---------------------------------------------------------------------------
+// The wide core: one env per block of several warps, for envs that share
+// an SM with fewer than two others (layout 2, and layout 1 above the width
+// ops/cg.py::kernel_layout sets).
+// One warp there left three of the SM's schedulers idle and ran the nv^3
+// sweep as one warp's instruction stream (PERF.md: 78-83% of a pair
+// env's 12.9-13.8M cycles). The wide core is the one-warp core (cg_core's
+// path for nv > 16) with its heavy passes spread over the block:
+// - M^-1 by sweep.cuh's panel sweep (the spd_inverse kernels' blocked path,
+//   in panels of kPanel pivots), every entry taking the scalar sweep's
+//   updates in its order, each by the same fused multiply-add;
+// - the assembly, J p and M p (one thread per row of J and of qM), M^-1
+//   qfrc_smooth and M^-1 grad (one thread per row of M^-1, float4 reads
+//   along it), and J^T force (one warp per 16 columns, its lanes across
+//   the rows, matvec_t's transposing butterfly);
+// - every sum over rows or dofs, the bracket, the line search, the step
+//   and the done flag on warp 0 with cg_core's own code and lane order
+//   (the other warps wait at a barrier), which hands the flag to the block.
+// Each value is formed by the same operations in the same order as in
+// cg_core, so the wide core's outputs are bitwise the one-warp core's
+// (chip_smoke.py holds that at nv > 16, where cg_core takes this path):
+// float32 CG on stiff states stops early in a few envs per thousand (a
+// line search leaves a direction that is not a descent direction, the
+// next step is 0 and the env reports done), and which envs do changes with
+// any regrouping of a sum, so a kernel whose sums are grouped otherwise
+// stops in other envs than the one it is held against (a first version
+// with block-wide reductions did, in 2 of 1024 pair envs; PERF.md).
+// Layout 2 keeps J in device memory dof-major, (nv, nefc) per env in the
+// wrapper's (B, nefc, nv) scratch, so a row pass (consecutive threads on
+// consecutive rows) and a J^T force chunk (consecutive lanes on
+// consecutive rows) both read whole cache lines; the dense kernel copies
+// its row-major input there first. In layout 1 J stays in shared memory
+// with its odd row stride, so both passes are free of bank conflicts. P A
+// and the support masks md are read through the read-only cache in both
+// wide layouts, not staged.
+
+// Warps per env of the wide core in layout 1 and layout 2 (ops/cg.py::
+// WIDE_WARPS), from a sweep over 4, 8 and 16 on an H100 (PERF.md:
+// the pair's layout 2 is fastest on 16, the one rat's layout 1 on 8).
+#ifndef CG_WIDE_WARPS_L1
+#define CG_WIDE_WARPS_L1 8
+#endif
+#ifndef CG_WIDE_WARPS_L2
+#define CG_WIDE_WARPS_L2 16
+#endif
+constexpr int kWideWarps1 = CG_WIDE_WARPS_L1, kWideWarps2 = CG_WIDE_WARPS_L2;
+static_assert((kWideWarps1 == 4 || kWideWarps1 == 8 || kWideWarps1 == 16) &&
+                  (kWideWarps2 == 4 || kWideWarps2 == 8 || kWideWarps2 == 16),
+              "4, 8 or 16 warps");
+// pivots per panel of the wide sweep: 8 keeps its buffers beside the vectors
+// up to layout 2's widest env (16, spd_inverse's, does not fit there)
+constexpr int kPanel = 8;
+
+__device__ __host__ inline int lead4(int nv) { return (nv + 3) & ~3; }
+
+// Floats of a wide block's dynamic shared memory (ops/cg.py::
+// wide_smem_bytes / 4): qM (nv x ldm) and qfrc_smooth; in layout 1 J
+// (nefc x (nv | 1)); D, aref and exists; the elliptic block's four vectors;
+// warp 0's done flag; then, 16-byte aligned, M^-1 (ldm x ldm, zero past
+// nv) and the vectors the sweep does not read (jar, jarp, force; twelve
+// nv-vectors), which the sweep's panel buffers overlay (and extend where
+// they are larger). ldm = nv rounded up to a multiple of 4.
+__device__ __host__ inline int wide_smem_floats(int nv, int nefc, int nell, bool l2) {
+  const int ldm = lead4(nv), nefc4 = (nefc + 3) & ~3;
+  const int head = nv * ldm + ldm + (l2 ? 0 : nefc * (nv | 1)) + 3 * nefc + 4 * nell + 1;
+  const int rest = 3 * nefc4 + 12 * ldm, panel = 2 * kPanel * ldm + 2 * kPanel * kPanel;
+  return ((head + 3) & ~3) + ldm * ldm + (rest > panel ? rest : panel);
 }
 
-template <bool kEll, bool kWarm, bool kL2>
-__global__ void __launch_bounds__(kWarp, kL2 ? 1 : kBlocksPerSm)
-cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ cdof,
-                const float* __restrict__ Bm, const float* __restrict__ jsign,
-                const float* __restrict__ md, const float* __restrict__ armature,
-                const int* __restrict__ row_slot, const int* __restrict__ sz,
-                const int* __restrict__ root_of_dof, const int* __restrict__ limit_dadr,
-                float* jscratch, int nlim, int nroots, int ncon) {
+// A wide block's shared memory (wide_smem_floats): the one-warp layout's
+// names, the stride of qM and M^-1, warp 0's done flag and the sweep's
+// panel buffers.
+struct SmemW : Smem {
+  int ldm;                       // row stride of qM and M^-1, a multiple of 4
+  float* done;                   // warp 0's done flag, read by the block
+  float *Rk, *Cn, *colk, *rowk;  // the sweep's, over jar... (free during the sweep)
+};
+
+template <bool kL2>
+__device__ __forceinline__ SmemW carve_wide(float* sm, int nv, int nefc, int nell) {
+  const int ldm = lead4(nv), nefc4 = (nefc + 3) & ~3;
+  SmemW s;
+  s.ldm = ldm;
+  float* q = sm;
+  s.qM = q;
+  q += nv * ldm;
+  s.qfs = q;
+  q += ldm;
+  s.J = kL2 ? nullptr : q;  // layout 2: the kernel points it at device memory
+  s.ldj = lead(nv);
+  q += kL2 ? 0 : nefc * lead(nv);
+  s.Dv = q;
+  s.ar = s.Dv + nefc;
+  s.ex = s.ar + nefc;
+  s.econ = s.ex + nefc;
+  s.mu = s.econ + nell;
+  s.sc1 = s.mu + nell;
+  s.sc2 = s.sc1 + nell;
+  s.done = s.sc2 + nell;
+  s.Mi = sm + ((s.done + 1 - sm + 3) & ~3);
+  s.jar = s.Mi + ldm * ldm;
+  s.jarp = s.jar + nefc4;
+  s.force = s.jarp + nefc4;
+  s.x = s.force + nefc4;  // twelve nv-vectors at stride ldm (16-byte aligned)
+  s.a0 = s.x + ldm;
+  s.mxa = s.a0 + ldm;
+  s.grad = s.mxa + ldm;
+  s.mgrad = s.grad + ldm;
+  s.gradn = s.mgrad + ldm;
+  s.mgradn = s.gradn + ldm;
+  s.p = s.mgradn + ldm;
+  s.mp = s.p + ldm;
+  s.tmp = s.mp + ldm;
+  s.rowb = s.tmp + ldm;
+  s.colb = s.rowb + ldm;
+  s.Rk = s.jar;
+  s.Cn = s.Rk + kPanel * ldm;
+  s.colk = s.Cn + kPanel * ldm;
+  s.rowk = s.colk + kPanel * kPanel;
+  s.fs = s.Mi;  // the fused kernel's staging, over M^-1 (free before the sweep)
+  s.cs = s.fs + 6 * nv;
+  return s;
+}
+
+// a . x over n columns, a and x 16-byte aligned, in dot_row's order (so
+// bitwise dot_row's)
+__device__ __forceinline__ float dot4(const float* a, const float* x, int n) {
+  float s = 0.f;
+  int j = 0;
+  for (; j + 4 <= n; j += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(a + j);
+    const float4 w = *reinterpret_cast<const float4*>(x + j);
+    s += u.x * w.x;
+    s += u.y * w.y;
+    s += u.z * w.z;
+    s += u.w * w.w;
+  }
+  for (; j < n; ++j) s += a[j] * x[j];
+  return s;
+}
+
+// J[r, v]: shared memory row-major (layout 1) or device memory dof-major
+template <bool kL2>
+__device__ __forceinline__ float& jat(const SmemW& s, int r, int v, int nefc) {
+  return kL2 ? s.J[(size_t)v * nefc + r] : s.J[r * s.ldj + v];
+}
+
+// J[r, :] . x over nv columns, in dot_row's order
+template <bool kL2>
+__device__ __forceinline__ float jrow_dot(const SmemW& s, int r, const float* x, int nv,
+                                          int nefc) {
+  if (!kL2) return dot_row(s.J + r * s.ldj, x, nv);
+  float acc = 0.f;
+#pragma unroll 8
+  for (int v = 0; v < nv; ++v) acc += s.J[(size_t)v * nefc + r] * x[v];
+  return acc;
+}
+
+// y = J^T f by the block: warp w takes matvec_t's 16-column chunks w, w +
+// kW, ..., each as matvec_t forms it (the lane's rows in order,
+// then the transposing butterfly; lane 2c writes column c); no barrier.
+// A row's 16 loads are issued from clamped columns before any is used, then
+// the columns past nv are dropped by a select: a load behind a branch would
+// wait for the one before it (in layout 2 a device-memory latency each).
+template <bool kL2, int kW>
+__device__ __forceinline__ void jt_f_wide(const SmemW& s, const float* f, float* y, int nv,
+                                          int nefc, int lane, int warp) {
+  for (int v0 = 16 * warp; v0 < nv; v0 += 16 * kW) {
+    float acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] = 0.f;
+#pragma unroll 2
+    for (int r = lane; r < nefc; r += kWarp) {
+      const float fr = f[r];
+      float jv[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) jv[c] = jat<kL2>(s, r, min(v0 + c, nv - 1), nefc);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float t = acc[c] + jv[c] * fr;
+        acc[c] = v0 + c < nv ? t : acc[c];
+      }
+    }
+    const float sum = warp_sum_scatter16(acc, lane);
+    const int c = lane >> 1;
+    if (!(lane & 1) && v0 + c < nv) y[v0 + c] = sum;
+  }
+}
+
+// y[i] = A[i, :] . x for i < n (A: stride ld, 16-byte aligned rows), one
+// thread of the kW warps per row; no barrier
+template <int kW>
+__device__ __forceinline__ void matvec_wide(const float* A, int ld, const float* x, float* y,
+                                            int n, int tid) {
+  for (int i = tid; i < n; i += kW * kWarp) y[i] = dot4(A + i * ld, x, n);
+}
+
+// gradients() by the block: J^T force into tmp (all warps), grad = mxa -
+// tmp (warp 0, cg_core's lanes), M^-1 grad (all threads); starts with a
+// barrier (every row's force) and ends with one (every entry of mgrad)
+template <bool kL2, int kW>
+__device__ __forceinline__ void gradients_wide(const Args& a, const SmemW& s, const float* mxa,
+                                               float* grad, float* mgrad, int tid, int lane,
+                                               int warp) {
+  __syncthreads();
+  jt_f_wide<kL2, kW>(s, s.force, s.tmp, a.nv, a.nefc, lane, warp);
+  __syncthreads();
+  if (warp == 0)
+    for (int v = lane; v < a.nv; v += kWarp) grad[v] = mxa[v] - s.tmp[v];
+  __syncthreads();
+  matvec_wide<kW>(s.Mi, s.ldm, grad, mgrad, a.nv, tid);
+  __syncthreads();
+}
+
+// cg_core's solve (its path for nv > 16) by a block of kW warps,
+// once qM, J (layout 1: shared memory; layout 2: device memory, dof-major)
+// and the per-env vectors are in place and a barrier has passed; writes
+// every output of env b. kEll and kWarm as in cg_core; kL2 compiles in
+// where J lives. Warp 0 holds the scalars (costs, alpha, beta, the done
+// flag) and runs cg_core's sums and updates; every barrier is reached by
+// every thread, and the loop's exit reads the flag warp 0 wrote.
+template <bool kEll, bool kWarm, bool kL2, int kW>
+__device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int b, int tid) {
+  constexpr int kWide = kW * kWarp;  // threads per env
+  const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const bool w0 = warp == 0;
+  const int nv = a.nv, nefc = a.nefc, ldm = s.ldm;
+
+  // ---- M^-1 by the panel sweep (over the block), then qacc_smooth
+  for (int i = warp; i < ldm; i += kW)
+    for (int j = lane; j < ldm; j += kWarp)
+      s.Mi[i * ldm + j] = (i < nv && j < nv) ? s.qM[i * ldm + j] : 0.f;
+  __syncthreads();
+  sweep::panels<kWide, kPanel>(s.Mi, ldm, nv, s.Rk, s.Cn, s.colk, s.rowk);
+  for (int v = tid; v < nv; v += kWide) {
+    const float a0 = dot4(s.Mi + v * ldm, s.qfs, nv);
+    s.a0[v] = a0;
+    s.x[v] = a0;  // start at x = a0 (mxa = 0, so the gauss term is 0)
+    s.mxa[v] = 0.f;
+  }
+  __syncthreads();
+  for (int r = tid; r < nefc; r += kWide) s.jar[r] = jrow_dot<kL2>(s, r, s.x, nv, nefc) - s.ar[r];
+  __syncthreads();
+  float cost = 0.f;  // warp 0's
+  // without kWarm x = a0 is the start: its forces are formed here
+  if (w0) cost = cost_force<kEll, !kWarm>(a, s, s.jar, s.force, lane);
+  if (kWarm && a.has_ws) {
+    // candidate ws: x in p, qM (ws - a0) in mp, J ws - aref in jarp
+    for (int v = tid; v < nv; v += kWide) {
+      s.p[v] = __ldg(a.warmstart + (size_t)b * nv + v);
+      s.tmp[v] = s.p[v] - s.a0[v];
+    }
+    __syncthreads();
+    matvec_wide<kW>(s.qM, ldm, s.tmp, s.mp, nv, tid);
+    for (int r = tid; r < nefc; r += kWide)
+      s.jarp[r] = jrow_dot<kL2>(s, r, s.p, nv, nefc) - s.ar[r];
+    __syncthreads();
+    if (w0) {
+      float cw[2] = {cost_part<kEll, false>(a, s, s.jarp, nullptr, lane), 0.f};
+      for (int v = lane; v < nv; v += kWarp) cw[1] += s.tmp[v] * s.mp[v];
+      warp_sums(cw);
+      const float cost_w = 0.5f * cw[0] + 0.5f * cw[1];
+      if (cost_w < cost) {  // uniform over warp 0
+        for (int v = lane; v < nv; v += kWarp) {
+          s.x[v] = s.p[v];
+          s.mxa[v] = s.mp[v];
+        }
+        for (int r = lane; r < nefc; r += kWarp) s.jar[r] = s.jarp[r];
+        __syncwarp();
+        cost = cost_w;
+      }
+    }
+  }
+  if (kWarm && w0) cost_part<kEll, true>(a, s, s.jar, s.force, lane);  // the chosen start's forces
+  gradients_wide<kL2, kW>(a, s, s.mxa, s.grad, s.mgrad, tid, lane, warp);
+  for (int v = tid; v < nv; v += kWide) s.p[v] = -s.mgrad[v];
+  __syncthreads();
+
+  bool done = false;
+  const int iters = a.iters, ls_iters = a.ls_iters;
+  const float tol = a.tol, stall_tol = a.stall_tol;
+  for (int it = 0; it < iters; ++it) {
+    if (done) break;  // frozen: later iterations would not change the iterate
+    // J p (one thread per row) and M p (one thread per dof, counted from
+    // the block's last thread, which has the fewest rows)
+    for (int r = tid; r < nefc; r += kWide) s.jarp[r] = jrow_dot<kL2>(s, r, s.p, nv, nefc);
+    for (int v = kWide - 1 - tid; v < nv; v += kWide) s.mp[v] = dot4(s.qM + v * ldm, s.p, nv);
+    __syncthreads();
+    float t5[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // warp 0's, across gradients_wide
+    if (w0) {
+      // cg_core's iteration up to the new iterate's forces, on warp 0: the
+      // lane's share of phi'(0) and phi''(0) on its rows, of p.Mp and p.mxa
+      // on its dofs, the four sums reduced together
+      float r4[4] = {0.f, 0.f, 0.f, 0.f};  // p.Mp, p.mxa, phi'(0), phi''(0)
+      for (int r = lane; r < nefc; r += kWarp) {
+        const float jp = s.jarp[r];
+        const float jr = s.jar[r];
+        const float act = (jr < 0.f) ? s.ex[r] : 0.f;
+        const float djp = s.Dv[r] * jp;
+        r4[2] += act * djp * jr;
+        r4[3] += act * djp * jp;
+      }
+      for (int v = lane; v < nv; v += kWarp) {
+        const float mp = s.mp[v];
+        r4[0] += s.p[v] * mp;
+        r4[1] += s.p[v] * s.mxa[v];
+      }
+      if (kEll) {
+        const Phi e = ell_dphi(s.jar, s.jarp, s.Dv, s.econ, s.mu, s.sc1, s.sc2, 0.f, a.nell,
+                               a.ell0, lane);
+        r4[2] += e.d;
+        r4[3] += e.dd;
+      }
+      warp_sums(r4);
+      const float pmp = r4[0], gauss_p = r4[1];
+      const float d0 = gauss_p + r4[2], dd0 = pmp + r4[3];
+      const float guess = fmaxf(-d0 / fmaxf(dd0, kMinval), kMinval);
+
+      RowCache rc;
+      rc.fill<kEll>(s, nefc, lane);
+      const unsigned pos = bracket<kEll>(a, s, rc, guess, gauss_p, pmp, lane);
+      float hi = candidate(guess, 12);
+#pragma unroll
+      for (int k = 0; k < 13; ++k)
+        if ((pos >> (2 * k)) & 1u) hi = fminf(hi, candidate(guess, k));
+      float lo = 0.f;
+#pragma unroll
+      for (int k = 0; k < 13; ++k)
+        if (!((pos >> (2 * k)) & 1u) && candidate(guess, k) < hi)
+          lo = fmaxf(lo, candidate(guess, k));
+      float alpha = fminf(guess, hi);
+      const float d0_scale = fabsf(d0) * stall_tol;
+      for (int l = 0; l < ls_iters; ++l) {
+        const Phi ph = dphi<kEll>(a, s, rc, alpha, gauss_p, pmp, lane);
+        if (fabsf(ph.d) < tol || (kWarm && stall_tol > 0.f && fabsf(ph.d) < d0_scale)) break;
+        const float lo2 = (ph.d < 0.f) ? alpha : lo;
+        const float hi2 = (ph.d >= 0.f) ? alpha : hi;
+        const float newton = alpha - ph.d / fmaxf(ph.dd, kMinval);
+        const bool inside = (newton > lo2) && (newton < hi2);
+        alpha = inside ? newton : 0.5f * (lo2 + hi2);
+        lo = lo2;
+        hi = hi2;
+      }
+      // step, then the constraint cost and forces at the new iterate
+      for (int v = lane; v < nv; v += kWarp) {
+        s.x[v] += alpha * s.p[v];
+        s.mxa[v] += alpha * s.mp[v];
+        t5[1] += (s.x[v] - s.a0[v]) * s.mxa[v];
+      }
+      for (int r = lane; r < nefc; r += kWarp) s.jar[r] += alpha * s.jarp[r];
+      __syncwarp();
+      t5[0] = cost_part<kEll, true>(a, s, s.jar, s.force, lane);
+    }
+    gradients_wide<kL2, kW>(a, s, s.mxa, s.gradn, s.mgradn, tid, lane, warp);
+    if (w0) {
+      // |grad|^2 and Polak-Ribiere's numerator and denominator with the two
+      // cost terms, reduced together; the direction and the done flag
+      for (int v = lane; v < nv; v += kWarp) {
+        const float gn = s.gradn[v];
+        t5[2] += gn * gn;
+        t5[3] += gn * (s.mgradn[v] - s.mgrad[v]);
+        t5[4] += s.grad[v] * s.mgrad[v];
+      }
+      warp_sums(t5);
+      const float cost_new = 0.5f * t5[0] + 0.5f * t5[1];
+      const float improvement = cost - cost_new;
+      const float gradnorm = sqrtf(t5[2]);
+      const float beta = fmaxf(0.f, t5[3] / fmaxf(t5[4], kMinval));
+      for (int v = lane; v < nv; v += kWarp) {
+        s.p[v] = -s.mgradn[v] + beta * s.p[v];
+        s.grad[v] = s.gradn[v];
+        s.mgrad[v] = s.mgradn[v];
+      }
+      cost = cost_new;
+      done = (improvement < tol) || (gradnorm < tol) ||
+             (kWarm && stall_tol > 0.f && improvement < stall_tol * fabsf(cost_new));
+      if (lane == 0) *s.done = done ? 1.f : 0.f;
+    }
+    __syncthreads();
+    done = *s.done != 0.f;
+  }
+
+  // ---- outputs: qacc, efc_force, qfrc_constraint = J^T force, qacc_smooth
+  jt_f_wide<kL2, kW>(s, s.force, s.tmp, nv, nefc, lane, warp);
+  __syncthreads();
+  for (int v = tid; v < nv; v += kWide) {
+    a.qacc[(size_t)b * nv + v] = s.x[v];
+    a.qfrc[(size_t)b * nv + v] = s.tmp[v];
+    a.a0[(size_t)b * nv + v] = s.a0[v];
+  }
+  for (int r = tid; r < nefc; r += kWide) a.force[(size_t)b * nefc + r] = s.force[r];
+  if (tid == 0) a.done[b] = done ? 1 : 0;
+
+  // ---- Euler velocity update
+  const float* qvel = a.qvel + (size_t)b * nv;
+  float* qvel_new = a.qvel_new + (size_t)b * nv;
+  if (a.has_damping) {
+    // (M + h diag(B)) = U^T U, right-looking, rows of the block's warps and
+    // columns of their lanes (each entry as cg_core forms it); rows of Mi
+    // become U
+    float* U = s.Mi;
+    for (int i = warp; i < nv; i += kW)
+      for (int j = lane; j < nv; j += kWarp)
+        U[i * ldm + j] = s.qM[i * ldm + j] + ((i == j) ? __ldg(a.damp + i) : 0.f);
+    __syncthreads();
+    for (int k = 0; k < nv; ++k) {
+      const float c = 1.f / sqrtf(U[k * ldm + k]);
+      __syncthreads();
+      for (int j = k + tid; j < nv; j += kWide) U[k * ldm + j] *= c;
+      __syncthreads();
+      for (int i = k + 1 + warp; i < nv; i += kW)
+        for (int j = i + lane; j < nv; j += kWarp)
+          U[i * ldm + j] -= U[k * ldm + i] * U[k * ldm + j];
+      __syncthreads();
+    }
+    if (w0) {
+      // rhs = qfrc_smooth + qfrc_constraint; forward U^T y = rhs into rowb
+      for (int k = 0; k < nv; ++k) {
+        float sum = 0.f;
+        for (int i = lane; i < k; i += kWarp) sum += U[i * ldm + k] * s.rowb[i];
+        sum = warp_sum(sum);
+        if (lane == 0) s.rowb[k] = (s.qfs[k] + s.tmp[k] - sum) / U[k * ldm + k];
+        __syncwarp();
+      }
+      // backward U z = y into colb
+      for (int k = nv - 1; k >= 0; --k) {
+        float sum = 0.f;
+        for (int j = k + 1 + lane; j < nv; j += kWarp) sum += U[k * ldm + j] * s.colb[j];
+        sum = warp_sum(sum);
+        if (lane == 0) s.colb[k] = (s.rowb[k] - sum) / U[k * ldm + k];
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int v = tid; v < nv; v += kWide) qvel_new[v] = __ldg(qvel + v) + a.dt * s.colb[v];
+  } else {
+    for (int v = tid; v < nv; v += kWide) qvel_new[v] = __ldg(qvel + v) + a.dt * s.x[v];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernels: one env per block, one warp (kW = 1, layout 1) or the wide
+// core's kW warps (layout 1 or 2, kL2)
+
+// cg_solve_fused's assembly by one warp: every input in shared memory at
+// once (f, cdof, P A and md past the core's layout; the tables in buffers
+// the core fills only later), qM one lane per row, J one lane per row.
+template <bool kEll, bool kWarm>
+__device__ __forceinline__ void fused_narrow(
+    const Args& a, const float* __restrict__ f, const float* __restrict__ cdof,
+    const float* __restrict__ Bm, const float* __restrict__ jsign, const float* __restrict__ md,
+    const float* __restrict__ armature, const int* __restrict__ row_slot,
+    const int* __restrict__ sz, const int* __restrict__ root_of_dof,
+    const int* __restrict__ limit_dadr, int nlim, int nroots, int ncon) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc;
   const int ld = lead(nv);
   extern __shared__ float sm[];
-  Smem s = carve<kL2>(sm, nv, nefc, a.nell);
-  if (kL2) s.J = jscratch + (size_t)b * nefc * nv;
+  Smem s = carve(sm, nv, nefc, a.nell);
 
   const float* fb = f + (size_t)b * 6 * nv;
   const float* cb = cdof + (size_t)b * 6 * nv;
   const float* Bmb = Bm + (size_t)b * nroots * 6 * nefc;
 
-  // every input of the assembly into shared memory at once: f, cdof and,
-  // in layout 1, P A and md past the core's layout; the tables in buffers
-  // the core fills only later
   float* const bm_s = s.cs + 6 * nv;                    // (nroots * 6, nefc)
   float* const md_s = bm_s + nroots * 6 * nefc;         // (ncon, nv)
   int* const slot_s = reinterpret_cast<int*>(s.force);  // nefc
@@ -1099,10 +1462,8 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
   float* const arm_s = s.gradn;                         // nv
   copy_vec(s.fs, fb, 6 * nv, lane);
   copy_vec(s.cs, cb, 6 * nv, lane);
-  if (!kL2) {
-    copy_vec(bm_s, Bmb, nroots * 6 * nefc, lane);
-    copy_vec(md_s, md, ncon * nv, lane);
-  }
+  copy_vec(bm_s, Bmb, nroots * 6 * nefc, lane);
+  copy_vec(md_s, md, ncon * nv, lane);
   copy_vec(slot_s, row_slot, nefc, lane);
   copy_vec(dadr_s, limit_dadr, nlim, lane);
   copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, lane);
@@ -1110,8 +1471,6 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
   copy_vec(root_s, root_of_dof, nv, lane);
   copy_vec(arm_s, armature, nv, lane);
   load_env(a, s, b, lane);  // waits for all of them
-  const float* const bm_src = kL2 ? Bmb : bm_s;
-  const float* const md_src = kL2 ? md : md_s;
 
   // ---- qM from (crb_f, cdof), one lane per row i: j ancestor-or-self of i
   // <=> i in [j, j + sz_j)
@@ -1151,7 +1510,7 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
       for (int v = 0; v < nv; ++v) Jr[v] = 0.f;
       continue;
     }
-    const float* mdr = md_src + slot * nv;
+    const float* mdr = md_s + slot * nv;
     int root = -1;
     float bm[6];
     for (int v = 0; v < nv; ++v) {
@@ -1159,39 +1518,175 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
       if (rv != root) {
         root = rv;
 #pragma unroll
-        for (int c = 0; c < 6; ++c) bm[c] = rd<kL2>(bm_src + (rv * 6 + c) * nefc + r);
+        for (int c = 0; c < 6; ++c) bm[c] = bm_s[(rv * 6 + c) * nefc + r];
       }
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < 6; ++c) acc += bm[c] * s.cs[c * nv + v];
-      Jr[v] = acc * rd<kL2>(mdr + v);
+      Jr[v] = acc * mdr[v];
     }
   }
   for (int i = lane; i < nlim; i += kWarp) s.J[i * s.ldj + dadr_s[i]] = jsign_s[i];
-  __syncwarp();  // orders the J rows (either memory) for the lanes that read them
-  cg_core<kEll, kWarm, kL2>(a, s, b, lane);
+  __syncwarp();  // orders the J rows for the lanes that read them
+  cg_core<kEll, kWarm>(a, s, b, lane);
 }
 
-template <bool kEll, bool kWarm, bool kL2>
-__global__ void __launch_bounds__(kWarp, kL2 ? 1 : kBlocksPerSm)
-cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict__ J) {
+// cg_solve_fused's assembly by a block of kW warps: f, cdof and the
+// tables staged over M^-1 (free until the sweep), P A and md read through
+// the read-only cache; qM one thread per row, J one thread per row (into
+// shared memory, or dof-major into the device scratch: consecutive threads
+// write consecutive addresses).
+template <bool kEll, bool kWarm, bool kL2, int kW>
+__device__ __forceinline__ void fused_wide(
+    const Args& a, const float* __restrict__ f, const float* __restrict__ cdof,
+    const float* __restrict__ Bm, const float* __restrict__ jsign, const float* __restrict__ md,
+    const float* __restrict__ armature, const int* __restrict__ row_slot,
+    const int* __restrict__ sz, const int* __restrict__ root_of_dof,
+    const int* __restrict__ limit_dadr, float* jscratch, int nlim, int nroots) {
+  constexpr int kWide = kW * kWarp;  // threads per env
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int nv = a.nv, nefc = a.nefc;
-  const int ld = lead(nv);
-  extern __shared__ float sm[];
-  Smem s = carve<kL2>(sm, nv, nefc, a.nell);
+  const int tid = threadIdx.x;
+  const int nv = a.nv, nefc = a.nefc, ldm = lead4(nv);
+  extern __shared__ __align__(16) float smw[];
+  SmemW s = carve_wide<kL2>(smw, nv, nefc, a.nell);
+  if (kL2) s.J = jscratch + (size_t)b * nefc * nv;
 
+  const float* fb = f + (size_t)b * 6 * nv;
+  const float* cb = cdof + (size_t)b * 6 * nv;
+  const float* Bmb = Bm + (size_t)b * nroots * 6 * nefc;
+  // f and cdof (6 nv each), then the tables, over M^-1 and on into jar...
+  // (wide_smem_floats leaves room: 15 nv + nefc + 2 nlim <= ldm^2 + 3 nefc
+  // + 12 ldm)
+  int* const slot_s = reinterpret_cast<int*>(s.cs + 6 * nv);  // nefc
+  int* const dadr_s = slot_s + nefc;                           // nlim
+  float* const jsign_s = reinterpret_cast<float*>(dadr_s + nlim);
+  int* const sz_s = reinterpret_cast<int*>(jsign_s + nlim);    // nv
+  int* const root_s = sz_s + nv;                               // nv
+  float* const arm_s = reinterpret_cast<float*>(root_s + nv);  // nv
+  copy_vec(s.fs, fb, 6 * nv, tid, kWide);
+  copy_vec(s.cs, cb, 6 * nv, tid, kWide);
+  copy_vec(slot_s, row_slot, nefc, tid, kWide);
+  copy_vec(dadr_s, limit_dadr, nlim, tid, kWide);
+  copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, tid, kWide);
+  copy_vec(sz_s, sz, nv, tid, kWide);
+  copy_vec(root_s, root_of_dof, nv, tid, kWide);
+  copy_vec(arm_s, armature, nv, tid, kWide);
+  load_env(a, s, b, tid, kWide);  // waits for this thread's copies
+  __syncthreads();
+
+  // ---- qM, one thread per row (as fused_narrow)
+  for (int i = tid; i < nv; i += kWide) {
+    float fi[6], ci[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      fi[c] = s.fs[c * nv + i];
+      ci[c] = s.cs[c * nv + i];
+    }
+    const int szi = sz_s[i];
+    for (int j = 0; j < nv; ++j) {
+      float v = 0.f;
+      if (i >= j && i < j + sz_s[j]) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc += fi[c] * s.cs[c * nv + j];
+        v += acc;
+      }
+      if (j > i && j < i + szi) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc += ci[c] * s.fs[c * nv + j];
+        v += acc;
+      }
+      if (i == j) v += arm_s[i];
+      s.qM[i * ldm + j] = v;
+    }
+  }
+  // ---- J, one thread per row (as fused_narrow); limit row i is row i, so
+  // the thread that zeroed it sets its entry
+  for (int r = tid; r < nefc; r += kWide) {
+    const int slot = slot_s[r];
+    if (slot < 0) {
+      for (int v = 0; v < nv; ++v) jat<kL2>(s, r, v, nefc) = 0.f;
+      continue;
+    }
+    const float* mdr = md + slot * nv;
+    int root = -1;
+    float bm[6];
+    for (int v = 0; v < nv; ++v) {
+      const int rv = root_s[v];
+      if (rv != root) {
+        root = rv;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) bm[c] = __ldg(Bmb + (rv * 6 + c) * nefc + r);
+      }
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) acc += bm[c] * s.cs[c * nv + v];
+      jat<kL2>(s, r, v, nefc) = acc * __ldg(mdr + v);
+    }
+  }
+  for (int i = tid; i < nlim; i += kWide) jat<kL2>(s, i, dadr_s[i], nefc) = jsign_s[i];
+  __syncthreads();  // orders qM and J (either memory) for every thread
+  cg_core_wide<kEll, kWarm, kL2, kW>(a, s, b, tid);
+}
+
+template <bool kEll, bool kWarm, bool kL2, int kW>
+__global__ void __launch_bounds__(kW * kWarp, kW == 1 ? kBlocksPerSm : 1)
+cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ cdof,
+                const float* __restrict__ Bm, const float* __restrict__ jsign,
+                const float* __restrict__ md, const float* __restrict__ armature,
+                const int* __restrict__ row_slot, const int* __restrict__ sz,
+                const int* __restrict__ root_of_dof, const int* __restrict__ limit_dadr,
+                float* jscratch, int nlim, int nroots, int ncon) {
+  if constexpr (kW == 1) {
+    static_assert(!kL2, "layout 2 runs wide");
+    fused_narrow<kEll, kWarm>(a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof,
+                              limit_dadr, nlim, nroots, ncon);
+  } else {
+    fused_wide<kEll, kWarm, kL2, kW>(a, f, cdof, Bm, jsign, md, armature, row_slot, sz,
+                                     root_of_dof, limit_dadr, jscratch, nlim, nroots);
+  }
+}
+
+template <bool kEll, bool kWarm, bool kL2, int kW>
+__global__ void __launch_bounds__(kW * kWarp, kW == 1 ? kBlocksPerSm : 1)
+cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict__ J,
+                  float* jscratch) {
+  const int b = blockIdx.x;
+  const int nv = a.nv, nefc = a.nefc;
   const float* qMb = qM + (size_t)b * nv * nv;
   const float* Jb = J + (size_t)b * nefc * nv;
-  copy_rows(s.qM, ld, qMb, nv, nv, lane);
-  if (kL2) {
-    s.J = const_cast<float*>(Jb);  // read in place; cg_core never writes J
+  if constexpr (kW == 1) {
+    static_assert(!kL2, "layout 2 runs wide");
+    const int lane = threadIdx.x;
+    extern __shared__ float sm[];
+    Smem s = carve(sm, nv, nefc, a.nell);
+    copy_rows(s.qM, lead(nv), qMb, nv, nv, lane);
+    copy_rows(s.J, s.ldj, Jb, nefc, nv, lane);
+    load_env(a, s, b, lane);  // waits for all of them
+    cg_core<kEll, kWarm>(a, s, b, lane);
   } else {
-    copy_rows(s.J, ld, Jb, nefc, nv, lane);
+    constexpr int kWide = kW * kWarp;  // threads per env
+    const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+    extern __shared__ __align__(16) float smw[];
+    SmemW s = carve_wide<kL2>(smw, nv, nefc, a.nell);
+    copy_rows(s.qM, s.ldm, qMb, nv, nv, tid, kWide);
+    if (!kL2) copy_rows(s.J, s.ldj, Jb, nefc, nv, tid, kWide);
+    load_env(a, s, b, tid, kWide);  // waits for this thread's copies
+    if (kL2) {
+      // the row-major input J into the dof-major scratch: warp w takes rows
+      // 32 w + lane, ...; each lane walks its row (its cache lines stay in
+      // L1 across the walk) and the warp's stores are consecutive
+      s.J = jscratch + (size_t)b * nefc * nv;
+      for (int r = warp * kWarp + lane; r < nefc; r += kWide) {
+        const float* src = Jb + (size_t)r * nv;
+#pragma unroll 8
+        for (int v = 0; v < nv; ++v) s.J[(size_t)v * nefc + r] = __ldg(src + v);
+      }
+    }
+    __syncthreads();
+    cg_core_wide<kEll, kWarm, kL2, kW>(a, s, b, tid);
   }
-  load_env(a, s, b, lane);  // waits for all of them
-  cg_core<kEll, kWarm, kL2>(a, s, b, lane);
 }
 
 Args make_args(const float* D, const float* aref, const uint8_t* exists,
@@ -1236,13 +1731,28 @@ int allow_smem(Kernel kernel, int smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// The geometry a launch asks for, checked against what the kernels take:
+// one warp in layout 1, or the wide core's warps of the layout (with the
+// wide layout's own shared-memory size), the scratch where layout 2 needs
+// it.
+bool bad_geometry(int layout, int warps, int smem, int nv, int nefc, int nell,
+                  const float* jscratch) {
+  if (layout != 1 && layout != 2) return true;
+  if (warps != 1 && warps != (layout == 1 ? kWideWarps1 : kWideWarps2)) return true;
+  if (layout == 2 && (warps == 1 || jscratch == nullptr)) return true;
+  return warps > 1 && smem != 4 * wide_smem_floats(nv, nefc, nell, layout == 2);
+}
+
 }  // namespace
 
-// Each launch function starts one warp per env on `stream` with `smem` bytes
-// of dynamic shared memory per block in `layout` 1 or 2 (ops/cg.py::
-// kernel_layout) and returns the cudaGetLastError() code of the launch (0
-// on success). `warmstart` may be null when has_ws is 0; `jscratch`, the
-// fused kernel's (B, nefc, nv) J in layout 2, may be null in layout 1.
+// Each launch function starts one block per env on `stream`: `warps` warps
+// (1, or the wide core's count for the layout) in `layout` 1 or 2 with `smem` bytes of
+// dynamic shared memory (ops/cg.py::kernel_layout), and returns the
+// cudaGetLastError() code of the launch (0 on success), or
+// cudaErrorInvalidValue for a geometry the kernels do not take. `warmstart`
+// may be null when has_ws is 0; `jscratch`, a (B, nefc, nv) float32
+// scratch that layout 2 keeps J in (dof-major per env), may be null in
+// layout 1.
 extern "C" int cg_fused_launch(
     const float* f, const float* cdof, const float* Bm, const float* jsign,
     const float* D, const float* aref, const uint8_t* exists, const uint8_t* exists_con,
@@ -1251,27 +1761,31 @@ extern "C" int cg_fused_launch(
     const int* sz, const int* root_of_dof, const int* limit_dadr, float* qacc, float* force,
     float* qfrc, float* a0, float* qvel_new, uint8_t* done, float* jscratch, int B, int nv,
     int nefc, int nlim, int nroots, int ncon, int nell, int ell0, int smem, int layout,
-    int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt, float stall_tol,
-    void* stream) {
+    int warps, int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt,
+    float stall_tol, void* stream) {
   if (B == 0) return 0;
-  if (layout != 1 && layout != 2) return (int)cudaErrorInvalidValue;
-  if (layout == 2 && jscratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch))
+    return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
   auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
     return nell ? (warm ? k11 : k10) : (warm ? k01 : k00);
   };
-  auto kernel = layout == 2
-                    ? pick(cg_fused_kernel<true, true, true>, cg_fused_kernel<true, false, true>,
-                           cg_fused_kernel<false, true, true>, cg_fused_kernel<false, false, true>)
-                    : pick(cg_fused_kernel<true, true, false>, cg_fused_kernel<true, false, false>,
-                           cg_fused_kernel<false, true, false>,
-                           cg_fused_kernel<false, false, false>);
+  constexpr int W1 = kWideWarps1, W2 = kWideWarps2;
+  auto kernel =
+      warps == 1
+          ? pick(cg_fused_kernel<true, true, false, 1>, cg_fused_kernel<true, false, false, 1>,
+                 cg_fused_kernel<false, true, false, 1>, cg_fused_kernel<false, false, false, 1>)
+      : layout == 1
+          ? pick(cg_fused_kernel<true, true, false, W1>, cg_fused_kernel<true, false, false, W1>,
+                 cg_fused_kernel<false, true, false, W1>, cg_fused_kernel<false, false, false, W1>)
+          : pick(cg_fused_kernel<true, true, true, W2>, cg_fused_kernel<true, false, true, W2>,
+                 cg_fused_kernel<false, true, true, W2>, cg_fused_kernel<false, false, true, W2>);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   const Args a = make_args(D, aref, exists, exists_con, qfrc_smooth, qvel, damp, ell, warmstart,
                            qacc, force, qfrc, a0, qvel_new, done, nv, nefc, nell, ell0, iters,
                            ls_iters, has_damping, has_ws, tol, dt, stall_tol);
-  kernel<<<B, kWarp, smem, (cudaStream_t)stream>>>(
+  kernel<<<B, warps * kWarp, smem, (cudaStream_t)stream>>>(
       a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, jscratch, nlim,
       nroots, ncon);
   return (int)cudaGetLastError();
@@ -1281,26 +1795,35 @@ extern "C" int cg_batched_launch(
     const float* qM, const float* J, const float* D, const float* aref, const uint8_t* exists,
     const uint8_t* exists_con, const float* qfrc_smooth, const float* qvel, const float* damp,
     const float* ell, const float* warmstart, float* qacc, float* force, float* qfrc, float* a0,
-    float* qvel_new, uint8_t* done, int B, int nv, int nefc, int nell, int ell0, int smem,
-    int layout, int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt,
-    float stall_tol, void* stream) {
+    float* qvel_new, uint8_t* done, float* jscratch, int B, int nv, int nefc, int nell, int ell0,
+    int smem, int layout, int warps, int iters, int ls_iters, int has_damping, int has_ws,
+    float tol, float dt, float stall_tol, void* stream) {
   if (B == 0) return 0;
-  if (layout != 1 && layout != 2) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch))
+    return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
   auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
     return nell ? (warm ? k11 : k10) : (warm ? k01 : k00);
   };
+  constexpr int W1 = kWideWarps1, W2 = kWideWarps2;
   auto kernel =
-      layout == 2
-          ? pick(cg_batched_kernel<true, true, true>, cg_batched_kernel<true, false, true>,
-                 cg_batched_kernel<false, true, true>, cg_batched_kernel<false, false, true>)
-          : pick(cg_batched_kernel<true, true, false>, cg_batched_kernel<true, false, false>,
-                 cg_batched_kernel<false, true, false>, cg_batched_kernel<false, false, false>);
+      warps == 1
+          ? pick(cg_batched_kernel<true, true, false, 1>, cg_batched_kernel<true, false, false, 1>,
+                 cg_batched_kernel<false, true, false, 1>,
+                 cg_batched_kernel<false, false, false, 1>)
+      : layout == 1
+          ? pick(cg_batched_kernel<true, true, false, W1>,
+                 cg_batched_kernel<true, false, false, W1>,
+                 cg_batched_kernel<false, true, false, W1>,
+                 cg_batched_kernel<false, false, false, W1>)
+          : pick(cg_batched_kernel<true, true, true, W2>, cg_batched_kernel<true, false, true, W2>,
+                 cg_batched_kernel<false, true, true, W2>,
+                 cg_batched_kernel<false, false, true, W2>);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   const Args a = make_args(D, aref, exists, exists_con, qfrc_smooth, qvel, damp, ell, warmstart,
                            qacc, force, qfrc, a0, qvel_new, done, nv, nefc, nell, ell0, iters,
                            ls_iters, has_damping, has_ws, tol, dt, stall_tol);
-  kernel<<<B, kWarp, smem, (cudaStream_t)stream>>>(a, qM, J);
+  kernel<<<B, warps * kWarp, smem, (cudaStream_t)stream>>>(a, qM, J, jscratch);
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,11 @@ Counterpart of ``brax_tracking_tpu/physics/solver.py``. Dispatch follows
   contacts, plus at most one contiguous block of dim-3 elliptic contacts;
   the minirat, the elliptic minirat, the rodent, the fly, rodent_pair)
   goes through ``_solve_quad``, which calls the solve kernel (ops/cg.py
-  ``cg_solve_fused``) once, in the layout ``ops_cg.kernel_layout`` picks:
-  the whole env in one block's shared memory, or J in device memory for
-  the pair. A model the rule sends there but too large for both layouts
+  ``cg_solve_fused``) once, in the layout and block shape
+  ``ops_cg.kernel_layout`` picks: the whole env in one block's shared
+  memory or J in device memory for the pair, on one warp for an env that
+  shares its SM with others or several for one that holds it alone. A
+  model the rule sends there but too large for both layouts
   raises: the XLA-CG path warmstarts where the kernel's CG call does not,
   so it would compute something else.
 - Newton on the kernel layout goes through ``_solve_newton_fused``: the

@@ -48,6 +48,10 @@ RATPAIR_NPZ = os.path.join(ASSETS, "ratpair.npz")
 RATPAIR_ELLIPTIC_XML = os.path.join(ASSETS, "ratpair_elliptic.xml")
 RATPAIR_ELLIPTIC_NPZ = os.path.join(ASSETS, "ratpair_elliptic.npz")
 RATPAIR_NEWTON_NPZ = os.path.join(ASSETS, "ratpair_newton.npz")
+# one rat of the stand-in alone (nv 73, the rodent's width): the solve
+# kernel's wide layout 1
+RAT_XML = os.path.join(ASSETS, "rat.xml")
+RAT_NPZ = os.path.join(ASSETS, "rat.npz")
 # ballmuscle: ball joints with limits, a fixed tendon, muscles and a
 # filterexact actuator, frozen once per solver of the engine slice
 BALLMUSCLE_XML = os.path.join(ASSETS, "ballmuscle.xml")

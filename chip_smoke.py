@@ -18,12 +18,17 @@ Run from the root of a checkout on a machine with a CUDA card. It
    B=2047) and on the ballmuscle's own mass matrices, all five also at
    the widths on either side of each of their design edges, and the three
    Cholesky kernels with NaN below the diagonal (which they must not read);
-   and the solve kernel's layout 2 (J in device memory) on the two-rat
-   stand-in at rodent_pair's sizes (assets/ratpair*.xml, nv 146, 590 rows)
-   at B=1024 and B=1023 and converged, on its elliptic file and on a chunk
-   of its Newton dispatch, the dense-input kernel on its dense qM and J, on
-   a seeded pair-size case at B=1024 and B=1023 and at layout 2's design
-   edges (the widest env of layout 1, the first past it, the widest of
+   and the solve kernel's wide instances (one env per block of several
+   warps, ops/cg.py::kernel_layout): in layout 2 (J in device memory) on
+   the two-rat stand-in at rodent_pair's sizes (assets/ratpair*.xml, nv
+   146, 590 rows) at B=1024 and B=1023 and converged, on its elliptic file
+   and on a chunk of its Newton dispatch, the dense-input kernel on its
+   dense qM and J, on a seeded pair-size case at B=1024 and B=1023; in
+   layout 1 on the one-rat file (assets/rat.xml, nv 73, the rodent's width)
+   at B=2048 and B=2047 and on the seeded rodent-like case, and there
+   also bitwise against the one-warp core on the same inputs; and at the
+   design edges at 590 rows (the widest one-warp env and the first wide
+   one, the widest env of layout 1, the first past it, the widest of
    layout 2);
 4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
    AutoResetWrapperTracking, 10 substeps) for 20 control steps, on the
@@ -71,9 +76,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
    cut the same way, its clip cut to 24 frames: exact launches, all of them
    in layout 2 (the kernels line's layout-2 row);
 10. times every kernel, its plain version and a PyTorch library call
-   computing the same function with CUDA events (the SPD and Cholesky
-   kernels' and their library calls' device time by torch.profiler), and
-   the rollouts and substeps on the host clock.
+   computing the same function with CUDA events (the solve kernels', the
+   SPD and Cholesky kernels' and their library calls' device time by
+   torch.profiler), and the rollouts and substeps on the host clock; the
+   kernels line holds every solve-kernel instance with its layout and
+   warps per env.
 
 It needs nothing beyond the checkout (the models are the frozen
 ``assets/*.npz``; weights and states come from seeds), exits non-zero if
@@ -283,9 +290,10 @@ def card_line() -> str:
 
 def load(model, device, dtype=None):
     """One of the port's frozen files: the minirat's (pyramidal CG 4/4, the
-    main path; elliptic CG 4/4; Newton/100 with 50 line-search steps) or the
+    main path; elliptic CG 4/4; Newton/100 with 50 line-search steps), the
     two-rat stand-in's at rodent_pair's sizes, frozen the same three ways
-    ("ratpair", "ratpair_elliptic", "ratpair_newton")."""
+    ("ratpair", "ratpair_elliptic", "ratpair_newton"), or one of its rats
+    alone ("rat", CG 4/4: nv 73, the rodent's width)."""
     from brax_tracking_tpu_torch.physics import spec
 
     npz, options = {
@@ -295,6 +303,7 @@ def load(model, device, dtype=None):
         "ratpair": (spec.RATPAIR_NPZ, {}),
         "ratpair_elliptic": (spec.RATPAIR_ELLIPTIC_NPZ, {}),
         "ratpair_newton": (spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
+        "rat": (spec.RAT_NPZ, {}),
     }[model]
     return spec.load_model(npz, device=device, dtype=dtype, **options)
 
@@ -430,13 +439,28 @@ def l2_edges(nefc=PAIR_ROWS):
     return last1, last1 + 1, last2
 
 
+def wide_edges(nefc=PAIR_ROWS):
+    """At ``nefc`` rows (no elliptic block, no fused staging): the widest nv
+    that runs on one warp and the first on the wide core
+    (ops/cg.py::kernel_layout)."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    nv = 1
+    while ops_cg.kernel_layout(nv + 1, nefc)[2] == 1:
+        nv += 1
+    return nv, nv + 1
+
+
 def seeded_dense():
     """The seeded dense cases of cg_solve_batched by name: RODENT_LIKE,
-    PAIR_LIKE and layout 2's design edges at the pair's rows."""
+    PAIR_LIKE, and at the pair's rows the one-warp / wide edge and layout
+    2's design edges."""
     last1, first2, last2 = l2_edges()
+    narrow, wide = wide_edges()
     edge = lambda nv: {"nv": nv, "nefc": PAIR_ROWS, "nlim": 4}
-    return {"rodent_like": RODENT_LIKE, "pair_like": PAIR_LIKE, "l1_last": edge(last1),
-            "l2_first": edge(first2), "l2_last": edge(last2)}
+    return {"rodent_like": RODENT_LIKE, "pair_like": PAIR_LIKE, "narrow_last": edge(narrow),
+            "wide_first": edge(wide), "l1_last": edge(last1), "l2_first": edge(first2),
+            "l2_last": edge(last2)}
 
 
 def cast(args, dtype):
@@ -547,6 +571,44 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
     if dm["kernel_vs_plain64"] > KERNEL_FACTOR * dm["plain32_vs_plain64"] + DONE_MISMATCH_MAX * B:
         fail(f"done flags: {dm} ({case})")
     return report, (m, args, kw, kern)
+
+
+def phase_wide_vs_one_warp(device, B, model):
+    """The wide core against the one-warp core on the same inputs: the
+    solve of ``model`` (see phase_kernel_vs_plain) launched once as
+    kernel_layout dispatches it (the wide core) and once with the one-warp
+    core forced (ops/cg.py::WIDE_ABOVE_SMEM raised past the env; the env
+    must fit layout 1). The wide core forms every value by the one-warp
+    core's operations in its order (csrc/cg_fused.cu), so at nv > 16, where
+    the one-warp core takes the same path, every output must be bitwise
+    equal. Returns the number of envs compared."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    dense = seeded_dense()
+    if model in dense:
+        (args, kw), batched = rodent_like_case(device, B, SEED, None, dense[model]), True
+    else:
+        (_, args, kw), batched = solve_case(device, model, B, SEED), False
+    nv = args[0].shape[-1]
+    layout, _, warps = (ops_cg.kernel_layout(nv, args[1].shape[1]) if batched else
+                        ops_cg.kernel_layout(nv, args[4].shape[1], args[7].shape[1],
+                                             len(kw["root_bounds"]), args[12].shape[0]))
+    if nv <= 16 or layout != 1 or warps == 1:
+        fail(f"wide against one-warp: {model} (nv={nv}) is not a wide layout-1 env past nv 16")
+    wide = kernel_launch(args, kw, batched)()
+    above = ops_cg.WIDE_ABOVE_SMEM
+    ops_cg.WIDE_ABOVE_SMEM = ops_cg.H100_SMEM_PER_SM
+    try:
+        one = kernel_launch(args, kw, batched)()
+    finally:
+        ops_cg.WIDE_ABOVE_SMEM = above
+    torch.cuda.synchronize()
+    for name in wide:
+        if not torch.equal(wide[name], one[name]):
+            diff = (wide[name].double() - one[name].double()).abs().max()
+            fail(f"wide core against the one-warp core on {model} (B={B}): {name} differs by "
+                 f"up to {float(diff):.3e}, expected bitwise equal")
+    return B
 
 
 def synth_clip_qpos(qpos0, T=128, walk=0.1):
@@ -1918,13 +1980,13 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    for model in MODELS + PAIR_MODELS:
+    for model in MODELS + PAIR_MODELS + ("rat",):
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
         nroots = len(S._fused_statics(m, layout)["root_bounds"])
-        kl, smem = ops_cg.kernel_layout(m.nv, layout.nefc, nell, nroots, m.ncon)
-        print(f"{model}: kernel layout {kl}, shared memory per env {smem} B (nv={m.nv}, "
+        kl, smem, warps = ops_cg.kernel_layout(m.nv, layout.nefc, nell, nroots, m.ncon)
+        print(f"{model}: kernel layout {kl}, {warps} warps and {smem} B of shared memory per env (nv={m.nv}, "
               f"nefc={layout.nefc}, elliptic contacts {nell}, roots {nroots}, contact slots "
               f"{m.ncon})")
 
@@ -1949,6 +2011,15 @@ def main() -> int:
     rodent = {}
     for B, iters in ((B_MAIN, None), (B_MAIN - 1, None), (B_MAIN, CONVERGED_ITERS)):
         rodent[B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, "rodent_like")
+    # the wide core in layout 1 on the one-rat file (nv 73, the rodent's
+    # width): cg_solve_fused's (a)
+    rat = {B: phase_kernel_vs_plain("cuda", B, False, SEED, None, "rat")
+           for B in (B_MAIN, B_MAIN - 1)}
+    # the wide core against the one-warp core on the same inputs, bitwise,
+    # where both take the same path (layout 1, nv > 16)
+    same = [(model, B, phase_wide_vs_one_warp("cuda", B, model)) for model, B in
+            (("rat", B_MAIN), ("rat", B_MAIN - 1), ("rodent_like", B_MAIN), ("l1_last", B_PAIR))]
+    print(f"wide core against the one-warp core: bitwise equal on {same}")
     # layout 2 (J in device memory): the stand-in's (a), (b), (c) and its
     # dense qM and J, the pair-size dense case and the design edges
     t_l2 = time.perf_counter()
@@ -1961,11 +2032,13 @@ def main() -> int:
         pair[model, B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, model)
     pair["ratpair", "dense"] = phase_kernel_vs_plain("cuda", B_PAIR, False, SEED, None, "ratpair",
                                                      batched=True)
-    for model, B in [("pair_like", B_PAIR), ("pair_like", B_PAIR - 1), ("l1_last", B_PAIR),
-                     ("l2_first", B_PAIR), ("l2_last", B_PAIR)]:
+    for model, B in [("pair_like", B_PAIR), ("pair_like", B_PAIR - 1), ("narrow_last", B_PAIR),
+                     ("wide_first", B_PAIR), ("l1_last", B_PAIR), ("l2_first", B_PAIR),
+                     ("l2_last", B_PAIR)]:
         pair[model, B] = phase_kernel_vs_plain("cuda", B, False, SEED, None, model)
-    print(f"layout 2 against the plain versions: {time.perf_counter() - t_l2:.1f} s (edges at "
-          f"{PAIR_ROWS} rows: nv {l2_edges()})")
+    print(f"layout 2 and the edges against the plain versions: {time.perf_counter() - t_l2:.1f} s "
+          f"(at {PAIR_ROWS} rows: one warp / wide at nv {wide_edges()}, layout 1 / 2 / widest "
+          f"at nv {l2_edges()})")
     spd_cases = {}
     for nv in SPD_SIZES:
         for B in (B_MAIN, B_MAIN - 1):
@@ -2153,59 +2226,52 @@ def main() -> int:
           f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
     print(f"pair driver phase: {time.perf_counter() - t_pair:.1f} s on {card}")
 
-    # 10. times
+    # 10. times. The solve kernels: every instance the gates held, with its
+    # layout and warps per env (ops/cg.py::kernel_layout), each a row of the
+    # kernels line. Launches are the main paths' counts: the one-warp fused
+    # kernel's (a) in driver runs (i) and (ii), the wide layout 2's (a) in
+    # the pair driver run; the other instances lie on no path (0).
     entries = []
-    for model, key in (("minirat", ("minirat", B_MAIN, False, None)),
-                       ("minirat_elliptic", ("minirat_elliptic", B_MAIN, False, None)),
-                       ("minirat_newton", ("minirat_newton", B_MAIN, False, None))):
-        report, (_, args, kw, _) = cases[key]
-        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw)
-        print(f"cg_solve_fused on {model}: {k_ms * 1e3:.1f} us/launch at B={B_MAIN} (plain "
-              f"{p_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, "
-              f"{flops:.3e} FLOP, mean CG iterations {its:.2f}) on {card}")
-        if model == "minirat":
+    solve_cases = [  # (gate's result, dense?, B, what, launches, profiled launches)
+        (cases["minirat", B_MAIN, False, None], False, B_MAIN, "(a) minirat",
+         launches["cg_solve_fused"], 100),
+        (cases["minirat_elliptic", B_MAIN, False, None], False, B_MAIN, "(b) elliptic minirat",
+         0, 100),
+        (cases["minirat_newton", B_MAIN, False, None], False, B_MAIN, "(c) Newton minirat chunk",
+         0, 100),
+        (rat[B_MAIN], False, B_MAIN, "(a) one rat", 0, 20),
+        (pair["ratpair", B_PAIR, None], False, B_PAIR, "(a) two-rat stand-in",
+         launches["cg_solve_fused (layout 2)"], 10),
+        (pair["ratpair_elliptic", B_PAIR, None], False, B_PAIR, "(b) two-rat stand-in elliptic",
+         0, 10),
+        (pair["ratpair_newton", B_PAIR, None], False, B_PAIR, "(c) two-rat stand-in Newton chunk",
+         0, 10),
+        (batched["minirat", B_MAIN], True, B_MAIN, "minirat", launches["cg_solve_batched"], 100),
+        (batched["minirat_elliptic", B_MAIN], True, B_MAIN, "elliptic minirat",
+         launches["cg_solve_batched"], 100),
+        (rodent[B_MAIN, None], True, B_MAIN, "rodent-like", launches["cg_solve_batched"], 20),
+        (pair["pair_like", B_PAIR], True, B_PAIR, "pair-like", launches["cg_solve_batched"], 10),
+    ]
+    for (report, (_, args, kw, _)), dense, B, what, n, reps in solve_cases:
+        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw, dense, reps)
+        if dense:
+            kern, sizes = "cg_solve_batched", (args[1].shape[2], args[1].shape[1], args[5].shape[1])
+        else:
+            kern = "cg_solve_fused"
+            sizes = (args[0].shape[2], args[4].shape[1], args[7].shape[1],
+                     len(kw["root_bounds"]), args[12].shape[0])
+        layout, _, warps = ops_cg.kernel_layout(*sizes)
+        name = f"{kern} (layout {layout}, {warps} warp{'s' if warps > 1 else ''} per env, {what})"
+        print(f"{name}: {k_ms * 1e3:.1f} us/launch at B={B} (plain {p_ms:.3f} ms; bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, {flops:.3e} FLOP, mean CG "
+              f"iterations {its:.2f}) on {card}")
+        entries.append(entry(name, "cg_fused.cu", "cg.py:552" if dense else "cg.py:863", n,
+                             max(report[nm]["kernel_max"] for nm in SCORED), k_ms, p_ms,
+                             bound_ms, bound_by, None))
+        if what == "(a) minirat":
             w_ms = time_cuda(lambda: ops_cg.cg_solve_fused(*args, device="cuda", **kw), 100)
             print(f"cg_solve_fused wrapper with the P A einsum on minirat: {w_ms * 1e3:.1f} "
                   f"us/call on {card}")
-            entries.append(entry(
-                "cg_solve_fused", "cg_fused.cu", "cg.py:863", launches["cg_solve_fused"],
-                max(report[n]["kernel_max"] for n in SCORED), k_ms, p_ms, bound_ms, bound_by,
-                None))
-    for model in ("minirat", "minirat_elliptic"):
-        report, (_, args, kw, _) = batched[model, B_MAIN]
-        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw, batched=True)
-        print(f"cg_solve_batched on {model}: {k_ms * 1e3:.1f} us/launch at B={B_MAIN} (plain "
-              f"{p_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, "
-              f"{flops:.3e} FLOP, mean CG iterations {its:.2f}) on {card}")
-        if model == "minirat":
-            entries.append(entry(
-                "cg_solve_batched", "cg_fused.cu", "cg.py:552", launches["cg_solve_batched"],
-                max(report[n]["kernel_max"] for n in SCORED), k_ms, p_ms, bound_ms, bound_by,
-                None))
-    _, (_, args, kw, _) = rodent[B_MAIN, None]
-    k_ms = device_ms(kernel_launch(args, kw, batched=True), "cg_batched_kernel", 5)
-    print(f"cg_solve_batched on the rodent-like case (nv={RODENT_LIKE['nv']}, "
-          f"nefc={RODENT_LIKE['nefc']}): {k_ms * 1e3:.1f} us/launch on the device at "
-          f"B={B_MAIN} on {card}")
-    # layout 2 at B_PAIR: the stand-in's (a), (b), (c) and the pair-size
-    # dense case; the JSON line holds (a) and the dense case
-    for key, batched, name in (
-        (("ratpair", B_PAIR, None), False, "cg_solve_fused (layout 2)"),
-        (("ratpair_elliptic", B_PAIR, None), False, None),
-        (("ratpair_newton", B_PAIR, None), False, None),
-        (("pair_like", B_PAIR), True, "cg_solve_batched (layout 2)"),
-    ):
-        report, (_, args, kw, _) = pair[key]
-        k_ms, p_ms, bound_ms, bound_by, nbytes, flops, its = fused_times(args, kw, batched, 10)
-        kern = "cg_solve_batched" if batched else "cg_solve_fused"
-        print(f"{kern} layout 2 on {key[0]}: {k_ms * 1e3:.1f} us/launch at B={B_PAIR} (plain "
-              f"{p_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by}: {nbytes} B, "
-              f"{flops:.3e} FLOP, mean CG iterations {its:.2f}) on {card}")
-        if name is not None:
-            n = launches["cg_solve_fused (layout 2)"] if not batched else launches["cg_solve_batched"]
-            entries.append(entry(name, "cg_fused.cu", "cg.py:552" if batched else "cg.py:863", n,
-                                 max(report[nm]["kernel_max"] for nm in SCORED), k_ms, p_ms,
-                                 bound_ms, bound_by, None))
     spd_meta = {
         "spd_inverse": ("spd_inverse.cu", 362),
         "spd_inverse2": ("spd_inverse.cu", 388),

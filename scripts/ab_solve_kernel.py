@@ -2,6 +2,7 @@
 inverses, for comparing two trees on one card.
 
     python3 scripts/ab_solve_kernel.py [--root DIR] [--reps 3] [--seeded-only]
+    python3 scripts/ab_solve_kernel.py --warps 4,8,16
 
 ``--root`` is the root of the tree to measure (default: this checkout); an
 older commit unpacked elsewhere works as long as its chip_smoke.py has
@@ -21,7 +22,11 @@ within it. Prints one JSON line:
   contact states): ``cg_solve_fused`` (a) on the minirat (CG 4/4),
   (b) on the elliptic minirat, (c) on a Newton chunk (warmstart, stall
   exit, 16 line-search steps), and ``cg_solve_batched`` on the dense qM and
-  J of (a) and (b);
+  J of (a) and (b); the wide instances (several warps per env, where the
+  tree has them): ``pair_a`` / ``pair_b`` / ``pair_c`` and
+  ``pair_batched_a``, the same on the two-rat stand-in (1024 envs, layout
+  2), ``rat_a`` on the one-rat file (2048 envs, where the tree has it) and
+  ``rodent_like``, the seeded dense case (nv 73, 296 rows, 2048 envs);
 - ``factor_us`` / ``spd_solve_us`` / ``solve_us``: device us per launch
   (torch.profiler, ``--reps`` runs of 20 launches) of ``factor_batched``
   at nv 7, 10, 73, 144 (the widest on 128 threads) and 146, of
@@ -40,7 +45,8 @@ within it. Prints one JSON line:
   ``torch.linalg.inv`` on them (the pair's is twice that, on M and on M +
   diag(damp));
 - ``occupancy_us``: device us per launch of (a) on the first 132 (one env
-  per SM), 528 and 2048 of those envs, and of ``factor_batched``,
+  per SM), 528 and 2048 of those envs, of ``pair_a`` on 132, 528 and 1024,
+  and of ``factor_batched``,
   ``spd_solve``, ``solve_batched``, ``spd_inverse`` and ``spd_inverse2``
   at nv 73 and 146 on 132, 792 and 2048 matrices: a time that stays flat
   as the launch fills the card is one block's chain of dependent steps, a
@@ -51,11 +57,24 @@ within it. Prints one JSON line:
   10 control steps of that rollout (after the 22 above).
 
 ``--seeded-only`` skips the rollout (the last two).
+
+``--warps 4,8,16`` instead builds the tree's ``cg_fused.cu`` once per warp
+count of the wide core (both layouts' ``-DCG_WIDE_WARPS_L1`` / ``_L2``,
+into ``runs/warps/``, all
+builds at once) and prints one JSON line: ptxas's registers and spills
+of the wide instances per count, device us per launch of ``pair_a``,
+``pair_b``, ``pair_c``, ``pair_batched_a``, ``rat_a``, ``rodent_like`` and
+the widest layout-1 env at 590 rows (``l1_last``) per count (``warps_us``),
+and, with the tree's own count, the one-warp core against the wide one on
+the dense case at 590 rows over nv and on ``rat_a`` and ``rodent_like``
+(``edge_us``: where the one-warp / wide edge of ops/cg.py::kernel_layout
+belongs).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -68,6 +87,14 @@ import torch
 SOLVE_CASES = (("a", "minirat", False), ("b", "minirat_elliptic", False),
                ("c", "minirat_newton", False), ("batched_a", "minirat", True),
                ("batched_b", "minirat_elliptic", True))
+# the wide instances: (key, model, dense, envs); "rodent_like" is
+# chip_smoke.py's seeded dense case
+WIDE_CASES = (("pair_a", "ratpair", False, 1024), ("pair_b", "ratpair_elliptic", False, 1024),
+              ("pair_c", "ratpair_newton", False, 1024), ("pair_batched_a", "ratpair", True, 1024),
+              ("rat_a", "rat", False, 2048), ("rodent_like", "rodent_like", True, 2048))
+PAIR_OCCUPANCY_ENVS = (132, 528, 1024)
+# nv of the dense case at 590 rows for the one-warp / wide comparison
+EDGE_NV = (8, 12, 15, 16, 20, 24, 32, 36, 48, 71)
 FACTOR_SIZES = (7, 10, 73, 144, 146)
 SOLVE_SIZES = (7, 10, 73, 146)  # spd_solve, solve_batched and the inverses
 OCCUPANCY_ENVS = (132, 528, 2048)
@@ -124,6 +151,100 @@ def profile_device(fn, reps: int):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def wide_case(cs, model: str, dense: bool, B: int):
+    """(launch args, keywords, dense) of a wide case at B envs, or None
+    where the tree lacks its model file."""
+    if model == "rodent_like":
+        args, kw = cs.rodent_like_case("cuda", B, cs.SEED)
+        return args, kw, True
+    try:
+        _, args, kw = cs.solve_case("cuda", model, B, cs.SEED)
+    except (KeyError, AttributeError, FileNotFoundError):
+        return None
+    if dense:
+        args, kw = cs.dense_case(args, kw)
+    return args, kw, dense
+
+
+def warps_sweep(cs, root: str, counts, reps: int) -> dict:
+    """``--warps``: the wide core per warp count and against the one-warp
+    core (see the module docstring)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+    from brax_tracking_tpu_torch.ops import library
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out_dir = os.path.join(here, "runs", "warps")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(root, "brax_tracking_tpu_torch", "ops", "csrc", "cg_fused.cu")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    builds = {}
+    for w in counts:
+        so = os.path.join(out_dir, f"libcg_w{w}.so")
+        builds[w] = (so, subprocess.Popen(
+            [nvcc, "-O3", "-gencode=arch=compute_90a,code=sm_90a", f"-DCG_WIDE_WARPS_L1={w}",
+             f"-DCG_WIDE_WARPS_L2={w}", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+             "-o", so, src],
+            stderr=subprocess.PIPE, text=True))
+    library.build()
+    own, own_warps = library._LIB, ops_cg.WIDE_WARPS
+    report = {"ptxas": {}, "warps_us": {}, "edge_us": {}}
+    cases = {key: wide_case(cs, model, dense, B) for key, model, dense, B in WIDE_CASES}
+    last1 = cs.l2_edges()[0]
+    cases["l1_last"] = tuple(cs.rodent_like_case(
+        "cuda", 1024, cs.SEED, None, {"nv": last1, "nefc": cs.PAIR_ROWS, "nlim": 4})) + (True,)
+    for w, (so, proc) in builds.items():
+        _, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc with {w} warps per env failed:\n{err[-4000:]}")
+        info, fn = {}, None
+        for line in err.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+            if m:
+                fn = m.group(1)
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores")):
+                m = re.search(pat, line)
+                if m and fn and f"Li{w}EE" in fn:
+                    info.setdefault(fn, {})[key] = int(m.group(1))
+        report["ptxas"][w] = info
+        lib = ctypes.CDLL(so)
+        for name in ("cg_fused_launch", "cg_batched_launch"):
+            getattr(lib, name).argtypes = library._SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        library._LIB, ops_cg.WIDE_WARPS = lib, {1: w, 2: w}
+        try:
+            report["warps_us"][w] = {
+                key: min(device_us(cs.kernel_launch(c[0], c[1], c[2]),
+                                   "cg_batched_kernel" if c[2] else "cg_fused_kernel", 5)
+                         for _ in range(reps))
+                for key, c in cases.items() if c is not None}
+        finally:
+            library._LIB, ops_cg.WIDE_WARPS = own, own_warps
+        print(json.dumps({"warps": w, "us": report["warps_us"][w]}), flush=True)
+    edge = {f"dense_nv{nv}": tuple(cs.rodent_like_case(
+        "cuda", 2048, cs.SEED, None, {"nv": nv, "nefc": cs.PAIR_ROWS, "nlim": 4})) + (True,)
+        for nv in EDGE_NV}
+    edge["rat_a"], edge["rodent_like"] = cases["rat_a"], cases["rodent_like"]
+    wide_above = ops_cg.WIDE_ABOVE_SMEM
+    for key, c in edge.items():
+        if c is None:
+            continue
+        tag = "cg_batched_kernel" if c[2] else "cg_fused_kernel"
+        row = {}
+        for core, above in (("one_warp", 10 ** 9), ("wide", 0)):
+            ops_cg.WIDE_ABOVE_SMEM = above
+            try:
+                row[core] = min(device_us(cs.kernel_launch(c[0], c[1], c[2]), tag, 10)
+                                for _ in range(reps))
+            finally:
+                ops_cg.WIDE_ABOVE_SMEM = wide_above
+        report["edge_us"][key] = row
+        print(json.dumps({"edge": key, "us": row}), flush=True)
+    return report
+
+
 def device_us(fn, tag: str, reps: int = 20) -> float:
     """Mean device us per call of ``fn`` of the CUDA kernels whose name
     holds ``tag`` (profile_device). A profile that does not see exactly
@@ -147,6 +268,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seeded-only", action="store_true")
+    ap.add_argument("--warps", default=None,
+                    help="comma-separated warp counts of the wide core to sweep")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -161,6 +284,11 @@ def main() -> int:
     from brax_tracking_tpu_torch.ops import library
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.warps:
+        counts = [int(w) for w in args.warps.split(",")]
+        print(json.dumps({"root": root, "card": cs.card_line()}
+                         | warps_sweep(cs, root, counts, args.reps)))
+        return 0
     library.build()
     csrc = os.path.join(root, "brax_tracking_tpu_torch", "ops", "csrc")
     report = {"root": root, "card": cs.card_line(),
@@ -175,6 +303,11 @@ def main() -> int:
         launch = cs.kernel_launch(kargs, kw, batched)
         tag = "cg_batched_kernel" if batched else "cg_fused_kernel"
         seeded[key] = [device_us(launch, tag, 100) for _ in range(args.reps)]
+    for key, model, dense, B in WIDE_CASES:
+        case = wide_case(cs, model, dense, B)
+        if case is not None:
+            tag = "cg_batched_kernel" if case[2] else "cg_fused_kernel"
+            seeded[key] = [device_us(cs.kernel_launch(*case), tag, 10) for _ in range(args.reps)]
     report["seeded_us"] = seeded
     keys = ("factor_us", "factor_library_us", "factor_library_device_us", "spd_solve_us",
             "spd_solve_library_device_us", "solve_us", "solve_library_device_us", "inverse_us",
@@ -215,6 +348,11 @@ def main() -> int:
         part = [t[:B] if t.shape[0] == cs.B_MAIN else t for t in kargs]
         launch = cs.kernel_launch([t.contiguous() for t in part], kw)
         occ[f"a/{B}"] = min(device_us(launch, "cg_fused_kernel", 100) for _ in range(args.reps))
+    _, kargs, kw = cs.solve_case("cuda", "ratpair", max(PAIR_OCCUPANCY_ENVS), cs.SEED)
+    for B in PAIR_OCCUPANCY_ENVS:
+        part = [t[:B].contiguous() if t.shape[0] == max(PAIR_OCCUPANCY_ENVS) else t for t in kargs]
+        launch = cs.kernel_launch(part, kw)
+        occ[f"pair_a/{B}"] = min(device_us(launch, "cg_fused_kernel", 10) for _ in range(args.reps))
     for nv, counts in OCCUPANCY_CHOL.items():
         M, b, damp = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
         U = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()

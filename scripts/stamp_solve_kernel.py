@@ -8,8 +8,10 @@ boundary of ``cg_core`` and its two kernels, builds the copy with ``nvcc``
 into a library of its own and runs it on chip_smoke.py's seeded states
 (2048 envs) of the three ``cg_solve_fused`` instances: (a) the minirat,
 (b) the elliptic minirat, (c) a Newton chunk; with ``--pair``, the same
-three on the two-rat stand-in (1024 envs, layout 2: J in device memory).
-Lane 0 of each env adds the cycles since the last stamp to its phase:
+three on the two-rat stand-in (1024 envs, layout 2: J in device memory),
+which run the wide core (``cg_core_wide``, several warps per env). Lane 0
+of each env (thread 0 in the wide core, whose warp runs the core's scalar
+work) adds the cycles since the last stamp to its phase:
 
 - ``assembly``: qM and J (or their dense loads) and the per-env vectors;
 - ``sweep``: M^-1;
@@ -51,8 +53,8 @@ PHASES = ("assembly", "sweep", "start", "products", "phi0", "bracket", "ls", "st
 NSLOT = len(PHASES) + 1  # the last slot counts CG iterations
 # the line that ends the products where they have a pass of their own, and
 # the one that reads their sums where they share phi'(0)'s pass
-SPLIT_PRODUCTS = r"^    const float gauss_p = dot\(s\.p, s\.mxa, nv, lane\);$"
-FUSED_PRODUCTS = r"^    const float pmp = r4\[0\], gauss_p = r4\[1\];$"
+SPLIT_PRODUCTS = r"^ +const float gauss_p = dot\(s\.p, s\.mxa, nv, lane\);$"
+FUSED_PRODUCTS = r"^ +const float pmp = r4\[0\], gauss_p = r4\[1\];$"
 
 STAMPS = """
 constexpr int kNStamp = %d;
@@ -75,59 +77,85 @@ struct Stamps {
       for (int k = 0; k < kNStamp; ++k) g_stamp[(size_t)b * kNStamp + k] = c[k];
   }
 };
-""" % NSLOT
+"""
 
 
-def stamped_source(src: str) -> tuple[str, tuple[str, ...]]:
+def _span(src: str, head: str) -> tuple[int, int]:
+    """The [start, end) of the function whose definition starts with
+    ``head`` (up to its closing brace at column 0)."""
+    start = src.index(head)
+    return start, src.index("\n}\n", start) + 3
+
+
+def stamped_source(src: str, wide: bool = False) -> tuple[str, tuple[str, ...]]:
     """``src`` with the stamps inserted after (or before) anchor lines of
-    the solve core, and the phases it reports; raises if an anchor of the
-    core's layout is missing or found more often than expected."""
-    split = len(re.findall(SPLIT_PRODUCTS, src, flags=re.M))
-    fused = len(re.findall(FUSED_PRODUCTS, src, flags=re.M))
+    the solve core (the one-warp ``cg_core``, or with ``wide`` the wide
+    ``cg_core_wide``, whose scalar work runs on warp 0: thread 0's clock
+    splits it, waits at the block's barriers included), and the phases it
+    reports; raises if an anchor of the core is missing or found more often
+    than expected."""
+    core = "cg_core_wide" if wide else "cg_core"
+    head = f"__device__ __forceinline__ void {core}(const Args& a, "
+    lo, hi = _span(src, head)
+    body = src[lo:hi]
+    split = len(re.findall(SPLIT_PRODUCTS, body, flags=re.M))
+    fused = len(re.findall(FUSED_PRODUCTS, body, flags=re.M))
     if (split, fused) not in ((1, 0), (0, 1)):
         raise ValueError(f"products anchors found {split} (own pass) and {fused} (shared "
                          "with phi'(0)) times; expected one of them once")
 
-    def after(pattern, text, count=1):
-        nonlocal src
-        new, n = re.subn(pattern, lambda m: m.group(0) + text, src, flags=re.M)
+    def edit(text, pattern, new, count):
+        out, n = re.subn(pattern, new, text, flags=re.M)
         if n != count:
             raise ValueError(f"anchor {pattern!r} found {n} times")
-        src = new
+        return out
+
+    def after(pattern, text, count=1):
+        nonlocal body
+        body = edit(body, pattern, lambda m: m.group(0) + text, count)
 
     def before(pattern, text, count=1):
-        nonlocal src
-        new, n = re.subn(pattern, lambda m: text + m.group(0), src, flags=re.M)
-        if n != count:
-            raise ValueError(f"anchor {pattern!r} found {n} times")
-        src = new
+        nonlocal body
+        body = edit(body, pattern, lambda m: text + m.group(0), count)
 
     ph = {p: k for k, p in enumerate(PHASES)}
     mark = lambda p: f"\n  st.mark({ph[p]});"
-    after(r"^constexpr float kMinval = .*;$", STAMPS)
-    after(r"void cg_core\(const Args& a, const Smem& s, int b, int lane", ", Stamps& st")
-    before(r"^  matvec\(s\.Mi, ld, s\.qfs, s\.a0, nv, nv, lane\);$", f"  st.mark({ph['sweep']});\n")
+    who = "tid" if wide else "lane"
+    after(rf"void {core}\(const Args& a, const Smem\w? ?& s, int b, int {who}", ", Stamps& st")
+    if wide:
+        after(r"^  sweep::panels<kWide, kPanel>\(.*\);$", mark("sweep"))
+    else:
+        before(r"^  matvec\(s\.Mi, ld, s\.qfs, s\.a0, nv, nv, lane\);$",
+               f"  st.mark({ph['sweep']});\n")
     before(r"^  bool done = false;$", f"  st.mark({ph['start']});\n")
     after(r"^    if \(done\) break;.*$", f"\n    st.c[{NSLOT - 1}] += 1;")
     if split:
         after(SPLIT_PRODUCTS, mark("products"))
-    after(r"^    const float guess = .*;$", mark("phi0"))
-    before(r"^    float alpha = fminf\(guess, hi\);$", f"    st.mark({ph['bracket']});\n")
-    before(r"^    // step, then the cost", f"    st.mark({ph['ls']});\n")
+    after(r"^ +const float guess = .*;$", mark("phi0"))
+    before(r"^ +float alpha = fminf\(guess, hi\);$", f"    st.mark({ph['bracket']});\n")
+    before(r"^ +// step, then the (constraint )?cost", f"    st.mark({ph['ls']});\n")
     after(r"improvement < stall_tol \* fabsf\(cost_new\)\);$", mark("step"))
-    after(r"^  if \(lane == 0\) a\.done\[b\] = done \? 1 : 0;$", mark("outputs"))
-    after(r"qvel_new\[v\] = __ldg\(qvel \+ v\) \+ a\.dt \* s\.x\[v\];\n  \}",
-          mark("euler") + "\n  st.write(b, lane);")
-    after(r"^  Smem s = carve<kL2>\(sm, nv, nefc, a\.nell\);$", "\n  Stamps st;\n  st.init();",
-          count=2)
-    before(r"^  cg_core<kEll, kWarm, kL2>\(a, s, b, lane\);$", "  st.mark(0);\n", count=2)
-    src = src.replace("  cg_core<kEll, kWarm, kL2>(a, s, b, lane);",
-                      "  cg_core<kEll, kWarm, kL2>(a, s, b, lane, st);")
-    after(r"^\}  // namespace$", """
+    after(rf"^  if \({who} == 0\) a\.done\[b\] = done \? 1 : 0;$", mark("outputs"))
+    after(rf"qvel_new\[v\] = __ldg\(qvel \+ v\) \+ a\.dt \* s\.x\[v\];\n  \}}",
+          mark("euler") + f"\n  st.write(b, {who});")
+    src = src[:lo] + body + src[hi:]
+
+    def whole(pattern, new, count):
+        nonlocal src
+        src = edit(src, pattern, new, count)
+
+    whole(r"^constexpr float kMinval = .*;$", lambda m: m.group(0) + STAMPS % NSLOT, 1)
+    carve = (r"^  +SmemW s = carve_wide<kL2>\(smw, nv, nefc, a\.nell\);$" if wide
+             else r"^  +Smem s = carve\(sm, nv, nefc, a\.nell\);$")
+    whole(carve, lambda m: m.group(0) + "\n  Stamps st;\n  st.init();", 2)
+    call = (r"^( +)cg_core_wide<kEll, kWarm, kL2, kW>\(a, s, b, tid\);$" if wide
+            else r"^( +)cg_core<kEll, kWarm>\(a, s, b, lane\);$")
+    whole(call, lambda m: f"{m.group(1)}st.mark(0);\n" + m.group(0)[:-2] + ", st);", 2)
+    whole(r"^\}  // namespace$", lambda m: m.group(0) + """
 
 extern "C" int stamp_set(long long* p) {
   return (int)cudaMemcpyToSymbol(g_stamp, &p, sizeof(p));
-}""")
+}""", 1)
     if split:
         return src, PHASES
     return src, tuple("products_phi0" if p == "phi0" else p for p in PHASES if p != "products")
@@ -157,7 +185,7 @@ def main() -> int:
     tag = re.sub(r"\W", "_", os.path.relpath(root, here)).strip("_") or "tree"
     cu = os.path.join(out_dir, f"cg_stamped_{tag}.cu")
     with open(os.path.join(csrc, "cg_fused.cu")) as f:
-        text, phases = stamped_source(f.read())
+        text, phases = stamped_source(f.read(), wide=args.pair)
     slots = [PHASES.index("phi0" if p == "products_phi0" else p) for p in phases]
     with open(cu, "w") as f:
         f.write(text)

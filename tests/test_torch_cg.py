@@ -275,33 +275,123 @@ def test_float32_error_is_rounding_not_conditioning(capsys):
     assert 0.2 < e_port32 / e_jax32 < 5.0
 
 
-def test_kernel_layout_rule(monkeypatch):
+def _file_point(npz, **options):
+    """kernel_layout's arguments for a frozen file: (nv, nefc, nell,
+    nroots, ncon), as solver._kernel_args passes them."""
+    m = tspec.load_model(npz, device="cpu", **options)
+    layout = tCn.efc_layout(m)
+    st = tS._solve_statics(m, layout)
+    return (m.nv, layout.nefc, len(st["kw"]["ell_mu"]), len(st["kw"]["root_bounds"]), m.ncon)
+
+
+# kernel_layout's points: the files the port runs, a rodent-size env, the
+# one-warp / wide edge and layout 2's design edges at the pair's 590 rows
+# (chip_smoke.py's wide_edges and l2_edges), and layout 2's widest env.
+# Expected (layout, shared memory per block, warps per env): the one-warp
+# block's kernel_smem_bytes where at least three share an SM (<= 76,800 B),
+# else the wide block's wide_smem_bytes on 8 warps in layout 1, 16 in
+# layout 2.
+LAYOUT_POINTS = {
+    "minirat": (lambda: (10, 92, 0, 1, 22), (1, 11224, 1)),
+    "minirat_elliptic": (lambda: _file_point(tspec.MINIRAT_ELLIPTIC_NPZ), (1, 9552, 1)),
+    "minirat_newton": (lambda: _file_point(tspec.MINIRAT_NEWTON_NPZ,
+                                           **tspec.MINIRAT_NEWTON_OPTIONS), (1, 11224, 1)),
+    "ballmuscle": (lambda: _file_point(tspec.BALLMUSCLE_NPZ["cg"], solver="cg"), (1, 1320, 1)),
+    "rodent_size": (lambda: (73, 300, 0, 1, 70), (1, 144064, 8)),
+    "rat": (lambda: _file_point(tspec.RAT_NPZ), (1, 100784, 8)),
+    "ratpair": (lambda: _file_point(tspec.RATPAIR_NPZ), (2, 195936, 16)),
+    "ratpair_elliptic": (lambda: _file_point(tspec.RATPAIR_ELLIPTIC_NPZ), (2, 195008, 16)),
+    "ratpair_newton": (lambda: _file_point(tspec.RATPAIR_NEWTON_NPZ,
+                                           **tspec.MINIRAT_NEWTON_OPTIONS), (2, 195936, 16)),
+    "narrow_last": (lambda: (23, 590), (1, 74972, 1)),
+    "wide_first": (lambda: (24, 590), (1, 79056, 8)),
+    "l1_last": (lambda: (72, 590), (1, 231696, 8)),
+    "l2_first": (lambda: (73, 590), (2, 63440, 16)),
+    "l2_last": (lambda: (160, 590), (2, 227312, 16)),
+    "l2_widest": (lambda: (164, 364), (2, 232448, 16)),
+}
+
+
+@pytest.mark.parametrize("point", sorted(LAYOUT_POINTS))
+def test_kernel_layout_rule(point):
     """ops/cg.py::kernel_layout, the one rule the wrappers and the solver's
-    dispatch share: layout 1 (the whole env in one block) for the minirat,
-    the ballmuscle's sizes and a rodent-size env (nv 73, one root, 70 slots);
-    layout 2 (J in device memory) for the two-rat stand-in, pyramidal and
-    elliptic; NotImplementedError naming §A.10 past layout 2's bound
-    (4 (2 nv ld + 6 nefc + 25 nv + 4 nell) <= 232,448 B: nv 159 at the
-    pair's 590 rows, nv 163 up to 149 rows)."""
-    assert tcg.kernel_layout(10, 92, 0, 1, 22) == (1, 11224)
-    bm = tspec.load_model(tspec.BALLMUSCLE_NPZ["cg"], device="cpu", solver="cg")
-    assert tcg.kernel_layout(bm.nv, tCn.efc_layout(bm).nefc, 0, 1, bm.ncon)[0] == 1
-    assert tcg.kernel_layout(73, 300, 0, 1, 70)[0] == 1
-    for npz, nell, smem in ((tspec.RATPAIR_NPZ, 0, 200456), (tspec.RATPAIR_ELLIPTIC_NPZ, 114, 199544)):
-        m = tspec.load_model(npz, device="cpu")
-        nefc = tCn.efc_layout(m).nefc
-        assert tcg.kernel_smem_bytes(m.nv, nefc, nell, 2, m.ncon) > tcg.H100_SMEM_PER_BLOCK
-        assert tcg.kernel_layout(m.nv, nefc, nell, 2, m.ncon) == (2, smem)
-    assert tcg.kernel_layout(159, 590)[0] == 2
-    assert tcg.kernel_layout(163, 149) == (2, 4 * 58107)
-    for nv, nefc in ((160, 590), (163, 150), (164, 0)):
+    dispatch share: (layout, shared memory per block, warps per env) at
+    each of LAYOUT_POINTS. One warp in layout 1 for the minirat's three
+    files and the ballmuscle (16 and more envs per SM); the wide core
+    (WIDE_WARPS[layout] warps) in layout 1 for a rodent-size env and the one-rat
+    file, in layout 2 (J in device memory) for the two-rat stand-in's three
+    files; the edges at 590 rows."""
+    args, expected = LAYOUT_POINTS[point]
+    args = args()
+    assert tcg.kernel_layout(*args) == expected
+    layout, smem, warps = expected
+    if warps == 1:
+        assert smem == tcg.kernel_smem_bytes(*args) <= tcg.WIDE_ABOVE_SMEM
+    else:
+        assert tcg.kernel_smem_bytes(*args) > tcg.WIDE_ABOVE_SMEM
+        assert smem == tcg.wide_smem_bytes(*args[:3], l2=layout == 2) <= tcg.H100_SMEM_PER_BLOCK
+
+
+def test_kernel_layout_edges():
+    """chip_smoke.py's edges at the pair's 590 rows follow the rule: the
+    widest one-warp env and the first wide one (nv 23 / 24), the widest in
+    layout 1 and the first and widest in layout 2 (nv 72 / 73 / 160)."""
+    import chip_smoke as cs
+
+    assert cs.wide_edges() == (23, 24)
+    assert cs.l2_edges() == (72, 73, 160)
+    sizes = cs.seeded_dense()
+    for name, nv in (("narrow_last", 23), ("wide_first", 24), ("l1_last", 72),
+                     ("l2_first", 73), ("l2_last", 160)):
+        assert (sizes[name]["nv"], sizes[name]["nefc"]) == (nv, 590)
+        assert tcg.kernel_layout(nv, 590) == LAYOUT_POINTS[name][1]
+
+
+def test_kernel_layout_keeps_every_one_warp_env():
+    """No env the one-warp layouts ran raises now: wherever their rule took
+    an env (layout 1, 4 (2 nv ld + nefc ld + 6 nefc + 25 nv + 4 nell) <=
+    232,448 B with ld = nv | 1; or layout 2, 4 (2 nv ld + 6 nefc + 25 nv + 4
+    nell) <= 232,448 B), kernel_layout gives a layout within one block."""
+    limit = tcg.H100_SMEM_PER_BLOCK
+    for nv in range(1, 170):
+        ld = nv | 1
+        for nefc in list(range(0, 800, 13)) + [149, 150, 590]:
+            for nell in {0, nefc // 3}:
+                old = 4 * (2 * nv * ld + 6 * nefc + 25 * nv + 4 * nell)
+                if min(old + 4 * nefc * ld, old) > limit:
+                    continue
+                layout, smem, warps = tcg.kernel_layout(nv, nefc, nell)
+                assert warps in (1, tcg.WIDE_WARPS[layout]) and smem <= limit, (
+                    nv, nefc, nell)
+
+
+def test_kernel_layout_raises_past_layout_2(monkeypatch):
+    """NotImplementedError naming §A.10 past the wide layout 2's bound (nv
+    161 at 590 rows, nv 164 past 364 rows, nv 165 at no rows), and the
+    solver's dispatch asks the same rule."""
+    for nv, nefc in ((161, 590), (164, 365), (165, 0)):
         with pytest.raises(NotImplementedError, match=r"A\.10"):
             tcg.kernel_layout(nv, nefc)
-    # the solver's dispatch asks the same rule
     m = tspec.load_model(tspec.RATPAIR_NPZ, device="cpu")
     d = tstep.forward_to_constraint(m, tstep.make_data(m, 2, device="cpu"))
     tS._kernel_args(m, d, tCn.efc_layout(m))
     monkeypatch.setattr(tcg, "H100_SMEM_PER_BLOCK", 150_000)
     with pytest.raises(NotImplementedError, match=r"A\.10"):
         tS._kernel_args(m, d, tCn.efc_layout(m))
+
+
+@pytest.mark.parametrize("nv", [5, 8, 9, 16, 73, 146])
+def test_wide_sweep_panels(nv):
+    """The wide core's M^-1 (sweep.cuh's panels in 8-pivot panels) regroups
+    the scalar sweep: its plain version, _sweep_inverse_panels_reference at
+    nb = 8, agrees with sweep_inverse_reference in float64 on seeded SPD
+    matrices (condition number 1e3), at this file's tolerance."""
+    from brax_tracking_tpu_torch.ops import cholesky as tchol
+
+    rng = np.random.RandomState(nv)
+    q, _ = np.linalg.qr(rng.randn(3, nv, nv))
+    M = torch.as_tensor((q * 1e3 ** rng.rand(3, 1, nv)) @ q.transpose(0, 2, 1))
+    ref = tchol.sweep_inverse_reference(M)
+    out = tchol._sweep_inverse_panels_reference(M, nb=8)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=RTOL, atol=ATOL * float(ref.abs().max()))
 

@@ -204,5 +204,5 @@ def test_pair_like_case():
     for nm, k, t in zip(NAMES, kout, tout):
         np.testing.assert_allclose(t.numpy(), np.asarray(k), rtol=RTOL, atol=ATOL, err_msg=nm)
     last1, first2, last2 = cs.l2_edges(nefc)
-    assert (last1, first2, last2) == (71, 72, 159)
+    assert (last1, first2, last2) == (72, 73, 160)
     assert [tcg.kernel_layout(n, nefc)[0] for n in (last1, first2, last2)] == [1, 2, 2]

@@ -1,11 +1,14 @@
 """The two-rat stand-in at rodent_pair's sizes, on the CPU in float64.
 
 ``assets/ratpair.xml`` (written by ``assets/make_ratpair.py``) stands in for
-the pair scene, whose MJCF is not in the repository. Here:
+the pair scene, whose MJCF is not in the repository; ``assets/rat.xml``,
+one of its rats alone (nv 73, the rodent's width), for the solve kernel's
+wide layout 1. Here:
 
 - the committed XML is what the generator writes, and each frozen file
   equals a fresh ``freeze_mjcf`` of it, at the pair's sizes (nv 146, two
-  free roots, 114 contact slots, 590 rows pyramidal, 476 elliptic);
+  free roots, 114 contact slots, 590 rows pyramidal, 476 elliptic) and the
+  one rat's (nv 73, 24 slots, 163 rows);
 - ``spec._candidate_pairs`` against MuJoCo's own filters: with every
   capsule inflated to overlap every geom, MuJoCo's collision reports
   exactly the candidate pairs;
@@ -15,7 +18,8 @@ the pair scene, whose MJCF is not in the repository. Here:
 - the port's stages, qM and J, and one substep against the JAX package on
   the same XML (``build_model`` of the port's asset path), B = 2, through
   the JAX path its own CPU tests take: the vmapped step, whose CG solve runs
-  the array path (``_cg_arrays``) on the CPU, not the Pallas kernel. Stage
+  the array path (``_cg_arrays``) on the CPU, not the Pallas kernel; the one
+  rat's substep likewise. Stage
   tolerances as tests/test_torch_physics.py: atol 1e-12 on the position and
   velocity stages and contacts, 1e-10 on forces, rows and the solve; the
   substep's qpos and qvel at 1e-12; the elliptic file's substep likewise;
@@ -50,8 +54,15 @@ FILES = {
     "ratpair": (tspec.RATPAIR_XML, tspec.RATPAIR_NPZ, {}),
     "ratpair_elliptic": (tspec.RATPAIR_ELLIPTIC_XML, tspec.RATPAIR_ELLIPTIC_NPZ, {}),
     "ratpair_newton": (tspec.RATPAIR_XML, tspec.RATPAIR_NEWTON_NPZ, tspec.MINIRAT_NEWTON_OPTIONS),
+    "rat": (tspec.RAT_XML, tspec.RAT_NPZ, {}),
 }
-NEFC = {"ratpair": 590, "ratpair_elliptic": 476, "ratpair_newton": 590}
+NEFC = {"ratpair": 590, "ratpair_elliptic": 476, "ratpair_newton": 590, "rat": 163}
+# (nq, nv, nbody, ngeom, nu), root dof ranges, contact slots, limit rows and
+# slots between the two roots of each file
+SIZES = {
+    "ratpair": ((148, 146, 133, 201, 60), ((0, 73), (73, 146)), 114, 134, 66),
+    "rat": ((74, 73, 67, 101, 30), ((0, 73),), 24, 67, 0),
+}
 STAGES = {
     1e-12: (
         "xpos", "xquat", "xipos", "xanchor", "xaxis", "geom_xpos", "geom_xquat",
@@ -89,9 +100,9 @@ def _states(m, seed=0, drop=0.01):
 
 
 def test_xml_is_the_generators():
-    for path, cone in ((tspec.RATPAIR_XML, "pyramidal"), (tspec.RATPAIR_ELLIPTIC_XML, "elliptic")):
-        with open(path) as f:
-            assert f.read() == make_ratpair.ratpair_xml(cone), os.path.basename(path)
+    for name, cone, rats in make_ratpair.FILES:
+        with open(os.path.join(os.path.dirname(tspec.RATPAIR_XML), name)) as f:
+            assert f.read() == make_ratpair.ratpair_xml(cone, rats), name
 
 
 @pytest.mark.parametrize("name", sorted(FILES))
@@ -106,25 +117,28 @@ def test_committed_npz_matches_fresh_freeze(tmp_path, name):
     m = tspec.load_model(npz, device="cpu", **options)
     layout = tCn.efc_layout(m)
     roots = tS._fused_statics(m, layout)["root_bounds"]
-    assert (m.nq, m.nv, m.nbody, m.ngeom, m.nu) == (148, 146, 133, 201, 60)
-    assert roots == ((0, 73), (73, 146))
-    assert (m.ncon, layout.nefc, layout.limit_jnt.size) == (114, NEFC[name], 134)
+    dims, bounds, ncon, nlim, cross = SIZES["rat" if name == "rat" else "ratpair"]
+    assert (m.nq, m.nv, m.nbody, m.ngeom, m.nu) == dims
+    assert roots == bounds
+    assert (m.ncon, layout.nefc, layout.limit_jnt.size) == (ncon, NEFC[name], nlim)
     assert tS.quad_kernel_eligible(m)
     # cross-body slots: rat 0 against rat 1
     b1 = np.asarray(m.body_rootid)[np.asarray(m.geom_bodyid)[layout.con_geom1]]
     b2 = np.asarray(m.body_rootid)[np.asarray(m.geom_bodyid)[layout.con_geom2]]
-    assert int(((b1 != b2) & (b1 != 0)).sum()) == 66
-    for kind, name_ in (("body", "torso-0"), ("body", "foot_L-1"), ("body", "hand_R-0"),
-                        ("joint", "vertebra_1_extend-1"), ("joint", "hip_L_supinate-0")):
+    assert int(((b1 != b2) & (b1 != 0)).sum()) == cross
+    names = (("body", "torso-0"), ("body", "hand_R-0"), ("joint", "hip_L_supinate-0"))
+    if name != "rat":
+        names += (("body", "foot_L-1"), ("joint", "vertebra_1_extend-1"))
+    for kind, name_ in names:
         assert tspec.name2id(m, kind, name_) >= 0, name_
 
 
-def test_candidate_pairs_against_mujoco():
+def _candidate_pairs_against_mujoco(xml):
     """With every capsule's radius raised to 0.5 m every geom overlaps every
     other, so MuJoCo's collision (broadphase, contype/conaffinity, parent,
     weld and <exclude> filters) reports a contact for each pair it lets
-    through: that set must equal _candidate_pairs'."""
-    spec_ = mujoco.MjSpec.from_file(tspec.RATPAIR_XML)
+    through: that set must equal _candidate_pairs'. Returns its size."""
+    spec_ = mujoco.MjSpec.from_file(xml)
     for g in spec_.geoms:
         if g.type == mujoco.mjtGeom.mjGEOM_CAPSULE:
             g.size[0] = 0.5
@@ -133,11 +147,21 @@ def test_candidate_pairs_against_mujoco():
     mujoco.mj_forward(mjm, mjd)
     seen = {tuple(sorted(map(int, g))) for g in zip(mjd.contact.geom1, mjd.contact.geom2)}
     ours = {tuple(sorted(p)) for p in tspec._candidate_pairs(mjm)}
-    assert len(ours) == 57
     assert seen == ours
+    return len(ours)
 
 
-@pytest.mark.parametrize("name", ["ratpair", "ratpair_elliptic"])
+def test_candidate_pairs_against_mujoco():
+    assert _candidate_pairs_against_mujoco(tspec.RATPAIR_XML) == 57
+
+
+def test_candidate_pairs_against_mujoco_one_rat():
+    """The one rat: its 12 floor geoms against the floor, nothing else (its
+    cross-body bits meet no geom)."""
+    assert _candidate_pairs_against_mujoco(tspec.RAT_XML) == 12
+
+
+@pytest.mark.parametrize("name", ["ratpair", "ratpair_elliptic", "rat"])
 def test_forward_against_mujoco(name):
     xml, npz, _ = FILES[name]
     m = tspec.load_model(npz, device="cpu")
@@ -149,7 +173,7 @@ def test_forward_against_mujoco(name):
         qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel)))
     st = tS._solve_statics(m, tCn.efc_layout(m))
     kw = st["kw"]
-    Bm = tcg._bm(st["P"], d.con_A, 2, m.ncon)
+    Bm = tcg._bm(st["P"], d.con_A, len(kw["root_bounds"]), m.ncon)
     qM, _ = tcg.assemble_qM_J(d.crb_f, d.cdof, Bm, d.efc_jsign, st["md"], m.dof_armature,
                               row_slot=kw["row_slot"], sz=kw["sz"],
                               root_bounds=kw["root_bounds"], limit_dadr=kw["limit_dadr"])
@@ -254,6 +278,16 @@ def _substeps(name, seed=3, **options):
         qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel), ctrl=torch.as_tensor(ctrl)),
         device="cpu")
     return js, ts
+
+
+def test_one_substep_one_rat():
+    """The one rat (the solve kernel's wide layout 1 on the card): one
+    substep against the JAX package, at the pair's substep tolerances."""
+    js, ts = _substeps("rat")
+    assert bool(np.asarray(js.efc_pos < js.efc_margin)[:, 67:].any())  # contacts active
+    for k, atol in (("qpos", 1e-12), ("qvel", 1e-12), ("qacc", 1e-10)):
+        np.testing.assert_allclose(getattr(ts, k).numpy(), np.asarray(getattr(js, k)),
+                                   atol=atol, rtol=0, err_msg=k)
 
 
 def test_one_substep_elliptic():
