@@ -1,10 +1,12 @@
 """Writes ``ratpair.xml`` and ``ratpair_elliptic.xml``, a two-rat stand-in
 at the sizes of the rodent_pair scene (configs/dataset/rodent_pair.yaml),
-and ``rat.xml``, one of its rats alone on the floor.
+``rat.xml``, one of its rats alone on the floor, and
+``rodent_standin.xml``, a stand-in for the flagship rodent.
 
-    python -m brax_tracking_tpu_torch.assets.make_ratpair
+    python -m brax_tracking_tpu_torch.assets.make_ratpair [--freeze]
 
-The pair's own MJCF is not in this repository, so the pair path is built
+``--freeze`` then freezes them as the port loads them (``freeze``; needs
+the ``mujoco`` bindings). The pair's own MJCF is not in this repository, so the pair path is built
 and held on this fixture. It matches the pair's sizes: two free roots,
 nq = 148, nv = 146 (134 hinges), nbody = 133, ngeom = 201, nu = 60, and
 114 contact slots that give nefc = 590 under pyramidal condim-3 contacts
@@ -31,6 +33,20 @@ width, whose MJCF is not in the repository either), its 12 floor geoms
 against the floor (24 contact slots, 163 rows under pyramidal CG 4/4) and
 its 30 motors: a stand-in at the flagship rodent's width for the solve
 kernel's wide layout 1.
+
+``rodent_standin.xml`` stands in for the flagship rodent
+(configs/dataset/rodent.yaml; its MJCF is not in this repository either):
+its sizes (nq 74, nv 73 = 6 + 67 hinges, nbody 67, njnt 68, ngeom 101,
+nsite 21, nu = na = 38), every body and joint name the config looks up, and
+its kinds of features: per-class joint damping and armature, four
+unlimited fixed tendons, 38 ``<general>`` actuators with filter dynamics and
+an affine bias (position servos, four of them on the tendons), touch
+sensors on the feet and hands, an accelerometer, a velocimeter and a gyro
+on a torso site and the torso's subtree linear velocity, and floor contacts
+through plane-capsule, plane-sphere and plane-ellipsoid pairs (13 floor
+geoms, 17 contact slots, 135 rows under pyramidal CG 4/4 with the 67
+limited hinges). The config rescales the subtree under the torso by 0.9;
+after that the feet and hands hover 4-7 mm above the floor at qpos0.
 """
 
 from __future__ import annotations
@@ -60,15 +76,30 @@ MOTORS = (
 )
 
 
-class _Rat:
+class _Bodies:
+    """Nested ``<body>`` XML as it is written, indented inside worldbody."""
+
+    def __init__(self):
+        self.lines = []
+        self.depth = 2
+
+    def _emit(self, text: str):
+        self.lines.append("  " * self.depth + text)
+
+    def close(self, n: int = 1):
+        for _ in range(n):
+            self.depth -= 1
+            self._emit("</body>")
+
+
+class _Rat(_Bodies):
     """One rat's bodies as nested XML, with the suffix and the collision
     bits of rat ``idx``."""
 
     def __init__(self, idx: int):
+        super().__init__()
         self.idx = idx
         self.suffix = f"-{idx}"
-        self.lines = []
-        self.depth = 2
 
     def _bits(self, geom: str):
         contype, conaff = 0, 0
@@ -79,9 +110,6 @@ class _Rat:
         if self.idx == 1 and geom in CROSS_TARGETS:
             conaff |= CROSS_BIT
         return contype, conaff
-
-    def _emit(self, text: str):
-        self.lines.append("  " * self.depth + text)
 
     def open(self, name: str, pos, joints=()):
         self._emit(f'<body name="{name}{self.suffix}" pos="{_v(pos)}">')
@@ -94,10 +122,6 @@ class _Rat:
         contype, conaff = self._bits(name)
         self._emit(f'<geom name="{name}{self.suffix}" fromto="{_v(a)} {_v(b)}" size="{r}" '
                    f'contype="{contype}" conaffinity="{conaff}"/>')
-
-    def close(self):
-        self.depth -= 1
-        self._emit("</body>")
 
     def build(self, y0: float):
         # at qpos0 the feet and hands hover 5 mm above the floor, as the
@@ -247,19 +271,309 @@ def ratpair_xml(cone: str = "pyramidal", rats: int = 2) -> str:
 # the files write() makes: name, cone, rats
 FILES = (("ratpair.xml", "pyramidal", 2), ("ratpair_elliptic.xml", "elliptic", 2),
          ("rat.xml", "pyramidal", 1))
+STANDIN = "rodent_standin.xml"
+
+
+# ---------------------------------------------------------------------------
+# the rodent stand-in
+# ---------------------------------------------------------------------------
+
+# the torso's height at qpos0; the rescale leaves it and lifts the limbs
+STANDIN_TORSO_Z = 0.065
+# joint classes: damping, armature, servo gain (N m per rad, also the force
+# limit)
+STANDIN_CLASSES = {
+    "spine": (0.02, 2e-4, 0.05),
+    "tail": (0.002, 2e-5, 0.005),
+    "limb": (0.01, 1e-4, 0.03),
+    "head": (0.005, 5e-5, 0.01),
+    "digit": (0.001, 1e-5, 0.002),
+}
+# the 38 actuators: four on the fixed tendons, 34 on hinges (name = target)
+STANDIN_TENDON_ACTUATORS = ("spine_extend", "spine_bend", "tail_extend", "tail_bend")
+STANDIN_JOINT_ACTUATORS = (
+    "vertebra_3_twist", "vertebra_cervical_3_twist", "vertebra_axis_twist",
+    "vertebra_atlant_extend", "atlas", "mandible",
+) + tuple(j for s in "LR" for j in (
+    f"hip_{s}_supinate", f"hip_{s}_abduct", f"hip_{s}_extend", f"knee_{s}", f"ankle_{s}",
+    f"toe_{s}", f"scapula_{s}_supinate", f"scapula_{s}_abduct", f"scapula_{s}_extend",
+    f"shoulder_{s}", f"shoulder_sup_{s}", f"elbow_{s}", f"wrist_{s}", f"finger_{s}"))
+# the tail: 24 vertebrae, each with one hinge (the config's 18 and six more)
+STANDIN_TAIL = (
+    "C1_extend", "C2_bend", "C3_extend", "C4_extend", "C5_bend", "C6_extend", "C7_extend",
+    "C8_bend", "C9_bend", "C10_extend", "C11_extend", "C12_bend", "C13_bend", "C14_extend",
+    "C15_extend", "C16_bend", "C17_bend", "C18_extend", "C19_extend", "C21_bend",
+    "C23_extend", "C25_bend", "C27_extend", "C29_bend")
+_AXES = {"extend": (0, 1, 0), "bend": (0, 0, 1), "twist": (1, 0, 0), "supinate": (1, 0, 0),
+         "abduct": (0, 0, 1)}
+
+
+class _Rodent(_Bodies):
+    """The stand-in's bodies as nested XML; ``joint_class`` maps each hinge
+    to its default class."""
+
+    def __init__(self):
+        super().__init__()
+        self.joint_class = {}
+
+    def open(self, name: str, pos, joints=(), cls="limb"):
+        """A body with hinges (name, axis, lo, hi) of joint class ``cls``."""
+        self._emit(f'<body name="{name}" pos="{_v(pos)}">')
+        self.depth += 1
+        for jname, axis, lo, hi in joints:
+            self.joint_class[jname] = cls
+            self._emit(f'<joint name="{jname}" class="{cls}" axis="{_v(axis)}" '
+                       f'range="{lo} {hi}"/>')
+
+    def capsule(self, name, a, b, r, floor=False):
+        self._emit(f'<geom name="{name}" fromto="{_v(a)} {_v(b)}" size="{r}"'
+                   + (' class="floor"/>' if floor else "/>"))
+
+    def sphere(self, name, pos, r, floor=False):
+        self._emit(f'<geom name="{name}" type="sphere" pos="{_v(pos)}" size="{r}"'
+                   + (' class="floor"/>' if floor else "/>"))
+
+    def ellipsoid(self, name, pos, size, floor=False):
+        self._emit(f'<geom name="{name}" type="ellipsoid" pos="{_v(pos)}" size="{_v(size)}"'
+                   + (' class="floor"/>' if floor else "/>"))
+
+    def site(self, name, pos, size=None):
+        box = f' type="box" size="{_v(size)}"' if size is not None else ""
+        self._emit(f'<site name="{name}" pos="{_v(pos)}"{box}/>')
+
+    def build(self):
+        self._emit(f'<body name="torso" pos="0 0 {STANDIN_TORSO_Z}">')
+        self.depth += 1
+        self._emit('<freejoint name="free"/>')
+        self.ellipsoid("torso_belly", (0, 0, -0.005), (0.035, 0.022, 0.02), floor=True)
+        self.capsule("torso_back", (-0.025, 0, 0.005), (0.025, 0, 0.005), 0.018)
+        self.capsule("torso_neck", (0.025, 0, 0.005), (0.04, 0, 0.006), 0.014)
+        self.site("torso_imu", (0, 0, 0.01))
+        self.site("marker_torso", (0, 0, 0.025))
+        self.open("sternum", (0.03, 0, -0.01))  # welded to the torso
+        self.sphere("sternum_g", (0, 0, 0), 0.012)
+        self.close()
+        self._lumbar()
+        self._neck()
+        for side, s in (("L", 1), ("R", -1)):
+            self._foreleg(side, s)
+        self.close()
+        return self.lines
+
+    def _lumbar(self):
+        x = (-0.035, 0, 0)
+        for k, kind in enumerate(("extend", "bend", "twist") * 2, start=1):
+            self.open(f"vertebra_{k}", x, [(f"vertebra_{k}_{kind}", _AXES[kind], -20, 20)],
+                      "spine")
+            self.capsule(f"vertebra_{k}_g", (0, 0, 0), (-0.01, 0, 0), 0.016)
+            if k == 3:
+                self.site("marker_vertebra_3", (-0.005, 0, 0.016))
+            x = (-0.01, 0, 0)
+        self.open("pelvis", (-0.01, 0, 0))  # welded to vertebra_6
+        self.ellipsoid("pelvis_g", (-0.015, 0, -0.003), (0.025, 0.02, 0.017), floor=True)
+        self.capsule("pelvis_g2", (-0.015, -0.02, 0), (-0.015, 0.02, 0), 0.01)
+        self.site("marker_pelvis", (-0.015, 0, 0.017))
+        for side, s in (("L", 1), ("R", -1)):
+            self._hindleg(side, s)
+        self._tail()
+        self.close(7)  # pelvis and the six lumbar vertebrae
+
+    def _hindleg(self, side: str, s: int):
+        self.open(f"upper_leg_{side}", (-0.015, s * 0.022, 0), [
+            (f"hip_{side}_supinate", _AXES["supinate"], -30, 30),
+            (f"hip_{side}_abduct", _AXES["abduct"], -30, 30),
+            (f"hip_{side}_extend", _AXES["extend"], -60, 60)])
+        self.capsule(f"upper_leg_{side}_g", (0, 0, 0), (0.01, 0, -0.03), 0.008)
+        self.capsule(f"upper_leg_{side}_g2", (0, 0, 0), (0.008, 0, -0.02), 0.007)
+        self.site(f"marker_upper_leg_{side}", (0.005, s * 0.008, -0.015))
+        self.open(f"lower_leg_{side}", (0.01, 0, -0.03), [(f"knee_{side}", _AXES["extend"], -90, 10)])
+        self.capsule(f"lower_leg_{side}_g", (0, 0, 0), (-0.012, 0, -0.03), 0.006)
+        self.capsule(f"lower_leg_{side}_g2", (0, 0, 0), (-0.008, 0, -0.02), 0.005)
+        self.site(f"marker_lower_leg_{side}", (-0.006, s * 0.006, -0.015))
+        self.open(f"foot_{side}", (-0.012, 0, -0.03), [(f"ankle_{side}", _AXES["extend"], -45, 45)])
+        self.capsule(f"foot_{side}_g", (0, 0, 0), (0.018, 0, -0.003), 0.004, floor=True)
+        self.site(f"sole_{side}", (0.009, 0, -0.003), (0.013, 0.005, 0.004))
+        self.open(f"heel_{side}", (-0.002, 0, -0.001))  # welded to the foot
+        self.sphere(f"heel_{side}_g", (0, 0, 0), 0.004, floor=True)
+        self.close()
+        self.open(f"toe_{side}", (0.018, 0, -0.003), [(f"toe_{side}", _AXES["extend"], -30, 30)],
+                  "digit")
+        self.sphere(f"toe_{side}_g", (0.004, 0, 0), 0.003, floor=True)
+        self.close(4)  # toe, foot, lower and upper leg
+
+    def _tail(self):
+        for k, joint in enumerate(STANDIN_TAIL):
+            name = "vertebra_" + joint.split("_")[0]
+            kind = joint.split("_")[1]
+            r = round(0.005 - 0.003 * k / (len(STANDIN_TAIL) - 1), 5)
+            self.open(name, (-0.03, 0, 0) if k == 0 else (-0.01, 0, 0),
+                      [("vertebra_" + joint, _AXES[kind], -25, 25)], "tail")
+            self.capsule(f"{name}_g", (0, 0, 0), (-0.01, 0, 0), r)
+            self.sphere(f"{name}_g2", (-0.005, 0, 0), round(1.1 * r, 5))
+            if joint == "C11_extend":
+                self.site("marker_tail_mid", (-0.005, 0, r))
+        self.open("tail_tip", (-0.01, 0, 0))  # welded to the last vertebra
+        self.sphere("tail_tip_g", (0, 0, 0), 0.002)
+        self.site("marker_tail_tip", (-0.002, 0, 0))
+        self.close(len(STANDIN_TAIL) + 1)
+
+    def _neck(self):
+        chain = (("vertebra_cervical_5", "extend"), ("vertebra_cervical_4", "bend"),
+                 ("vertebra_cervical_3", "twist"), ("vertebra_cervical_2", "extend"),
+                 ("vertebra_cervical_1", "bend"), ("vertebra_axis", "twist"),
+                 ("vertebra_atlant", "extend"))
+        for k, (name, kind) in enumerate(chain):
+            self.open(name, (0.045, 0, 0.005) if k == 0 else (0.008, 0, 0.003),
+                      [(f"{name}_{kind}", _AXES[kind], -30, 30)], "spine" if k < 5 else "head")
+            self.capsule(f"{name}_g", (0, 0, 0), (0.008, 0, 0.003), 0.011)
+            if name == "vertebra_cervical_3":
+                self.site("marker_neck", (0.004, 0, 0.012))
+        self.open("skull", (0.008, 0, 0.003), [("atlas", _AXES["extend"], -45, 45)], "head")
+        self.ellipsoid("skull_g", (0.02, 0, -0.003), (0.022, 0.013, 0.012))
+        self.capsule("skull_g2", (0.03, 0, -0.005), (0.045, 0, -0.01), 0.007)
+        self.site("marker_skull", (0.02, 0, 0.01))
+        self.open("jaw", (0.01, 0, -0.01), [("mandible", _AXES["extend"], -5, 30)], "head")
+        self.capsule("jaw_g", (0, 0, 0), (0.03, 0, -0.004), 0.005, floor=True)
+        self.site("marker_jaw", (0.02, 0, -0.006))
+        self.close()
+        for side, s in (("L", 1), ("R", -1)):
+            self.open(f"ear_{side}", (0.008, s * 0.01, 0.01))  # welded to the skull
+            self.ellipsoid(f"ear_{side}_g", (0, s * 0.001, 0.004), (0.004, 0.001, 0.006))
+            self.close()
+        self.open("nose", (0.048, 0, -0.01))  # welded to the skull
+        self.sphere("nose_g", (0, 0, 0), 0.003, floor=True)
+        self.close()
+        self.close(len(chain) + 1)  # the skull and the neck
+
+    def _foreleg(self, side: str, s: int):
+        self.open(f"scapula_{side}", (0.025, s * 0.018, -0.005), [
+            (f"scapula_{side}_supinate", _AXES["supinate"], -20, 20),
+            (f"scapula_{side}_abduct", _AXES["abduct"], -20, 20),
+            (f"scapula_{side}_extend", _AXES["extend"], -30, 30)])
+        self.capsule(f"scapula_{side}_g", (0, 0, 0), (0, s * 0.003, -0.015), 0.007)
+        self.open(f"upper_arm_{side}", (0, s * 0.003, -0.015), [
+            (f"shoulder_{side}", _AXES["extend"], -60, 60),
+            (f"shoulder_sup_{side}", _AXES["supinate"], -30, 30)])
+        self.capsule(f"upper_arm_{side}_g", (0, 0, 0), (-0.005, 0, -0.02), 0.006)
+        self.capsule(f"upper_arm_{side}_g2", (0, 0, 0), (-0.003, 0, -0.012), 0.005)
+        self.site(f"marker_upper_arm_{side}", (-0.003, s * 0.006, -0.01))
+        self.open(f"lower_arm_{side}", (-0.005, 0, -0.02), [(f"elbow_{side}", _AXES["extend"], -10, 90)])
+        self.capsule(f"lower_arm_{side}_g", (0, 0, 0), (0.004, 0, -0.02), 0.005)
+        self.site(f"marker_lower_arm_{side}", (0.002, s * 0.005, -0.01))
+        self.open(f"hand_{side}", (0.004, 0, -0.02), [(f"wrist_{side}", _AXES["extend"], -45, 45)])
+        self.ellipsoid(f"hand_{side}_g", (0.005, 0, -0.002), (0.007, 0.004, 0.003), floor=True)
+        self.site(f"palm_{side}", (0.005, 0, -0.002), (0.008, 0.005, 0.004))
+        self.open(f"finger_{side}", (0.01, 0, -0.003), [(f"finger_{side}", _AXES["extend"], -30, 30)],
+                  "digit")
+        self.sphere(f"finger_{side}_g", (0.003, 0, 0), 0.0025, floor=True)
+        self.close(5)  # finger, hand, lower and upper arm, scapula
+
+
+def _tendon_joints():
+    """Each fixed tendon's (joint, coefficient)s."""
+    tail = ["vertebra_" + j for j in STANDIN_TAIL]
+    ext = [j for j in tail if j.endswith("extend")]
+    bend = [j for j in tail if j.endswith("bend")]
+    return {
+        "spine_extend": [("vertebra_1_extend", 1.0), ("vertebra_4_extend", 1.0)],
+        "spine_bend": [("vertebra_2_bend", 1.0), ("vertebra_5_bend", 1.0)],
+        "tail_extend": [(j, round(1.0 / len(ext), 4)) for j in ext],
+        "tail_bend": [(j, round(1.0 / len(bend), 4)) for j in bend],
+    }
+
+
+def rodent_standin_xml() -> str:
+    """The rodent stand-in's MJCF text (``rodent_standin.xml``)."""
+    lines = [
+        "<!-- Stand-in for the flagship rodent at its sizes and with its kinds of features;",
+        "     written by brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
+        '<mujoco model="rodent_standin">',
+        '  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"/>',
+        "  <default>",
+        '    <geom type="capsule" contype="0" conaffinity="0"/>',
+        '    <site type="sphere" size="0.002"/>',
+        '    <general dyntype="filter" dynprm="0.01" gaintype="fixed" biastype="affine" '
+        'ctrlrange="-1 1" ctrllimited="true" forcelimited="true"/>',
+        f'    <default class="floor"><geom conaffinity="{FLOOR_BIT}"/></default>',
+    ]
+    for name, (damping, armature, kp) in STANDIN_CLASSES.items():
+        lines += [
+            f'    <default class="{name}">',
+            f'      <joint damping="{damping:g}" armature="{armature:g}"/>',
+            f'      <general gainprm="{kp:g}" biasprm="0 {-kp:g} 0" forcerange="{-kp:g} {kp:g}"/>',
+            "    </default>",
+        ]
+    lines += [
+        "  </default>",
+        "  <worldbody>",
+        f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
+        'conaffinity="0"/>',
+    ]
+    body = _Rodent()
+    lines += body.build()
+    lines += ["  </worldbody>", "  <tendon>"]
+    for name, joints in _tendon_joints().items():
+        lines.append(f'    <fixed name="{name}">')
+        lines += [f'      <joint joint="{j}" coef="{c:g}"/>' for j, c in joints]
+        lines.append("    </fixed>")
+    lines += ["  </tendon>", "  <actuator>"]
+    lines += [f'    <general name="{t}" tendon="{t}" class="{t.split("_")[0]}"/>'
+              for t in STANDIN_TENDON_ACTUATORS]
+    lines += [f'    <general name="{j}" joint="{j}" class="{body.joint_class[j]}"/>'
+              for j in STANDIN_JOINT_ACTUATORS]
+    lines += [
+        "  </actuator>",
+        "  <sensor>",
+        '    <accelerometer name="accelerometer" site="torso_imu"/>',
+        '    <velocimeter name="velocimeter" site="torso_imu"/>',
+        '    <gyro name="gyro" site="torso_imu"/>',
+    ]
+    lines += [f'    <touch name="touch_{site}" site="{site}"/>'
+              for site in ("sole_L", "sole_R", "palm_L", "palm_R")]
+    lines += [
+        '    <subtreelinvel name="torso_subtreelinvel" body="torso"/>',
+        "  </sensor>",
+        "</mujoco>",
+    ]
+    return "\n".join(lines) + "\n"
 
 
 def write(directory: str = HERE):
-    """Writes the three files into ``directory``; returns their paths."""
+    """Writes the three files of the pair and the rodent stand-in into
+    ``directory``; returns their paths."""
     out = []
     for name, cone, rats in FILES:
         path = os.path.join(directory, name)
         with open(path, "w") as f:
             f.write(ratpair_xml(cone, rats))
         out.append(path)
+    path = os.path.join(directory, STANDIN)
+    with open(path, "w") as f:
+        f.write(rodent_standin_xml())
+    out.append(path)
     return out
 
 
+def freeze():
+    """Freezes the written files into their ``.npz`` files: the pair with
+    configs/dataset/rodent_pair.yaml's CG 4/4, elliptic and for Newton/100,
+    the one rat with CG 4/4, the rodent stand-in as
+    configs/dataset/rodent.yaml freezes it (CG 4/4, rescaled by 0.9 under
+    the torso); returns their paths."""
+    from brax_tracking_tpu_torch.physics import spec
+
+    jobs = ((spec.RATPAIR_XML, spec.RATPAIR_NPZ, {}),
+            (spec.RATPAIR_ELLIPTIC_XML, spec.RATPAIR_ELLIPTIC_NPZ, {}),
+            (spec.RATPAIR_XML, spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
+            (spec.RAT_XML, spec.RAT_NPZ, {}),
+            (spec.RODENT_STANDIN_XML, spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS))
+    for xml, npz, options in jobs:
+        spec.freeze_mjcf(xml, npz, **options)
+    return [npz for _, npz, _ in jobs]
+
+
 if __name__ == "__main__":
-    for p in write():
+    import sys
+
+    for p in write() + (freeze() if "--freeze" in sys.argv[1:] else []):
         print(p)

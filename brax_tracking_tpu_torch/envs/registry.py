@@ -2,9 +2,10 @@
 
 Counterpart of ``brax_tracking_tpu/envs/registry.py`` (brax's
 ``register_environment`` / ``get_environment``). ``single_clip_tracking``
-and ``multi_clip_tracking`` build the port's generic tracking envs; the
-rodent and fly envs are registered names that raise until their ROADMAP
-items land. Constructors take ``device`` and ``dtype`` keywords.
+and ``multi_clip_tracking`` build the port's generic tracking envs,
+``rodent_single_clip`` and ``rodent_multi_clip`` its rodent envs; the fly
+envs are registered names that raise until their ROADMAP item lands.
+Constructors take ``device`` and ``dtype`` keywords.
 """
 
 from __future__ import annotations
@@ -12,14 +13,13 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 from brax_tracking_tpu_torch.envs.base import Env
+from brax_tracking_tpu_torch.envs.rodent import RodentMultiClip, RodentSingleClip
 from brax_tracking_tpu_torch.envs.tracking import GenericMultiClip, GenericSingleClip
 from brax_tracking_tpu_torch.physics import model as M
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {}
 # registered names without a port yet: (what, ROADMAP item)
 _UNPORTED: Dict[str, Tuple[str, str]] = {
-    "rodent_single_clip": ("envs/rodent.py::RodentSingleClip", "§A.8"),
-    "rodent_multi_clip": ("envs/rodent.py::RodentMultiClip", "§A.8"),
     "fly_single_clip": ("envs/fly.py::FlyTethered", "§A.9"),
     "fly_single_clip_freejnt": ("envs/fly.py::FlyFreeJoint", "§A.9"),
 }
@@ -46,3 +46,5 @@ def get_environment(name: str, **kwargs) -> Env:
 
 register_environment("single_clip_tracking", GenericSingleClip)
 register_environment("multi_clip_tracking", GenericMultiClip)
+register_environment("rodent_single_clip", RodentSingleClip)
+register_environment("rodent_multi_clip", RodentMultiClip)

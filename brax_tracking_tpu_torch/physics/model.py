@@ -28,6 +28,10 @@ BIAS_NONE, BIAS_AFFINE, BIAS_MUSCLE = 0, 1, 2
 CONE_PYRAMIDAL, CONE_ELLIPTIC = 0, 1
 SOLVER_PGS, SOLVER_CG, SOLVER_NEWTON = 0, 1, 2
 INT_EULER, INT_RK4, INT_IMPLICIT, INT_IMPLICITFAST = 0, 1, 2, 3
+# the sensor types of the JAX package (its physics/model.py), not MuJoCo's
+# mjtSensor values: spec.freeze_mjcf maps them
+SENS_TOUCH, SENS_ACCELEROMETER, SENS_VELOCIMETER, SENS_GYRO = 0, 1, 2, 3
+SENS_SUBTREELINVEL = 4
 
 # mjMINVAL equivalent for guarded divisions.
 MINVAL = 1e-15
@@ -51,7 +55,7 @@ def unported(feature: str, item: str):
 
 SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "ntendon",
-    "nsensor",
+    "nsensor", "nsensordata",
 )
 STATIC_FIELDS = (
     "body_parentid", "body_rootid", "body_weldid", "body_jntadr",
@@ -62,6 +66,7 @@ STATIC_FIELDS = (
     "actuator_biastype", "actuator_trnid", "actuator_actadr",
     "actuator_actnum", "actuator_ctrllimited", "actuator_forcelimited",
     "actuator_actlimited", "tendon_adr", "tendon_num", "wrap_objid",
+    "sensor_type", "sensor_objid", "sensor_adr", "sensor_dim",
 )
 BOOL_FIELDS = (
     "jnt_limited", "actuator_ctrllimited", "actuator_forcelimited",
@@ -162,6 +167,7 @@ class Model:
     nsite: int = 0
     ntendon: int = 0
     nsensor: int = 0
+    nsensordata: int = 0
     # static structure (numpy)
     body_parentid: Any = None
     body_rootid: Any = None
@@ -194,6 +200,10 @@ class Model:
     tendon_adr: Any = None  # (ntendon,) first wrap of each fixed tendon
     tendon_num: Any = None  # (ntendon,) wraps per tendon
     wrap_objid: Any = None  # (nwrap,) joint id of each fixed-tendon wrap
+    sensor_type: Any = None  # (nsensor,) SENS_* (not mjtSensor)
+    sensor_objid: Any = None  # (nsensor,) site or body id
+    sensor_adr: Any = None  # (nsensor,) first column in sensordata
+    sensor_dim: Any = None  # (nsensor,)
     # derived static structure
     has_damping: bool = False
     has_fluid: bool = False
@@ -340,6 +350,8 @@ class Data:
     # the next solve's warm start (mj_forward copies qacc here); None after
     # make_data, so the first solve starts cold
     qacc_warmstart: Optional[torch.Tensor] = None  # (B, nv)
+    # sensors, after the solve (physics/sensor.py)
+    sensordata: Optional[torch.Tensor] = None  # (B, nsensordata)
 
     def replace(self, **kwargs) -> "Data":
         return dataclasses.replace(self, **kwargs)

@@ -63,17 +63,42 @@ BALLMUSCLE_NPZ = {
 # with the solver switched for the Newton file
 BALLMUSCLE_OPTIONS = dict(iterations=50, ls_iterations=25)
 
+# the rodent stand-in at the sizes and with the features of the flagship
+# rodent (configs/dataset/rodent.yaml, whose MJCF is not in this repository;
+# assets/make_ratpair.py writes it), frozen with that config's env_args:
+# CG 4/4 and the subtree under the torso rescaled by 0.9
+RODENT_STANDIN_XML = os.path.join(ASSETS, "rodent_standin.xml")
+RODENT_STANDIN_NPZ = os.path.join(ASSETS, "rodent_standin.npz")
+RODENT_OPTIONS = dict(scale_factor=0.9, rescale_root="torso")
+
 # the env options a frozen file was compiled with (load_model checks them)
 FROZEN_OPTIONS = (
-    "scale_factor", "free_jnt", "torque_actuators", "solver", "iterations",
-    "ls_iterations",
+    "scale_factor", "rescale_root", "free_jnt", "torque_actuators", "solver",
+    "iterations", "ls_iterations",
 )
 
-# contact slots a pair of geom types owns; the port covers the pair types
-# of the minirat (plane-capsule, capsule-capsule)
+# contact slots a pair of geom types owns (the JAX package's counts) for the
+# pair types physics/collision.py ports
 _PAIR_POINTS = {
+    (M.GEOM_PLANE, M.GEOM_SPHERE): 1,
     (M.GEOM_PLANE, M.GEOM_CAPSULE): 2,
+    (M.GEOM_PLANE, M.GEOM_ELLIPSOID): 1,
+    (M.GEOM_SPHERE, M.GEOM_SPHERE): 1,
+    (M.GEOM_SPHERE, M.GEOM_CAPSULE): 1,
+    (M.GEOM_SPHERE, M.GEOM_ELLIPSOID): 1,
     (M.GEOM_CAPSULE, M.GEOM_CAPSULE): 2,
+    (M.GEOM_CAPSULE, M.GEOM_ELLIPSOID): 1,
+    (M.GEOM_ELLIPSOID, M.GEOM_ELLIPSOID): 1,
+}
+
+# MuJoCo's sensor types (mjtSensor names) as the port's SENS_*, the JAX
+# package's _SENSOR_MAP; any other type raises at freeze
+_SENSOR_MAP = {
+    "mjSENS_TOUCH": M.SENS_TOUCH,
+    "mjSENS_ACCELEROMETER": M.SENS_ACCELEROMETER,
+    "mjSENS_VELOCIMETER": M.SENS_VELOCIMETER,
+    "mjSENS_GYRO": M.SENS_GYRO,
+    "mjSENS_SUBTREELINVEL": M.SENS_SUBTREELINVEL,
 }
 
 
@@ -213,10 +238,52 @@ def _build_pairs(m) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
+def rescale_subtree(spec, body_name: str, length_factor: float):
+    """Scales every length in the subtree under ``body_name`` of a
+    ``mujoco.MjSpec``: child body, geom, site and joint positions, geom and
+    site sizes and geom ``fromto``; the compiler then refits masses and
+    inertias from the scaled geometry. The named body's own position stays
+    (the JAX package's ``spec.rescale_subtree``, dm_control's
+    ``rescale.rescale_subtree``)."""
+
+    def recurse(body):
+        for child in body.bodies:
+            child.pos = np.asarray(child.pos) * length_factor
+            recurse(child)
+        for geom in body.geoms:
+            geom.size = np.asarray(geom.size) * length_factor
+            geom.pos = np.asarray(geom.pos) * length_factor
+            if hasattr(geom, "fromto") and np.all(np.isfinite(geom.fromto)):
+                geom.fromto = np.asarray(geom.fromto) * length_factor
+        for site in body.sites:
+            site.pos = np.asarray(site.pos) * length_factor
+            site.size = np.asarray(site.size) * length_factor
+        for joint in body.joints:
+            joint.pos = np.asarray(joint.pos) * length_factor
+
+    recurse(spec.body(body_name))
+    return spec
+
+
+def _sensor_types(m) -> np.ndarray:
+    """The port's SENS_* of each sensor of a compiled model; another type
+    raises."""
+    import mujoco
+
+    out = []
+    for s, t in enumerate(np.asarray(m.sensor_type)):
+        name = mujoco.mjtSensor(int(t)).name
+        if name not in _SENSOR_MAP:
+            M.unported(f"sensor {s} of type {name}", "§A.12")
+        out.append(_SENSOR_MAP[name])
+    return np.asarray(out, np.int32)
+
+
 def freeze_mjcf(
     xml_path: str,
     out_npz: str,
     scale_factor: float = 1.0,
+    rescale_root: str = "torso",
     free_jnt: bool = True,
     torque_actuators: bool = False,
     solver: str = "cg",
@@ -227,19 +294,22 @@ def freeze_mjcf(
     port reads into ``out_npz``; returns the written arrays.
 
     The defaults are the minirat dataset's env_args
-    (configs/dataset/minirat.yaml). Needs the ``mujoco`` bindings, which
-    only this offline step imports.
+    (configs/dataset/minirat.yaml); ``scale_factor`` != 1 rescales the
+    subtree under ``rescale_root`` before compiling (rescale_subtree), as
+    the JAX package's ``build_model`` does. Needs the ``mujoco`` bindings,
+    which only this offline step imports.
     """
     import mujoco
 
-    if scale_factor != 1.0:
-        M.unported("subtree rescaling (scale_factor != 1)", "§A.8")
     if not free_jnt:
         M.unported("free-joint stripping (tethered models)", "§A.9")
     if torque_actuators:
         M.unported("torque-actuator rewrite", "§A.9")
 
-    m = mujoco.MjSpec.from_file(xml_path).compile()
+    spec = mujoco.MjSpec.from_file(xml_path)
+    if scale_factor != 1.0:
+        rescale_subtree(spec, rescale_root, scale_factor)
+    m = spec.compile()
     if any(int(w) != int(mujoco.mjtWrap.mjWRAP_JOINT) for w in m.wrap_type):
         M.unported("spatial tendons (site and geom wraps)", "§A.12")
     # the env-level solver overrides (JAX spec.set_solver_options)
@@ -256,6 +326,7 @@ def freeze_mjcf(
     for k in M.STATIC_FIELDS:
         dt = bool if k in M.BOOL_FIELDS else np.int32
         fields[k] = np.asarray(getattr(m, k), dt)
+    fields["sensor_type"] = _sensor_types(m)
     for k in M.PARAM_FIELDS:
         fields[k] = np.asarray(getattr(m, k), np.float64)
     for k in M.OPT_PARAM_FIELDS:
@@ -276,7 +347,7 @@ def freeze_mjcf(
         names = [mujoco.mj_id2name(m, objtype, i) or "" for i in range(count)]
         fields["names_" + kind] = np.asarray(names, dtype=str)
     frozen = dict(
-        scale_factor=scale_factor, free_jnt=free_jnt,
+        scale_factor=scale_factor, rescale_root=rescale_root, free_jnt=free_jnt,
         torque_actuators=torque_actuators, solver=solver.lower(),
         iterations=iterations, ls_iterations=ls_iterations,
     )
@@ -316,7 +387,7 @@ def load_model(npz: str = MINIRAT_NPZ, device="cuda", dtype=None, **options) -> 
         if k not in FROZEN_OPTIONS:
             raise TypeError(f"unknown model option {k!r}")
         have = fields["frozen_" + k].item()
-        if isinstance(want, str):
+        if k == "solver":
             want = want.lower()
         if want != have:
             raise ValueError(

@@ -2,7 +2,8 @@
 
 Counterpart of ``brax_tracking_tpu/physics/step.py``: ``forward`` runs
 mj_forward's stage order over a batch of envs, ``step`` adds semi-implicit
-Euler integration with MuJoCo's implicit joint damping. On the kernel path
+Euler integration with MuJoCo's implicit joint damping; ``forward`` ends
+with the sensors (physics/sensor.py). On the kernel path
 the Euler velocity update comes out of the solve (the kernel's own tail, or
 one ``spd_solve`` after the chunked Newton dispatch on a damped model) as
 ``qvel_next``; on the XLA-CG path it takes (M + h diag(damping))^-1 from
@@ -24,6 +25,7 @@ from brax_tracking_tpu_torch.physics import dynamics as D
 from brax_tracking_tpu_torch.physics import kinematics as K
 from brax_tracking_tpu_torch.physics import model as M
 from brax_tracking_tpu_torch.physics import passive as P
+from brax_tracking_tpu_torch.physics import sensor as Sn
 from brax_tracking_tpu_torch.physics import solver as S
 
 
@@ -54,8 +56,6 @@ def forward_to_constraint(m: M.Model, d: M.Data) -> M.Data:
     CG path its inverses, and qacc_smooth. On the kernel layout a damped
     Newton model also gets the dense qM: its Euler update solves with
     M + h diag(damping) after the kernel's chunks."""
-    if m.nsensor:
-        M.unported("sensors", "§A.8")
     kernel = S.quad_kernel_eligible(m)
     newton = m.opt.solver == M.SOLVER_NEWTON
     d = K.kinematics(m, d)
@@ -84,10 +84,10 @@ def forward_to_constraint(m: M.Model, d: M.Data) -> M.Data:
 
 
 def forward(m: M.Model, d: M.Data) -> M.Data:
-    """Full forward dynamics at the current state. The next solve warm
-    starts from this qacc (mj_forward's qacc_warmstart)."""
+    """Full forward dynamics at the current state, then the sensors. The
+    next solve warm starts from this qacc (mj_forward's qacc_warmstart)."""
     d = S.solve(m, forward_to_constraint(m, d))
-    return d.replace(qacc_warmstart=d.qacc)
+    return Sn.sensors(m, d.replace(qacc_warmstart=d.qacc))
 
 
 def _integrate_pos(m: M.Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch.Tensor:

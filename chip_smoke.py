@@ -25,8 +25,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
    and on a chunk of its Newton dispatch, the dense-input kernel on its
    dense qM and J, on a seeded pair-size case at B=1024 and B=1023; in
    layout 1 on the one-rat file (assets/rat.xml, nv 73, the rodent's width)
-   at B=2048 and B=2047 and on the seeded rodent-like case, and there
-   also bitwise against the one-warp core on the same inputs; and at the
+   at B=2048 and B=2047 and on the seeded rodent-like case; on the rodent
+   stand-in (assets/rodent_standin.xml as configs/dataset/rodent.yaml
+   freezes it: nv 73, its own joint damping, so the damped Euler tail) at
+   B=2048 and B=2047 and converged; bitwise against the one-warp core on
+   the same inputs on the one rat (undamped and with a seeded damping), the
+   rodent stand-in and the rodent-like case; and at the
    design edges at 590 rows (the widest one-warp env and the first wide
    one, the widest env of layout 1, the first past it, the widest of
    layout 2);
@@ -39,7 +43,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
    against the CPU in float64; then rolls out 1024 envs of the rodent_pair
    env on the stand-in (configs/dataset/rodent_pair.yaml, 5 substeps) for
    10 control steps, exactly 5 launches per control step, and checks its
-   first step on 8 envs against the CPU in float64;
+   first step on 8 envs against the CPU in float64; then rolls out 2048
+   envs of the flagship rodent_single_clip env (configs/dataset/rodent.yaml,
+   5 substeps, sensors every substep) on the rodent stand-in for 10 control
+   steps: exactly 5 launches per control step and no other kernel, finite
+   sensordata, and its first step (obs, reward, sensordata) on 8 envs
+   against the CPU in float64;
 5. steps 2048 ballmuscle envs (ball-joint limits, a fixed tendon, muscles)
    20 substeps under CG (the XLA-CG path: spd_inverse2 once per substep)
    and under Newton (spd_solve 2 + iterations per substep), counts the
@@ -74,7 +83,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
    launches are the two runs'; then once more with train=train_pair
    dataset=rodent_pair on the stand-in at train_pair's widths (1024 envs),
    cut the same way, its clip cut to 24 frames: exact launches, all of them
-   in layout 2 (the kernels line's layout-2 row);
+   in layout 2 (the kernels line's layout-2 row); and once more as the
+   flagship's command, train=train_rodent dataset=rodent on the rodent
+   stand-in at train_rodent's widths (2048 envs), cut the same way: exact
+   launches, all of them in the wide layout 1 with the damped tail (the
+   kernels line's rodent stand-in row);
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -224,6 +237,24 @@ PAIR_ARGV = ["train=train_pair", "dataset=rodent_pair",
              "dataset.env_args.mjcf_path=builtin:ratpair.xml"]
 PAIR_SUBSTEPS = 5
 PAIR_STEPS = 10
+# the flagship rodent on its stand-in (assets/rodent_standin.xml: nv 73, 17
+# contact slots, 135 rows, joint damping, sensors), frozen as
+# configs/dataset/rodent.yaml freezes it (CG 4/4, scale_factor 0.9): the
+# solve kernel's wide layout 1 with its damped Euler tail. The solve at
+# B_MAIN and B_MAIN - 1 and converged, and bitwise against the one-warp core
+# on the same inputs; a rollout of B_MAIN envs of rodent.yaml's env (5
+# substeps per control step) built by the driver's own builder from
+# RODENT_ARGV; its first control step of N_CPU_ENVS envs against the CPU in
+# float64 (obs, reward and sensordata). That step is a fall that touches no
+# floor (the stand-in's feet and hands hover 4-7 mm above it at qpos0). A CPU
+# float32 rehearsal of it (first_step_gaps on a float32 CPU env, 8 envs,
+# seeds 0-2) is off float64 by at most 1.98e-6 (obs), 1.69e-6 (reward) and
+# 9.56e-6 (sensordata, of scale ~1); the limits leave ~35x.
+RODENT_ARGV = ["train=train_rodent", "dataset=rodent",
+               "dataset.env_args.mjcf_path=builtin:rodent_standin.xml"]
+RODENT_SUBSTEPS = 5
+RODENT_STEPS = 10
+RODENT_STEP_ATOL = {"obs": 7e-5, "reward": 6e-5, "sensordata": 3.4e-4}
 # ballmuscle slice: 20 substeps of 2048 envs per solver; its first substep
 # of 8 envs on the card (float32) against the CPU (float64). A CPU float32
 # rehearsal of that substep (64 envs, both solvers) is off float64 by
@@ -292,8 +323,10 @@ def load(model, device, dtype=None):
     """One of the port's frozen files: the minirat's (pyramidal CG 4/4, the
     main path; elliptic CG 4/4; Newton/100 with 50 line-search steps), the
     two-rat stand-in's at rodent_pair's sizes, frozen the same three ways
-    ("ratpair", "ratpair_elliptic", "ratpair_newton"), or one of its rats
-    alone ("rat", CG 4/4: nv 73, the rodent's width)."""
+    ("ratpair", "ratpair_elliptic", "ratpair_newton"), one of its rats
+    alone ("rat", CG 4/4: nv 73, the rodent's width), or the rodent
+    stand-in as configs/dataset/rodent.yaml freezes it ("rodent_standin":
+    CG 4/4, rescaled by 0.9, damped, with sensors)."""
     from brax_tracking_tpu_torch.physics import spec
 
     npz, options = {
@@ -304,6 +337,7 @@ def load(model, device, dtype=None):
         "ratpair_elliptic": (spec.RATPAIR_ELLIPTIC_NPZ, {}),
         "ratpair_newton": (spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
         "rat": (spec.RAT_NPZ, {}),
+        "rodent_standin": (spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS),
     }[model]
     return spec.load_model(npz, device=device, dtype=dtype, **options)
 
@@ -521,6 +555,7 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
     if device == "cuda":
         torch.cuda.synchronize()
 
+    damped = kw["has_damping"]  # seeded, or the model's own joint damping
     case = (f"{kernel.__name__}, {model}, B={B}, damped={damped}, iters={kw['iters']}, "
             f"warmstart={'warmstart' in kw}")
     report = {"kernel": kernel.__name__, "model": model, "B": B, "damped": damped,
@@ -573,22 +608,24 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
     return report, (m, args, kw, kern)
 
 
-def phase_wide_vs_one_warp(device, B, model):
+def phase_wide_vs_one_warp(device, B, model, damped=False):
     """The wide core against the one-warp core on the same inputs: the
-    solve of ``model`` (see phase_kernel_vs_plain) launched once as
+    solve of ``model`` (see phase_kernel_vs_plain; ``damped`` adds a seeded
+    damping, a damped model brings its own) launched once as
     kernel_layout dispatches it (the wide core) and once with the one-warp
     core forced (ops/cg.py::WIDE_ABOVE_SMEM raised past the env; the env
     must fit layout 1). The wide core forms every value by the one-warp
     core's operations in its order (csrc/cg_fused.cu), so at nv > 16, where
     the one-warp core takes the same path, every output must be bitwise
-    equal. Returns the number of envs compared."""
+    equal, the damped Euler tail's qvel_new included. Returns the number of
+    envs compared and whether the solve was damped."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
     dense = seeded_dense()
     if model in dense:
         (args, kw), batched = rodent_like_case(device, B, SEED, None, dense[model]), True
     else:
-        (_, args, kw), batched = solve_case(device, model, B, SEED), False
+        (_, args, kw), batched = solve_case(device, model, B, SEED, damped), False
     nv = args[0].shape[-1]
     layout, _, warps = (ops_cg.kernel_layout(nv, args[1].shape[1]) if batched else
                         ops_cg.kernel_layout(nv, args[4].shape[1], args[7].shape[1],
@@ -606,9 +643,10 @@ def phase_wide_vs_one_warp(device, B, model):
     for name in wide:
         if not torch.equal(wide[name], one[name]):
             diff = (wide[name].double() - one[name].double()).abs().max()
-            fail(f"wide core against the one-warp core on {model} (B={B}): {name} differs by "
-                 f"up to {float(diff):.3e}, expected bitwise equal")
-    return B
+            fail(f"wide core against the one-warp core on {model} (B={B}, damped="
+                 f"{kw['has_damping']}): {name} differs by up to {float(diff):.3e}, expected "
+                 f"bitwise equal")
+    return B, kw["has_damping"]
 
 
 def synth_clip_qpos(qpos0, T=128, walk=0.1):
@@ -643,28 +681,34 @@ def tracking_env(device, dtype=None, model="minirat"):
     )
 
 
-def pair_env(device, dtype=None):
-    """The rodent_pair env on the stand-in, unwrapped, built by the driver's
-    own builder from PAIR_ARGV; its synthetic clip is built and cached in a
-    temporary data_dir (the committed data/RodentPair clip is the real
-    pair's, another model)."""
+# the envs chip_smoke.py builds from a config as the driver does: the
+# rodent_pair env on the two-rat stand-in, the flagship rodent env on the
+# rodent stand-in
+CONFIG_ENVS = {"ratpair": PAIR_ARGV, "rodent_standin": RODENT_ARGV}
+
+
+def config_env(device, dtype, model):
+    """The env of CONFIG_ENVS[model], unwrapped, built by the driver's own
+    builder; its synthetic clip is built through the frozen model and cached
+    in a temporary data_dir (the committed data/RodentPair and data/Rodent
+    clips are of the real models, not of the stand-ins)."""
     import tempfile
 
     from brax_tracking_tpu_torch.harness import config as hc
     from brax_tracking_tpu_torch.harness import driver
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = hc.load_config(PAIR_ARGV + [f"paths.data_dir={tmp}"])
+        cfg = hc.load_config(CONFIG_ENVS[model] + [f"paths.data_dir={tmp}"])
         return driver.build_env_from_cfg(cfg, device, dtype)
 
 
 def make_env(device, dtype=None, model="minirat"):
-    """tracking_env (or, for "ratpair", pair_env) under the training
-    wrappers."""
+    """tracking_env, or config_env for a model of CONFIG_ENVS, under the
+    training wrappers."""
     from brax_tracking_tpu_torch.envs import wrappers
 
-    env = pair_env(device, dtype) if model == "ratpair" else tracking_env(device, dtype, model)
-    return wrappers.wrap(env, episode_length=1000)
+    build = config_env if model in CONFIG_ENVS else tracking_env
+    return wrappers.wrap(build(device, dtype, model), episode_length=1000)
 
 
 def phase_rollout(device, B, seed, model="minirat", n_steps=N_STEPS):
@@ -691,6 +735,8 @@ def phase_rollout(device, B, seed, model="minirat", n_steps=N_STEPS):
     for s in states:
         if not (torch.isfinite(s.obs).all() and torch.isfinite(s.reward).all()):
             fail(f"{model} rollout obs or reward not finite")
+        if not torch.isfinite(s.pipeline_state.sensordata).all():
+            fail(f"{model} rollout sensordata not finite")
     contact_rows = torch.as_tensor(Cn.efc_layout(env.unwrapped.model).row_con >= 0,
                                    device=state.obs.device)
     touching = float((state.pipeline_state.efc_force[:, contact_rows] != 0).any(-1).float().mean())
@@ -704,9 +750,9 @@ def phase_first_step_on_cpu(first_in, action, first_out, n, model="minirat"):
     """The first control step of ``n`` envs run again by the port on the CPU
     in float64; returns the max obs and reward gaps."""
     gaps = first_step_gaps(first_in, action, first_out, n, model)
-    atol = PAIR_STEP_ATOL if model == "ratpair" else dict.fromkeys(("obs", "reward"),
-                                                                   STEP_ATOL[model])
-    if gaps["obs"] > atol["obs"] or gaps["reward"] > atol["reward"] or gaps["done_mismatch"]:
+    atol = {"ratpair": PAIR_STEP_ATOL, "rodent_standin": RODENT_STEP_ATOL}.get(
+        model) or dict.fromkeys(("obs", "reward"), STEP_ATOL[model])
+    if any(gaps[k] > atol[k] for k in atol) or gaps["done_mismatch"]:
         fail(f"{model}: first control step on the card differs from the CPU float64 "
              f"run: {gaps} (limits {atol})")
     return gaps
@@ -720,9 +766,11 @@ def first_step_gaps(first_in, action, first_out, n, model="minirat"):
     cpu = lambda t: t[:n].detach().to("cpu", torch.float64)
     s = env.init_state(first_in.info["cur_frame"][:n].cpu(), cpu(d.qpos), cpu(d.qvel))
     s = env.step(s, cpu(action))
+    sensed = (s.pipeline_state.sensordata - cpu(first_out.pipeline_state.sensordata)).abs()
     return {
         "obs": float((s.obs - cpu(first_out.obs)).abs().max()),
         "reward": float((s.reward - cpu(first_out.reward)).abs().max()),
+        "sensordata": float(sensed.max()) if sensed.numel() else 0.0,
         "done_mismatch": int((s.done != cpu(first_out.done)).sum()),
     }
 
@@ -1451,6 +1499,17 @@ PAIR_DRIVER_ARGV = PAIR_ARGV + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
     "train.force_episode_length=true", "train.episode_length=32",
     "train.num_timesteps=32768", "train.eval_every=32768", "dataset.clip_length=24"]
+# the flagship's driver run on the rodent stand-in: configs/train/
+# train_rodent.yaml's widths (MLPs 256 x 256, 2048 envs, batch 2048, unroll
+# 16, 128 eval envs) and rodent.yaml's env, cut as PPO_ARGS is (2
+# minibatches, 2 updates, episode_length 32): one training step (65,536
+# env steps) with evals before and after it; the clip cut to 24 frames (2
+# control steps each), so the callback's B = 1 rollout takes 38 control
+# steps
+RODENT_DRIVER_ARGV = RODENT_ARGV + [
+    "train.num_minibatches=2", "train.num_updates_per_batch=2",
+    "train.force_episode_length=true", "train.episode_length=32",
+    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=24"]
 MC_ENVS = 8
 # One control step of MC_ENVS multi-clip envs (clips 0-3 twice) on the card
 # against the port's CPU float64 run from the same state and action: the
@@ -1528,12 +1587,13 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
             "clips": sorted(set(out.info["clip_idx"].tolist()))}
 
 
-def phase_driver(device, multi, pair=False):
+def phase_driver(device, multi, pair=False, rodent=False):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
     temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
-    (PAIR_DRIVER_ARGV; its clip built and cached in a temporary data_dir),
-    in a temporary paths.base_dir, the counts set to 0
+    (PAIR_DRIVER_ARGV), or with ``rodent`` the flagship's run on the rodent
+    stand-in (RODENT_DRIVER_ARGV), each with its clip built and cached in a
+    temporary data_dir, in a temporary paths.base_dir, the counts set to 0
     just before: exactly driver_expected_launches cg_solve_fused launches and
     no other kernel (on the card), every artifact written, every logged
     number finite, the run config read back as written, (i) nothing written
@@ -1547,16 +1607,17 @@ def phase_driver(device, multi, pair=False):
     from brax_tracking_tpu_torch.harness import config as hc
     from brax_tracking_tpu_torch.harness import driver
 
-    tag = "pair" if pair else "multi-clip" if multi else "single clip"
-    committed = not (multi or pair)
+    tag = "rodent" if rodent else "pair" if pair else "multi-clip" if multi else "single clip"
+    committed = not (multi or pair or rodent)
     with tempfile.TemporaryDirectory() as tmp:
         base = os.path.join(tmp, "run")
         data_dir = os.path.join(ROOT, "data", "Minirat") if committed else os.path.join(tmp, "data")
-        argv = (PAIR_DRIVER_ARGV if pair else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
+        argv = (RODENT_DRIVER_ARGV if rodent else PAIR_DRIVER_ARGV if pair
+                else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
             f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
-        m = load("ratpair" if pair else "minirat", "cpu")
+        m = load("rodent_standin" if rodent else "ratpair" if pair else "minirat", "cpu")
         per_frame = round(1.0 / (ds["mocap_hz"] * float(m.opt.timestep)))
         n_steps = ((ds["clip_length"] - ds["ref_traj_length"])
                    * (per_frame // ds["env_args"]["physics_steps_per_control_step"]))
@@ -1636,10 +1697,10 @@ def phase_driver(device, multi, pair=False):
                 fail(f"driver (multi-clip): a control step on the card differs from the CPU "
                      f"float64 run: {gaps} (limits {MC_STEP_ATOL})")
             report.update(clips_drawn=clips, step_gaps=gaps)
-        elif pair:
+        elif pair or rodent:
             built = sorted(os.listdir(os.path.join(data_dir, "clips")))
             if built != ["0.npz"]:
-                fail(f"driver (pair) cached {built}")
+                fail(f"driver ({tag}) cached {built}")
         else:
             after = _tree(data_dir)
             if after != before or os.path.join(data_dir, "clips", "0.p") not in after:
@@ -1980,7 +2041,7 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    for model in MODELS + PAIR_MODELS + ("rat",):
+    for model in MODELS + PAIR_MODELS + ("rat", "rodent_standin"):
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
@@ -2015,11 +2076,21 @@ def main() -> int:
     # width): cg_solve_fused's (a)
     rat = {B: phase_kernel_vs_plain("cuda", B, False, SEED, None, "rat")
            for B in (B_MAIN, B_MAIN - 1)}
+    # the rodent stand-in (rodent.yaml's file, nv 73, its own joint damping):
+    # the wide layout 1 with its damped Euler tail
+    standin = {}
+    for B, iters in ((B_MAIN, None), (B_MAIN - 1, None), (B_MAIN, CONVERGED_ITERS)):
+        standin[B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, "rodent_standin")
+        if not standin[B, iters][0]["damped"]:
+            fail("the rodent stand-in's solve is not damped")
     # the wide core against the one-warp core on the same inputs, bitwise,
-    # where both take the same path (layout 1, nv > 16)
-    same = [(model, B, phase_wide_vs_one_warp("cuda", B, model)) for model, B in
-            (("rat", B_MAIN), ("rat", B_MAIN - 1), ("rodent_like", B_MAIN), ("l1_last", B_PAIR))]
-    print(f"wide core against the one-warp core: bitwise equal on {same}")
+    # where both take the same path (layout 1, nv > 16): undamped and with
+    # the damped Euler tail
+    same = [(model, phase_wide_vs_one_warp("cuda", B, model, damped)) for model, B, damped in
+            (("rat", B_MAIN, False), ("rat", B_MAIN - 1, False), ("rat", B_MAIN, True),
+             ("rodent_standin", B_MAIN, False), ("rodent_standin", B_MAIN - 1, False),
+             ("rodent_like", B_MAIN, False), ("l1_last", B_PAIR, False))]
+    print(f"wide core against the one-warp core: bitwise equal on (model, (B, damped)) {same}")
     # layout 2 (J in device memory): the stand-in's (a), (b), (c) and its
     # dense qM and J, the pair-size dense case and the design edges
     t_l2 = time.perf_counter()
@@ -2109,6 +2180,26 @@ def main() -> int:
           f"{touching:.4f}")
     gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS, "ratpair")
     print("ratpair_first_step_vs_cpu_f64 " + json.dumps(gaps))
+    # the flagship rodent env on its stand-in (the wide layout 1, damped,
+    # sensors every substep), built from its config
+    t0 = time.perf_counter()
+    env, counts, first_in, a0, first_out, last, touching = phase_rollout(
+        "cuda", B_MAIN, SEED, "rodent_standin", RODENT_STEPS)
+    torch.cuda.synchronize()
+    envs["rodent_standin"] = env
+    print(f"rodent_standin rollout: {B_MAIN} envs x {RODENT_STEPS} control steps x "
+          f"{RODENT_SUBSTEPS} substeps, first run {time.perf_counter() - t0:.1f} s, kernel "
+          f"launches {counts}")
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": RODENT_STEPS * RODENT_SUBSTEPS}
+    if counts != expected:
+        fail(f"kernel launches in the rodent_standin rollout: {counts}, expected {expected}")
+    sens = last.pipeline_state.sensordata
+    print(f"rodent_standin rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
+          f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
+          f"{touching:.4f}, sensordata {tuple(sens.shape)} finite, envs with touch "
+          f"{float((sens[:, 9:13] > 0).any(-1).float().mean()):.4f}")
+    gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS, "rodent_standin")
+    print("rodent_standin_first_step_vs_cpu_f64 " + json.dumps(gaps))
 
     # 5. the ballmuscle slice, CG (i) and Newton (ii)
     for solver, kernel in (("cg", "spd_inverse2"), ("newton", "spd_solve")):
@@ -2225,12 +2316,27 @@ def main() -> int:
           f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
           f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
     print(f"pair driver phase: {time.perf_counter() - t_pair:.1f} s on {card}")
+    # the flagship's driver run on the rodent stand-in: every solve in the
+    # wide layout 1, damped
+    t_rod = time.perf_counter()
+    r = phase_driver("cuda", False, rodent=True)
+    launches["cg_solve_fused (rodent stand-in)"] = r["counts"]["cg_solve_fused"]
+    m = r["metrics"]
+    print(f"driver (rodent): main() {r['seconds']:.1f} s, kernel launches {r['counts']} (expected "
+          f"cg_solve_fused {r['expected']}: train()'s and one reset and 5 per control step of "
+          f"the callback rollout), training/sps {m['training/sps']:.1f}, eval/sps "
+          f"{m['eval/sps']:.1f}, eval/episode_reward {m['eval/episode_reward']:.3f}; "
+          f"training/walltime {m['training/walltime']:.2f} s, eval/walltime "
+          f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
+          f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
+    print(f"rodent driver phase: {time.perf_counter() - t_rod:.1f} s on {card}")
 
     # 10. times. The solve kernels: every instance the gates held, with its
     # layout and warps per env (ops/cg.py::kernel_layout), each a row of the
     # kernels line. Launches are the main paths' counts: the one-warp fused
     # kernel's (a) in driver runs (i) and (ii), the wide layout 2's (a) in
-    # the pair driver run; the other instances lie on no path (0).
+    # the pair driver run, the wide layout 1's (a), damped, in the rodent
+    # driver run; the other instances lie on no path (0).
     entries = []
     solve_cases = [  # (gate's result, dense?, B, what, launches, profiled launches)
         (cases["minirat", B_MAIN, False, None], False, B_MAIN, "(a) minirat",
@@ -2240,6 +2346,8 @@ def main() -> int:
         (cases["minirat_newton", B_MAIN, False, None], False, B_MAIN, "(c) Newton minirat chunk",
          0, 100),
         (rat[B_MAIN], False, B_MAIN, "(a) one rat", 0, 20),
+        (standin[B_MAIN, None], False, B_MAIN, "(a) rodent stand-in, damped",
+         launches["cg_solve_fused (rodent stand-in)"], 20),
         (pair["ratpair", B_PAIR, None], False, B_PAIR, "(a) two-rat stand-in",
          launches["cg_solve_fused (layout 2)"], 10),
         (pair["ratpair_elliptic", B_PAIR, None], False, B_PAIR, "(b) two-rat stand-in elliptic",

@@ -6,7 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card. ``--model
 minirat`` and ``minirat_elliptic`` build the same envs as chip_smoke.py
 (GenericSingleClip + wrappers, 10 substeps) and a step is a control step;
 so does ``ratpair``: the rodent_pair env on the two-rat stand-in (5
-substeps, the solve kernel's layout 2), at 1024 envs unless ``--envs``;
+substeps, the solve kernel's layout 2), at 1024 envs unless ``--envs``, and
+``rodent_standin``: the flagship rodent_single_clip env on the rodent
+stand-in (5 substeps, the wide layout 1 with its damped tail, sensors);
 ``ballmuscle_cg`` and ``ballmuscle_newton`` step chip_smoke.py's posed
 ballmuscle states, ``minirat_newton`` its seeded Newton minirat states,
 through ``physics.step`` and a step is one substep. It warms up, then profiles
@@ -69,7 +71,7 @@ def _stepper(model: str, envs: int):
     """(advance, substeps per step) for the profiled model."""
     if model == "minirat_ppo":
         return _ppo_stepper(envs)
-    if model in ("minirat", "minirat_elliptic", "ratpair"):
+    if model in ("minirat", "minirat_elliptic", "ratpair", "rodent_standin"):
         env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
         box = [env.reset(gen, envs)]
@@ -78,7 +80,9 @@ def _stepper(model: str, envs: int):
         def advance():
             box[0] = env.step(box[0], act())
 
-        return advance, chip_smoke.PAIR_SUBSTEPS if model == "ratpair" else chip_smoke.N_SUBSTEPS
+        return advance, {"ratpair": chip_smoke.PAIR_SUBSTEPS,
+                         "rodent_standin": chip_smoke.RODENT_SUBSTEPS}.get(
+                             model, chip_smoke.N_SUBSTEPS)
     from brax_tracking_tpu_torch.physics import step as pstep
 
     if model == "minirat_newton":
@@ -102,7 +106,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="minirat",
                     choices=("minirat", "minirat_elliptic", "minirat_newton",
-                             "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo", "ratpair"))
+                             "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo", "ratpair",
+                             "rodent_standin"))
     ap.add_argument("--envs", type=int, default=None,
                     help="envs (default 1024 for ratpair, the pair config's, else 2048)")
     ap.add_argument("--steps", type=int, default=3)

@@ -1,6 +1,6 @@
 """Split one solve-kernel launch into phases by clock64 stamps, per env.
 
-    python3 scripts/stamp_solve_kernel.py [--root DIR]
+    python3 scripts/stamp_solve_kernel.py [--root DIR] [--pair | --rodent]
 
 Copies ``DIR``'s ``brax_tracking_tpu_torch/ops/csrc/cg_fused.cu`` (default:
 this checkout's) to ``runs/stamp/`` with a ``clock64()`` stamp at each phase
@@ -9,7 +9,10 @@ into a library of its own and runs it on chip_smoke.py's seeded states
 (2048 envs) of the three ``cg_solve_fused`` instances: (a) the minirat,
 (b) the elliptic minirat, (c) a Newton chunk; with ``--pair``, the same
 three on the two-rat stand-in (1024 envs, layout 2: J in device memory),
-which run the wide core (``cg_core_wide``, several warps per env). Lane 0
+which run the wide core (``cg_core_wide``, several warps per env); with
+``--rodent``, (a) on the one rat (undamped) and on the rodent stand-in
+(its own joint damping: the damped Euler tail), 2048 envs, the wide core
+in layout 1. Lane 0
 of each env (thread 0 in the wide core, whose warp runs the core's scalar
 work) adds the cycles since the last stamp to its phase:
 
@@ -165,8 +168,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--root", default=here)
-    ap.add_argument("--pair", action="store_true",
-                    help="the stand-in's instances (layout 2) instead of the minirat's")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--pair", action="store_true",
+                       help="the stand-in's instances (layout 2) instead of the minirat's")
+    which.add_argument("--rodent", action="store_true",
+                       help="(a) on the one rat and the damped rodent stand-in (wide layout 1)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -185,7 +191,7 @@ def main() -> int:
     tag = re.sub(r"\W", "_", os.path.relpath(root, here)).strip("_") or "tree"
     cu = os.path.join(out_dir, f"cg_stamped_{tag}.cu")
     with open(os.path.join(csrc, "cg_fused.cu")) as f:
-        text, phases = stamped_source(f.read(), wide=args.pair)
+        text, phases = stamped_source(f.read(), wide=args.pair or args.rodent)
     slots = [PHASES.index("phi0" if p == "products_phi0" else p) for p in phases]
     with open(cu, "w") as f:
         f.write(text)
@@ -202,8 +208,12 @@ def main() -> int:
     library.build()
     own = library._LIB
     card = cs.card_line()
-    family, B, reps = ("ratpair", cs.B_PAIR, 10) if args.pair else ("minirat", cs.B_MAIN, 100)
-    for key, model in (("a", family), ("b", f"{family}_elliptic"), ("c", f"{family}_newton")):
+    if args.rodent:
+        B, reps, instances = cs.B_MAIN, 20, (("a", "rat"), ("a", "rodent_standin"))
+    else:
+        family, B, reps = ("ratpair", cs.B_PAIR, 10) if args.pair else ("minirat", cs.B_MAIN, 100)
+        instances = (("a", family), ("b", f"{family}_elliptic"), ("c", f"{family}_newton"))
+    for key, model in instances:
         library._LIB = own
         _, kargs, kw = cs.solve_case("cuda", model, B, cs.SEED)
         launch = cs.kernel_launch(kargs, kw)
@@ -220,7 +230,7 @@ def main() -> int:
         mean = c[:, slots].mean(0)
         print(json.dumps({
             "root": root, "instance": key, "model": model, "card": card,
-            "iters": kw["iters"], "ls_iters": kw["ls_iters"],
+            "iters": kw["iters"], "ls_iters": kw["ls_iters"], "damped": kw["has_damping"],
             "mean_cg_iterations": float(c[:, -1].mean()),
             "kernel_us": t_own, "stamped_kernel_us": t_stamped,
             "cycles_per_env": float(mean.sum()),

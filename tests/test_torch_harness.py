@@ -282,8 +282,8 @@ def test_driver_unported_options_raise(tmp_path, monkeypatch, extra, env):
 
 
 def test_driver_unported_env_raises_before_building(tmp_path):
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        tdriver.main(CUTS + ["train.env_name=rodent_single_clip", f"paths.base_dir={tmp_path}/r",
+    with pytest.raises(NotImplementedError, match="§A.9"):
+        tdriver.main(CUTS + ["train.env_name=fly_single_clip", f"paths.base_dir={tmp_path}/r",
                              f"paths.data_dir={tmp_path}/d"], device="cpu")
     assert not (tmp_path / "d" / "clips").exists()
 

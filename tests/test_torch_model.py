@@ -154,7 +154,9 @@ def _variant(m, **changes):
 )
 def test_unported_features_raise(feature, monkeypatch):
     """Features the port does not cover raise NotImplementedError naming
-    the ROADMAP item, rather than computing something else. ``elliptic`` is
+    the ROADMAP item, rather than computing something else. ``sensors`` is
+    a sensor of a type outside the five the port maps (its freeze raises
+    too: test_torch_rodent.py); ``geom_pair`` a plane-box pair. ``elliptic`` is
     elliptic cones with torsional friction (condim 4); ``newton`` is Newton
     off the kernel layout (200 iterations, past the kernel's 128) on a model
     with contacts, whose dense contact rows are not ported; ``smem_refused``
@@ -172,13 +174,15 @@ def test_unported_features_raise(feature, monkeypatch):
     trn = np.array(m.actuator_trntype)
     dyn = np.array(m.actuator_dyntype)
     jt[1] = TM.JNT_SLIDE
-    gt[1] = TM.GEOM_SPHERE
+    gt[1] = TM.GEOM_BOX
     trn[0] = TM.TRN_SITE
     dyn[0] = 5  # mjDYN_USER
     condim4 = dataclasses.replace(m.pairs, condim=np.full_like(m.pairs.condim, 4))
     changes = dict(
         slide=dict(jnt_type=jt),
-        sensors=dict(nsensor=1),
+        sensors=dict(nsensor=1, nsensordata=3, sensor_type=np.array([99], np.int32),
+                     sensor_objid=np.zeros(1, np.int32), sensor_adr=np.zeros(1, np.int32),
+                     sensor_dim=np.full(1, 3, np.int32)),
         site_transmission=dict(actuator_trntype=trn),
         fluid=dict(has_fluid=True),
         user_dynamics=dict(actuator_dyntype=dyn),
@@ -190,7 +194,8 @@ def test_unported_features_raise(feature, monkeypatch):
     if feature == "smem_refused":
         monkeypatch.setattr(cg, "H100_SMEM_PER_BLOCK", 1000)
     mv = _variant(m, **changes)
-    match = {"elliptic": r"A\.12", "newton": r"A\.9", "smem_refused": r"A\.10"}.get(
+    match = {"elliptic": r"A\.12", "newton": r"A\.9", "smem_refused": r"A\.10",
+             "sensors": r"A\.12", "geom_pair": r"A\.12"}.get(
         feature, "ROADMAP.md"
     )
     with pytest.raises(NotImplementedError, match=match):
