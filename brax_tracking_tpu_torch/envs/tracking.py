@@ -361,7 +361,7 @@ class GenericSingleClip(TrackingEnv):
         **kwargs,
     ):
         model = bspec.load_model(
-            bspec.frozen_path(mjcf_path),
+            bspec.frozen_path(mjcf_path, free_jnt),
             device=device,
             dtype=dtype,
             scale_factor=scale_factor,

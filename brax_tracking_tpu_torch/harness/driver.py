@@ -111,7 +111,7 @@ def build_env_from_cfg(cfg: Dict, device="cuda", dtype=None):
 
     # the clip builder's model: the env's frozen model, its options checked
     model = bspec.load_model(
-        bspec.frozen_path(env_args["mjcf_path"]),
+        bspec.frozen_path(env_args["mjcf_path"], env_args.get("free_jnt", True)),
         device=dev,
         dtype=dtype,
         **{k: env_args[k] for k in bspec.FROZEN_OPTIONS if k in env_args},

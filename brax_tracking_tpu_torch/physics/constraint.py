@@ -233,7 +233,7 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
     if n_ball:
         if m.ncon:
             # the dense block would need the contact rows too
-            M.unported("dense contact rows beside ball-joint limits", "§A.9")
+            M.unported("dense contact rows beside ball-joint limits", "§A.12")
         jids = layout.limit_ball_jnt
         ji = m.idx(jids)
         qadr = np.asarray(m.jnt_qposadr)[jids]

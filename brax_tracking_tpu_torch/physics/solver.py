@@ -433,7 +433,7 @@ def _linesearch(m: M.Model, exists, ctx: _Ctx, p, jar_p, mp, efc_D) -> torch.Ten
 
 def _array_inputs(m: M.Model, d: M.Data):
     if m.ncon:
-        M.unported("dense contact rows (solve paths off the kernel layout)", "§A.9")
+        M.unported("dense contact rows (solve paths off the kernel layout)", "§A.12")
     return d.efc_pos < d.efc_margin, d.efc_D, d.efc_aref
 
 

@@ -71,6 +71,18 @@ RODENT_STANDIN_XML = os.path.join(ASSETS, "rodent_standin.xml")
 RODENT_STANDIN_NPZ = os.path.join(ASSETS, "rodent_standin.npz")
 RODENT_OPTIONS = dict(scale_factor=0.9, rescale_root="torso")
 
+# the fly stand-in at the sizes of the fly's _fast model (configs/dataset/
+# fly.yaml and fly_freejnt.yaml, whose MJCF is not in this repository;
+# assets/make_fly_standin.py writes it), frozen with those configs' CG 4/4:
+# with its free root for fly_freejnt.yaml, and tethered (the free joint
+# stripped) for fly.yaml; its stac exports are one MuJoCo C rollout of the
+# free stand-in, full width and without the root columns
+FLY_STANDIN_XML = os.path.join(ASSETS, "fly_standin.xml")
+FLY_STANDIN_NPZ = os.path.join(ASSETS, "fly_standin.npz")
+FLY_STANDIN_TETHERED_NPZ = os.path.join(ASSETS, "fly_standin_tethered.npz")
+FLY_STANDIN_STAC = os.path.join(ASSETS, "fly_standin_stac.p")
+FLY_STANDIN_TETHERED_STAC = os.path.join(ASSETS, "fly_standin_tethered_stac.p")
+
 # the env options a frozen file was compiled with (load_model checks them)
 FROZEN_OPTIONS = (
     "scale_factor", "rescale_root", "free_jnt", "torque_actuators", "solver",
@@ -265,6 +277,32 @@ def rescale_subtree(spec, body_name: str, length_factor: float):
     return spec
 
 
+def strip_free_joint(spec, body_name: str = "thorax"):
+    """Deletes the leading joint of ``body_name`` when it is the free joint
+    named ``free``: the tethered fly (the JAX package's
+    ``spec.strip_free_joint``)."""
+    joints = spec.body(body_name).joints
+    if joints and joints[0].name == "free":
+        spec.delete(joints[0])
+    return spec
+
+
+def torque_actuator_rewrite(spec):
+    """Makes every actuator a direct torque motor: a fixed gain equal to its
+    upper force limit and no bias (the JAX package's
+    ``spec.torque_actuator_rewrite``)."""
+    import mujoco
+
+    for act in spec.actuators:
+        force_hi = act.forcerange[1]
+        act.gainprm[:] = 0.0
+        act.gainprm[0] = force_hi
+        act.gaintype = mujoco.mjtGain.mjGAIN_FIXED
+        act.biastype = mujoco.mjtBias.mjBIAS_NONE
+        act.biasprm[:] = 0.0
+    return spec
+
+
 def _sensor_types(m) -> np.ndarray:
     """The port's SENS_* of each sensor of a compiled model; another type
     raises."""
@@ -294,24 +332,29 @@ def freeze_mjcf(
     port reads into ``out_npz``; returns the written arrays.
 
     The defaults are the minirat dataset's env_args
-    (configs/dataset/minirat.yaml); ``scale_factor`` != 1 rescales the
-    subtree under ``rescale_root`` before compiling (rescale_subtree), as
-    the JAX package's ``build_model`` does. Needs the ``mujoco`` bindings,
-    which only this offline step imports.
+    (configs/dataset/minirat.yaml). The spec transforms run before the
+    compile in the JAX package's ``build_model`` order: ``free_jnt`` False
+    strips the thorax's free joint (strip_free_joint), ``torque_actuators``
+    rewrites the actuators as torque motors (torque_actuator_rewrite), and
+    ``scale_factor`` != 1 rescales the subtree under ``rescale_root``
+    (rescale_subtree). Needs the ``mujoco`` bindings, which only this
+    offline step imports.
     """
     import mujoco
 
-    if not free_jnt:
-        M.unported("free-joint stripping (tethered models)", "§A.9")
-    if torque_actuators:
-        M.unported("torque-actuator rewrite", "§A.9")
-
     spec = mujoco.MjSpec.from_file(xml_path)
+    if not free_jnt:
+        strip_free_joint(spec)
+    if torque_actuators:
+        torque_actuator_rewrite(spec)
     if scale_factor != 1.0:
         rescale_subtree(spec, rescale_root, scale_factor)
     m = spec.compile()
     if any(int(w) != int(mujoco.mjtWrap.mjWRAP_JOINT) for w in m.wrap_type):
         M.unported("spatial tendons (site and geom wraps)", "§A.12")
+    if np.any(np.asarray(m.geom_fluid)[:, 0] > 0):
+        # MuJoCo then replaces the body's inertia box by its geoms' ellipsoids
+        M.unported("the ellipsoid fluid model (geom fluidshape)", "§A.12")
     # the env-level solver overrides (JAX spec.set_solver_options)
     m.opt.solver = {
         "cg": mujoco.mjtSolver.mjSOL_CG,
@@ -357,15 +400,17 @@ def freeze_mjcf(
     return fields
 
 
-def frozen_path(mjcf_path: str) -> str:
+def frozen_path(mjcf_path: str, free_jnt: bool = True) -> str:
     """The frozen model file for an MJCF path as the dataset configs name
-    it: ``builtin:<name>.xml`` is the port's ``assets/<name>.npz``; an
-    ``.npz`` path is itself."""
+    it, with the env's model options: ``builtin:<name>.xml`` is the port's
+    ``assets/<name>.npz``, or with ``free_jnt`` False (the free joint
+    stripped) ``assets/<name>_tethered.npz``; an ``.npz`` path is itself.
+    ``load_model`` checks the file's options against the env's."""
     if mjcf_path.endswith(".npz"):
         return mjcf_path
     if mjcf_path.startswith("builtin:"):
         name = os.path.splitext(mjcf_path[len("builtin:"):])[0]
-        path = os.path.join(ASSETS, name + ".npz")
+        path = os.path.join(ASSETS, name + ("" if free_jnt else "_tethered") + ".npz")
         if os.path.exists(path):
             return path
     raise FileNotFoundError(

@@ -30,7 +30,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
    freezes it: nv 73, its own joint damping, so the damped Euler tail) at
    B=2048 and B=2047 and converged; bitwise against the one-warp core on
    the same inputs on the one rat (undamped and with a seeded damping), the
-   rodent stand-in and the rodent-like case; and at the
+   rodent stand-in and the rodent-like case; the one-warp instance (b)
+   (the elliptic block) on the fly stand-in (assets/fly_standin.xml as the
+   fly configs freeze it: nv 42 with the free root, nv 36 tethered, 12
+   elliptic contacts, the fluid model) at B=2048 and B=2047 and converged,
+   both files; and at the
    design edges at 590 rows (the widest one-warp env and the first wide
    one, the widest env of layout 1, the first past it, the widest of
    layout 2);
@@ -48,7 +52,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
    5 substeps, sensors every substep) on the rodent stand-in for 10 control
    steps: exactly 5 launches per control step and no other kernel, finite
    sensordata, and its first step (obs, reward, sensordata) on 8 envs
-   against the CPU in float64;
+   against the CPU in float64; then 2048 envs of each fly env
+   (fly_single_clip_freejnt and fly_single_clip, configs/dataset/
+   fly_freejnt.yaml and fly.yaml, 5 substeps) on the fly stand-in, its clip
+   from the committed stac export, for 10 control steps: exactly 5
+   launches per control step and no other kernel, and its first step on 8
+   envs against the CPU in float64;
 5. steps 2048 ballmuscle envs (ball-joint limits, a fixed tendon, muscles)
    20 substeps under CG (the XLA-CG path: spd_inverse2 once per substep)
    and under Newton (spd_solve 2 + iterations per substep), counts the
@@ -87,7 +96,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    flagship's command, train=train_rodent dataset=rodent on the rodent
    stand-in at train_rodent's widths (2048 envs), cut the same way: exact
    launches, all of them in the wide layout 1 with the damped tail (the
-   kernels line's rodent stand-in row);
+   kernels line's rodent stand-in row); and once more as train=train_fly
+   dataset=fly on the tethered fly stand-in at train_fly's widths (1024
+   envs), cut the same way: exact launches, all of them the one-warp (b)
+   (the kernels line's tethered fly row);
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -255,6 +267,39 @@ RODENT_ARGV = ["train=train_rodent", "dataset=rodent",
 RODENT_SUBSTEPS = 5
 RODENT_STEPS = 10
 RODENT_STEP_ATOL = {"obs": 7e-5, "reward": 6e-5, "sensordata": 3.4e-4}
+# the fly on its stand-in (assets/fly_standin.xml: nv 42 with the free
+# root, nv 36 tethered; 12 elliptic contacts, 72 rows; the fluid model),
+# frozen as configs/dataset/fly_freejnt.yaml and fly.yaml freeze it (CG
+# 4/4): the solve kernel's one-warp (b), its elliptic block. The solve at
+# B_MAIN and B_MAIN - 1 and converged on both files; a rollout of B_MAIN
+# envs of each config's env (5 substeps per control step) made by
+# harness/driver.py's build_env_from_cfg from FLY_ARGVS, the clip from the
+# committed stac export of its width. At qpos0 the claws touch the floor, so the first
+# control step presses the legs on it, and at the configs' CG 4/4 float32
+# is far from float64 there (ROADMAP C; a CPU float32 rehearsal, 8 envs,
+# seeds 0-2: obs 11.2 / 7.7, reward 1.05 / 1.85, a done flag apart; printed,
+# not gated). So the first control step of N_CPU_ENVS envs is held against
+# the CPU in float64 with the solve run to convergence on both sides
+# (``converged``, phase_fly_first_step): a CPU float32 rehearsal of that
+# (8 envs, seeds 0-2) is off float64 by at most 2.06e-2 / 1.47e-2 (obs, of
+# scale ~13 / ~7) and 1.36e-3 / 2.42e-3 (reward, of scale ~52), free /
+# tethered; the limits leave ~35x.
+FLY_MODELS = ("fly_standin", "fly_standin_tethered")
+_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "brax_tracking_tpu_torch",
+                       "assets")
+FLY_ARGVS = {
+    "fly_standin": ["train=train_fly_freejnt", "dataset=fly_freejnt",
+                    "dataset.env_args.mjcf_path=builtin:fly_standin.xml",
+                    "dataset.stac_path=" + os.path.join(_ASSETS, "fly_standin_stac.p")],
+    "fly_standin_tethered": ["train=train_fly", "dataset=fly",
+                             "dataset.env_args.mjcf_path=builtin:fly_standin.xml",
+                             "dataset.stac_path=" + os.path.join(
+                                 _ASSETS, "fly_standin_tethered_stac.p")],
+}
+FLY_SUBSTEPS = 5
+FLY_STEPS = 10
+FLY_STEP_ATOL = {"fly_standin": {"obs": 0.72, "reward": 0.048},
+                 "fly_standin_tethered": {"obs": 0.51, "reward": 0.085}}
 # ballmuscle slice: 20 substeps of 2048 envs per solver; its first substep
 # of 8 envs on the card (float32) against the CPU (float64). A CPU float32
 # rehearsal of that substep (64 envs, both solvers) is off float64 by
@@ -324,9 +369,11 @@ def load(model, device, dtype=None):
     main path; elliptic CG 4/4; Newton/100 with 50 line-search steps), the
     two-rat stand-in's at rodent_pair's sizes, frozen the same three ways
     ("ratpair", "ratpair_elliptic", "ratpair_newton"), one of its rats
-    alone ("rat", CG 4/4: nv 73, the rodent's width), or the rodent
+    alone ("rat", CG 4/4: nv 73, the rodent's width), the rodent
     stand-in as configs/dataset/rodent.yaml freezes it ("rodent_standin":
-    CG 4/4, rescaled by 0.9, damped, with sensors)."""
+    CG 4/4, rescaled by 0.9, damped, with sensors), or the fly stand-in as
+    the fly configs freeze it ("fly_standin" with the free root,
+    "fly_standin_tethered" without: CG 4/4, elliptic, the fluid model)."""
     from brax_tracking_tpu_torch.physics import spec
 
     npz, options = {
@@ -338,6 +385,8 @@ def load(model, device, dtype=None):
         "ratpair_newton": (spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
         "rat": (spec.RAT_NPZ, {}),
         "rodent_standin": (spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS),
+        "fly_standin": (spec.FLY_STANDIN_NPZ, dict(free_jnt=True)),
+        "fly_standin_tethered": (spec.FLY_STANDIN_TETHERED_NPZ, dict(free_jnt=False)),
     }[model]
     return spec.load_model(npz, device=device, dtype=dtype, **options)
 
@@ -371,14 +420,16 @@ def solve_case(device, model, B, seed, damped=False, iters=None):
     a Newton file one chunk of the Newton dispatch (K = 4, 16
     line-search steps, the stall exit) warmstarted from the qacc of a
     substep run just before on the card (its launches are set back).
-    Elliptic states get faster joints (contacts in all three cone zones)."""
+    Elliptic states (the elliptic files and the flies) get faster joints
+    (contacts in all three cone zones)."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
     from brax_tracking_tpu_torch.physics import constraint as Cn
     from brax_tracking_tpu_torch.physics import solver as S
     from brax_tracking_tpu_torch.physics import step as pstep
 
     m = load(model, device, torch.float32)
-    d = random_states(m, B, seed, vel=1.0 if model.endswith("elliptic") else 0.5)
+    elliptic = model.endswith("elliptic") or model in FLY_MODELS
+    d = random_states(m, B, seed, vel=1.0 if elliptic else 0.5)
     newton = model.endswith("newton")
     if newton:
         launches = ops_cg.cg_solve_fused.launches
@@ -683,15 +734,16 @@ def tracking_env(device, dtype=None, model="minirat"):
 
 # the envs chip_smoke.py builds from a config as the driver does: the
 # rodent_pair env on the two-rat stand-in, the flagship rodent env on the
-# rodent stand-in
-CONFIG_ENVS = {"ratpair": PAIR_ARGV, "rodent_standin": RODENT_ARGV}
+# rodent stand-in, the two fly envs on the fly stand-in
+CONFIG_ENVS = {"ratpair": PAIR_ARGV, "rodent_standin": RODENT_ARGV, **FLY_ARGVS}
 
 
 def config_env(device, dtype, model):
-    """The env of CONFIG_ENVS[model], unwrapped, built by the driver's own
-    builder; its synthetic clip is built through the frozen model and cached
-    in a temporary data_dir (the committed data/RodentPair and data/Rodent
-    clips are of the real models, not of the stand-ins)."""
+    """The env of CONFIG_ENVS[model], unwrapped, made by harness/driver.py's
+    build_env_from_cfg; its clip (synthetic, or the fly's from the committed
+    stac export) is built through the frozen model and cached in a temporary
+    data_dir (the committed data/RodentPair and data/Rodent clips are of
+    the real models, not of the stand-ins)."""
     import tempfile
 
     from brax_tracking_tpu_torch.harness import config as hc
@@ -758,10 +810,34 @@ def phase_first_step_on_cpu(first_in, action, first_out, n, model="minirat"):
     return gaps
 
 
-def first_step_gaps(first_in, action, first_out, n, model="minirat"):
+def phase_fly_first_step(env, first_in, action, model):
+    """The fly's first control step with the solve run to convergence
+    (``converged``): ``env``'s (the rollout's, its model swapped for the
+    step) from the rollout's first state and action, against the same step
+    of N_CPU_ENVS envs run by the port on the CPU in float64; returns the
+    gaps, gated by FLY_STEP_ATOL."""
+    inner = env.unwrapped
+    own = inner._model
+    inner._model = converged(own)
+    try:
+        out = env.step(first_in, action)
+    finally:
+        inner._model = own
+    gaps = first_step_gaps(first_in, action, out, N_CPU_ENVS, model, solve=converged)
+    atol = FLY_STEP_ATOL[model]
+    if any(gaps[k] > atol[k] for k in atol) or gaps["done_mismatch"]:
+        fail(f"{model}: first control step (converged) on the card differs from the CPU "
+             f"float64 run: {gaps} (limits {atol})")
+    return gaps
+
+
+def first_step_gaps(first_in, action, first_out, n, model="minirat", solve=None):
     """The gaps of phase_first_step_on_cpu, ungated (the CPU float32
-    rehearsal of a limit passes a float32 CPU run as the card's)."""
+    rehearsal of a limit passes a float32 CPU run as the card's); ``solve``
+    maps the CPU env's model first (phase_fly_first_step's converged)."""
     env = make_env("cpu", model=model)
+    if solve is not None:
+        env.unwrapped._model = solve(env.unwrapped.model)
     d = first_in.pipeline_state
     cpu = lambda t: t[:n].detach().to("cpu", torch.float64)
     s = env.init_state(first_in.info["cur_frame"][:n].cpu(), cpu(d.qpos), cpu(d.qvel))
@@ -1510,6 +1586,17 @@ RODENT_DRIVER_ARGV = RODENT_ARGV + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
     "train.force_episode_length=true", "train.episode_length=32",
     "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=24"]
+# train=train_fly dataset=fly on the tethered fly stand-in: configs/train/
+# train_fly.yaml's widths (MLPs 256 x 256, 1024 envs, batch 1024, unroll 16,
+# 128 eval envs) and fly.yaml's env, cut as the pair's run is (2
+# minibatches, 2 updates, episode_length 32): one training step (32,768 env
+# steps) with evals before and after it; the clip the committed tethered
+# stac export's first 24 frames (2 control steps each), so the callback's
+# B = 1 rollout takes 38 control steps
+FLY_DRIVER_ARGV = FLY_ARGVS["fly_standin_tethered"] + [
+    "train.num_minibatches=2", "train.num_updates_per_batch=2",
+    "train.force_episode_length=true", "train.episode_length=32",
+    "train.num_timesteps=32768", "train.eval_every=32768", "dataset.clip_length=24"]
 MC_ENVS = 8
 # One control step of MC_ENVS multi-clip envs (clips 0-3 twice) on the card
 # against the port's CPU float64 run from the same state and action: the
@@ -1587,12 +1674,14 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
             "clips": sorted(set(out.info["clip_idx"].tolist()))}
 
 
-def phase_driver(device, multi, pair=False, rodent=False):
+def phase_driver(device, multi, pair=False, rodent=False, fly=False):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
     temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
     (PAIR_DRIVER_ARGV), or with ``rodent`` the flagship's run on the rodent
-    stand-in (RODENT_DRIVER_ARGV), each with its clip built and cached in a
+    stand-in (RODENT_DRIVER_ARGV), or with ``fly`` train=train_fly on the
+    tethered fly stand-in (FLY_DRIVER_ARGV, its clip from the committed stac
+    export), each with its clip built and cached in a
     temporary data_dir, in a temporary paths.base_dir, the counts set to 0
     just before: exactly driver_expected_launches cg_solve_fused launches and
     no other kernel (on the card), every artifact written, every logged
@@ -1607,17 +1696,19 @@ def phase_driver(device, multi, pair=False, rodent=False):
     from brax_tracking_tpu_torch.harness import config as hc
     from brax_tracking_tpu_torch.harness import driver
 
-    tag = "rodent" if rodent else "pair" if pair else "multi-clip" if multi else "single clip"
-    committed = not (multi or pair or rodent)
+    tag = ("fly" if fly else "rodent" if rodent else "pair" if pair else "multi-clip" if multi
+           else "single clip")
+    committed = not (multi or pair or rodent or fly)
     with tempfile.TemporaryDirectory() as tmp:
         base = os.path.join(tmp, "run")
         data_dir = os.path.join(ROOT, "data", "Minirat") if committed else os.path.join(tmp, "data")
-        argv = (RODENT_DRIVER_ARGV if rodent else PAIR_DRIVER_ARGV if pair
-                else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
+        argv = (FLY_DRIVER_ARGV if fly else RODENT_DRIVER_ARGV if rodent else
+                PAIR_DRIVER_ARGV if pair else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
             f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
-        m = load("rodent_standin" if rodent else "ratpair" if pair else "minirat", "cpu")
+        m = load("fly_standin_tethered" if fly else "rodent_standin" if rodent else
+                 "ratpair" if pair else "minirat", "cpu")
         per_frame = round(1.0 / (ds["mocap_hz"] * float(m.opt.timestep)))
         n_steps = ((ds["clip_length"] - ds["ref_traj_length"])
                    * (per_frame // ds["env_args"]["physics_steps_per_control_step"]))
@@ -1697,7 +1788,7 @@ def phase_driver(device, multi, pair=False, rodent=False):
                 fail(f"driver (multi-clip): a control step on the card differs from the CPU "
                      f"float64 run: {gaps} (limits {MC_STEP_ATOL})")
             report.update(clips_drawn=clips, step_gaps=gaps)
-        elif pair or rodent:
+        elif pair or rodent or fly:
             built = sorted(os.listdir(os.path.join(data_dir, "clips")))
             if built != ["0.npz"]:
                 fail(f"driver ({tag}) cached {built}")
@@ -2041,7 +2132,7 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    for model in MODELS + PAIR_MODELS + ("rat", "rodent_standin"):
+    for model in MODELS + PAIR_MODELS + ("rat", "rodent_standin") + FLY_MODELS:
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
@@ -2083,6 +2174,15 @@ def main() -> int:
         standin[B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, "rodent_standin")
         if not standin[B, iters][0]["damped"]:
             fail("the rodent stand-in's solve is not damped")
+    # the fly stand-in, free and tethered (one root without a free joint):
+    # the one-warp (b), the elliptic block, at the fly's widths
+    flies = {}
+    for model in FLY_MODELS:
+        for B, iters in ((B_MAIN, None), (B_MAIN - 1, None), (B_MAIN, CONVERGED_ITERS)):
+            flies[model, B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, model)
+            _, args_f, kw_f, _ = flies[model, B, iters][1]
+            if not kw_f["ell_mu"] or kw_f["has_damping"]:
+                fail(f"the {model} solve is not the undamped elliptic instance (b)")
     # the wide core against the one-warp core on the same inputs, bitwise,
     # where both take the same path (layout 1, nv > 16): undamped and with
     # the damped Euler tail
@@ -2200,6 +2300,28 @@ def main() -> int:
           f"{float((sens[:, 9:13] > 0).any(-1).float().mean()):.4f}")
     gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS, "rodent_standin")
     print("rodent_standin_first_step_vs_cpu_f64 " + json.dumps(gaps))
+    # the fly envs on the fly stand-in (the one-warp (b), the fluid model),
+    # free and tethered, built from their configs
+    for model in FLY_MODELS:
+        t0 = time.perf_counter()
+        env, counts, first_in, a0, first_out, last, touching = phase_rollout(
+            "cuda", B_MAIN, SEED, model, FLY_STEPS)
+        torch.cuda.synchronize()
+        envs[model] = env
+        launches[f"cg_solve_fused ({model} rollout)"] = counts["cg_solve_fused"]
+        print(f"{model} rollout: {B_MAIN} envs x {FLY_STEPS} control steps x {FLY_SUBSTEPS} "
+              f"substeps, first run {time.perf_counter() - t0:.1f} s, kernel launches {counts}")
+        expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": FLY_STEPS * FLY_SUBSTEPS}
+        if counts != expected:
+            fail(f"kernel launches in the {model} rollout: {counts}, expected {expected}")
+        print(f"{model} rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
+              f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
+              f"{touching:.4f}, thorax height mean "
+              f"{float(last.pipeline_state.xpos[:, env.unwrapped._thorax_idx, 2].mean()):.4f}")
+        gaps = first_step_gaps(first_in, a0, first_out, N_CPU_ENVS, model)
+        print(f"{model}_first_step_vs_cpu_f64 (CG 4/4, not gated) " + json.dumps(gaps))
+        gaps = phase_fly_first_step(env, first_in, a0, model)
+        print(f"{model}_first_step_converged_vs_cpu_f64 " + json.dumps(gaps))
 
     # 5. the ballmuscle slice, CG (i) and Newton (ii)
     for solver, kernel in (("cg", "spd_inverse2"), ("newton", "spd_solve")):
@@ -2330,13 +2452,29 @@ def main() -> int:
           f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
           f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
     print(f"rodent driver phase: {time.perf_counter() - t_rod:.1f} s on {card}")
+    # train=train_fly dataset=fly on the tethered fly stand-in: every solve
+    # the one-warp (b)
+    t_fly = time.perf_counter()
+    r = phase_driver("cuda", False, fly=True)
+    launches["cg_solve_fused (tethered fly)"] = r["counts"]["cg_solve_fused"]
+    m = r["metrics"]
+    print(f"driver (fly): main() {r['seconds']:.1f} s, kernel launches {r['counts']} (expected "
+          f"cg_solve_fused {r['expected']}: train()'s and one reset and 5 per control step of "
+          f"the callback rollout), training/sps {m['training/sps']:.1f}, eval/sps "
+          f"{m['eval/sps']:.1f}, eval/episode_reward {m['eval/episode_reward']:.3f}; "
+          f"training/walltime {m['training/walltime']:.2f} s, eval/walltime "
+          f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
+          f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
+    print(f"fly driver phase: {time.perf_counter() - t_fly:.1f} s on {card}")
 
     # 10. times. The solve kernels: every instance the gates held, with its
     # layout and warps per env (ops/cg.py::kernel_layout), each a row of the
     # kernels line. Launches are the main paths' counts: the one-warp fused
     # kernel's (a) in driver runs (i) and (ii), the wide layout 2's (a) in
     # the pair driver run, the wide layout 1's (a), damped, in the rodent
-    # driver run; the other instances lie on no path (0).
+    # driver run, the one-warp (b) on the fly in the fly driver run
+    # (tethered) and in the free fly's rollout; the other instances lie on
+    # no path (0).
     entries = []
     solve_cases = [  # (gate's result, dense?, B, what, launches, profiled launches)
         (cases["minirat", B_MAIN, False, None], False, B_MAIN, "(a) minirat",
@@ -2348,6 +2486,10 @@ def main() -> int:
         (rat[B_MAIN], False, B_MAIN, "(a) one rat", 0, 20),
         (standin[B_MAIN, None], False, B_MAIN, "(a) rodent stand-in, damped",
          launches["cg_solve_fused (rodent stand-in)"], 20),
+        (flies["fly_standin", B_MAIN, None], False, B_MAIN, "(b) fly stand-in, free root",
+         launches["cg_solve_fused (fly_standin rollout)"], 100),
+        (flies["fly_standin_tethered", B_MAIN, None], False, B_MAIN, "(b) fly stand-in, tethered",
+         launches["cg_solve_fused (tethered fly)"], 100),
         (pair["ratpair", B_PAIR, None], False, B_PAIR, "(a) two-rat stand-in",
          launches["cg_solve_fused (layout 2)"], 10),
         (pair["ratpair_elliptic", B_PAIR, None], False, B_PAIR, "(b) two-rat stand-in elliptic",

@@ -66,7 +66,9 @@ of the wide instances per count, device us per launch of ``pair_a``,
 ``pair_b``, ``pair_c``, ``pair_batched_a``, ``rat_a``, ``rodent_like`` and
 the widest layout-1 env at 590 rows (``l1_last``) per count (``warps_us``),
 and, with the tree's own count, the one-warp core against the wide one on
-the dense case at 590 rows over nv and on ``rat_a`` and ``rodent_like``
+the dense case at 590 rows over nv, on ``rat_a`` and ``rodent_like``, and
+on the fly stand-in's (b), free and tethered (``fly_standin_b``,
+``fly_standin_tethered_b``, 2048 envs; where the tree has them)
 (``edge_us``: where the one-warp / wide edge of ops/cg.py::kernel_layout
 belongs).
 """
@@ -93,6 +95,9 @@ WIDE_CASES = (("pair_a", "ratpair", False, 1024), ("pair_b", "ratpair_elliptic",
               ("pair_c", "ratpair_newton", False, 1024), ("pair_batched_a", "ratpair", True, 1024),
               ("rat_a", "rat", False, 2048), ("rodent_like", "rodent_like", True, 2048))
 PAIR_OCCUPANCY_ENVS = (132, 528, 1024)
+# the fly stand-in's files (the one-warp elliptic instance by the rule),
+# timed on both cores by --warps
+FLY_CASES = ("fly_standin", "fly_standin_tethered")
 # nv of the dense case at 590 rows for the one-warp / wide comparison
 EDGE_NV = (8, 12, 15, 16, 20, 24, 32, 36, 48, 71)
 FACTOR_SIZES = (7, 10, 73, 144, 146)
@@ -227,6 +232,9 @@ def warps_sweep(cs, root: str, counts, reps: int) -> dict:
         "cuda", 2048, cs.SEED, None, {"nv": nv, "nefc": cs.PAIR_ROWS, "nlim": 4})) + (True,)
         for nv in EDGE_NV}
     edge["rat_a"], edge["rodent_like"] = cases["rat_a"], cases["rodent_like"]
+    # the fly's (b), free and tethered: one warp by the rule, wide forced
+    for model in FLY_CASES:
+        edge[f"{model}_b"] = wide_case(cs, model, False, 2048)
     wide_above = ops_cg.WIDE_ABOVE_SMEM
     for key, c in edge.items():
         if c is None:

@@ -9,6 +9,9 @@ so does ``ratpair``: the rodent_pair env on the two-rat stand-in (5
 substeps, the solve kernel's layout 2), at 1024 envs unless ``--envs``, and
 ``rodent_standin``: the flagship rodent_single_clip env on the rodent
 stand-in (5 substeps, the wide layout 1 with its damped tail, sensors);
+``fly_standin`` and ``fly_standin_tethered``: the fly_single_clip_freejnt
+and fly_single_clip envs on the fly stand-in (5 substeps, the one-warp
+elliptic instance, the fluid model), their clips from the stac exports;
 ``ballmuscle_cg`` and ``ballmuscle_newton`` step chip_smoke.py's posed
 ballmuscle states, ``minirat_newton`` its seeded Newton minirat states,
 through ``physics.step`` and a step is one substep. It warms up, then profiles
@@ -71,7 +74,8 @@ def _stepper(model: str, envs: int):
     """(advance, substeps per step) for the profiled model."""
     if model == "minirat_ppo":
         return _ppo_stepper(envs)
-    if model in ("minirat", "minirat_elliptic", "ratpair", "rodent_standin"):
+    configs = ("minirat", "minirat_elliptic", "ratpair", "rodent_standin") + chip_smoke.FLY_MODELS
+    if model in configs:
         env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
         box = [env.reset(gen, envs)]
@@ -81,7 +85,8 @@ def _stepper(model: str, envs: int):
             box[0] = env.step(box[0], act())
 
         return advance, {"ratpair": chip_smoke.PAIR_SUBSTEPS,
-                         "rodent_standin": chip_smoke.RODENT_SUBSTEPS}.get(
+                         "rodent_standin": chip_smoke.RODENT_SUBSTEPS,
+                         **dict.fromkeys(chip_smoke.FLY_MODELS, chip_smoke.FLY_SUBSTEPS)}.get(
                              model, chip_smoke.N_SUBSTEPS)
     from brax_tracking_tpu_torch.physics import step as pstep
 
@@ -107,7 +112,7 @@ def main() -> int:
     ap.add_argument("--model", default="minirat",
                     choices=("minirat", "minirat_elliptic", "minirat_newton",
                              "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo", "ratpair",
-                             "rodent_standin"))
+                             "rodent_standin") + chip_smoke.FLY_MODELS)
     ap.add_argument("--envs", type=int, default=None,
                     help="envs (default 1024 for ratpair, the pair config's, else 2048)")
     ap.add_argument("--steps", type=int, default=3)

@@ -42,6 +42,7 @@ from brax_tracking_tpu.training import running_statistics as jrs
 from brax_tracking_tpu_torch.agents.ppo import networks as tnetworks
 from brax_tracking_tpu_torch.harness import config as tconfig
 from brax_tracking_tpu_torch.harness import driver as tdriver
+from brax_tracking_tpu_torch.physics import spec as tspec
 from brax_tracking_tpu_torch.harness import eval_plots
 from brax_tracking_tpu_torch.harness import metrics as tmetrics
 from brax_tracking_tpu_torch.training import checkpoint as tcheckpoint
@@ -282,8 +283,18 @@ def test_driver_unported_options_raise(tmp_path, monkeypatch, extra, env):
 
 
 def test_driver_unported_env_raises_before_building(tmp_path):
-    with pytest.raises(NotImplementedError, match="§A.9"):
-        tdriver.main(CUTS + ["train.env_name=fly_single_clip", f"paths.base_dir={tmp_path}/r",
+    """An env whose model holds a feature the port does not cover (a slide
+    joint, ROADMAP A.12; every registered env name is ported) raises while
+    its clip is built, before the driver writes the clip cache."""
+    xml = tmp_path / "slide.xml"
+    xml.write_text("""<mujoco><worldbody><geom type="plane" size="1 1 .1"/>
+    <body name="torso" pos="0 0 0.1"><freejoint/><geom type="capsule" size="0.02 0.05"/>
+    <body><joint name="s" type="slide" axis="1 0 0"/><geom type="sphere" size="0.01"/>
+    </body></body></worldbody></mujoco>""")
+    npz = str(tmp_path / "slide.npz")
+    tspec.freeze_mjcf(str(xml), npz)
+    with pytest.raises(NotImplementedError, match="§A.12"):
+        tdriver.main(CUTS + [f"dataset.env_args.mjcf_path={npz}", f"paths.base_dir={tmp_path}/r",
                              f"paths.data_dir={tmp_path}/d"], device="cpu")
     assert not (tmp_path / "d" / "clips").exists()
 

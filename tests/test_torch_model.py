@@ -159,7 +159,9 @@ def test_unported_features_raise(feature, monkeypatch):
     too: test_torch_rodent.py); ``geom_pair`` a plane-box pair. ``elliptic`` is
     elliptic cones with torsional friction (condim 4); ``newton`` is Newton
     off the kernel layout (200 iterations, past the kernel's 128) on a model
-    with contacts, whose dense contact rows are not ported; ``smem_refused``
+    with contacts, whose dense contact rows are not ported; ``fluid`` the
+    ellipsoid fluid model (a geom's ``fluidshape``), whose freeze raises
+    (the inertia-box model is ported: test_torch_fly.py); ``smem_refused``
     a model the JAX package sends to the kernel path whose env does not fit
     one block's shared memory (here by shrinking the limit): the port raises
     rather than run another algorithm."""
@@ -168,6 +170,18 @@ def test_unported_features_raise(feature, monkeypatch):
     from brax_tracking_tpu_torch.ops import cg
     from brax_tracking_tpu_torch.physics import step
 
+    if feature == "fluid":
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            xml = os.path.join(tmp, "ellipsoid_fluid.xml")
+            with open(xml, "w") as f:
+                f.write('<mujoco><option density="1.2" viscosity="1e-5"/><worldbody><body>'
+                        '<freejoint/><geom type="capsule" size="0.01 0.02" '
+                        'fluidshape="ellipsoid"/></body></worldbody></mujoco>')
+            with pytest.raises(NotImplementedError, match=r"A\.12"):
+                tspec.freeze_mjcf(xml, os.path.join(tmp, "e.npz"))
+        return
     m = tspec.load_model(device="cpu")
     jt = np.array(m.jnt_type)
     gt = np.array(m.geom_type)
@@ -184,7 +198,6 @@ def test_unported_features_raise(feature, monkeypatch):
                      sensor_objid=np.zeros(1, np.int32), sensor_adr=np.zeros(1, np.int32),
                      sensor_dim=np.full(1, 3, np.int32)),
         site_transmission=dict(actuator_trntype=trn),
-        fluid=dict(has_fluid=True),
         user_dynamics=dict(actuator_dyntype=dyn),
         elliptic=dict(opt=dict(cone=TM.CONE_ELLIPTIC), pairs=condim4),
         newton=dict(opt=dict(solver=TM.SOLVER_NEWTON, iterations=200)),
@@ -194,7 +207,7 @@ def test_unported_features_raise(feature, monkeypatch):
     if feature == "smem_refused":
         monkeypatch.setattr(cg, "H100_SMEM_PER_BLOCK", 1000)
     mv = _variant(m, **changes)
-    match = {"elliptic": r"A\.12", "newton": r"A\.9", "smem_refused": r"A\.10",
+    match = {"elliptic": r"A\.12", "newton": r"A\.12", "smem_refused": r"A\.10",
              "sensors": r"A\.12", "geom_pair": r"A\.12"}.get(
         feature, "ROADMAP.md"
     )

@@ -176,21 +176,23 @@ def test_multiclip_resets_draw_and_pin_clips():
 
 @pytest.mark.parametrize("name,item", [
     ("rodent_single_clip", None), ("rodent_multi_clip", None),
-    ("fly_single_clip", "§A.9"), ("fly_single_clip_freejnt", "§A.9"),
+    ("fly_single_clip", None), ("fly_single_clip_freejnt", None),
 ])
 def test_registry_unported_envs_raise(name, item):
-    """The fly's names raise naming their ROADMAP item; the rodent's, ported,
-    resolve to the port's classes (built on the stand-in in
-    tests/test_torch_rodent_env.py)."""
-    if item is None:
-        from brax_tracking_tpu_torch.envs import rodent
+    """Every name the JAX registry holds is ported: the rodent's and the
+    fly's names resolve to the port's classes (built on their stand-ins in
+    tests/test_torch_rodent_env.py and tests/test_torch_fly_env.py), and
+    the registry knows no name the JAX one does not."""
+    from brax_tracking_tpu.envs import registry as jregistry
+    from brax_tracking_tpu_torch.envs import fly, rodent
 
-        cls = registry.lookup(name)
-        assert cls is {"rodent_single_clip": rodent.RodentSingleClip,
-                       "rodent_multi_clip": rodent.RodentMultiClip}[name]
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        registry.get_environment(name, reference_clip=None)
+    assert item is None
+    cls = registry.lookup(name)
+    assert cls is {"rodent_single_clip": rodent.RodentSingleClip,
+                   "rodent_multi_clip": rodent.RodentMultiClip,
+                   "fly_single_clip": fly.FlyTethered,
+                   "fly_single_clip_freejnt": fly.FlyFreeJoint}[name]
+    assert sorted(registry._REGISTRY) == sorted(jregistry._REGISTRY)
 
 
 def test_registry_unknown_env_raises():
