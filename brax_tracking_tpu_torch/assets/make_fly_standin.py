@@ -39,6 +39,15 @@ seeded, time-varying actuation, 250 frames at 50 Hz, in the reference's
 full-width qpos (fly_freejnt.yaml), ``fly_standin_tethered_stac.p`` with
 the root columns dropped (fly.yaml: the JAX package's tethered fly reads a
 qpos as wide as its model, as scripts/make_demo_stac.py writes one).
+
+``fly_standin_pair.xml`` is the render scene of the fly configs'
+``rendering_mjcf`` (the reference's ``fruitfly_force_pair.xml`` is not in
+this repository either): two fly stand-ins side by side, every name
+suffixed ``-0`` and ``-1``, the reference clip's body first, each in its
+own colour, with no actuators. It is frozen with both free roots (nq 2 x
+43) and with both stripped (nq 2 x 36), as the JAX render strips every
+free joint for a tethered config. Camera 0 is fixed in the world; camera 1
+tracks the rollout body's subtree CoM (``trackcom`` on ``thorax-1``).
 """
 
 from __future__ import annotations
@@ -48,10 +57,13 @@ import pickle
 
 import numpy as np
 
-from brax_tracking_tpu_torch.assets.make_ratpair import FLOOR_BIT, _Bodies, _v
+from brax_tracking_tpu_torch.assets.make_ratpair import FLOOR_BIT, _Bodies, _v, pair_body
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NAME = "fly_standin.xml"
+PAIR_NAME = "fly_standin_pair.xml"
+# the render pair's thoraxes lie this far either side of y = 0 (cm)
+PAIR_Y = 0.15
 # collision bits: the claws against the floor (FLOOR_BIT); the thorax
 # against the coxae, femurs and tibiae, and coxa against coxa, all of
 # which the excludes remove
@@ -122,8 +134,8 @@ class _Fly(_Bodies):
     def visual(self, name: str, kind: str, pos, size):
         self.geom(kind, name, pos=pos, size=size, **{"class": "visual"})
 
-    def build(self):
-        self._emit(f'<body name="thorax" pos="0 0 {THORAX_Z}">')
+    def build(self, y0: float = 0.0):
+        self._emit(f'<body name="thorax" pos="0 {y0:g} {THORAX_Z}">')
         self.depth += 1
         self._emit('<freejoint name="free"/>')
         self.geom("capsule", "thorax", fromto=(-0.04, 0, 0, 0.04, 0, 0), size=0.03,
@@ -222,14 +234,10 @@ def _excludes(fly: _Fly):
     return pairs
 
 
-def fly_standin_xml() -> str:
-    """The fly stand-in's MJCF text (``fly_standin.xml``)."""
-    fly = _Fly()
-    bodies = fly.build()
-    lines = [
-        "<!-- Stand-in for the fruit fly at the sizes of its _fast model; written by",
-        "     brax_tracking_tpu_torch/assets/make_fly_standin.py (edit that, not this). -->",
-        '<mujoco model="fly_standin">',
+def _header(model: str):
+    """The stand-in's compiler, option and default lines."""
+    return [
+        f'<mujoco model="{model}">',
         '  <compiler angle="degree"/>',
         '  <option timestep="0.002" gravity="0 0 -981" density="0.00128" viscosity="0.000185" '
         'cone="elliptic" noslip_iterations="3" iterations="4" ls_iterations="4" solver="CG"/>',
@@ -243,6 +251,17 @@ def fly_standin_xml() -> str:
         f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
         'conaffinity="0"/>',
     ]
+
+
+def fly_standin_xml() -> str:
+    """The fly stand-in's MJCF text (``fly_standin.xml``)."""
+    fly = _Fly()
+    bodies = fly.build()
+    lines = [
+        "<!-- Stand-in for the fruit fly at the sizes of its _fast model; written by",
+        "     brax_tracking_tpu_torch/assets/make_fly_standin.py (edit that, not this). -->",
+        *_header("fly_standin"),
+    ]
     lines += bodies
     lines += ["  </worldbody>", "  <contact>"]
     lines += [f'    <exclude body1="{a}" body2="{b}"/>' for a, b in _excludes(fly)]
@@ -255,22 +274,50 @@ def fly_standin_xml() -> str:
     return "\n".join(lines) + "\n"
 
 
-def write(directory: str = HERE) -> str:
-    path = os.path.join(directory, NAME)
-    with open(path, "w") as f:
-        f.write(fly_standin_xml())
-    return path
+def fly_standin_pair_xml() -> str:
+    """The fly stand-ins' render scene (``fly_standin_pair.xml``)."""
+    lines = [
+        "<!-- Render scene of two fly stand-ins, the reference clip's body first; written by",
+        "     brax_tracking_tpu_torch/assets/make_fly_standin.py (edit that, not this). -->",
+        *_header("fly_standin_pair"),
+        '    <camera name="side" pos="1 0 0.4" xyaxes="0 1 0 -0.37 0 1"/>',
+    ]
+    track = '<camera name="track" mode="trackcom" pos="0 -0.6 0.25" xyaxes="1 0 0 0 0.4 1"/>'
+    excludes = []
+    for idx, y0 in ((0, PAIR_Y), (1, -PAIR_Y)):
+        fly = _Fly()
+        lines += pair_body(fly.build(y0), idx, track if idx == 1 else "")
+        excludes += [f'    <exclude body1="{a}-{idx}" body2="{b}-{idx}"/>'
+                     for a, b in _excludes(fly)]
+    lines += ["  </worldbody>", "  <contact>", *excludes, "  </contact>", "</mujoco>"]
+    return "\n".join(lines) + "\n"
+
+
+def write(directory: str = HERE):
+    """Writes the stand-in and its render scene; returns their paths."""
+    out = []
+    for name, text in ((NAME, fly_standin_xml()), (PAIR_NAME, fly_standin_pair_xml())):
+        path = os.path.join(directory, name)
+        with open(path, "w") as f:
+            f.write(text)
+        out.append(path)
+    return out
 
 
 def freeze():
     """Freezes the stand-in as configs/dataset/fly_freejnt.yaml and fly.yaml
-    load it (CG 4/4; the free root kept, then stripped); returns the
+    load it (CG 4/4; the free root kept, then stripped), and its render
+    scene with both free roots and with both stripped; returns the
     paths."""
     from brax_tracking_tpu_torch.physics import spec
 
     spec.freeze_mjcf(spec.FLY_STANDIN_XML, spec.FLY_STANDIN_NPZ, free_jnt=True)
     spec.freeze_mjcf(spec.FLY_STANDIN_XML, spec.FLY_STANDIN_TETHERED_NPZ, free_jnt=False)
-    return [spec.FLY_STANDIN_NPZ, spec.FLY_STANDIN_TETHERED_NPZ]
+    spec.freeze_mjcf(spec.FLY_STANDIN_PAIR_XML, spec.FLY_STANDIN_PAIR_NPZ, free_jnt=True)
+    spec.freeze_mjcf(spec.FLY_STANDIN_PAIR_XML, spec.FLY_STANDIN_PAIR_TETHERED_NPZ,
+                     free_jnt=False, render_scene=True)
+    return [spec.FLY_STANDIN_NPZ, spec.FLY_STANDIN_TETHERED_NPZ, spec.FLY_STANDIN_PAIR_NPZ,
+            spec.FLY_STANDIN_PAIR_TETHERED_NPZ]
 
 
 def stac_qpos(xml_path: str = os.path.join(HERE, NAME), n_frames: int = STAC_FRAMES):
@@ -315,7 +362,7 @@ def export_stac(directory: str = HERE):
 if __name__ == "__main__":
     import sys
 
-    out = [write()]
+    out = write()
     if "--freeze" in sys.argv[1:]:
         out += freeze() + export_stac()
     for p in out:

@@ -47,11 +47,21 @@ through plane-capsule, plane-sphere and plane-ellipsoid pairs (13 floor
 geoms, 17 contact slots, 135 rows under pyramidal CG 4/4 with the 67
 limited hinges). The config rescales the subtree under the torso by 0.9;
 after that the feet and hands hover 4-7 mm above the floor at qpos0.
+
+``rodent_standin_pair.xml`` is the render scene of the rodent configs'
+``rendering_mjcf`` (the reference's ``rodent_pair.xml`` is not in this
+repository either): two rodent stand-ins, unscaled, every name suffixed
+``-0`` and ``-1``, the reference clip's body first (nq 2 x 74, so a
+rollout of the 74-wide env takes the render's pair branch), each in its
+own colour, with no actuators, tendons or sensors. Camera 0 is fixed in
+the world; camera 1 tracks the rollout body's subtree CoM (``trackcom`` on
+``torso-1``), the one the configs' ``camera: 1`` selects.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLOOR_BIT, CROSS_BIT = 1, 2
@@ -341,8 +351,8 @@ class _Rodent(_Bodies):
         box = f' type="box" size="{_v(size)}"' if size is not None else ""
         self._emit(f'<site name="{name}" pos="{_v(pos)}"{box}/>')
 
-    def build(self):
-        self._emit(f'<body name="torso" pos="0 0 {STANDIN_TORSO_Z}">')
+    def build(self, y0: float = 0.0):
+        self._emit(f'<body name="torso" pos="0 {y0:g} {STANDIN_TORSO_Z}">')
         self.depth += 1
         self._emit('<freejoint name="free"/>')
         self.ellipsoid("torso_belly", (0, 0, -0.005), (0.035, 0.022, 0.02), floor=True)
@@ -482,13 +492,9 @@ def _tendon_joints():
     }
 
 
-def rodent_standin_xml() -> str:
-    """The rodent stand-in's MJCF text (``rodent_standin.xml``)."""
+def _standin_defaults():
+    """The rodent stand-in's <default> block."""
     lines = [
-        "<!-- Stand-in for the flagship rodent at its sizes and with its kinds of features;",
-        "     written by brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
-        '<mujoco model="rodent_standin">',
-        '  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"/>',
         "  <default>",
         '    <geom type="capsule" contype="0" conaffinity="0"/>',
         '    <site type="sphere" size="0.002"/>',
@@ -503,8 +509,17 @@ def rodent_standin_xml() -> str:
             f'      <general gainprm="{kp:g}" biasprm="0 {-kp:g} 0" forcerange="{-kp:g} {kp:g}"/>',
             "    </default>",
         ]
-    lines += [
-        "  </default>",
+    return lines + ["  </default>"]
+
+
+def rodent_standin_xml() -> str:
+    """The rodent stand-in's MJCF text (``rodent_standin.xml``)."""
+    lines = [
+        "<!-- Stand-in for the flagship rodent at its sizes and with its kinds of features;",
+        "     written by brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
+        '<mujoco model="rodent_standin">',
+        '  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"/>',
+        *_standin_defaults(),
         "  <worldbody>",
         f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
         'conaffinity="0"/>',
@@ -538,19 +553,59 @@ def rodent_standin_xml() -> str:
     return "\n".join(lines) + "\n"
 
 
-def write(directory: str = HERE):
-    """Writes the three files of the pair and the rodent stand-in into
-    ``directory``; returns their paths."""
+# ---------------------------------------------------------------------------
+# render scenes: two bodies, the reference clip's first
+# ---------------------------------------------------------------------------
+
+PAIR_STANDIN = "rodent_standin_pair.xml"
+# each body's colour: the reference clip's (-0), the rollout's (-1)
+PAIR_RGBA = ("0.35 0.55 0.85 1", "0.9 0.55 0.3 1")
+
+
+def pair_body(lines, idx: int, camera: str = ""):
+    """Body ``idx`` of a render pair from one body's XML lines: every name
+    suffixed ``-idx``, every geom in PAIR_RGBA[idx], and ``camera`` (a
+    <camera> element) on the root body, after its joint."""
     out = []
-    for name, cone, rats in FILES:
+    for k, line in enumerate(lines):
+        line = re.sub(r' name="([^"]+)"', rf' name="\1-{idx}"', line)
+        out.append(line.replace("<geom ", f'<geom rgba="{PAIR_RGBA[idx]}" '))
+        if camera and k == 1:
+            out.append(line[: len(line) - len(line.lstrip())] + camera)
+    return out
+
+
+def rodent_standin_pair_xml() -> str:
+    """The rodent stand-ins' render scene (``rodent_standin_pair.xml``)."""
+    lines = [
+        "<!-- Render scene of two rodent stand-ins, the reference clip's body first; written by",
+        "     brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
+        '<mujoco model="rodent_standin_pair">',
+        '  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"/>',
+        *_standin_defaults(),
+        "  <worldbody>",
+        f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
+        'conaffinity="0"/>',
+        '    <camera name="side" pos="0.6 0 0.25" xyaxes="0 1 0 -0.4 0 1"/>',
+    ]
+    track = '<camera name="track" mode="trackcom" pos="0 -0.5 0.2" xyaxes="1 0 0 0 0.4 1"/>'
+    for idx, y0 in ((0, 0.08), (1, -0.08)):
+        lines += pair_body(_Rodent().build(y0), idx, track if idx == 1 else "")
+    lines += ["  </worldbody>", "</mujoco>"]
+    return "\n".join(lines) + "\n"
+
+
+def write(directory: str = HERE):
+    """Writes the three files of the pair, the rodent stand-in and its
+    render scene into ``directory``; returns their paths."""
+    out = []
+    texts = [(name, ratpair_xml(cone, rats)) for name, cone, rats in FILES]
+    texts += [(STANDIN, rodent_standin_xml()), (PAIR_STANDIN, rodent_standin_pair_xml())]
+    for name, text in texts:
         path = os.path.join(directory, name)
         with open(path, "w") as f:
-            f.write(ratpair_xml(cone, rats))
+            f.write(text)
         out.append(path)
-    path = os.path.join(directory, STANDIN)
-    with open(path, "w") as f:
-        f.write(rodent_standin_xml())
-    out.append(path)
     return out
 
 
@@ -559,14 +614,16 @@ def freeze():
     configs/dataset/rodent_pair.yaml's CG 4/4, elliptic and for Newton/100,
     the one rat with CG 4/4, the rodent stand-in as
     configs/dataset/rodent.yaml freezes it (CG 4/4, rescaled by 0.9 under
-    the torso); returns their paths."""
+    the torso) and its render scene as the JAX render compiles it
+    (unscaled, the free roots kept); returns their paths."""
     from brax_tracking_tpu_torch.physics import spec
 
     jobs = ((spec.RATPAIR_XML, spec.RATPAIR_NPZ, {}),
             (spec.RATPAIR_ELLIPTIC_XML, spec.RATPAIR_ELLIPTIC_NPZ, {}),
             (spec.RATPAIR_XML, spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
             (spec.RAT_XML, spec.RAT_NPZ, {}),
-            (spec.RODENT_STANDIN_XML, spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS))
+            (spec.RODENT_STANDIN_XML, spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS),
+            (spec.RODENT_STANDIN_PAIR_XML, spec.RODENT_STANDIN_PAIR_NPZ, {}))
     for xml, npz, options in jobs:
         spec.freeze_mjcf(xml, npz, **options)
     return [npz for _, npz, _ in jobs]

@@ -13,14 +13,19 @@ constructs the env through the registry and trains with
 ``agents/ppo/train.py::train`` on the card. After each eval the callback
 snapshots the policy params, rolls out the deterministic policy from frame
 0 of clip 0 and writes its per-frame stats, table and CSV, and for a
-multi-clip env evaluates every clip. The run ends with the final params.
+multi-clip env evaluates every clip, and with ``train.render_video`` renders
+the rollout beside its reference clip into ``rollout_<step>.<ext>``
+(harness/render.py; a failed render raises, where the JAX driver warns and
+goes on). The run ends with the final params.
 
 ``main(argv, device="cuda")`` runs on the card and raises without one;
-``device="cpu"`` runs the same on the CPU in float64. Not ported (raising
-``NotImplementedError`` before anything is written): ``train.render_video``,
-``debug_nans`` / ``BTT_DEBUG_NANS=1`` and ``profile_dir`` /
-``BTT_PROFILE_DIR`` (ROADMAP A.13). ``compilation_cache_dir`` names the JAX
-package's compile cache, which has no counterpart here: it is read and
+``device="cpu"`` runs the same on the CPU in float64. ``profile_dir`` /
+``BTT_PROFILE_DIR`` traces the run with ``torch.profiler`` (the host, and
+the card where the run is on one) and writes the trace there as
+``<time>.pt.trace.json`` when the run returns or raises. Not ported
+(raising ``NotImplementedError`` before anything is written): ``debug_nans``
+/ ``BTT_DEBUG_NANS=1`` (ROADMAP A.13). ``compilation_cache_dir`` names the
+JAX package's compile cache, which has no counterpart here: it is read and
 ignored, and so is ``train.epoch_mode``.
 
 With ``dataset.stac_path=''`` a synthetic clip is built from the model's
@@ -29,11 +34,13 @@ home pose.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
 import pickle
 import sys
+import time
 from typing import Dict
 
 import numpy as np
@@ -143,24 +150,34 @@ def _eval_callback(cfg: Dict, env, logger, model_path: str, fig_dir: str = ""):
     dist_keys = ("summed_pos_distance", "quat_distance", "joint_distance")
     n_clips = int(getattr(env, "_n_clips", 1))
     thorax = env._thorax_idx
+    ds = cfg["dataset"]
+    scene = ds.get("rendering_mjcf") or ds["env_args"]["mjcf_path"]
+    free_jnt = ds["env_args"].get("free_jnt", True)
+    if cfg["train"].get("render_video"):
+        from brax_tracking_tpu_torch.physics import spec
+
+        spec.frozen_path(scene, free_jnt)  # a missing render scene raises before training
 
     @torch.no_grad()
     def deterministic_rollout(policy):
         """n_steps control steps of one env; per-step values stay on the
-        device until the end."""
+        device until the end, the qpos of the reset and of every step
+        (n_steps + 1, nq) on the device for the video."""
         gen = torch.Generator(device=env.device).manual_seed(0)
         state = rollout_env.reset(gen, 1)
         metrics, dists, heights = [], [], [state.pipeline_state.xpos[:, thorax, 2]]
+        qposes = [state.pipeline_state.qpos]
         for _ in range(n_steps):
             action, _ = policy(state.obs, None)
             state = rollout_env.step(state, action)
             metrics.append(state.metrics)
             dists.append({k: state.info[k] for k in dist_keys})
             heights.append(state.pipeline_state.xpos[:, thorax, 2])
+            qposes.append(state.pipeline_state.qpos)
         table = {k: torch.cat([m[k] for m in metrics]).cpu().numpy() for k in metrics[0]}
         distances = {k: torch.cat([d[k] for d in dists]).cpu().numpy() for k in dist_keys}
         height = torch.cat(heights).cpu().numpy()
-        return table, distances, height
+        return table, distances, height, torch.cat(qposes)
 
     @torch.no_grad()
     def clip_eval(policy):
@@ -187,7 +204,7 @@ def _eval_callback(cfg: Dict, env, logger, model_path: str, fig_dir: str = ""):
             per_clip = clip_eval(policy)
             logger.log({f"eval/episode_reward_clip{j}": float(r) for j, r in enumerate(per_clip)},
                        step=num_steps)
-        table, distances, thorax_z = deterministic_rollout(policy)
+        table, distances, thorax_z, qposes = deterministic_rollout(policy)
         stats = {}
         for k, v in table.items():
             stats[f"rollout/{k}_mean"] = float(np.nanmean(v))
@@ -215,31 +232,60 @@ def _eval_callback(cfg: Dict, env, logger, model_path: str, fig_dir: str = ""):
         )
         logger.log({f"rollout/{k}": v for k, v in paths.items()}, step=num_steps)
 
+        if cfg["train"].get("render_video"):
+            from brax_tracking_tpu_torch.harness import render
+
+            timings = {}
+            video = render.render_rollout_vs_reference(
+                scene,
+                qposes,
+                env._ref_traj,
+                os.path.join(model_path, f"rollout_{num_steps}.mp4"),
+                camera=ds.get("camera", 1),
+                free_jnt=free_jnt,
+                timings=timings,
+            )
+            logger.log({"rollout/video": video,
+                        **{f"rollout/video_{k}": v for k, v in timings.items()}},
+                       step=num_steps)
+
     return policy_params_fn
 
 
 def _check_unported(cfg: Dict) -> None:
     from brax_tracking_tpu_torch.physics import model as M
 
-    if cfg["train"].get("render_video"):
-        M.unported("train.render_video (policy-vs-reference videos)", "§A.13")
     if os.environ.get("BTT_DEBUG_NANS") == "1" or cfg.get("debug_nans"):
         M.unported("debug_nans / BTT_DEBUG_NANS (fail at the first NaN-producing op)", "§A.13")
-    if cfg.get("profile_dir") or os.environ.get("BTT_PROFILE_DIR"):
-        M.unported("profile_dir / BTT_PROFILE_DIR (a device trace of the run; "
-                   "scripts/profile_torch_rollout.py traces the port)", "§A.13")
+
+
+@contextlib.contextmanager
+def _trace(profile_dir: str, dev: torch.device):
+    """torch.profiler over the block (the host, and the card for a card
+    run); the trace is written into ``profile_dir`` however the block
+    ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.expanduser(profile_dir)
+    os.makedirs(out, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        path = os.path.join(out, time.strftime("%Y%m%d_%H%M%S") + ".pt.trace.json")
+        prof.export_chrome_trace(path)
+        _logger.info("profile trace written to %s", path)
 
 
 def main(argv=None, device="cuda") -> Dict:
     logging.basicConfig(level=logging.INFO)
     argv = sys.argv[1:] if argv is None else argv
 
-    from brax_tracking_tpu_torch.agents.ppo import networks as ppo_networks
-    from brax_tracking_tpu_torch.agents.ppo import train as ppo_train
     from brax_tracking_tpu_torch.device import resolve_device
     from brax_tracking_tpu_torch.harness.config import load_config, save_config
-    from brax_tracking_tpu_torch.harness.metrics import MetricsLogger
-    from brax_tracking_tpu_torch.training import checkpoint
 
     dev = resolve_device(device)
     cfg = load_config(argv)
@@ -248,7 +294,20 @@ def main(argv=None, device="cuda") -> Dict:
     for key in ("base_dir", "save_dir", "log_dir", "ckpt_dir", "fig_dir", "data_dir"):
         os.makedirs(paths[key], exist_ok=True)
     save_config(cfg, os.path.join(paths["save_dir"], "run_config.yaml"))
+    profile_dir = cfg.get("profile_dir") or os.environ.get("BTT_PROFILE_DIR")
+    with _trace(profile_dir, dev) if profile_dir else contextlib.nullcontext():
+        return _run(cfg, dev)
 
+
+def _run(cfg: Dict, dev: torch.device) -> Dict:
+    """main()'s run once the config is written: the env, train() with the
+    eval callback, the final params."""
+    from brax_tracking_tpu_torch.agents.ppo import networks as ppo_networks
+    from brax_tracking_tpu_torch.agents.ppo import train as ppo_train
+    from brax_tracking_tpu_torch.harness.metrics import MetricsLogger
+    from brax_tracking_tpu_torch.training import checkpoint
+
+    paths = cfg["paths"]
     ds, tr = cfg["dataset"], cfg["train"]
     env = build_env_from_cfg(cfg, dev)
     # the episode length follows the clip unless force_episode_length

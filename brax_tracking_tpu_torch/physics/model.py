@@ -21,6 +21,8 @@ import torch
 JNT_FREE, JNT_BALL, JNT_SLIDE, JNT_HINGE = 0, 1, 2, 3
 GEOM_PLANE, GEOM_HFIELD, GEOM_SPHERE, GEOM_CAPSULE = 0, 1, 2, 3
 GEOM_ELLIPSOID, GEOM_CYLINDER, GEOM_BOX, GEOM_MESH = 4, 5, 6, 7
+GEOM_SDF = 8
+CAM_FIXED, CAM_TRACK, CAM_TRACKCOM, CAM_TARGETBODY, CAM_TARGETBODYCOM = 0, 1, 2, 3, 4
 TRN_JOINT, TRN_JOINTINPARENT, TRN_SLIDERCRANK, TRN_TENDON, TRN_SITE = 0, 1, 2, 3, 4
 DYN_NONE, DYN_INTEGRATOR, DYN_FILTER, DYN_FILTEREXACT, DYN_MUSCLE = 0, 1, 2, 3, 4
 GAIN_FIXED, GAIN_AFFINE, GAIN_MUSCLE = 0, 1, 2
@@ -94,6 +96,15 @@ OPT_STATIC_FIELDS = (
 PAIR_STATIC_FIELDS = ("geom1", "geom2", "npoint", "condim")
 PAIR_PARAM_FIELDS = ("friction", "solref", "solimp", "margin", "gap")
 NAME_KINDS = ("body", "joint", "geom", "site", "actuator", "sensor")
+# what the renderer and MuJoCo's cameras read (harness/render.py,
+# native/softraster.py), stored apart from the physics fields as
+# "render_x" keys ("render_names_camera" the camera names), so
+# model_from_numpy never reads them
+RENDER_FIELDS = (
+    "geom_rgba", "geom_dataid", "stat_center", "stat_extent", "cam_mode", "cam_bodyid",
+    "cam_pos", "cam_quat", "cam_fovy", "cam_pos0", "cam_poscom0", "cam_mat0",
+)
+RENDER_INT_FIELDS = ("geom_dataid", "cam_mode", "cam_bodyid")
 
 
 def field_keys():

@@ -70,6 +70,11 @@ BALLMUSCLE_OPTIONS = dict(iterations=50, ls_iterations=25)
 RODENT_STANDIN_XML = os.path.join(ASSETS, "rodent_standin.xml")
 RODENT_STANDIN_NPZ = os.path.join(ASSETS, "rodent_standin.npz")
 RODENT_OPTIONS = dict(scale_factor=0.9, rescale_root="torso")
+# the rodent configs' render scene on the stand-in: two rodent stand-ins,
+# the reference clip's first, frozen unscaled as the JAX render compiles
+# its rendering_mjcf
+RODENT_STANDIN_PAIR_XML = os.path.join(ASSETS, "rodent_standin_pair.xml")
+RODENT_STANDIN_PAIR_NPZ = os.path.join(ASSETS, "rodent_standin_pair.npz")
 
 # the fly stand-in at the sizes of the fly's _fast model (configs/dataset/
 # fly.yaml and fly_freejnt.yaml, whose MJCF is not in this repository;
@@ -82,6 +87,11 @@ FLY_STANDIN_NPZ = os.path.join(ASSETS, "fly_standin.npz")
 FLY_STANDIN_TETHERED_NPZ = os.path.join(ASSETS, "fly_standin_tethered.npz")
 FLY_STANDIN_STAC = os.path.join(ASSETS, "fly_standin_stac.p")
 FLY_STANDIN_TETHERED_STAC = os.path.join(ASSETS, "fly_standin_tethered_stac.p")
+# the fly configs' render scene on the stand-in: two fly stand-ins, frozen
+# with both free roots and with both stripped (render_scene)
+FLY_STANDIN_PAIR_XML = os.path.join(ASSETS, "fly_standin_pair.xml")
+FLY_STANDIN_PAIR_NPZ = os.path.join(ASSETS, "fly_standin_pair.npz")
+FLY_STANDIN_PAIR_TETHERED_NPZ = os.path.join(ASSETS, "fly_standin_pair_tethered.npz")
 
 # the env options a frozen file was compiled with (load_model checks them)
 FROZEN_OPTIONS = (
@@ -317,6 +327,32 @@ def _sensor_types(m) -> np.ndarray:
     return np.asarray(out, np.int32)
 
 
+def strip_every_free_joint(spec):
+    """Deletes every free joint: a tethered render scene of two bodies (the
+    JAX package's ``harness/render.py``)."""
+    import mujoco
+
+    for joint in list(spec.joints):
+        if joint.type == mujoco.mjtJoint.mjJNT_FREE:
+            spec.delete(joint)
+    return spec
+
+
+def _render_fields(m, mujoco) -> Dict[str, np.ndarray]:
+    """The ``render_*`` fields of a compiled model (M.RENDER_FIELDS and the
+    camera names)."""
+    if np.any(np.isin(m.geom_type, (M.GEOM_MESH, M.GEOM_HFIELD, M.GEOM_SDF))):
+        M.unported("mesh, height-field and SDF geoms", "§A.12")
+    out = {}
+    for k in M.RENDER_FIELDS:
+        v = getattr(m.stat, k[5:]) if k.startswith("stat_") else getattr(m, k)
+        out["render_" + k] = np.asarray(v, np.int32 if k in M.RENDER_INT_FIELDS else np.float64)
+    out["render_names_camera"] = np.asarray(
+        [mujoco.mj_id2name(m, mujoco.mjtObj.mjOBJ_CAMERA, i) or "" for i in range(m.ncam)],
+        dtype=str)
+    return out
+
+
 def freeze_mjcf(
     xml_path: str,
     out_npz: str,
@@ -327,6 +363,7 @@ def freeze_mjcf(
     solver: str = "cg",
     iterations: int = 4,
     ls_iterations: int = 4,
+    render_scene: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Compiles ``xml_path`` with the env options and writes every field the
     port reads into ``out_npz``; returns the written arrays.
@@ -334,22 +371,27 @@ def freeze_mjcf(
     The defaults are the minirat dataset's env_args
     (configs/dataset/minirat.yaml). The spec transforms run before the
     compile in the JAX package's ``build_model`` order: ``free_jnt`` False
-    strips the thorax's free joint (strip_free_joint), ``torque_actuators``
-    rewrites the actuators as torque motors (torque_actuator_rewrite), and
-    ``scale_factor`` != 1 rescales the subtree under ``rescale_root``
-    (rescale_subtree). Needs the ``mujoco`` bindings, which only this
-    offline step imports.
+    strips the thorax's free joint (strip_free_joint), or with
+    ``render_scene`` every free joint (strip_every_free_joint: a pair scene
+    for the renderer, compiled as the JAX render compiles it),
+    ``torque_actuators`` rewrites the actuators as torque motors
+    (torque_actuator_rewrite), and ``scale_factor`` != 1 rescales the
+    subtree under ``rescale_root`` (rescale_subtree). Besides the physics
+    fields it writes the renderer's (``render_*``, ``render_fields``);
+    mesh, height-field and SDF geoms raise. Needs the ``mujoco`` bindings,
+    which only this offline step imports.
     """
     import mujoco
 
     spec = mujoco.MjSpec.from_file(xml_path)
     if not free_jnt:
-        strip_free_joint(spec)
+        (strip_every_free_joint if render_scene else strip_free_joint)(spec)
     if torque_actuators:
         torque_actuator_rewrite(spec)
     if scale_factor != 1.0:
         rescale_subtree(spec, rescale_root, scale_factor)
     m = spec.compile()
+    render = _render_fields(m, mujoco)
     if any(int(w) != int(mujoco.mjtWrap.mjWRAP_JOINT) for w in m.wrap_type):
         M.unported("spatial tendons (site and geom wraps)", "§A.12")
     if np.any(np.asarray(m.geom_fluid)[:, 0] > 0):
@@ -396,6 +438,7 @@ def freeze_mjcf(
     )
     for k, v in frozen.items():
         fields["frozen_" + k] = np.asarray(v)
+    fields.update(render)
     np.savez(out_npz, **fields)
     return fields
 
@@ -440,6 +483,19 @@ def load_model(npz: str = MINIRAT_NPZ, device="cuda", dtype=None, **options) -> 
                 f"{k}={want!r} needs a new spec.freeze_mjcf run"
             )
     return model_from_numpy(fields, device=device, dtype=dtype)
+
+
+def render_fields(npz: str) -> types.SimpleNamespace:
+    """The renderer's fields of a frozen model file (M.RENDER_FIELDS, as
+    numpy, with ``ngeom``, ``ncam``, ``geom_type``, ``geom_size`` and the
+    camera names ``names_camera``)."""
+    with np.load(npz) as z:
+        out = {k: z["render_" + k] for k in M.RENDER_FIELDS}
+        out.update(geom_type=z["geom_type"], geom_size=z["geom_size"], ngeom=int(z["ngeom"]),
+                   names_camera=[str(s) for s in z["render_names_camera"]])
+    out["ncam"] = len(out["names_camera"])
+    out["stat_extent"] = float(out["stat_extent"])
+    return types.SimpleNamespace(**out)
 
 
 def model_to_numpy(model) -> Dict[str, np.ndarray]:

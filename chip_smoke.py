@@ -99,7 +99,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
    kernels line's rodent stand-in row); and once more as train=train_fly
    dataset=fly on the tethered fly stand-in at train_fly's widths (1024
    envs), cut the same way: exact launches, all of them the one-warp (b)
-   (the kernels line's tethered fly row);
+   (the kernels line's tethered fly row); the rodent and fly runs also
+   write their eval videos (train.render_video on the stand-ins' render
+   scenes, RENDER_SCENES) with the same launches, a video of the T frames
+   the callback's rollout gives, the render's seconds printed, and the
+   card's render-scene poses and the frames rasterized from them held
+   against the CPU float64 ones (RENDER_LIMITS); then
+   examples/policy_replay.py replays the rodent run with --video: exactly
+   one reset and 38 control steps of one env's launches and no other
+   kernel, its per-frame table bitwise the callback's;
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -1597,6 +1605,26 @@ FLY_DRIVER_ARGV = FLY_ARGVS["fly_standin_tethered"] + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
     "train.force_episode_length=true", "train.episode_length=32",
     "train.num_timesteps=32768", "train.eval_every=32768", "dataset.clip_length=24"]
+# the eval video of the rodent and tethered fly driver runs: train.
+# render_video on, each config's render scene on its stand-in (the
+# reference clip's body and the rollout's, assets/make_ratpair.py and
+# make_fly_standin.py), camera 1 (trackcom on the rollout body) as the
+# configs ask; save_video's chain picks the encoder (an MJPEG AVI where
+# Pillow imports, a GIF where it does not), and count_frames reads either
+RENDER_SCENES = {"rodent": "builtin:rodent_standin_pair.xml",
+                 "fly": "builtin:fly_standin_pair.xml"}
+# The render scene's poses on the card (float32, one batched kinematics
+# call) against the port's CPU float64 kinematics on the same qpos frames,
+# max abs gap per array, and the frames rasterized from each by the share
+# of pixels that differ. A CPU float32 rehearsal (render_gaps("cpu", capture,
+# torch.float32) on the captures of phase_driver("cpu", ...) with the small
+# widths below, 20 frames of 480 x 640 each) is off float64 by at most
+# 9.41e-8 / 3.54e-8 (geom_xpos, rodent / fly), 5.43e-7 / 3.73e-7
+# (geom_xmat), 2.96e-8 / 8.19e-8 (cam_xpos), 3.56e-8 / 4.25e-8 (cam_xmat),
+# and 1.82e-5 / 7.49e-6 of the pixels differ (112 / 46 pixels in all, at
+# edges); the limits leave ~35x over the larger of the two.
+RENDER_LIMITS = {"geom_xpos": 3.3e-6, "geom_xmat": 1.9e-5, "cam_xpos": 2.9e-6,
+                 "cam_xmat": 1.5e-6, "pixel_share": 6.4e-4}
 MC_ENVS = 8
 # One control step of MC_ENVS multi-clip envs (clips 0-3 twice) on the card
 # against the port's CPU float64 run from the same state and action: the
@@ -1674,7 +1702,7 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
             "clips": sorted(set(out.info["clip_idx"].tolist()))}
 
 
-def phase_driver(device, multi, pair=False, rodent=False, fly=False):
+def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False, replay=False):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
     temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
@@ -1688,13 +1716,20 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False):
     number finite, the run config read back as written, (i) nothing written
     under data/Minirat, (ii) every clip drawn at the training reset,
     eval/episode_reward_clip0..3 logged and one control step held against
-    the CPU in float64. Returns the run's numbers."""
+    the CPU in float64. With ``video`` (the rodent and fly runs) the run
+    also renders its eval video (train.render_video, RENDER_SCENES): the
+    launches stay the same, the video has the T frames of the callback's
+    rollout against its clip, and the report holds the render's seconds
+    and what was rendered (``capture``, for render_gaps); with ``replay``
+    phase_replay then runs on the run's directory. Returns the run's
+    numbers."""
     import tempfile
 
     from brax_tracking_tpu_torch.device import synchronize
     from brax_tracking_tpu_torch.envs import registry, tracking
     from brax_tracking_tpu_torch.harness import config as hc
-    from brax_tracking_tpu_torch.harness import driver
+    from brax_tracking_tpu_torch.harness import driver, render
+    from brax_tracking_tpu_torch.native import video as vid
 
     tag = ("fly" if fly else "rodent" if rodent else "pair" if pair else "multi-clip" if multi
            else "single clip")
@@ -1705,6 +1740,9 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False):
         argv = (FLY_DRIVER_ARGV if fly else RODENT_DRIVER_ARGV if rodent else
                 PAIR_DRIVER_ARGV if pair else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
             f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
+        if video:
+            argv += ["train.render_video=true",
+                     f"dataset.rendering_mjcf={RENDER_SCENES['fly' if fly else 'rodent']}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
         m = load("fly_standin_tethered" if fly else "rodent_standin" if rodent else
@@ -1721,8 +1759,17 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False):
                 drawn.append(state.info["clip_idx"])
                 return state
 
+        captured = []
+        rendering = render.render_rollout_vs_reference
+
+        def recording_render(scene, qposes, ref_traj, *args, **kw):
+            captured.append(dict(scene=scene, qposes=qposes, ref_traj=ref_traj,
+                                 free_jnt=kw["free_jnt"], camera=kw["camera"]))
+            return rendering(scene, qposes, ref_traj, *args, **kw)
+
         if multi:
             registry.register_environment("multi_clip_tracking", Recording)
+        render.render_rollout_vs_reference = recording_render
         try:
             synchronize(device)
             reset_counts()
@@ -1733,6 +1780,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False):
             counts = read_counts()
         finally:
             registry.register_environment("multi_clip_tracking", tracking.GenericMultiClip)
+            render.render_rollout_vs_reference = rendering
         expected = dict.fromkeys(counts, 0) | {
             "cg_solve_fused": driver_expected_launches(cfg, n_steps)}
         if torch.device(device).type == "cuda" and counts != expected:
@@ -1796,7 +1844,129 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False):
             after = _tree(data_dir)
             if after != before or os.path.join(data_dir, "clips", "0.p") not in after:
                 fail(f"driver (single clip) changed {data_dir}: {sorted(set(after) ^ set(before))}")
+        if video:
+            # the callback's n_steps + 1 qpos frames at the clip's rate
+            clip_frames = int(ds["clip_length"])
+            stride = max(1, round((n_steps + 1) / clip_frames))
+            T = min(clip_frames, -(-(n_steps + 1) // stride))
+            logged = [r for r in records if "rollout/video" in r]
+            if len(captured) != 1 or [r["_step"] for r in logged] != [final]:
+                fail(f"driver ({tag}) rendered {len(captured)} videos, logged at "
+                     f"{[r['_step'] for r in logged]}, expected one at {final}")
+            path = logged[0]["rollout/video"]
+            name = os.path.basename(path)
+            if (os.path.dirname(path) != os.path.join(base, "ckpt", run)
+                    or name.rsplit(".", 1)[0] != f"rollout_{final}" or not os.path.isfile(path)):
+                fail(f"driver ({tag}) logged the video {path}, which it did not write")
+            frames = vid.count_frames(path)
+            if frames != T or logged[0]["rollout/video_frames"] != T:
+                fail(f"driver ({tag}) video of {frames} frames (logged "
+                     f"{logged[0]['rollout/video_frames']}), expected {T}")
+            report["video"] = dict(
+                file=name, frames=frames, bytes=os.path.getsize(path),
+                **{k[len("rollout/video_"):]: v for k, v in logged[0].items()
+                   if k.startswith("rollout/video_") and k != "rollout/video_frames"})
+            report["capture"] = captured[0]
+        if replay:
+            report["replay"] = phase_replay(device, base, cfg, n_steps, final, run,
+                                            report["video"]["frames"])
     return report
+
+
+def phase_replay(device, base, cfg, n_steps, step, run, frames):
+    """examples/policy_replay.py on a driver run's directory with --video,
+    on ``device``, the counts set to 0 just before: one reset and
+    ``n_steps`` control steps of one env, so exactly 1 + n_steps x substeps
+    cg_solve_fused launches (B = 1) and no other kernel (on the card); the
+    per-frame table bitwise the callback's ``rollout_<step>.p`` for the same
+    params (the same code on the same device and inputs); a video of
+    ``frames`` frames. Returns its numbers."""
+    import pickle
+
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.examples import policy_replay
+    from brax_tracking_tpu_torch.native import video as vid
+
+    out = os.path.join(base, "replay")
+    synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    policy_replay.main([base, "--video", "--device", str(device), "--out", out])
+    synchronize(device)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    substeps = int(cfg["dataset"]["env_args"]["physics_steps_per_control_step"])
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": 1 + substeps * n_steps}
+    if torch.device(device).type == "cuda" and counts != expected:
+        fail(f"replay launches {counts}, expected {expected}")
+    with open(os.path.join(base, "ckpt", run, f"rollout_{step}.p"), "rb") as f:
+        want = pickle.load(f)
+    with open(os.path.join(out, f"rollout_{step}.p"), "rb") as f:
+        got = pickle.load(f)
+    if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+        gaps = {k: float(np.max(np.abs(got[k] - want[k]))) for k in want if k in got}
+        fail(f"replay's per-frame table differs from the callback's: {gaps}")
+    videos = [p for p in os.listdir(out) if p.startswith(f"rollout_{step}.")
+              and not p.endswith(".p")]
+    if len(videos) != 1 or vid.count_frames(os.path.join(out, videos[0])) != frames:
+        fail(f"replay wrote videos {videos}, expected one of {frames} frames")
+    return dict(seconds=seconds, counts=counts, expected=expected["cg_solve_fused"],
+                video=videos[0], rows=len(next(iter(got.values()))))
+
+
+POSE_NAMES = ("geom_xpos", "geom_xmat", "cam_xpos", "cam_xmat")
+
+
+def render_gaps(device, capture, dtype=None):
+    """The render scene's poses of a driver run's video (``capture``:
+    phase_driver's record of the call) computed on ``device`` in ``dtype``
+    against the port's CPU float64 kinematics on the same qpos frames: the
+    max abs gap of each pose array over all T frames, and the share of
+    pixels that differ between the frames rasterized from each."""
+    from brax_tracking_tpu_torch.harness import render
+
+    scene, free = capture["scene"], capture["free_jnt"]
+    m, r = render.load_scene(scene, free, device, dtype)
+    qpos = render.scene_qpos(m, capture["qposes"].to(device, m.dtype),
+                             capture["ref_traj"].to(device, m.dtype), free)
+    poses = render.scene_poses(m, r, qpos)
+    m64, _ = render.load_scene(scene, free, "cpu")
+    want = render.scene_poses(m64, r, qpos.to("cpu", torch.float64))
+    gaps = {k: float(np.abs(a - b).max()) for k, a, b in zip(POSE_NAMES, poses, want)}
+    a = np.stack(render.render_frames(r, poses, capture["camera"]))
+    b = np.stack(render.render_frames(r, want, capture["camera"]))
+    gaps["pixel_share"] = float(np.any(a != b, axis=-1).mean())
+    return gaps, len(qpos)
+
+
+def phase_render_gate(capture, tag):
+    """render_gaps on the card in float32 within RENDER_LIMITS."""
+    gaps, T = render_gaps("cuda", capture)
+    bad = {k: v for k, v in gaps.items() if v > RENDER_LIMITS[k]}
+    if bad:
+        fail(f"render ({tag}): the card's poses or frames differ from the CPU float64 ones "
+             f"past the limits over {T} frames: {bad} (limits {RENDER_LIMITS})")
+    return gaps, T
+
+
+def encoder_version(module):
+    """An optional video encoder's version, or "absent"."""
+    import importlib
+
+    try:
+        return importlib.import_module(module).__version__
+    except ImportError:
+        return "absent"
+
+
+def print_video(tag, report, card):
+    """The video's line: frames, file and the render's seconds."""
+    v = report["video"]
+    print(f"video ({tag}): {v['file']}, {v['frames']} frames of 480 x 640, {v['bytes']} bytes "
+          f"from {RENDER_SCENES[tag]}: scene load {v['setup_s']:.3f} s, kinematics on the "
+          f"device (one batch of {v['frames']} frames, with the copy to the host) "
+          f"{v['kinematics_s']:.4f} s, rasterizing {v['raster_s_per_frame'] * 1e3:.2f} ms per "
+          f"frame on the host, encoding {v['encode_s']:.3f} s on the host, {card}")
 
 
 def spd_bound(name, B, nv):
@@ -2127,6 +2297,8 @@ def main() -> int:
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print("video encoders (native/video.py::save_video tries MP4, then AVI, then GIF): "
+          + ", ".join(f"{mod} {encoder_version(mod)}" for mod in ("imageio", "PIL")))
 
     # 2. build
     secs = library.build()
@@ -2441,7 +2613,7 @@ def main() -> int:
     # the flagship's driver run on the rodent stand-in: every solve in the
     # wide layout 1, damped
     t_rod = time.perf_counter()
-    r = phase_driver("cuda", False, rodent=True)
+    r = phase_driver("cuda", False, rodent=True, video=True, replay=True)
     launches["cg_solve_fused (rodent stand-in)"] = r["counts"]["cg_solve_fused"]
     m = r["metrics"]
     print(f"driver (rodent): main() {r['seconds']:.1f} s, kernel launches {r['counts']} (expected "
@@ -2451,11 +2623,21 @@ def main() -> int:
           f"training/walltime {m['training/walltime']:.2f} s, eval/walltime "
           f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
           f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
+    print_video("rodent", r, card)
+    rp = r["replay"]
+    print(f"replay (rodent): examples/policy_replay.py --video on the run's directory "
+          f"{rp['seconds']:.1f} s, kernel launches {rp['counts']} (expected cg_solve_fused "
+          f"{rp['expected']}: one reset and {RODENT_SUBSTEPS} per control step of 1 env), "
+          f"per-frame table ({rp['rows']} rows) bitwise the callback's, video {rp['video']} "
+          f"on {card}")
+    gaps, T = phase_render_gate(r["capture"], "rodent")
+    print(f"render_poses_and_frames_vs_cpu_f64 (rodent, {T} frames) "
+          + json.dumps({"gaps": gaps, "limits": RENDER_LIMITS}))
     print(f"rodent driver phase: {time.perf_counter() - t_rod:.1f} s on {card}")
     # train=train_fly dataset=fly on the tethered fly stand-in: every solve
     # the one-warp (b)
     t_fly = time.perf_counter()
-    r = phase_driver("cuda", False, fly=True)
+    r = phase_driver("cuda", False, fly=True, video=True)
     launches["cg_solve_fused (tethered fly)"] = r["counts"]["cg_solve_fused"]
     m = r["metrics"]
     print(f"driver (fly): main() {r['seconds']:.1f} s, kernel launches {r['counts']} (expected "
@@ -2465,6 +2647,10 @@ def main() -> int:
           f"training/walltime {m['training/walltime']:.2f} s, eval/walltime "
           f"{m['eval/walltime']:.2f} s; callback: deterministic rollout (1 env x "
           f"{r['n_steps']} control steps) {r['rollout_s']:.2f} s on {card}")
+    print_video("fly", r, card)
+    gaps, T = phase_render_gate(r["capture"], "tethered fly")
+    print(f"render_poses_and_frames_vs_cpu_f64 (tethered fly, {T} frames) "
+          + json.dumps({"gaps": gaps, "limits": RENDER_LIMITS}))
     print(f"fly driver phase: {time.perf_counter() - t_fly:.1f} s on {card}")
 
     # 10. times. The solve kernels: every instance the gates held, with its

@@ -16,8 +16,10 @@ the JAX package, on the CPU.
 - Param snapshots: a (256, 256) policy initialised by the JAX package and
   pickled by its ``save_params`` acts the same in the port, within 1e-12
   (float64).
-- Unported options raise ``NotImplementedError`` naming ROADMAP A.13 before
-  anything is written; a default ``main()`` without a card raises.
+- ``debug_nans``, not ported, raises ``NotImplementedError`` naming ROADMAP
+  A.13 before anything is written (the video and the profile trace:
+  tests/test_torch_render.py); a default ``main()`` without a card
+  raises.
 """
 
 import ast
@@ -188,7 +190,7 @@ def test_harness_imports_no_jax_or_yaml():
         os.path.join(PORT, "envs", "registry.py"), os.path.join(PORT, "data", "h5io.py"),
         os.path.join(PORT, "data", "pickles.py"), os.path.join(PORT, "data", "clips.py"),
         os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) == 10
+    assert len(files) == 11
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in (
@@ -266,11 +268,8 @@ def test_driver_multi_clip(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,env", [
-    (["train.render_video=true"], {}),
     (["debug_nans=true"], {}),
     ([], {"BTT_DEBUG_NANS": "1"}),
-    (["profile_dir=/nonexistent/trace"], {}),
-    ([], {"BTT_PROFILE_DIR": "/nonexistent/trace"}),
 ])
 def test_driver_unported_options_raise(tmp_path, monkeypatch, extra, env):
     for k, v in env.items():
