@@ -60,6 +60,7 @@ the world; camera 1 tracks the rollout body's subtree CoM (``trackcom`` on
 
 from __future__ import annotations
 
+import math
 import os
 import re
 
@@ -318,13 +319,124 @@ _AXES = {"extend": (0, 1, 0), "bend": (0, 0, 1), "twist": (1, 0, 0), "supinate":
          "abduct": (0, 0, 1)}
 
 
+# ---------------------------------------------------------------------------
+# the rodent stand-in on a terrain
+# ---------------------------------------------------------------------------
+
+TERRAIN = "rodent_standin_terrain.xml"
+PAIR_TERRAIN = "rodent_standin_terrain_pair.xml"
+# the terrain's contype bits: the box, the cylinder and the rocks, and the
+# height field; the limbs' spheres and capsules carry both in conaffinity,
+# the hand ellipsoids only the first (the JAX table has no hfield-ellipsoid)
+TERRAIN_BIT, HFIELD_BIT = 4, 8
+# the terrain's tops: 2.5-3.5 mm above the limbs' lowest points at the
+# rescaled qpos0, so every limb over a piece touches it from the first
+# substep
+TERRAIN_TOP = 0.009
+
+
+def _hull(rx, ry, rz, rings=3, around=8):
+    """Vertices of a coarse ellipsoid (rings of ``around`` points and both
+    poles): a convex mesh MuJoCo meshes from its hull."""
+    pts = [(0.0, 0.0, rz), (0.0, 0.0, -rz)]
+    for i in range(1, rings + 1):
+        th = math.pi * i / (rings + 1)
+        for j in range(around):
+            ph = 2.0 * math.pi * (j + 0.5 * (i % 2)) / around
+            pts.append((rx * math.sin(th) * math.cos(ph), ry * math.sin(th) * math.sin(ph),
+                        rz * math.cos(th)))
+    return pts
+
+
+# the visual meshes (skin and bone, as the real rodent's): vertices
+VISUAL_MESH_VERTS = {
+    "skin": _hull(0.04, 0.026, 0.024),
+    "hip": _hull(0.028, 0.022, 0.02),
+    "head": _hull(0.026, 0.015, 0.014),
+    "bone": _hull(0.003, 0.003, 0.014, rings=2, around=6),
+}
+# body -> (mesh, position in the body), on the terrain scene only; never
+# colliding and massless (class "visual")
+VISUAL_MESHES = {
+    "torso": ("skin", (0, 0, 0)),
+    "pelvis": ("hip", (-0.015, 0, 0)),
+    "skull": ("head", (0.02, 0, -0.003)),
+    "upper_leg_L": ("bone", (0.005, 0, -0.015)),
+    "upper_leg_R": ("bone", (0.005, 0, -0.015)),
+    "upper_arm_L": ("bone", (-0.0025, 0, -0.01)),
+    "upper_arm_R": ("bone", (-0.0025, 0, -0.01)),
+}
+# a convex rock: a top (one corner lower) over a wider base, a bulge on a side
+ROCK_VERTS = (
+    (0.0161, 0.0165, TERRAIN_TOP), (0.0161, -0.0165, TERRAIN_TOP),
+    (-0.0161, 0.0165, TERRAIN_TOP), (-0.0161, -0.0165, TERRAIN_TOP - 0.0015),
+    (0.0175, 0.018, -0.004), (0.0175, -0.018, -0.004), (-0.0175, 0.018, -0.004),
+    (-0.0175, -0.018, -0.004), (0.0, 0.0195, 0.003),
+)
+# the height field under the left heel: 5 rows (y) x 7 columns (x), 1 cm
+# apart, its top (1.0 x TERRAIN_TOP) under the heel and the foot's back end
+HFIELD_ELEVATION = (
+    (0.0, 0.3, 0.6, 0.8, 0.8, 0.7, 0.5),
+    (0.2, 0.5, 0.8, 1.0, 1.0, 1.0, 0.8),
+    (0.3, 0.6, 0.9, 1.0, 1.0, 1.0, 0.9),
+    (0.2, 0.5, 0.8, 1.0, 1.0, 1.0, 0.8),
+    (0.1, 0.3, 0.6, 0.8, 0.9, 0.7, 0.4),
+)
+# the terrain under the rescaled stand-in at qpos0 (the limbs at x -0.103 to
+# -0.078 behind and 0.020 to 0.036 in front, y +-0.019): on the left a box
+# step from the foot's middle to past the finger and the height field under
+# the heel; on the right a cylinder (a log along x) from the foot's middle to
+# the hand's middle, a rock behind it under the heel and one in front under
+# the finger. So each foot capsule and the right hand straddle two pieces.
+TERRAIN_GEOMS = (
+    '<geom name="step" type="box" class="terrain" pos="-0.02385 0.02 0.0045" '
+    'size="0.06885 0.016 0.0045"/>',
+    '<geom name="log" type="cylinder" class="terrain" pos="-0.03335 -0.0195 -0.003" '
+    'size="0.012 0.05935" euler="0 90 0"/>',
+    '<geom name="rock_back" type="mesh" mesh="rock" class="terrain" pos="-0.10885 -0.0195 0"/>',
+    '<geom name="rock_front" type="mesh" mesh="rock" class="terrain" pos="0.0421 -0.0195 0"/>',
+    '<geom name="bumps" type="hfield" hfield="bumps" class="terrain_hfield" '
+    'pos="-0.115 0.0195 0"/>',
+)
+
+
+def _terrain_assets():
+    """The terrain scenes' <asset> block: the visual meshes, the rock and the
+    height field, inline."""
+    lines = ["  <asset>"]
+    for name, verts in VISUAL_MESH_VERTS.items():
+        lines.append(f'    <mesh name="{name}" vertex="{" ".join(_v(p) for p in verts)}"/>')
+    lines.append(f'    <mesh name="rock" vertex="{" ".join(_v(p) for p in ROCK_VERTS)}"/>')
+    lines.append(f'    <hfield name="bumps" nrow="{len(HFIELD_ELEVATION)}" '
+                 f'ncol="{len(HFIELD_ELEVATION[0])}" size="0.03 0.02 {TERRAIN_TOP:g} 0.004" '
+                 f'elevation="{" ".join(_v(r) for r in HFIELD_ELEVATION)}"/>')
+    return lines + ["  </asset>"]
+
+
+def _terrain_defaults(lines):
+    """The rodent stand-in's <default> block with the terrain's classes."""
+    probe = FLOOR_BIT | TERRAIN_BIT | HFIELD_BIT
+    return lines[:-1] + [
+        f'    <default class="foot_hold"><geom conaffinity="{probe}"/></default>',
+        f'    <default class="hand_hold"><geom conaffinity="{FLOOR_BIT | TERRAIN_BIT}"/></default>',
+        f'    <default class="terrain"><geom contype="{TERRAIN_BIT}" conaffinity="0" '
+        'rgba="0.55 0.5 0.45 1"/></default>',
+        f'    <default class="terrain_hfield"><geom contype="{HFIELD_BIT}" conaffinity="0" '
+        'rgba="0.45 0.55 0.4 1"/></default>',
+        '    <default class="visual"><geom type="mesh" contype="0" conaffinity="0" density="0" '
+        'rgba="0.8 0.7 0.6 1"/></default>',
+    ] + lines[-1:]
+
+
 class _Rodent(_Bodies):
     """The stand-in's bodies as nested XML; ``joint_class`` maps each hinge
-    to its default class."""
+    to its default class. With ``terrain`` the limbs' floor geoms also touch
+    the terrain (TERRAIN_CLASSES) and VISUAL_MESHES dress the bodies."""
 
-    def __init__(self):
+    def __init__(self, terrain: bool = False):
         super().__init__()
         self.joint_class = {}
+        self.terrain = terrain
 
     def open(self, name: str, pos, joints=(), cls="limb"):
         """A body with hinges (name, axis, lo, hi) of joint class ``cls``."""
@@ -334,18 +446,34 @@ class _Rodent(_Bodies):
             self.joint_class[jname] = cls
             self._emit(f'<joint name="{jname}" class="{cls}" axis="{_v(axis)}" '
                        f'range="{lo} {hi}"/>')
+        self._skin(name)
+
+    def _skin(self, body: str):
+        """The body's visual mesh on the terrain scene."""
+        if self.terrain and body in VISUAL_MESHES:
+            mesh, at = VISUAL_MESHES[body]
+            self._emit(f'<geom name="{body}_skin" class="visual" mesh="{mesh}" pos="{_v(at)}"/>')
+
+    def _cls(self, floor, kind):
+        """The class attribute of a floor geom: a limb's on the terrain
+        scene touches the terrain too."""
+        if not floor:
+            return "/>"
+        if self.terrain and floor == "limb":
+            return f' class="{"hand_hold" if kind == "ellipsoid" else "foot_hold"}"/>'
+        return ' class="floor"/>'
 
     def capsule(self, name, a, b, r, floor=False):
         self._emit(f'<geom name="{name}" fromto="{_v(a)} {_v(b)}" size="{r}"'
-                   + (' class="floor"/>' if floor else "/>"))
+                   + self._cls(floor, "capsule"))
 
     def sphere(self, name, pos, r, floor=False):
         self._emit(f'<geom name="{name}" type="sphere" pos="{_v(pos)}" size="{r}"'
-                   + (' class="floor"/>' if floor else "/>"))
+                   + self._cls(floor, "sphere"))
 
     def ellipsoid(self, name, pos, size, floor=False):
         self._emit(f'<geom name="{name}" type="ellipsoid" pos="{_v(pos)}" size="{_v(size)}"'
-                   + (' class="floor"/>' if floor else "/>"))
+                   + self._cls(floor, "ellipsoid"))
 
     def site(self, name, pos, size=None):
         box = f' type="box" size="{_v(size)}"' if size is not None else ""
@@ -355,6 +483,7 @@ class _Rodent(_Bodies):
         self._emit(f'<body name="torso" pos="0 {y0:g} {STANDIN_TORSO_Z}">')
         self.depth += 1
         self._emit('<freejoint name="free"/>')
+        self._skin("torso")
         self.ellipsoid("torso_belly", (0, 0, -0.005), (0.035, 0.022, 0.02), floor=True)
         self.capsule("torso_back", (-0.025, 0, 0.005), (0.025, 0, 0.005), 0.018)
         self.capsule("torso_neck", (0.025, 0, 0.005), (0.04, 0, 0.006), 0.014)
@@ -401,14 +530,14 @@ class _Rodent(_Bodies):
         self.capsule(f"lower_leg_{side}_g2", (0, 0, 0), (-0.008, 0, -0.02), 0.005)
         self.site(f"marker_lower_leg_{side}", (-0.006, s * 0.006, -0.015))
         self.open(f"foot_{side}", (-0.012, 0, -0.03), [(f"ankle_{side}", _AXES["extend"], -45, 45)])
-        self.capsule(f"foot_{side}_g", (0, 0, 0), (0.018, 0, -0.003), 0.004, floor=True)
+        self.capsule(f"foot_{side}_g", (0, 0, 0), (0.018, 0, -0.003), 0.004, floor="limb")
         self.site(f"sole_{side}", (0.009, 0, -0.003), (0.013, 0.005, 0.004))
         self.open(f"heel_{side}", (-0.002, 0, -0.001))  # welded to the foot
-        self.sphere(f"heel_{side}_g", (0, 0, 0), 0.004, floor=True)
+        self.sphere(f"heel_{side}_g", (0, 0, 0), 0.004, floor="limb")
         self.close()
         self.open(f"toe_{side}", (0.018, 0, -0.003), [(f"toe_{side}", _AXES["extend"], -30, 30)],
                   "digit")
-        self.sphere(f"toe_{side}_g", (0.004, 0, 0), 0.003, floor=True)
+        self.sphere(f"toe_{side}_g", (0.004, 0, 0), 0.003, floor="limb")
         self.close(4)  # toe, foot, lower and upper leg
 
     def _tail(self):
@@ -471,11 +600,11 @@ class _Rodent(_Bodies):
         self.capsule(f"lower_arm_{side}_g", (0, 0, 0), (0.004, 0, -0.02), 0.005)
         self.site(f"marker_lower_arm_{side}", (0.002, s * 0.005, -0.01))
         self.open(f"hand_{side}", (0.004, 0, -0.02), [(f"wrist_{side}", _AXES["extend"], -45, 45)])
-        self.ellipsoid(f"hand_{side}_g", (0.005, 0, -0.002), (0.007, 0.004, 0.003), floor=True)
+        self.ellipsoid(f"hand_{side}_g", (0.005, 0, -0.002), (0.007, 0.004, 0.003), floor="limb")
         self.site(f"palm_{side}", (0.005, 0, -0.002), (0.008, 0.005, 0.004))
         self.open(f"finger_{side}", (0.01, 0, -0.003), [(f"finger_{side}", _AXES["extend"], -30, 30)],
                   "digit")
-        self.sphere(f"finger_{side}_g", (0.003, 0, 0), 0.0025, floor=True)
+        self.sphere(f"finger_{side}_g", (0.003, 0, 0), 0.0025, floor="limb")
         self.close(5)  # finger, hand, lower and upper arm, scapula
 
 
@@ -512,19 +641,25 @@ def _standin_defaults():
     return lines + ["  </default>"]
 
 
-def rodent_standin_xml() -> str:
-    """The rodent stand-in's MJCF text (``rodent_standin.xml``)."""
+def rodent_standin_xml(terrain: bool = False) -> str:
+    """The rodent stand-in's MJCF text (``rodent_standin.xml``), or with
+    ``terrain`` the same rodent dressed in visual meshes on the terrain
+    (``rodent_standin_terrain.xml``)."""
+    what = ("Stand-in for the flagship rodent at its sizes and with its kinds of features"
+            + (", on a terrain" if terrain else ""))
     lines = [
-        "<!-- Stand-in for the flagship rodent at its sizes and with its kinds of features;",
+        f"<!-- {what};",
         "     written by brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
-        '<mujoco model="rodent_standin">',
+        f'<mujoco model="rodent_standin{"_terrain" if terrain else ""}">',
         '  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"/>',
-        *_standin_defaults(),
+        *(_terrain_defaults(_standin_defaults()) if terrain else _standin_defaults()),
+        *(_terrain_assets() if terrain else []),
         "  <worldbody>",
         f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
         'conaffinity="0"/>',
+        *("    " + g for g in (TERRAIN_GEOMS if terrain else ())),
     ]
-    body = _Rodent()
+    body = _Rodent(terrain)
     lines += body.build()
     lines += ["  </worldbody>", "  <tendon>"]
     for name, joints in _tendon_joints().items():
@@ -575,22 +710,29 @@ def pair_body(lines, idx: int, camera: str = ""):
     return out
 
 
-def rodent_standin_pair_xml() -> str:
-    """The rodent stand-ins' render scene (``rodent_standin_pair.xml``)."""
+def rodent_standin_pair_xml(terrain: bool = False) -> str:
+    """The rodent stand-ins' render scene (``rodent_standin_pair.xml``), or
+    with ``terrain`` that of the terrain scene
+    (``rodent_standin_terrain_pair.xml``: the visual meshes and the
+    terrain)."""
+    name = "rodent_standin" + ("_terrain" if terrain else "") + "_pair"
     lines = [
-        "<!-- Render scene of two rodent stand-ins, the reference clip's body first; written by",
+        "<!-- Render scene of two rodent stand-ins" + (" on the terrain" if terrain else "")
+        + ", the reference clip's body first; written by",
         "     brax_tracking_tpu_torch/assets/make_ratpair.py (edit that, not this). -->",
-        '<mujoco model="rodent_standin_pair">',
+        f'<mujoco model="{name}">',
         '  <option timestep="0.002" iterations="4" ls_iterations="4" solver="CG"/>',
-        *_standin_defaults(),
+        *(_terrain_defaults(_standin_defaults()) if terrain else _standin_defaults()),
+        *(_terrain_assets() if terrain else []),
         "  <worldbody>",
         f'    <geom name="floor" type="plane" size="2 2 .1" contype="{FLOOR_BIT}" '
         'conaffinity="0"/>',
+        *("    " + g for g in (TERRAIN_GEOMS if terrain else ())),
         '    <camera name="side" pos="0.6 0 0.25" xyaxes="0 1 0 -0.4 0 1"/>',
     ]
     track = '<camera name="track" mode="trackcom" pos="0 -0.5 0.2" xyaxes="1 0 0 0 0.4 1"/>'
     for idx, y0 in ((0, 0.08), (1, -0.08)):
-        lines += pair_body(_Rodent().build(y0), idx, track if idx == 1 else "")
+        lines += pair_body(_Rodent(terrain).build(y0), idx, track if idx == 1 else "")
     lines += ["  </worldbody>", "</mujoco>"]
     return "\n".join(lines) + "\n"
 
@@ -600,7 +742,9 @@ def write(directory: str = HERE):
     render scene into ``directory``; returns their paths."""
     out = []
     texts = [(name, ratpair_xml(cone, rats)) for name, cone, rats in FILES]
-    texts += [(STANDIN, rodent_standin_xml()), (PAIR_STANDIN, rodent_standin_pair_xml())]
+    texts += [(STANDIN, rodent_standin_xml()), (PAIR_STANDIN, rodent_standin_pair_xml()),
+              (TERRAIN, rodent_standin_xml(terrain=True)),
+              (PAIR_TERRAIN, rodent_standin_pair_xml(terrain=True))]
     for name, text in texts:
         path = os.path.join(directory, name)
         with open(path, "w") as f:
@@ -623,7 +767,10 @@ def freeze():
             (spec.RATPAIR_XML, spec.RATPAIR_NEWTON_NPZ, spec.MINIRAT_NEWTON_OPTIONS),
             (spec.RAT_XML, spec.RAT_NPZ, {}),
             (spec.RODENT_STANDIN_XML, spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS),
-            (spec.RODENT_STANDIN_PAIR_XML, spec.RODENT_STANDIN_PAIR_NPZ, {}))
+            (spec.RODENT_STANDIN_PAIR_XML, spec.RODENT_STANDIN_PAIR_NPZ, {}),
+            (spec.RODENT_STANDIN_TERRAIN_XML, spec.RODENT_STANDIN_TERRAIN_NPZ,
+             spec.RODENT_OPTIONS),
+            (spec.RODENT_STANDIN_TERRAIN_PAIR_XML, spec.RODENT_STANDIN_TERRAIN_PAIR_NPZ, {}))
     for xml, npz, options in jobs:
         spec.freeze_mjcf(xml, npz, **options)
     return [npz for _, npz, _ in jobs]

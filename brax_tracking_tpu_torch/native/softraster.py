@@ -139,8 +139,8 @@ def _plane(half_x: float, half_y: float, n: int = 8):
 def tessellate_geom(r, gid: int):
     """Returns (verts (V,3) float32 local frame, faces (F,3) int32,
     face_colors (F,3) float32) for one geom of the render fields ``r``, or
-    None to skip (a geom nearly transparent). Mesh, height-field and SDF
-    geoms raise; the freeze lets none through."""
+    None to skip: a geom nearly transparent, or a height field (the JAX
+    renderer skips them too; the freeze lets no SDF geom through)."""
     gtype = int(r.geom_type[gid])
     size = r.geom_size[gid]
     rgba = np.asarray(r.geom_rgba[gid], np.float32)
@@ -169,8 +169,14 @@ def tessellate_geom(r, gid: int):
     elif gtype == M.GEOM_BOX:
         v = _BOX_V * np.asarray(size[:3], np.float32)
         f = _BOX_F
-    else:
-        M.unported(f"rendering geom {gid} of type {gtype} (mesh, height field or SDF)", "§A.12")
+    elif gtype == M.GEOM_MESH:
+        mid = int(r.geom_dataid[gid])
+        va, vn = int(r.mesh_vertadr[mid]), int(r.mesh_vertnum[mid])
+        fa, fn = int(r.mesh_faceadr[mid]), int(r.mesh_facenum[mid])
+        v = np.asarray(r.mesh_vert[va : va + vn], np.float32)
+        f = np.asarray(r.mesh_face[fa : fa + fn], np.int32)
+    else:  # a height field
+        return None
     c = np.broadcast_to(color, (len(f), 3)).astype(np.float32)
     return v, f, c
 

@@ -105,6 +105,19 @@ RENDER_FIELDS = (
     "cam_pos", "cam_quat", "cam_fovy", "cam_pos0", "cam_poscom0", "cam_mat0",
 )
 RENDER_INT_FIELDS = ("geom_dataid", "cam_mode", "cam_bodyid")
+# the renderer's triangle meshes (every mesh of the model, colliding or not),
+# stored as "render_x" keys beside RENDER_FIELDS
+RENDER_MESH_FIELDS = (
+    "mesh_vertadr", "mesh_vertnum", "mesh_faceadr", "mesh_facenum", "mesh_vert", "mesh_face",
+)
+RENDER_MESH_FLOAT_FIELDS = ("mesh_vert",)
+# the colliding meshes' hull vertices and the colliding height fields
+# (spec._build_meshes / _build_hfields), the JAX package's fields of the
+# same names: static index tables and the patch side K, then the tensors
+MESH_STATIC_FIELDS = (
+    "geom_meshidx", "mesh_vertnum", "geom_hfieldidx", "hfield_nrowcol", "hfield_patch",
+)
+MESH_PARAM_FIELDS = ("mesh_vert", "hfield_elev", "hfield_size")
 
 
 def field_keys():
@@ -116,6 +129,8 @@ def field_keys():
         + tuple("opt_" + k for k in OPT_PARAM_FIELDS + OPT_STATIC_FIELDS)
         + tuple("pairs_" + k for k in PAIR_STATIC_FIELDS + PAIR_PARAM_FIELDS)
         + tuple("names_" + k for k in NAME_KINDS)
+        + MESH_STATIC_FIELDS
+        + MESH_PARAM_FIELDS
     )
 
 
@@ -222,6 +237,12 @@ class Model:
     body_dof_mask: Any = None  # (nbody, nv) bool, [b, j] = dof j moves body b
     plan: Any = None  # physics.plan.Plan
     names: Dict[str, list] = None
+    # colliding meshes and height fields (spec._build_meshes / _build_hfields)
+    geom_meshidx: Any = None  # (ngeom,) into mesh_vert, -1 = not a colliding mesh
+    mesh_vertnum: Any = None  # (nmeshused,) valid hull vertices of each
+    geom_hfieldidx: Any = None  # (ngeom,) into hfield_*, -1 = not a colliding hfield
+    hfield_nrowcol: Any = None  # (nhfused, 2) (nrow, ncol)
+    hfield_patch: int = 0  # K: the (K, K) elevation patch under each probe
     # physical parameters (tensors on ``device``)
     qpos0: torch.Tensor = None
     qpos_spring: torch.Tensor = None
@@ -260,6 +281,9 @@ class Model:
     tendon_damping: torch.Tensor = None
     tendon_lengthspring: torch.Tensor = None  # (ntendon, 2) deadband
     wrap_prm: torch.Tensor = None  # (nwrap,) fixed-tendon joint coefficients
+    mesh_vert: torch.Tensor = None  # (nmeshused, maxvert, 3) geom frame, padded by vertex 0
+    hfield_elev: torch.Tensor = None  # (nhfused, maxrow, maxcol) elevations in metres
+    hfield_size: torch.Tensor = None  # (nhfused, 4) rx, ry, z top, z bottom
     pairs: ContactPairs = None
     # per-model statics built once on first use (solver kernel tables)
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)

@@ -75,6 +75,18 @@ RODENT_OPTIONS = dict(scale_factor=0.9, rescale_root="torso")
 # its rendering_mjcf
 RODENT_STANDIN_PAIR_XML = os.path.join(ASSETS, "rodent_standin_pair.xml")
 RODENT_STANDIN_PAIR_NPZ = os.path.join(ASSETS, "rodent_standin_pair.npz")
+# the rodent stand-in dressed in visual meshes on a terrain (a height field,
+# a box step, a cylinder and two convex mesh rocks; assets/make_ratpair.py),
+# frozen as RODENT_STANDIN_NPZ, and its render scene
+RODENT_STANDIN_TERRAIN_XML = os.path.join(ASSETS, "rodent_standin_terrain.xml")
+RODENT_STANDIN_TERRAIN_NPZ = os.path.join(ASSETS, "rodent_standin_terrain.npz")
+RODENT_STANDIN_TERRAIN_PAIR_XML = os.path.join(ASSETS, "rodent_standin_terrain_pair.xml")
+RODENT_STANDIN_TERRAIN_PAIR_NPZ = os.path.join(ASSETS, "rodent_standin_terrain_pair.npz")
+# free props (boxes, cylinders, convex meshes, a sphere and a capsule)
+# dropped on a plane, a height field and each other (assets/make_props.py),
+# frozen with CG 4/4
+PROPS_XML = os.path.join(ASSETS, "props.xml")
+PROPS_NPZ = os.path.join(ASSETS, "props.npz")
 
 # the fly stand-in at the sizes of the fly's _fast model (configs/dataset/
 # fly.yaml and fly_freejnt.yaml, whose MJCF is not in this repository;
@@ -99,18 +111,43 @@ FROZEN_OPTIONS = (
     "iterations", "ls_iterations",
 )
 
-# contact slots a pair of geom types owns (the JAX package's counts) for the
-# pair types physics/collision.py ports
+# contact slots a pair of geom types owns: the JAX package's table, every
+# pair type physics/collision.py collides
 _PAIR_POINTS = {
     (M.GEOM_PLANE, M.GEOM_SPHERE): 1,
     (M.GEOM_PLANE, M.GEOM_CAPSULE): 2,
     (M.GEOM_PLANE, M.GEOM_ELLIPSOID): 1,
+    (M.GEOM_PLANE, M.GEOM_BOX): 4,
+    (M.GEOM_PLANE, M.GEOM_CYLINDER): 4,
     (M.GEOM_SPHERE, M.GEOM_SPHERE): 1,
     (M.GEOM_SPHERE, M.GEOM_CAPSULE): 1,
     (M.GEOM_SPHERE, M.GEOM_ELLIPSOID): 1,
+    (M.GEOM_SPHERE, M.GEOM_BOX): 1,
     (M.GEOM_CAPSULE, M.GEOM_CAPSULE): 2,
     (M.GEOM_CAPSULE, M.GEOM_ELLIPSOID): 1,
+    (M.GEOM_CAPSULE, M.GEOM_BOX): 2,
     (M.GEOM_ELLIPSOID, M.GEOM_ELLIPSOID): 1,
+    (M.GEOM_SPHERE, M.GEOM_CYLINDER): 1,
+    (M.GEOM_CAPSULE, M.GEOM_CYLINDER): 3,
+    (M.GEOM_BOX, M.GEOM_BOX): 8,
+    # the support-function ascent: one contact, as mjc_Convex
+    (M.GEOM_ELLIPSOID, M.GEOM_CYLINDER): 1,
+    (M.GEOM_ELLIPSOID, M.GEOM_BOX): 1,
+    (M.GEOM_CYLINDER, M.GEOM_CYLINDER): 1,
+    (M.GEOM_CYLINDER, M.GEOM_BOX): 1,
+    # convex meshes: the four deepest hull vertices on a plane, else the
+    # support-function ascent
+    (M.GEOM_PLANE, M.GEOM_MESH): 4,
+    # height fields: the deepest triangle under each probe (a sphere is one
+    # probe, a capsule three along its axis)
+    (M.GEOM_HFIELD, M.GEOM_SPHERE): 1,
+    (M.GEOM_HFIELD, M.GEOM_CAPSULE): 3,
+    (M.GEOM_SPHERE, M.GEOM_MESH): 1,
+    (M.GEOM_CAPSULE, M.GEOM_MESH): 1,
+    (M.GEOM_ELLIPSOID, M.GEOM_MESH): 1,
+    (M.GEOM_CYLINDER, M.GEOM_MESH): 1,
+    (M.GEOM_BOX, M.GEOM_MESH): 1,
+    (M.GEOM_MESH, M.GEOM_MESH): 1,
 }
 
 # MuJoCo's sensor types (mjtSensor names) as the port's SENS_*, the JAX
@@ -158,6 +195,115 @@ def name2id(model: M.Model, objtype: str, name: str) -> int:
         return model.names[objtype].index(name)
     except ValueError:
         return -1
+
+
+# ---------------------------------------------------------------------------
+# Meshes and height fields (offline, on a compiled mujoco.MjModel)
+# ---------------------------------------------------------------------------
+
+
+def _build_meshes(m):
+    """The colliding meshes' hull data (the JAX package's _build_meshes):
+    (geom_meshidx, mesh_vertnum, mesh_vert), each mesh geom's index into a
+    padded (nmeshused, maxvert, 3) array of its mesh's vertices in the geom
+    frame (MuJoCo bakes the mesh-to-geom transform into the compiled
+    vertices). A support maximum over every vertex is the hull's; padding
+    repeats vertex 0, which never changes a maximum, and the valid count
+    keeps it out of plane-mesh's four deepest."""
+    geom_meshidx = np.full(m.ngeom, -1, np.int32)
+    mesh_ids = sorted(
+        {
+            int(m.geom_dataid[g])
+            for g in range(m.ngeom)
+            if m.geom_type[g] == M.GEOM_MESH
+            and (m.geom_contype[g] or m.geom_conaffinity[g])
+        }
+    )
+    if not mesh_ids:
+        return geom_meshidx, np.zeros(0, np.int32), np.zeros((0, 0, 3))
+    verts = []
+    for did in mesh_ids:
+        adr, num = int(m.mesh_vertadr[did]), int(m.mesh_vertnum[did])
+        verts.append(np.asarray(m.mesh_vert[adr : adr + num], np.float64))
+    maxv = max(len(v) for v in verts)
+    packed = np.stack(
+        [np.concatenate([v, np.tile(v[:1], (maxv - len(v), 1))]) for v in verts]
+    )
+    for g in range(m.ngeom):
+        if m.geom_type[g] == M.GEOM_MESH and int(m.geom_dataid[g]) in mesh_ids:
+            geom_meshidx[g] = mesh_ids.index(int(m.geom_dataid[g]))
+    return geom_meshidx, np.array([len(v) for v in verts], np.int32), packed
+
+
+def _build_hfields(m):
+    """The colliding height fields (the JAX package's _build_hfields):
+    (geom_hfieldidx, nrowcol, patch_k, elev, size), each hfield geom's index
+    into a padded (nhfused, maxrow, maxcol) array of elevations in metres
+    (MuJoCo's hfield_data in [0, 1] times size[2]), and the static side K of
+    the (K, K) grid patch each probe tests: it covers the widest probe of
+    any sphere or capsule of the model, colliding or not (2 x reach over the
+    finest grid spacing, + 3), clamped to the grid."""
+    geom_hfieldidx = np.full(m.ngeom, -1, np.int32)
+    hf_geoms = [
+        g
+        for g in range(m.ngeom)
+        if m.geom_type[g] == M.GEOM_HFIELD
+        and (m.geom_contype[g] or m.geom_conaffinity[g])
+    ]
+    if not hf_geoms:
+        return geom_hfieldidx, np.zeros((0, 2), np.int32), 0, np.zeros((0, 0, 0)), np.zeros((0, 4))
+    hids = sorted({int(m.geom_dataid[g]) for g in hf_geoms})
+    nrowcol = np.array(
+        [[int(m.hfield_nrow[h]), int(m.hfield_ncol[h])] for h in hids], np.int32
+    )
+    size = np.array([m.hfield_size[h] for h in hids], np.float64)
+    maxr, maxc = int(nrowcol[:, 0].max()), int(nrowcol[:, 1].max())
+    elev = np.zeros((len(hids), maxr, maxc))
+    for k, h in enumerate(hids):
+        nr, nc = nrowcol[k]
+        adr = int(m.hfield_adr[h])
+        data = np.asarray(m.hfield_data[adr : adr + nr * nc]).reshape(nr, nc)
+        elev[k, :nr, :nc] = data * float(m.hfield_size[h][2])
+    for g in hf_geoms:
+        geom_hfieldidx[g] = hids.index(int(m.geom_dataid[g]))
+
+    # a probe's reach: a sphere's radius; a capsule is probed as three
+    # spheres along its axis, so its radius and half the probe spacing
+    reach = 0.0
+    for g in range(m.ngeom):
+        t = int(m.geom_type[g])
+        if t == M.GEOM_SPHERE:
+            r = float(m.geom_size[g, 0])
+        elif t == M.GEOM_CAPSULE:
+            r = float(m.geom_size[g, 0] + 0.5 * m.geom_size[g, 1])
+        else:
+            continue
+        reach = max(reach, r)
+    spacing = np.inf
+    for k in range(len(hids)):
+        nr, nc = nrowcol[k]
+        if nc > 1:
+            spacing = min(spacing, 2.0 * size[k, 0] / (nc - 1))
+        if nr > 1:
+            spacing = min(spacing, 2.0 * size[k, 1] / (nr - 1))
+    if not np.isfinite(spacing):
+        spacing = 1.0
+    patch_k = int(np.ceil(2.0 * reach / spacing)) + 3
+    patch_k = min(patch_k, int(nrowcol[:, 0].min()), int(nrowcol[:, 1].min()))
+    patch_k = max(patch_k, 2)
+    return geom_hfieldidx, nrowcol, patch_k, elev, size
+
+
+def _mesh_fields(m) -> Dict[str, np.ndarray]:
+    """M.MESH_STATIC_FIELDS and M.MESH_PARAM_FIELDS of a compiled model."""
+    geom_meshidx, mesh_vertnum, mesh_vert = _build_meshes(m)
+    geom_hfieldidx, nrowcol, patch_k, elev, size = _build_hfields(m)
+    return dict(
+        geom_meshidx=geom_meshidx, mesh_vertnum=mesh_vertnum,
+        geom_hfieldidx=geom_hfieldidx, hfield_nrowcol=nrowcol,
+        hfield_patch=np.asarray(patch_k, np.int64), mesh_vert=np.asarray(mesh_vert, np.float64),
+        hfield_elev=np.asarray(elev, np.float64), hfield_size=np.asarray(size, np.float64),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -339,14 +485,18 @@ def strip_every_free_joint(spec):
 
 
 def _render_fields(m, mujoco) -> Dict[str, np.ndarray]:
-    """The ``render_*`` fields of a compiled model (M.RENDER_FIELDS and the
-    camera names)."""
-    if np.any(np.isin(m.geom_type, (M.GEOM_MESH, M.GEOM_HFIELD, M.GEOM_SDF))):
-        M.unported("mesh, height-field and SDF geoms", "§A.12")
+    """The ``render_*`` fields of a compiled model (M.RENDER_FIELDS, every
+    mesh's triangles M.RENDER_MESH_FIELDS, and the camera names). An SDF
+    geom raises: the JAX package collides none."""
+    if np.any(np.asarray(m.geom_type) == M.GEOM_SDF):
+        M.unported("SDF geoms", "§A.12")
     out = {}
     for k in M.RENDER_FIELDS:
         v = getattr(m.stat, k[5:]) if k.startswith("stat_") else getattr(m, k)
         out["render_" + k] = np.asarray(v, np.int32 if k in M.RENDER_INT_FIELDS else np.float64)
+    for k in M.RENDER_MESH_FIELDS:
+        out["render_" + k] = np.asarray(
+            getattr(m, k), np.float64 if k in M.RENDER_MESH_FLOAT_FIELDS else np.int32)
     out["render_names_camera"] = np.asarray(
         [mujoco.mj_id2name(m, mujoco.mjtObj.mjOBJ_CAMERA, i) or "" for i in range(m.ncam)],
         dtype=str)
@@ -377,8 +527,9 @@ def freeze_mjcf(
     ``torque_actuators`` rewrites the actuators as torque motors
     (torque_actuator_rewrite), and ``scale_factor`` != 1 rescales the
     subtree under ``rescale_root`` (rescale_subtree). Besides the physics
-    fields it writes the renderer's (``render_*``, ``render_fields``);
-    mesh, height-field and SDF geoms raise. Needs the ``mujoco`` bindings,
+    fields it writes the renderer's (``render_*``, ``render_fields``):
+    meshes freeze with their triangles, height fields are skipped as the
+    JAX renderer skips them, and SDF geoms raise. Needs the ``mujoco`` bindings,
     which only this offline step imports.
     """
     import mujoco
@@ -412,6 +563,7 @@ def freeze_mjcf(
         dt = bool if k in M.BOOL_FIELDS else np.int32
         fields[k] = np.asarray(getattr(m, k), dt)
     fields["sensor_type"] = _sensor_types(m)
+    fields.update(_mesh_fields(m))
     for k in M.PARAM_FIELDS:
         fields[k] = np.asarray(getattr(m, k), np.float64)
     for k in M.OPT_PARAM_FIELDS:
@@ -486,11 +638,11 @@ def load_model(npz: str = MINIRAT_NPZ, device="cuda", dtype=None, **options) -> 
 
 
 def render_fields(npz: str) -> types.SimpleNamespace:
-    """The renderer's fields of a frozen model file (M.RENDER_FIELDS, as
-    numpy, with ``ngeom``, ``ncam``, ``geom_type``, ``geom_size`` and the
-    camera names ``names_camera``)."""
+    """The renderer's fields of a frozen model file (M.RENDER_FIELDS and
+    M.RENDER_MESH_FIELDS, as numpy, with ``ngeom``, ``ncam``, ``geom_type``,
+    ``geom_size`` and the camera names ``names_camera``)."""
     with np.load(npz) as z:
-        out = {k: z["render_" + k] for k in M.RENDER_FIELDS}
+        out = {k: z["render_" + k] for k in M.RENDER_FIELDS + M.RENDER_MESH_FIELDS}
         out.update(geom_type=z["geom_type"], geom_size=z["geom_size"], ngeom=int(z["ngeom"]),
                    names_camera=[str(s) for s in z["render_names_camera"]])
     out["ncam"] = len(out["names_camera"])
@@ -543,6 +695,7 @@ def model_from_numpy(
         **{k: np.asarray(fields["pairs_" + k], np.int32) for k in M.PAIR_STATIC_FIELDS},
         **{k: t(fields["pairs_" + k]) for k in M.PAIR_PARAM_FIELDS},
     )
+    meshes = {k: np.asarray(fields[k], np.int32) for k in M.MESH_STATIC_FIELDS[:-1]}
     ns = types.SimpleNamespace(**sizes, **static)
     damping = np.asarray(fields["dof_damping"])
     return M.Model(
@@ -560,5 +713,8 @@ def model_from_numpy(
         plan=make_plan(ns),
         names={k: [str(s) for s in fields["names_" + k]] for k in M.NAME_KINDS},
         **{k: t(fields[k]) for k in M.PARAM_FIELDS},
+        **meshes,
+        hfield_patch=int(fields["hfield_patch"]),
+        **{k: t(fields[k]) for k in M.MESH_PARAM_FIELDS},
         pairs=pairs,
     )

@@ -34,10 +34,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
    (the elliptic block) on the fly stand-in (assets/fly_standin.xml as the
    fly configs freeze it: nv 42 with the free root, nv 36 tethered, 12
    elliptic contacts, the fluid model) at B=2048 and B=2047 and converged,
-   both files; and at the
+   both files; the wide layout 1 on the rodent stand-in's terrain
+   (assets/rodent_standin_terrain.xml: 367 rows, damped) and on the props
+   (assets/props.xml: nv 48, 288 rows, 8 roots) at B=2048 and B=2047 and
+   converged; and at the
    design edges at 590 rows (the widest one-warp env and the first wide
    one, the widest env of layout 1, the first past it, the widest of
-   layout 2);
+   layout 2); then the narrowphase's 20 box, cylinder, mesh and
+   height-field pair types on those two scenes at 2048 seeded poses
+   against the CPU in float64 (phase_pair_gates);
 4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
    AutoResetWrapperTracking, 10 substeps) for 20 control steps, on the
    minirat (the main path) and on the elliptic minirat, counts the kernel
@@ -57,7 +62,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
    fly_freejnt.yaml and fly.yaml, 5 substeps) on the fly stand-in, its clip
    from the committed stac export, for 10 control steps: exactly 5
    launches per control step and no other kernel, and its first step on 8
-   envs against the CPU in float64;
+   envs against the CPU in float64; then 2048 envs of the flagship env on
+   the rodent stand-in's terrain (every terrain pair type active from the
+   first substep) for 10 control steps, exactly 5 launches per control
+   step, its first step (solve converged) against the CPU in float64; then
+   10 substeps of 2048 props envs through physics/step.py::step, one
+   launch per substep;
 5. steps 2048 ballmuscle envs (ball-joint limits, a fixed tendon, muscles)
    20 substeps under CG (the XLA-CG path: spd_inverse2 once per substep)
    and under Newton (spd_solve 2 + iterations per substep), counts the
@@ -107,7 +117,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
    against the CPU float64 ones (RENDER_LIMITS); then
    examples/policy_replay.py replays the rodent run with --video: exactly
    one reset and 38 control steps of one env's launches and no other
-   kernel, its per-frame table bitwise the callback's;
+   kernel, its per-frame table bitwise the callback's; and once more as
+   the flagship's command on the terrain stand-in
+   (dataset.env_args.mjcf_path=builtin:rodent_standin_terrain.xml) with
+   its video of the terrain render scene (visual meshes and the terrain
+   drawn): exact launches, every narrowphase call recorded and every
+   terrain pair type active in one, the render gate;
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -288,7 +303,7 @@ RODENT_STEP_ATOL = {"obs": 7e-5, "reward": 6e-5, "sensordata": 3.4e-4}
 # seeds 0-2: obs 11.2 / 7.7, reward 1.05 / 1.85, a done flag apart; printed,
 # not gated). So the first control step of N_CPU_ENVS envs is held against
 # the CPU in float64 with the solve run to convergence on both sides
-# (``converged``, phase_fly_first_step): a CPU float32 rehearsal of that
+# (``converged``, phase_converged_first_step): a CPU float32 rehearsal of that
 # (8 envs, seeds 0-2) is off float64 by at most 2.06e-2 / 1.47e-2 (obs, of
 # scale ~13 / ~7) and 1.36e-3 / 2.42e-3 (reward, of scale ~52), free /
 # tethered; the limits leave ~35x.
@@ -308,6 +323,84 @@ FLY_SUBSTEPS = 5
 FLY_STEPS = 10
 FLY_STEP_ATOL = {"fly_standin": {"obs": 0.72, "reward": 0.048},
                  "fly_standin_tethered": {"obs": 0.51, "reward": 0.085}}
+# ROADMAP A.12's narrowphase on two scenes that between them hold every one
+# of the 20 box, cylinder, mesh and height-field pair types: the rodent
+# stand-in on a terrain (assets/rodent_standin_terrain.xml, frozen as
+# rodent.yaml freezes the stand-in: its limbs on a height field, a box step,
+# a cylinder and two convex mesh rocks from the first substep; 75 contact
+# slots, 367 rows, the wide layout 1, damped) and the props
+# (assets/props.xml: 8 free props on a plane, a height field and each
+# other; 72 slots, 288 rows, the wide layout 1 with 8 roots).
+TERRAIN_ARGV = ["train=train_rodent", "dataset=rodent",
+                "dataset.env_args.mjcf_path=builtin:rodent_standin_terrain.xml"]
+TERRAIN_STEPS = 10
+PROPS_SUBSTEPS = 10
+# The terrain rollout's first control step against the CPU in float64, with
+# the solve run to convergence on both sides (phase_converged_first_step,
+# as the fly's). The limbs start 2.5-3.5 mm inside the terrain and the
+# convex pairs' contact point jumps with the normal, which float32 resolves
+# to ~1e-2 rad, so the step is chaotic: one float64 run moves by ~1e-3 when
+# its qposes move by 1e-15 of themselves, and a CPU float32 rehearsal (8
+# envs, seeds 0-2) is off float64 by up to 5.35 (obs), 1.05 (reward) and
+# 6.92 (sensordata) at CG 4/4 (printed, not gated) and 0.520, 0.0483 and
+# 1.57 converged. The limits leave 3x the converged rehearsal: a gate on
+# gross faults (a pair type or a sign wrong moves these by 10-100), not on
+# rounding.
+TERRAIN_STEP_ATOL = {"obs": 1.6, "reward": 0.15, "sensordata": 4.7}
+PAIR_GATE_SCENES = ("rodent_standin_terrain", "props")
+GEOM_NAMES = ("plane", "hfield", "sphere", "capsule", "ellipsoid", "cylinder", "box", "mesh")
+# each pair type's slots on the card (float32, B_MAIN seeded poses: the
+# terrain stand-in's hinges turned and its root moved in z, the props
+# anywhere in their cluster) against the port's CPU float64 on the same
+# poses: dist, pos and the normal within the limit plus twice the float64
+# run's own spread (its runs again on the qposes scaled by 1 +- PAIR_SPREAD,
+# float32's rounding of a pose: the convex pairs' normal and pos jump
+# where a support witness changes vertex), and the active set (dist <
+# margin) equal wherever the float64 dist lies farther from the margin than
+# PAIR_ACTIVE_BAND plus twice its spread.
+# The limits leave ~35x over the larger of a CPU float32 rehearsal
+# (pair_gaps("cpu", scene, 512, seed), seeds 0-2, both scenes) and the
+# card's first runs (B_MAIN, seeds 0-1), past twice the spread: dist 2.7e-7
+# (plane-cylinder); pos 3.8e-7 and the normal 3.1e-6 (box-box, sphere-box).
+# Closer to float32's resolution: a capsule end just off a box face (the
+# exit direction of a tiny offset: pos 1.8e-6, normal 1.1e-3 on the card),
+# and the height field's closest triangle near ties on its concave folds
+# (hfield-sphere pos 1.2e-5, normal 9.5e-4; hfield-capsule 3.5e-5, 3.5e-3).
+# Capsule-cylinder's deepest segment point is not unique where the distance
+# is flat along the segment (its normal moved by 1.0 on the card at a dist
+# 3e-7 off): its pos and normal are held by ``self`` instead, the sphere
+# centre the card's contact implies against the capsule's segment and the
+# cylinder in float64 (rehearsal 3.4e-7).
+PAIR_SPREAD = 1e-6
+PAIR_ACTIVE_BAND = 1e-5
+PAIR_GATE_LIMITS = {"dist": 1e-5, "pos": 1.3e-5, "normal": 1.1e-4}
+PAIR_GATE_TYPE_LIMITS = {"capsule-box": {"pos": 6.4e-5, "normal": 3.7e-2},
+                         "capsule-cylinder": {"self": 1.2e-5},
+                         "hfield-sphere": {"pos": 4.2e-4, "normal": 3.3e-2},
+                         "hfield-capsule": {"pos": 1.2e-3, "normal": 1.24e-1}}
+# A duplicate test at 1e-9 cannot hold in float32 (capsule-box's second
+# end at the first's closest point, box-box's reference corners at a
+# clamped incident corner): a candidate off on one side and live on the
+# other must repeat another slot of its pair live on that side (pos within
+# PAIR_DUP_POS, dist within PAIR_GATE_LIMITS["dist"]).
+PAIR_DUP_POS = 5.6e-6
+# box-box's face manifold also keeps or drops a candidate by tests at 1e-7
+# and 1e-6 (a clamped incident corner inside the reference face, a reference
+# corner inside the incident face), which float32 can tip: the rehearsal
+# tipped 1 of 12,288 box-box candidates, the card 1 of 16,384 (no other
+# type's); the gate allows 35x that share of a type's candidates to switch.
+PAIR_SWITCHED_SHARE = {"box-box": 2.9e-3}
+# The ten convex pair types: the card's dist against the gap at its own
+# normal evaluated in float64 (``self``; rehearsal and the card 1.7e-7,
+# 35x) and the shortfall of that gap from the float64 run's dist
+# (``dual``: the ascent's resolution, not float32's: rehearsal 1.8e-3,
+# ellipsoid-box, the card 8.1e-4; ~3x); the active set outside CONVEX_DUAL
+# of the margin.
+CONVEX_TYPES = ("ellipsoid-cylinder", "ellipsoid-box", "cylinder-cylinder", "cylinder-box",
+                "sphere-mesh", "capsule-mesh", "ellipsoid-mesh", "cylinder-mesh", "box-mesh",
+                "mesh-mesh")
+CONVEX_SELF = 6e-6
+CONVEX_DUAL = 5e-3
 # ballmuscle slice: 20 substeps of 2048 envs per solver; its first substep
 # of 8 envs on the card (float32) against the CPU (float64). A CPU float32
 # rehearsal of that substep (64 envs, both solvers) is off float64 by
@@ -381,7 +474,9 @@ def load(model, device, dtype=None):
     stand-in as configs/dataset/rodent.yaml freezes it ("rodent_standin":
     CG 4/4, rescaled by 0.9, damped, with sensors), or the fly stand-in as
     the fly configs freeze it ("fly_standin" with the free root,
-    "fly_standin_tethered" without: CG 4/4, elliptic, the fluid model)."""
+    "fly_standin_tethered" without: CG 4/4, elliptic, the fluid model),
+    the rodent stand-in on its terrain frozen as the rodent stand-in
+    ("rodent_standin_terrain") or the props ("props", CG 4/4)."""
     from brax_tracking_tpu_torch.physics import spec
 
     npz, options = {
@@ -395,6 +490,8 @@ def load(model, device, dtype=None):
         "rodent_standin": (spec.RODENT_STANDIN_NPZ, spec.RODENT_OPTIONS),
         "fly_standin": (spec.FLY_STANDIN_NPZ, dict(free_jnt=True)),
         "fly_standin_tethered": (spec.FLY_STANDIN_TETHERED_NPZ, dict(free_jnt=False)),
+        "rodent_standin_terrain": (spec.RODENT_STANDIN_TERRAIN_NPZ, spec.RODENT_OPTIONS),
+        "props": (spec.PROPS_NPZ, {}),
     }[model]
     return spec.load_model(npz, device=device, dtype=dtype, **options)
 
@@ -742,8 +839,9 @@ def tracking_env(device, dtype=None, model="minirat"):
 
 # the envs chip_smoke.py builds from a config as the driver does: the
 # rodent_pair env on the two-rat stand-in, the flagship rodent env on the
-# rodent stand-in, the two fly envs on the fly stand-in
-CONFIG_ENVS = {"ratpair": PAIR_ARGV, "rodent_standin": RODENT_ARGV, **FLY_ARGVS}
+# rodent stand-in and on its terrain, the two fly envs on the fly stand-in
+CONFIG_ENVS = {"ratpair": PAIR_ARGV, "rodent_standin": RODENT_ARGV,
+               "rodent_standin_terrain": TERRAIN_ARGV, **FLY_ARGVS}
 
 
 def config_env(device, dtype, model):
@@ -818,12 +916,12 @@ def phase_first_step_on_cpu(first_in, action, first_out, n, model="minirat"):
     return gaps
 
 
-def phase_fly_first_step(env, first_in, action, model):
-    """The fly's first control step with the solve run to convergence
+def phase_converged_first_step(env, first_in, action, model, atol):
+    """A first control step with the solve run to convergence
     (``converged``): ``env``'s (the rollout's, its model swapped for the
     step) from the rollout's first state and action, against the same step
     of N_CPU_ENVS envs run by the port on the CPU in float64; returns the
-    gaps, gated by FLY_STEP_ATOL."""
+    gaps, gated by ``atol`` (FLY_STEP_ATOL, TERRAIN_STEP_ATOL)."""
     inner = env.unwrapped
     own = inner._model
     inner._model = converged(own)
@@ -832,7 +930,6 @@ def phase_fly_first_step(env, first_in, action, model):
     finally:
         inner._model = own
     gaps = first_step_gaps(first_in, action, out, N_CPU_ENVS, model, solve=converged)
-    atol = FLY_STEP_ATOL[model]
     if any(gaps[k] > atol[k] for k in atol) or gaps["done_mismatch"]:
         fail(f"{model}: first control step (converged) on the card differs from the CPU "
              f"float64 run: {gaps} (limits {atol})")
@@ -842,7 +939,7 @@ def phase_fly_first_step(env, first_in, action, model):
 def first_step_gaps(first_in, action, first_out, n, model="minirat", solve=None):
     """The gaps of phase_first_step_on_cpu, ungated (the CPU float32
     rehearsal of a limit passes a float32 CPU run as the card's); ``solve``
-    maps the CPU env's model first (phase_fly_first_step's converged)."""
+    maps the CPU env's model first (phase_converged_first_step's converged)."""
     env = make_env("cpu", model=model)
     if solve is not None:
         env.unwrapped._model = solve(env.unwrapped.model)
@@ -945,6 +1042,272 @@ def phase_elliptic_contacts(device, B, seed):
         fail(f"minirat_elliptic contact states: active elliptic contacts per zone (bottom, "
              f"middle, top) {zones}: every zone must be reached")
     return gaps, zones, counts
+
+
+# ---------------------------------------------------------------------------
+# the narrowphase: pair-type gates, the props rollout
+# ---------------------------------------------------------------------------
+
+
+def pair_type_of_slots(m):
+    """The "geom-geom" name of each contact slot's pair type."""
+    t = np.asarray(m.geom_type)
+    slot_pair = np.repeat(np.arange(len(m.pairs.geom1)), m.pairs.npoint)
+    return np.asarray([f"{GEOM_NAMES[t[m.pairs.geom1[p]]]}-{GEOM_NAMES[t[m.pairs.geom2[p]]]}"
+                       for p in slot_pair])
+
+
+def new_pair_types(m):
+    """The pair types of ``m`` with a box, a cylinder, a mesh or a height
+    field, in slot order."""
+    names = pair_type_of_slots(m)
+    keep = ("hfield", "box", "cylinder", "mesh")
+    return list(dict.fromkeys(n for n in names if any(k in n for k in keep)))
+
+
+def gate_qpos(m, scene, B, seed):
+    """Seeded qposes (float64) of a pair-gate scene: the terrain stand-in at
+    qpos0 with its hinges turned by up to 0.1 rad and its root moved by -5
+    to +10 mm in z (limbs in, on and off the terrain), or the props anywhere
+    in their cluster (assets/make_props.py::seeded_qpos)."""
+    rng = np.random.RandomState(seed)
+    q0 = m.qpos0.cpu().numpy().astype(np.float64)
+    if scene == "props":
+        from brax_tracking_tpu_torch.assets import make_props
+
+        return make_props.seeded_qpos(q0, B, seed)
+    qpos = np.tile(q0[None], (B, 1))
+    qpos[:, 2] += rng.uniform(-0.005, 0.01, B)
+    qpos[:, 7:] += rng.uniform(-0.1, 0.1, (B, m.nq - 7))
+    return qpos
+
+
+def narrowphase(m, qpos):
+    """Kinematics and the narrowphase of ``m`` at a batch of qposes: (dist,
+    pos, normal) of every slot."""
+    from brax_tracking_tpu_torch.physics import collision, kinematics
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    d = pstep.make_data(m, qpos.shape[0], device=m.device).replace(
+        qpos=torch.as_tensor(qpos, dtype=m.dtype, device=m.device))
+    d = collision.collision(m, kinematics.kinematics(m, d))
+    return d.contact_dist, d.contact_pos, d.contact_frame[..., 0, :]
+
+
+def convex_at(m, qpos, kind, u):
+    """The ascent's gap g(u) = u.(c2 - c1) - h1(u) - h2(-u) and contact
+    point of the ``kind`` slots of ``m`` (a convex pair type) at the
+    directions ``u`` (B, slots, 3), on ``m``'s device and dtype."""
+    from brax_tracking_tpu_torch.physics import collision as C
+    from brax_tracking_tpu_torch.physics import kinematics
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    ta, tb = (GEOM_NAMES.index(t) for t in kind.split("-"))
+    slot_pair = np.repeat(np.arange(len(m.pairs.geom1)), m.pairs.npoint)
+    p = slot_pair[pair_type_of_slots(m) == kind]
+    ga, gb = m.idx(m.pairs.geom1[p]), m.idx(m.pairs.geom2[p])
+    d = pstep.make_data(m, qpos.shape[0], device=m.device).replace(
+        qpos=torch.as_tensor(qpos, dtype=m.dtype, device=m.device))
+    d = kinematics.kinematics(m, d)
+    verts = lambda g, t: (m.mesh_vert[m.idx(np.asarray(m.geom_meshidx)[g.cpu().numpy()])]
+                          if t == 7 else None)
+    c1, c2 = d.geom_xpos[:, ga], d.geom_xpos[:, gb]
+    u = u.to(m.device, m.dtype)
+    h1, w1 = C._support(ta, C._gmat(d, ga), m.geom_size[ga], u, verts(ga, ta))
+    h2, w2 = C._support(tb, C._gmat(d, gb), m.geom_size[gb], -u, verts(gb, tb))
+    return torch.sum(u * (c2 - c1), -1) - h1 - h2, 0.5 * ((c1 + w1) + (c2 + w2))
+
+
+def capsule_cylinder_at(m, qpos, pos, normal, dist):
+    """For the capsule-cylinder slots of ``m``: the sphere centre p = pos -
+    (r + dist / 2) normal each contact implies, its distance from the
+    capsule's segment, and the gap between ``dist`` and the signed distance
+    from p to the cylinder less r, both computed on ``m``'s device and
+    dtype at ``qpos``."""
+    from brax_tracking_tpu_torch.physics import collision as C
+    from brax_tracking_tpu_torch.physics import kinematics
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    slot_pair = np.repeat(np.arange(len(m.pairs.geom1)), m.pairs.npoint)
+    p_ = slot_pair[pair_type_of_slots(m) == "capsule-cylinder"]
+    ga, gb = m.idx(m.pairs.geom1[p_]), m.idx(m.pairs.geom2[p_])
+    d = pstep.make_data(m, qpos.shape[0], device=m.device).replace(
+        qpos=torch.as_tensor(qpos, dtype=m.dtype, device=m.device))
+    d = kinematics.kinematics(m, d)
+    r, half = m.geom_size[ga, 0], m.geom_size[ga, 1]
+    centre = pos - (r + 0.5 * dist)[..., None] * normal
+    on_seg = C._seg_closest(centre, d.geom_xpos[:, ga], C._gz(d, ga), half)
+    off_segment = torch.linalg.norm(centre - on_seg, dim=-1)
+    d0, _, _ = C._point_cylinder(C._rt(C._gmat(d, gb), centre - d.geom_xpos[:, gb]),
+                                 m.geom_size[gb, 0], m.geom_size[gb, 1])
+    return off_segment, (d0 - r - dist).abs()
+
+
+def pair_gaps(device, scene, B, seed, dtype=torch.float32):
+    """The narrowphase of ``scene`` on ``device`` in ``dtype`` at gate_qpos
+    against the port's CPU float64 on the same (rounded) poses, per new pair
+    type. The analytic types: the largest gap of dist, pos and normal past
+    twice the float64 run's own spread (its runs on the qposes scaled by 1
+    +- PAIR_SPREAD). The convex types (the support-function ascent, whose
+    direction is resolved to its last angular step, 0.5 x 0.93^59 = 7e-3
+    rad, and whose point is the midpoint of two support witnesses, a vertex
+    that jumps with the direction): ``self``, the card's dist against the
+    gap g(u) evaluated in float64 at the card's own normal u, and ``dual``,
+    how far g(u) falls short of the float64 run's dist (the card's
+    direction separates as well as float64's up to the ascent's
+    resolution). Both: the largest raw gaps, the active slots of the
+    float64 run, and the slots whose activation differs where the float64
+    dist lies farther from the margin than the band (PAIR_ACTIVE_BAND plus
+    twice the spread; for the convex types CONVEX_DUAL)."""
+    m = load(scene, device, dtype)
+    m64 = load(scene, "cpu")
+    q = gate_qpos(m, scene, B, seed)
+    got = [x.detach().cpu().double() for x in narrowphase(m, q)]
+    q = torch.as_tensor(q, dtype=dtype).double().numpy()  # the poses the card saw
+    runs = [narrowphase(m64, q * s) for s in (1.0, 1.0 + PAIR_SPREAD, 1.0 - PAIR_SPREAD)]
+    want = runs[0]
+    margin = m64.pairs.margin[torch.as_tensor(np.repeat(np.arange(len(m64.pairs.geom1)),
+                                                        m64.pairs.npoint))]
+    names = pair_type_of_slots(m64)
+    slot_pair = np.repeat(np.arange(len(m64.pairs.geom1)), m64.pairs.npoint)
+    out = {}
+    for kind in new_pair_types(m64):
+        idx = np.nonzero(names == kind)[0]
+        cols = torch.as_tensor(idx)
+        convex = kind in CONVEX_TYPES
+        # capsule-cylinder's deepest segment point is not unique where the
+        # distance is flat along the segment: its pos and normal are held by
+        # the contact the card's own answer implies (``self``)
+        own = convex or kind == "capsule-cylinder"
+        rep = {"slots": int(cols.numel()), "convex": convex}
+        off64, off = want[0][:, cols] > 1e9, got[0][:, cols] > 1e9  # switched-off candidates
+        live = ~off64 & ~off
+        # a candidate off on one side and live on the other: a repeat of
+        # another slot of its pair live on that side (float32 cannot see a
+        # duplicate at 1e-9, so either side may keep a near-repeat)
+        extra = off64 != off
+        dup = torch.zeros_like(extra)
+        for j, c in enumerate(idx):
+            for c2 in np.nonzero(slot_pair == slot_pair[c])[0]:
+                if c2 == c:
+                    continue
+                for side, keep in ((got, ~off[:, j]), (want, ~off64[:, j])):
+                    dup[:, j] |= (keep & (side[0][:, c2] < 1e9)
+                                  & ((side[1][:, c] - side[1][:, c2]).abs().amax(-1) < PAIR_DUP_POS)
+                                  & ((side[0][:, c] - side[0][:, c2]).abs()
+                                     < PAIR_GATE_LIMITS["dist"]))
+        rep["float32_duplicates"] = int((extra & dup).sum())
+        rep["switched"] = int((extra & ~dup).sum())
+        rep["switched_share"] = rep["switched"] / extra.numel()
+        for k, field in enumerate(("dist", "pos", "normal")):
+            w = want[k][:, cols]
+            g = (got[k][:, cols] - w).abs()
+            sp = torch.stack([(r[k][:, cols] - w).abs() for r in runs[1:]]).amax(0)
+            if field != "dist":
+                g, sp = g.amax(-1), sp.amax(-1)
+            g = torch.where(live, g, torch.zeros_like(g))
+            sp = torch.where(live, sp, torch.zeros_like(sp))
+            rep[f"{field}_gap"] = float(g.max())
+            if not own or field == "dist":
+                rep[f"{field}_past_spread"] = float((g - 2.0 * sp).clamp(min=0).max())
+        d64, dsp = want[0][:, cols], (runs[1][0][:, cols] - want[0][:, cols]).abs()
+        band = PAIR_ACTIVE_BAND + 2.0 * dsp
+        if convex:
+            g_u, _ = convex_at(m64, q, kind, got[2][:, cols])
+            rep["self"] = float(torch.where(live, (got[0][:, cols] - g_u).abs(), 0.0).max())
+            rep["dual"] = float(torch.where(live, d64 - g_u, 0.0).max())
+            band = CONVEX_DUAL + torch.zeros_like(d64)
+        elif own:
+            off_seg, gap = capsule_cylinder_at(m64, q, got[1][:, cols], got[2][:, cols],
+                                               got[0][:, cols])
+            rep["self"] = float(torch.where(live, torch.maximum(off_seg, gap), 0.0).max())
+        act64 = d64 < margin[cols]
+        act = got[0][:, cols] < margin[cols]
+        clear = ((d64 - margin[cols]).abs() > band) & ~extra
+        rep["active"] = int(act64.sum())
+        rep["active_mismatch"] = int((clear & (act != act64)).sum())
+        rep["active_mismatch_in_band"] = int((~clear & (act != act64)).sum())
+        out[kind] = rep
+    return out
+
+
+def pair_gate_failures(kind, r):
+    """What of a pair_gaps report breaks its limits."""
+    if r["convex"]:
+        bad = [f for f, lim in (("self", CONVEX_SELF), ("dual", CONVEX_DUAL)) if r[f] > lim]
+    else:
+        lim = dict(PAIR_GATE_LIMITS, **PAIR_GATE_TYPE_LIMITS.get(kind, {}))
+        bad = [f for f in lim if f"{f}_past_spread" in r and r[f"{f}_past_spread"] > lim[f]]
+        if "self" in r and r["self"] > lim["self"]:
+            bad.append("self")
+    if r["switched_share"] > PAIR_SWITCHED_SHARE.get(kind, 0.0):
+        bad.append("switched")
+    return bad + (["active_mismatch"] if r["active_mismatch"] else [])
+
+
+def phase_pair_gates(B, seed):
+    """pair_gaps on the card for both scenes, every new pair type gated
+    (pair_gate_failures) and active in at least one scene; both scenes'
+    reports are printed before a failure. Returns {scene: report}."""
+    reports, bad = {}, []
+    for scene in PAIR_GATE_SCENES:
+        rep = pair_gaps("cuda", scene, B, seed)
+        print(f"narrowphase_vs_cpu_f64 ({scene}, B={B}) " + json.dumps(
+            {"limits": PAIR_GATE_LIMITS, "type_limits": PAIR_GATE_TYPE_LIMITS,
+             "convex": {"self": CONVEX_SELF, "dual": CONVEX_DUAL}, "types": rep}))
+        bad += [(scene, kind, pair_gate_failures(kind, r)) for kind, r in rep.items()
+                if pair_gate_failures(kind, r)]
+        reports[scene] = rep
+    if bad:
+        fail(f"narrowphase: the card differs from the CPU float64 run: {bad}")
+    active = {}
+    for rep in reports.values():
+        for kind, r in rep.items():
+            active[kind] = active.get(kind, 0) + r["active"]
+    if len(active) != 20 or not all(active.values()):
+        fail(f"the pair gates held {len(active)} new pair types, expected 20, each active "
+             f"somewhere: {active}")
+    return reports
+
+
+def active_pair_types(m, dist):
+    """{new pair type: envs with an active slot of it} at a (B, ncon) dist."""
+    names = pair_type_of_slots(m)
+    slot_pair = np.repeat(np.arange(len(m.pairs.geom1)), m.pairs.npoint)
+    active = dist < m.pairs.margin[m.idx(slot_pair)]
+    return {kind: int(active[:, m.idx(np.nonzero(names == kind)[0])].any(-1).sum())
+            for kind in new_pair_types(m)}
+
+
+def phase_props(device, B, seed, n=PROPS_SUBSTEPS):
+    """n substeps (physics/step.py::step, CG 4/4) of B props envs from
+    qpos0 with seeded velocities, the counts set to 0 just before: exactly
+    one cg_solve_fused launch per substep and no other kernel (on the card),
+    a finite state, the envs with an active slot of each new pair type over
+    the run. Returns the counts, the active counts and the seconds."""
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = load("props", device)
+    rng = np.random.RandomState(seed)
+    d = pstep.make_data(m, B, device=device).replace(
+        qvel=torch.as_tensor(rng.uniform(-0.5, 0.5, (B, m.nv)), dtype=m.dtype, device=device))
+    seen = dict.fromkeys(new_pair_types(m), 0)
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        d = pstep.step(m, d, device=device)
+        for kind, k in active_pair_types(m, d.contact_dist).items():
+            seen[kind] = max(seen[kind], k)
+    synchronize = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: 0)
+    synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": n}
+    if torch.device(device).type == "cuda" and counts != expected:
+        fail(f"props rollout launches {counts}, expected {expected}")
+    if not (torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+        fail("props rollout: state not finite")
+    return counts, seen, seconds
 
 
 # ---------------------------------------------------------------------------
@@ -1594,6 +1957,16 @@ RODENT_DRIVER_ARGV = RODENT_ARGV + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
     "train.force_episode_length=true", "train.episode_length=32",
     "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=24"]
+# the flagship's command on the rodent stand-in's terrain at train_rodent's
+# widths, cut deeper than the rodent's run (its narrowphase is ~0.35 s of
+# host dispatch per substep): one training step (65,536 env steps) with
+# evals before and after it of episode_length 8, the clip cut to 12 frames,
+# so the callback's B = 1 rollout takes 14 control steps; its video draws
+# the visual meshes and the terrain
+TERRAIN_DRIVER_ARGV = TERRAIN_ARGV + [
+    "train.num_minibatches=2", "train.num_updates_per_batch=2",
+    "train.force_episode_length=true", "train.episode_length=8",
+    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=12"]
 # train=train_fly dataset=fly on the tethered fly stand-in: configs/train/
 # train_fly.yaml's widths (MLPs 256 x 256, 1024 envs, batch 1024, unroll 16,
 # 128 eval envs) and fly.yaml's env, cut as the pair's run is (2
@@ -1612,6 +1985,7 @@ FLY_DRIVER_ARGV = FLY_ARGVS["fly_standin_tethered"] + [
 # configs ask; save_video's chain picks the encoder (an MJPEG AVI where
 # Pillow imports, a GIF where it does not), and count_frames reads either
 RENDER_SCENES = {"rodent": "builtin:rodent_standin_pair.xml",
+                 "terrain": "builtin:rodent_standin_terrain_pair.xml",
                  "fly": "builtin:fly_standin_pair.xml"}
 # The render scene's poses on the card (float32, one batched kinematics
 # call) against the port's CPU float64 kinematics on the same qpos frames,
@@ -1702,7 +2076,8 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
             "clips": sorted(set(out.info["clip_idx"].tolist()))}
 
 
-def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False, replay=False):
+def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False, replay=False,
+                 terrain=False):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
     temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
@@ -1721,8 +2096,12 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
     launches stay the same, the video has the T frames of the callback's
     rollout against its clip, and the report holds the render's seconds
     and what was rendered (``capture``, for render_gaps); with ``replay``
-    phase_replay then runs on the run's directory. Returns the run's
-    numbers."""
+    phase_replay then runs on the run's directory. With ``terrain`` (and
+    without ``rodent``) the flagship's run is on the rodent stand-in's terrain
+    (TERRAIN_DRIVER_ARGV): every narrowphase call of the run is recorded,
+    and the report holds, per new pair type, the calls (substeps of
+    training, evals and the callback's rollout, in order) with an active
+    slot in some env. Returns the run's numbers."""
     import tempfile
 
     from brax_tracking_tpu_torch.device import synchronize
@@ -1731,22 +2110,23 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
     from brax_tracking_tpu_torch.harness import driver, render
     from brax_tracking_tpu_torch.native import video as vid
 
-    tag = ("fly" if fly else "rodent" if rodent else "pair" if pair else "multi-clip" if multi
-           else "single clip")
-    committed = not (multi or pair or rodent or fly)
+    tag = ("fly" if fly else "terrain" if terrain else "rodent" if rodent else "pair" if pair
+           else "multi-clip" if multi else "single clip")
+    committed = not (multi or pair or rodent or fly or terrain)
     with tempfile.TemporaryDirectory() as tmp:
         base = os.path.join(tmp, "run")
         data_dir = os.path.join(ROOT, "data", "Minirat") if committed else os.path.join(tmp, "data")
-        argv = (FLY_DRIVER_ARGV if fly else RODENT_DRIVER_ARGV if rodent else
-                PAIR_DRIVER_ARGV if pair else DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
+        argv = (FLY_DRIVER_ARGV if fly else TERRAIN_DRIVER_ARGV if terrain else
+                RODENT_DRIVER_ARGV if rodent else PAIR_DRIVER_ARGV if pair else
+                DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
             f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
         if video:
             argv += ["train.render_video=true",
-                     f"dataset.rendering_mjcf={RENDER_SCENES['fly' if fly else 'rodent']}"]
+                     f"dataset.rendering_mjcf={RENDER_SCENES[tag]}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
-        m = load("fly_standin_tethered" if fly else "rodent_standin" if rodent else
-                 "ratpair" if pair else "minirat", "cpu")
+        m = load("fly_standin_tethered" if fly else "rodent_standin_terrain" if terrain else
+                 "rodent_standin" if rodent else "ratpair" if pair else "minirat", "cpu")
         per_frame = round(1.0 / (ds["mocap_hz"] * float(m.opt.timestep)))
         n_steps = ((ds["clip_length"] - ds["ref_traj_length"])
                    * (per_frame // ds["env_args"]["physics_steps_per_control_step"]))
@@ -1767,9 +2147,21 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
                                  free_jnt=kw["free_jnt"], camera=kw["camera"]))
             return rendering(scene, qposes, ref_traj, *args, **kw)
 
+        from brax_tracking_tpu_torch.physics import collision
+
+        narrow = collision.collision
+        calls = []
+
+        def recording_narrowphase(m_, d_):
+            out = narrow(m_, d_)
+            calls.append(active_pair_types(m_, out.contact_dist))
+            return out
+
         if multi:
             registry.register_environment("multi_clip_tracking", Recording)
         render.render_rollout_vs_reference = recording_render
+        if terrain:
+            collision.collision = recording_narrowphase
         try:
             synchronize(device)
             reset_counts()
@@ -1781,6 +2173,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
         finally:
             registry.register_environment("multi_clip_tracking", tracking.GenericMultiClip)
             render.render_rollout_vs_reference = rendering
+            collision.collision = narrow
         expected = dict.fromkeys(counts, 0) | {
             "cg_solve_fused": driver_expected_launches(cfg, n_steps)}
         if torch.device(device).type == "cuda" and counts != expected:
@@ -1836,7 +2229,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
                 fail(f"driver (multi-clip): a control step on the card differs from the CPU "
                      f"float64 run: {gaps} (limits {MC_STEP_ATOL})")
             report.update(clips_drawn=clips, step_gaps=gaps)
-        elif pair or rodent or fly:
+        elif pair or rodent or fly or terrain:
             built = sorted(os.listdir(os.path.join(data_dir, "clips")))
             if built != ["0.npz"]:
                 fail(f"driver ({tag}) cached {built}")
@@ -1844,6 +2237,10 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
             after = _tree(data_dir)
             if after != before or os.path.join(data_dir, "clips", "0.p") not in after:
                 fail(f"driver (single clip) changed {data_dir}: {sorted(set(after) ^ set(before))}")
+        if terrain:
+            report["narrowphase_calls"] = len(calls)
+            report["active_calls"] = {
+                kind: [i for i, c in enumerate(calls) if c[kind]] for kind in calls[0]}
         if video:
             # the callback's n_steps + 1 qpos frames at the clip's rate
             clip_frames = int(ds["clip_length"])
@@ -2304,7 +2701,7 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    for model in MODELS + PAIR_MODELS + ("rat", "rodent_standin") + FLY_MODELS:
+    for model in MODELS + PAIR_MODELS + ("rat", "rodent_standin") + FLY_MODELS + PAIR_GATE_SCENES:
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
@@ -2355,6 +2752,14 @@ def main() -> int:
             _, args_f, kw_f, _ = flies[model, B, iters][1]
             if not kw_f["ell_mu"] or kw_f["has_damping"]:
                 fail(f"the {model} solve is not the undamped elliptic instance (b)")
+    # the narrowphase's scenes (the wide layout 1): the rodent stand-in on
+    # its terrain (damped) and the props (8 roots)
+    narrow = {}
+    for model in PAIR_GATE_SCENES:
+        for B, iters in ((B_MAIN, None), (B_MAIN - 1, None), (B_MAIN, CONVERGED_ITERS)):
+            narrow[model, B, iters] = phase_kernel_vs_plain("cuda", B, False, SEED, iters, model)
+    if not narrow["rodent_standin_terrain", B_MAIN, None][0]["damped"]:
+        fail("the terrain stand-in's solve is not damped")
     # the wide core against the one-warp core on the same inputs, bitwise,
     # where both take the same path (layout 1, nv > 16): undamped and with
     # the damped Euler tail
@@ -2414,6 +2819,11 @@ def main() -> int:
                   for name in SPD_KERNELS + CHOL_KERNELS}
     print(f"kernels against their plain versions: {time.perf_counter() - t0:.1f} s")
 
+    # 3b. the 20 box, cylinder, mesh and height-field pair types on the card
+    t0 = time.perf_counter()
+    phase_pair_gates(B_MAIN, SEED)
+    print(f"narrowphase pair gates: {time.perf_counter() - t0:.1f} s on {card}")
+
     # 4. the tracking rollouts: minirat (the main path) and elliptic minirat
     launches, envs = {}, {}
     for model in ("minirat", "minirat_elliptic"):
@@ -2472,6 +2882,33 @@ def main() -> int:
           f"{float((sens[:, 9:13] > 0).any(-1).float().mean()):.4f}")
     gaps = phase_first_step_on_cpu(first_in, a0, first_out, N_CPU_ENVS, "rodent_standin")
     print("rodent_standin_first_step_vs_cpu_f64 " + json.dumps(gaps))
+    # the flagship rodent env on the terrain stand-in (the wide layout 1,
+    # damped, every terrain pair type from the first substep)
+    t0 = time.perf_counter()
+    model = "rodent_standin_terrain"
+    env, counts, first_in, a0, first_out, last, touching = phase_rollout(
+        "cuda", B_MAIN, SEED, model, TERRAIN_STEPS)
+    torch.cuda.synchronize()
+    print(f"{model} rollout: {B_MAIN} envs x {TERRAIN_STEPS} control steps x {RODENT_SUBSTEPS} "
+          f"substeps, first run {time.perf_counter() - t0:.1f} s, kernel launches {counts}")
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": TERRAIN_STEPS * RODENT_SUBSTEPS}
+    if counts != expected:
+        fail(f"kernel launches in the {model} rollout: {counts}, expected {expected}")
+    print(f"{model} rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
+          f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
+          f"{touching:.4f}, envs with an active slot per terrain pair type at the first step "
+          f"{active_pair_types(env.unwrapped.model, first_out.pipeline_state.contact_dist)}")
+    gaps = first_step_gaps(first_in, a0, first_out, N_CPU_ENVS, model)
+    print(f"{model}_first_step_vs_cpu_f64 (CG 4/4, not gated) " + json.dumps(gaps))
+    gaps = phase_converged_first_step(env, first_in, a0, model, TERRAIN_STEP_ATOL)
+    print(f"{model}_first_step_converged_vs_cpu_f64 " + json.dumps(
+        {"gaps": gaps, "limits": TERRAIN_STEP_ATOL}))
+    # the props: physics/step.py::step on 2048 envs of 8 free props
+    counts, seen, secs = phase_props("cuda", B_MAIN, SEED)
+    launches["cg_solve_fused (props rollout)"] = counts["cg_solve_fused"]
+    print(f"props rollout: {B_MAIN} envs x {PROPS_SUBSTEPS} substeps, {secs:.1f} s, kernel "
+          f"launches {counts}; envs with an active slot per new pair type (most at a substep) "
+          f"{seen} on {card}")
     # the fly envs on the fly stand-in (the one-warp (b), the fluid model),
     # free and tethered, built from their configs
     for model in FLY_MODELS:
@@ -2492,7 +2929,7 @@ def main() -> int:
               f"{float(last.pipeline_state.xpos[:, env.unwrapped._thorax_idx, 2].mean()):.4f}")
         gaps = first_step_gaps(first_in, a0, first_out, N_CPU_ENVS, model)
         print(f"{model}_first_step_vs_cpu_f64 (CG 4/4, not gated) " + json.dumps(gaps))
-        gaps = phase_fly_first_step(env, first_in, a0, model)
+        gaps = phase_converged_first_step(env, first_in, a0, model, FLY_STEP_ATOL[model])
         print(f"{model}_first_step_converged_vs_cpu_f64 " + json.dumps(gaps))
 
     # 5. the ballmuscle slice, CG (i) and Newton (ii)
@@ -2634,6 +3071,37 @@ def main() -> int:
     print(f"render_poses_and_frames_vs_cpu_f64 (rodent, {T} frames) "
           + json.dumps({"gaps": gaps, "limits": RENDER_LIMITS}))
     print(f"rodent driver phase: {time.perf_counter() - t_rod:.1f} s on {card}")
+    # the flagship's command on the terrain stand-in, with its video
+    t_ter = time.perf_counter()
+    r = phase_driver("cuda", False, terrain=True, video=True)
+    launches["cg_solve_fused (terrain stand-in)"] = r["counts"]["cg_solve_fused"]
+    m = r["metrics"]
+    print(f"driver (terrain): main() {r['seconds']:.1f} s, kernel launches {r['counts']} "
+          f"(expected cg_solve_fused {r['expected']}: train()'s and one reset and 5 per control "
+          f"step of the callback rollout), training/sps {m['training/sps']:.1f}, eval/sps "
+          f"{m['eval/sps']:.1f}, eval/episode_reward {m['eval/episode_reward']:.3f}; "
+          f"training/walltime {m['training/walltime']:.2f} s, eval/walltime "
+          f"{m['eval/walltime']:.2f} s on {card}")
+    steps = r["active_calls"]
+    print(f"driver (terrain): narrowphase calls {r['narrowphase_calls']}; the calls with an "
+          f"active slot of each terrain pair type (count, first, last): " + json.dumps(
+              {k: [len(v), v[:1], v[-1:]] for k, v in steps.items()}))
+    if len(steps) != 11 or not all(steps.values()):
+        fail(f"driver (terrain): a terrain pair type never had an active slot: "
+             f"{ {k: len(v) for k, v in steps.items()} }")
+    print_video("terrain", r, card)
+    from brax_tracking_tpu_torch.harness import render as hrender
+    from brax_tracking_tpu_torch.native import softraster
+
+    _, rf = hrender.load_scene(r["capture"]["scene"], r["capture"]["free_jnt"], "cpu")
+    meshes = [g for g in range(rf.ngeom) if int(rf.geom_type[g]) == 7]
+    drawn = [softraster.tessellate_geom(rf, g) is not None for g in meshes]
+    if not meshes or not all(drawn):
+        fail(f"render (terrain): mesh geoms {meshes} tessellated {drawn}")
+    gaps, T = phase_render_gate(r["capture"], "terrain")
+    print(f"render_poses_and_frames_vs_cpu_f64 (terrain, {T} frames, {len(meshes)} mesh geoms "
+          f"drawn) " + json.dumps({"gaps": gaps, "limits": RENDER_LIMITS}))
+    print(f"terrain driver phase: {time.perf_counter() - t_ter:.1f} s on {card}")
     # train=train_fly dataset=fly on the tethered fly stand-in: every solve
     # the one-warp (b)
     t_fly = time.perf_counter()
@@ -2672,6 +3140,11 @@ def main() -> int:
         (rat[B_MAIN], False, B_MAIN, "(a) one rat", 0, 20),
         (standin[B_MAIN, None], False, B_MAIN, "(a) rodent stand-in, damped",
          launches["cg_solve_fused (rodent stand-in)"], 20),
+        (narrow["rodent_standin_terrain", B_MAIN, None], False, B_MAIN,
+         "(a) rodent stand-in on the terrain, damped",
+         launches["cg_solve_fused (terrain stand-in)"], 20),
+        (narrow["props", B_MAIN, None], False, B_MAIN, "(a) props, 8 roots",
+         launches["cg_solve_fused (props rollout)"], 20),
         (flies["fly_standin", B_MAIN, None], False, B_MAIN, "(b) fly stand-in, free root",
          launches["cg_solve_fused (fly_standin rollout)"], 100),
         (flies["fly_standin_tethered", B_MAIN, None], False, B_MAIN, "(b) fly stand-in, tethered",

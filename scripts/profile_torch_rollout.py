@@ -12,9 +12,15 @@ stand-in (5 substeps, the wide layout 1 with its damped tail, sensors);
 ``fly_standin`` and ``fly_standin_tethered``: the fly_single_clip_freejnt
 and fly_single_clip envs on the fly stand-in (5 substeps, the one-warp
 elliptic instance, the fluid model), their clips from the stac exports;
-``ballmuscle_cg`` and ``ballmuscle_newton`` step chip_smoke.py's posed
-ballmuscle states, ``minirat_newton`` its seeded Newton minirat states,
-through ``physics.step`` and a step is one substep. It warms up, then profiles
+``rodent_standin_terrain``: the flagship env on the rodent stand-in's
+terrain (5 substeps, the narrowphase's box, cylinder, mesh and
+height-field pairs every substep); ``ballmuscle_cg`` and
+``ballmuscle_newton`` step chip_smoke.py's posed ballmuscle states,
+``minirat_newton`` its seeded Newton minirat states and ``props`` the props
+from qpos0 with seeded velocities, through ``physics.step``, and a step is
+one substep; ``terrain_narrowphase`` and ``props_narrowphase`` run the
+narrowphase alone (kinematics and ``collision`` at chip_smoke.py's
+pair-gate poses), and a step is one call. It warms up, then profiles
 ``--steps`` steps with torch.profiler and prints one JSON line. ``--model
 minirat_ppo`` profiles training steps of chip_smoke.py's PPO geometry
 (``rollout_step`` and ``learn_step``: 2 unrolls of 16 control steps, then
@@ -74,7 +80,8 @@ def _stepper(model: str, envs: int):
     """(advance, substeps per step) for the profiled model."""
     if model == "minirat_ppo":
         return _ppo_stepper(envs)
-    configs = ("minirat", "minirat_elliptic", "ratpair", "rodent_standin") + chip_smoke.FLY_MODELS
+    configs = ("minirat", "minirat_elliptic", "ratpair", "rodent_standin",
+               "rodent_standin_terrain") + chip_smoke.FLY_MODELS
     if model in configs:
         env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -86,10 +93,24 @@ def _stepper(model: str, envs: int):
 
         return advance, {"ratpair": chip_smoke.PAIR_SUBSTEPS,
                          "rodent_standin": chip_smoke.RODENT_SUBSTEPS,
+                         "rodent_standin_terrain": chip_smoke.RODENT_SUBSTEPS,
                          **dict.fromkeys(chip_smoke.FLY_MODELS, chip_smoke.FLY_SUBSTEPS)}.get(
                              model, chip_smoke.N_SUBSTEPS)
     from brax_tracking_tpu_torch.physics import step as pstep
 
+    if model.endswith("_narrowphase"):
+        scene = {"terrain": "rodent_standin_terrain", "props": "props"}[model.split("_")[0]]
+        m = chip_smoke.load(scene, "cuda")
+        qpos = chip_smoke.gate_qpos(m, scene, envs, 0)
+        return (lambda: chip_smoke.narrowphase(m, qpos)), 1
+    if model == "props":
+        m = chip_smoke.load(model, "cuda")
+        box = [pstep.make_data(m, envs, device="cuda")]
+
+        def advance():
+            box[0] = pstep.step(m, box[0], device="cuda")
+
+        return advance, 1
     if model == "minirat_newton":
         m = chip_smoke.load(model, "cuda")
         box = [chip_smoke.random_states(m, envs, 0)]
@@ -112,7 +133,8 @@ def main() -> int:
     ap.add_argument("--model", default="minirat",
                     choices=("minirat", "minirat_elliptic", "minirat_newton",
                              "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo", "ratpair",
-                             "rodent_standin") + chip_smoke.FLY_MODELS)
+                             "rodent_standin", "rodent_standin_terrain", "props",
+                             "terrain_narrowphase", "props_narrowphase") + chip_smoke.FLY_MODELS)
     ap.add_argument("--envs", type=int, default=None,
                     help="envs (default 1024 for ratpair, the pair config's, else 2048)")
     ap.add_argument("--steps", type=int, default=3)

@@ -156,7 +156,8 @@ def test_unported_features_raise(feature, monkeypatch):
     """Features the port does not cover raise NotImplementedError naming
     the ROADMAP item, rather than computing something else. ``sensors`` is
     a sensor of a type outside the five the port maps (its freeze raises
-    too: test_torch_rodent.py); ``geom_pair`` a plane-box pair. ``elliptic`` is
+    too: test_torch_rodent.py); ``geom_pair`` a plane-hfield pair, which the
+    JAX package's pair table lacks too (its freeze raises). ``elliptic`` is
     elliptic cones with torsional friction (condim 4); ``newton`` is Newton
     off the kernel layout (200 iterations, past the kernel's 128) on a model
     with contacts, whose dense contact rows are not ported; ``fluid`` the
@@ -188,7 +189,7 @@ def test_unported_features_raise(feature, monkeypatch):
     trn = np.array(m.actuator_trntype)
     dyn = np.array(m.actuator_dyntype)
     jt[1] = TM.JNT_SLIDE
-    gt[1] = TM.GEOM_BOX
+    gt[1] = TM.GEOM_HFIELD
     trn[0] = TM.TRN_SITE
     dyn[0] = 5  # mjDYN_USER
     condim4 = dataclasses.replace(m.pairs, condim=np.full_like(m.pairs.condim, 4))

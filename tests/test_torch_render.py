@@ -4,7 +4,7 @@ the JAX package and MuJoCo C, on the CPU.
 - The render scenes: the pair stand-ins' generators and fresh freezes, their
   joints (the reference body first, in the env model's order), the frozen
   ``render_*`` fields of every scene against ``MjModel`` (exact); a mesh
-  geom raises at freeze.
+  geom freezes with its triangles and an SDF geom raises.
 - Poses: ``harness/render.py::scene_poses`` (one batched kinematics call)
   against ``mj_forward`` at seeded poses, 1e-12: geom positions and frames,
   and the cameras in the three modes (fixed in a moving body and in the
@@ -186,14 +186,20 @@ def test_every_committed_npz_has_render_fields():
 
 
 def test_mesh_geom_raises_at_freeze(tmp_path):
+    """A mesh geom freezes with its triangles (ROADMAP A.12's meshes); an SDF
+    geom, which the JAX package cannot collide, raises at freeze."""
     xml = tmp_path / "mesh.xml"
     xml.write_text("""<mujoco><asset><mesh name="tet" vertex="0 0 0 1 0 0 0 1 0 0 0 1"/></asset>
     <worldbody><geom type="plane" size="1 1 .1"/><body pos="0 0 .5"><freejoint/>
     <geom type="mesh" mesh="tet" contype="0" conaffinity="0"/><geom type="sphere" size=".1"/>
     </body></worldbody></mujoco>""")
+    tspec.freeze_mjcf(str(xml), str(tmp_path / "mesh.npz"))
+    r = tspec.render_fields(str(tmp_path / "mesh.npz"))
+    assert (r.mesh_vertnum.tolist(), r.mesh_facenum.tolist()) == ([4], [4])
+    mj = mujoco.MjModel.from_xml_path(str(xml))
+    mj.geom_type[1] = TM.GEOM_SDF
     with pytest.raises(NotImplementedError, match="§A.12"):
-        tspec.freeze_mjcf(str(xml), str(tmp_path / "mesh.npz"))
-    assert not (tmp_path / "mesh.npz").exists()
+        tspec._render_fields(mj, mujoco)
 
 
 # ---------------------------------------------------------------------------
