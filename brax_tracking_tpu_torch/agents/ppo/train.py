@@ -185,7 +185,12 @@ def train(
     policy), metrics). ``environment`` is the unwrapped env, on ``device``;
     it is wrapped here for training and for the evals (``eval_env`` if
     given). ``network_factory`` is called as ``make_ppo_networks`` is, with
-    ``generator``, ``device`` and ``dtype`` (the observations') keywords."""
+    ``generator``, ``device`` and ``dtype`` (the observations') keywords.
+    ``randomization_fn(model, num_envs=..., generator=...)`` gives the
+    training envs and the eval envs per-env models, one draw per env
+    (envs/wrappers.py ``DomainRandomizationVmapWrapper``), from a generator
+    of their own seeded by ``seed``, so every other draw is the one an
+    unrandomized run makes."""
     if (batch_size * num_minibatches) % num_envs != 0:
         raise ValueError("batch_size * num_minibatches must divide by num_envs")
     dev = resolve_device(device)
@@ -204,9 +209,17 @@ def train(
     generator = torch.Generator(device=dev).manual_seed(seed)
     wrap_for_training = functools.partial(
         wrappers.wrap, episode_length=episode_length, action_repeat=action_repeat,
-        randomization_fn=randomization_fn,
     )
-    env = wrap_for_training(environment)
+    randomization_generator = torch.Generator(device=dev).manual_seed(seed)
+
+    def randomized(n):
+        """randomization_fn bound to n envs, or None."""
+        if randomization_fn is None:
+            return None
+        return functools.partial(randomization_fn, num_envs=n,
+                                 generator=randomization_generator)
+
+    env = wrap_for_training(environment, randomization_fn=randomized(num_envs))
     env_state = env.reset(generator, num_envs)
     obs_size, dtype = env_state.obs.shape[-1], env_state.obs.dtype
     action_size = env.action_size
@@ -241,7 +254,8 @@ def train(
         training_state = checkpoint.restore_checkpoint(restore_checkpoint_path, training_state)
 
     evaluator = acting.Evaluator(
-        wrap_for_training(eval_env if eval_env else environment),
+        wrap_for_training(eval_env if eval_env else environment,
+                          randomization_fn=randomized(num_eval_envs)),
         functools.partial(make_policy, deterministic=deterministic_eval),
         num_eval_envs=num_eval_envs,
         episode_length=episode_length,

@@ -40,6 +40,16 @@ full-width qpos (fly_freejnt.yaml), ``fly_standin_tethered_stac.p`` with
 the root columns dropped (fly.yaml: the JAX package's tethered fly reads a
 qpos as wide as its model, as scripts/make_demo_stac.py writes one).
 
+``fly_standin_ball.xml`` is the stand-in at the shape of the fly's
+``_ball`` variant (nq 49, nv 42, njnt 25; SURVEY.md row 16): each leg's
+coxa hinges and the femur's twist become one limited ball joint on the
+coxa (range 40 degrees), driven by three motors with one gear axis each,
+so nu stays 36. Its limited ball joints take it off the solve kernel's
+layout: under CG it runs the array CG path (``spd_inverse`` once per
+substep), and ``fly_standin_ball_newton.npz`` is a Newton copy for the
+array Newton path. Its stac export (``fly_standin_ball_stac.p``, full
+width) is a MuJoCo C rollout as the fly's.
+
 ``fly_standin_pair.xml`` is the render scene of the fly configs'
 ``rendering_mjcf`` (the reference's ``fruitfly_force_pair.xml`` is not in
 this repository either): two fly stand-ins side by side, every name
@@ -61,6 +71,7 @@ from brax_tracking_tpu_torch.assets.make_ratpair import FLOOR_BIT, _Bodies, _v, 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NAME = "fly_standin.xml"
+BALL_NAME = "fly_standin_ball.xml"
 PAIR_NAME = "fly_standin_pair.xml"
 # the render pair's thoraxes lie this far either side of y = 0 (cm)
 PAIR_Y = 0.15
@@ -103,26 +114,41 @@ THORAX_Z = round(-LEG_Z - sum(v for _, (_, v), _ in LEG_SEGMENTS) + CLAW_RADIUS 
 MOTOR = {"coxa_flexion": (0.2, 0.4), "coxa_twist": (0.1, 0.2), "femur": (0.2, 0.4),
          "femur_twist": (0.1, 0.2), "tibia": (0.1, 0.2), "tarsus": (0.05, 0.1)}
 JOINT_STIFFNESS, JOINT_ARMATURE = 1.0, 1e-5
+# the ball variant's coxa joint: its range (degrees), and its three motors'
+# gear axes, gears and force limits
+BALL_RANGE = 40
+BALL_MOTORS = (("x", (1, 0, 0), 0.2, 0.4), ("y", (0, 1, 0), 0.2, 0.4), ("z", (0, 0, 1), 0.1, 0.2))
 # the stac exports: frames, rate, actuation seed and amplitude
 STAC_FRAMES, STAC_HZ, STAC_SEED, STAC_AMP = 250, 50, 17, 0.4
 STAC_FREE = "fly_standin_stac.p"
+STAC_BALL = "fly_standin_ball_stac.p"
 STAC_TETHERED = "fly_standin_tethered_stac.p"
 
 
 class _Fly(_Bodies):
     """The stand-in's bodies as nested XML; ``collide`` lists the leg
     bodies whose geoms collide (the coxae, and the femurs and tibiae),
-    ``hinges`` the leg hinges in order."""
+    ``hinges`` the leg hinges in order; with ``ball`` each coxa holds one
+    ball joint in place of its hinges and the femur's twist, listed in
+    ``balls``."""
 
-    def __init__(self):
+    def __init__(self, ball: bool = False):
         super().__init__()
         self.collide = {"coxa": [], "leg": []}
         self.hinges = []
+        self.ball = ball
+        self.balls = []
 
     def open(self, name: str, pos, joints=()):
         self._emit(f'<body name="{name}" pos="{_v(pos)}">')
         self.depth += 1
+        if self.ball and name.startswith("coxa_"):
+            self.balls.append(name)
+            self._emit(f'<joint name="{name}" type="ball" range="0 {BALL_RANGE}"/>')
+            return
         for jname, axis, lo, hi in joints:
+            if self.ball and jname.startswith("femur_twist"):
+                continue
             self.hinges.append(jname)
             self._emit(f'<joint name="{jname}" axis="{_v(axis)}" range="{lo} {hi}"/>')
 
@@ -253,19 +279,26 @@ def _header(model: str):
     ]
 
 
-def fly_standin_xml() -> str:
-    """The fly stand-in's MJCF text (``fly_standin.xml``)."""
-    fly = _Fly()
+def fly_standin_xml(ball: bool = False) -> str:
+    """The fly stand-in's MJCF text (``fly_standin.xml``), or with ``ball``
+    its ball-coxa variant's (``fly_standin_ball.xml``)."""
+    fly = _Fly(ball)
     bodies = fly.build()
+    what = "its _ball variant's shape" if ball else "the sizes of its _fast model"
     lines = [
-        "<!-- Stand-in for the fruit fly at the sizes of its _fast model; written by",
+        f"<!-- Stand-in for the fruit fly at {what}; written by",
         "     brax_tracking_tpu_torch/assets/make_fly_standin.py (edit that, not this). -->",
-        *_header("fly_standin"),
+        *_header("fly_standin_ball" if ball else "fly_standin"),
     ]
     lines += bodies
     lines += ["  </worldbody>", "  <contact>"]
     lines += [f'    <exclude body1="{a}" body2="{b}"/>' for a, b in _excludes(fly)]
     lines += ["  </contact>", "  <actuator>"]
+    for j in fly.balls:
+        for ax, axis, gear, force in BALL_MOTORS:
+            g = " ".join(f"{gear * a:g}" for a in axis)
+            lines.append(f'    <motor name="{j}_{ax}" joint="{j}" gear="{g}" ctrlrange="-1 1" '
+                         f'forcerange="{-force:g} {force:g}"/>')
     for j in fly.hinges:
         gear, force = MOTOR[j.rsplit("_", 2)[0]]
         lines.append(f'    <motor name="{j}" joint="{j}" gear="{gear:g}" ctrlrange="-1 1" '
@@ -296,7 +329,8 @@ def fly_standin_pair_xml() -> str:
 def write(directory: str = HERE):
     """Writes the stand-in and its render scene; returns their paths."""
     out = []
-    for name, text in ((NAME, fly_standin_xml()), (PAIR_NAME, fly_standin_pair_xml())):
+    for name, text in ((NAME, fly_standin_xml()), (BALL_NAME, fly_standin_xml(ball=True)),
+                       (PAIR_NAME, fly_standin_pair_xml())):
         path = os.path.join(directory, name)
         with open(path, "w") as f:
             f.write(text)
@@ -316,8 +350,12 @@ def freeze():
     spec.freeze_mjcf(spec.FLY_STANDIN_PAIR_XML, spec.FLY_STANDIN_PAIR_NPZ, free_jnt=True)
     spec.freeze_mjcf(spec.FLY_STANDIN_PAIR_XML, spec.FLY_STANDIN_PAIR_TETHERED_NPZ,
                      free_jnt=False, render_scene=True)
+    spec.freeze_mjcf(spec.FLY_STANDIN_BALL_XML, spec.FLY_STANDIN_BALL_NPZ, free_jnt=True)
+    spec.freeze_mjcf(spec.FLY_STANDIN_BALL_XML, spec.FLY_STANDIN_BALL_NEWTON_NPZ, free_jnt=True,
+                     **spec.FLY_BALL_NEWTON_OPTIONS)
     return [spec.FLY_STANDIN_NPZ, spec.FLY_STANDIN_TETHERED_NPZ, spec.FLY_STANDIN_PAIR_NPZ,
-            spec.FLY_STANDIN_PAIR_TETHERED_NPZ]
+            spec.FLY_STANDIN_PAIR_TETHERED_NPZ, spec.FLY_STANDIN_BALL_NPZ,
+            spec.FLY_STANDIN_BALL_NEWTON_NPZ]
 
 
 def stac_qpos(xml_path: str = os.path.join(HERE, NAME), n_frames: int = STAC_FRAMES):
@@ -348,10 +386,12 @@ def stac_qpos(xml_path: str = os.path.join(HERE, NAME), n_frames: int = STAC_FRA
 
 
 def export_stac(directory: str = HERE):
-    """Writes the two stac exports of one rollout; returns their paths."""
+    """Writes the two stac exports of one rollout and the ball variant's
+    of its own; returns their paths."""
     qpos = stac_qpos()
     out = []
-    for name, q in ((STAC_FREE, qpos), (STAC_TETHERED, qpos[:, 7:])):
+    for name, q in ((STAC_FREE, qpos), (STAC_TETHERED, qpos[:, 7:]),
+                    (STAC_BALL, stac_qpos(os.path.join(directory, BALL_NAME)))):
         path = os.path.join(directory, name)
         with open(path, "wb") as f:
             pickle.dump({"qpos": np.ascontiguousarray(q)}, f, protocol=4)

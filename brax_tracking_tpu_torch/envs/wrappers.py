@@ -1,11 +1,12 @@
 """Training wrapper stack, batch-first.
 
 Counterpart of ``brax_tracking_tpu/envs/wrappers.py``: ``EpisodeWrapper``
-(step counting + truncation), ``AutoResetWrapperTracking`` (roll done
+(step counting + truncation), ``DomainRandomizationVmapWrapper`` (per-env
+randomized physics parameters), ``AutoResetWrapperTracking`` (roll done
 envs back to their reset-time state, tracking clock included) and
 ``RenderRolloutWrapperTracking`` (deterministic resets at frame 0). The envs
 are already batched, so the JAX package's ``VmapWrapper`` has no
-counterpart; per-env randomized models are not ported.
+counterpart.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from brax_tracking_tpu_torch.envs.base import Env, State, Wrapper
 from brax_tracking_tpu_torch.physics import model as M
+from brax_tracking_tpu_torch.physics import solver as S
 
 
 def wrap(
@@ -24,10 +26,12 @@ def wrap(
     action_repeat: int = 1,
     randomization_fn: Optional[Callable] = None,
 ) -> Wrapper:
-    """Episode bookkeeping + tracking-aware auto-reset."""
+    """Episode bookkeeping, per-env models with a ``randomization_fn``,
+    tracking-aware auto-reset (the JAX package's order)."""
+    env = EpisodeWrapper(env, episode_length, action_repeat)
     if randomization_fn is not None:
-        M.unported("per-env randomized models", "§A.12")
-    return AutoResetWrapperTracking(EpisodeWrapper(env, episode_length, action_repeat))
+        env = DomainRandomizationVmapWrapper(env, randomization_fn)
+    return AutoResetWrapperTracking(env)
 
 
 class EpisodeWrapper(Wrapper):
@@ -56,6 +60,55 @@ class EpisodeWrapper(Wrapper):
         info["steps"] = steps
         done = torch.where(over, torch.ones_like(state.done), state.done)
         return state.replace(reward=reward, done=done, info=info)
+
+
+class DomainRandomizationVmapWrapper(Wrapper):
+    """Per-env randomized physics parameters.
+
+    ``randomization_fn(model) -> (batched_model, env_leaves)`` returns a
+    Model whose leaves named in ``env_leaves`` ("body_mass", "opt.gravity",
+    "pairs.solref") carry a leading axis of one value per env, the JAX
+    package's contract with the leaf names in place of its vmap in_axes
+    (the trainer binds the env count and a ``torch.Generator``:
+    ``randomization_fn(model, num_envs=..., generator=...)``). A leaf the
+    engine reads as a per-model constant raises by name
+    (``physics/model.py::env_model``). Every reset and step runs with the
+    batched model swapped into the unwrapped env and the shared one put
+    back after, so the train and eval wrappers can share one env at their
+    own batch sizes, as the JAX wrapper's ``_with_model`` does."""
+
+    def __init__(self, env: Env, randomization_fn: Callable):
+        super().__init__(env)
+        base = getattr(self.env.unwrapped, "model", None)
+        if not isinstance(base, M.Model):
+            raise TypeError("per-env randomization needs an env over a physics model")
+        out = randomization_fn(base)
+        if not (isinstance(out, tuple) and len(out) == 2 and isinstance(out[0], M.Model)):
+            raise TypeError("randomization_fn must return (batched model, per-env leaf names)")
+        self._model_v = M.env_model(base, out[0], out[1], S.static_leaves(base))
+
+    def _with_model(self, batch_size: int, fn):
+        """fn() with the env's model swapped for the batched one."""
+        if batch_size != self._model_v.nenv:
+            raise ValueError(f"the randomized model holds {self._model_v.nenv} envs, not "
+                             f"{batch_size}")
+        unwrapped = self.env.unwrapped
+        old = unwrapped._model
+        unwrapped._model = self._model_v
+        try:
+            return fn()
+        finally:
+            unwrapped._model = old
+
+    def reset(self, generator: torch.Generator, batch_size: int) -> State:
+        return self._with_model(batch_size, lambda: self.env.reset(generator, batch_size))
+
+    def init_state(self, start_frame: torch.Tensor, *args, **kwargs) -> State:
+        return self._with_model(start_frame.shape[0],
+                                lambda: self.env.init_state(start_frame, *args, **kwargs))
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        return self._with_model(action.shape[0], lambda: self.env.step(state, action))
 
 
 class AutoResetWrapperTracking(Wrapper):

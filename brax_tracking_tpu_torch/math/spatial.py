@@ -4,12 +4,69 @@ Counterpart of ``brax_tracking_tpu/math/spatial.py``. A motion or force
 vector is ``[angular(3), linear(3)]``. The component-major ("cm") variants
 take ``(..., components, entities)`` tensors, the layout the engine keeps
 its c-frame quantities in (``cdof`` is ``(B, 6, nv)``); the symmetric 3x3
-inertia is packed as six rows ``[xx, yy, zz, xy, xz, yz]``.
+inertia is packed as six rows ``[xx, yy, zz, xy, xz, yz]``. The
+entity-major ``SpatialInertia`` triple ``(I, h, m)`` of the JAX package,
+with its ``inert_mul`` and ``transform_inertia``, is here too.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class SpatialInertia(NamedTuple):
+    """A spatial inertia as ``(I, h, m)``: I (..., 3, 3) the rotational
+    inertia about the frame origin, h (..., 3) m (com - origin), m (...,)
+    the mass; MuJoCo's 10-float ``cinert`` rows."""
+
+    i: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor
+
+    def __add__(self, other: "SpatialInertia") -> "SpatialInertia":
+        return SpatialInertia(self.i + other.i, self.h + other.h, self.m + other.m)
+
+
+def _cross_mat(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [v]x of (..., 3) vectors."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack(
+        [
+            torch.stack([z, -v[..., 2], v[..., 1]], dim=-1),
+            torch.stack([v[..., 2], z, -v[..., 0]], dim=-1),
+            torch.stack([-v[..., 1], v[..., 0], z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def inert_mul(inert: SpatialInertia, v: torch.Tensor) -> torch.Tensor:
+    """Spatial inertia times a (..., 6) motion vector, a force vector:
+    f = [I w + h x vlin, m vlin - h x w] (mju_mulInertVec)."""
+    w, vlin = v[..., :3], v[..., 3:]
+    cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
+    ang = torch.einsum("...ij,...j->...i", inert.i, w) + cross(inert.h, vlin)
+    lin = inert.m[..., None] * vlin - cross(inert.h, w)
+    return torch.cat([ang, lin], dim=-1)
+
+
+def transform_inertia(
+    body_inertia_diag: torch.Tensor,
+    mass: torch.Tensor,
+    rot: torch.Tensor,
+    offset: torch.Tensor,
+) -> SpatialInertia:
+    """A principal-axis body inertia about a common frame's origin
+    (parallel-axis theorem): body_inertia_diag (..., 3), mass (...,), rot
+    (..., 3, 3) the inertial frame in the common frame (MuJoCo's ximat),
+    offset (..., 3) the CoM minus the origin. I = R diag(d) R^T + m [c]x
+    [c]x^T, MuJoCo's cinert."""
+    i_body = rot * body_inertia_diag[..., None, :] @ rot.transpose(-1, -2)
+    cx = _cross_mat(offset)
+    i_origin = i_body + mass[..., None, None] * (cx @ cx.transpose(-1, -2))
+    return SpatialInertia(i_origin, mass[..., None] * offset, mass)
 
 
 def motion_cross(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

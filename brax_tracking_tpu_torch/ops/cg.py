@@ -256,6 +256,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
         B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, layout, warps, iters, ls_iters,
         int(has_damping), int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
+        nv if armature.dim() == 2 else 0,  # the armature's per-env stride
         ctypes.c_void_p(stream),
     )
     library.check("cg_solve_fused", err)
@@ -307,7 +308,8 @@ def assemble_qM_J(f, cdof, Bm, jsign, md, armature, *, row_slot, sz,
     exactly as the kernel assembles them (JAX ``_assemble_qM_J``).
 
     qM[i, j] = sum_c f[c, i] cdof[c, j] where j is an ancestor-or-self of i
-    (i in [j, j + sz_j)), its transpose above the diagonal, plus armature.
+    (i in [j, j + sz_j)), its transpose above the diagonal, plus armature
+    ((nv,), or per env (B, nv)).
     Contact row r: J[r] = md[slot(r)] * sum_c Bm[root(v)*6 + c, r] cdof[c, v];
     scalar limit row i: jsign_i at its dof.
     """
@@ -321,7 +323,7 @@ def assemble_qM_J(f, cdof, Bm, jsign, md, armature, *, row_slot, sz,
     acc = torch.einsum("bci,bcj->bij", f, cdof)
     accT = torch.einsum("bci,bcj->bij", cdof, f)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
-    qM = torch.where(m1, acc, zero) + torch.where(m2, accT, zero) + torch.diag(armature)
+    qM = torch.where(m1, acc, zero) + torch.where(m2, accT, zero) + torch.diag_embed(armature)
 
     nroots = len(root_bounds)
     G = cdof.new_zeros(B, nroots, 6, nv)
@@ -592,7 +594,7 @@ def cg_solve_fused(
     damp: torch.Tensor,  # (nv,) h * dof_damping
     P: torch.Tensor,  # (nefc, ncon*3) static row-combination coefficients
     md: torch.Tensor,  # (ncon, nv) static +-1/0 contact support masks
-    armature: torch.Tensor,  # (nv,)
+    armature: torch.Tensor,  # (nv,), or per env (B, nv)
     *,
     iters: int,
     ls_iters: int,
@@ -630,7 +632,8 @@ def cg_solve_fused(
         jsign=(jsign, (B, len(limit_dadr))), D=(D, (B, nefc)), aref=(aref, (B, nefc)),
         exists=(exists, (B, nefc)), qfrc_smooth=(qfrc_smooth, (B, nv)),
         qvel=(qvel, (B, nv)), damp=(damp, (nv,)), P=(P, (nefc, ncon * 3)),
-        md=(md, (ncon, nv)), armature=(armature, (nv,)),
+        md=(md, (ncon, nv)),
+        armature=(armature, (B, nv) if armature.dim() == 2 else (nv,)),
     )
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:

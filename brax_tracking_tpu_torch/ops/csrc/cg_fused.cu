@@ -1440,7 +1440,7 @@ __device__ __forceinline__ void fused_narrow(
     const float* __restrict__ Bm, const float* __restrict__ jsign, const float* __restrict__ md,
     const float* __restrict__ armature, const int* __restrict__ row_slot,
     const int* __restrict__ sz, const int* __restrict__ root_of_dof,
-    const int* __restrict__ limit_dadr, int nlim, int nroots, int ncon) {
+    const int* __restrict__ limit_dadr, int nlim, int nroots, int ncon, int arm_stride) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc;
@@ -1469,7 +1469,7 @@ __device__ __forceinline__ void fused_narrow(
   copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, lane);
   copy_vec(sz_s, sz, nv, lane);
   copy_vec(root_s, root_of_dof, nv, lane);
-  copy_vec(arm_s, armature, nv, lane);
+  copy_vec(arm_s, armature + (size_t)b * arm_stride, nv, lane);
   load_env(a, s, b, lane);  // waits for all of them
 
   // ---- qM from (crb_f, cdof), one lane per row i: j ancestor-or-self of i
@@ -1542,7 +1542,7 @@ __device__ __forceinline__ void fused_wide(
     const float* __restrict__ Bm, const float* __restrict__ jsign, const float* __restrict__ md,
     const float* __restrict__ armature, const int* __restrict__ row_slot,
     const int* __restrict__ sz, const int* __restrict__ root_of_dof,
-    const int* __restrict__ limit_dadr, float* jscratch, int nlim, int nroots) {
+    const int* __restrict__ limit_dadr, float* jscratch, int nlim, int nroots, int arm_stride) {
   constexpr int kWide = kW * kWarp;  // threads per env
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -1570,7 +1570,7 @@ __device__ __forceinline__ void fused_wide(
   copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, tid, kWide);
   copy_vec(sz_s, sz, nv, tid, kWide);
   copy_vec(root_s, root_of_dof, nv, tid, kWide);
-  copy_vec(arm_s, armature, nv, tid, kWide);
+  copy_vec(arm_s, armature + (size_t)b * arm_stride, nv, tid, kWide);
   load_env(a, s, b, tid, kWide);  // waits for this thread's copies
   __syncthreads();
 
@@ -1637,14 +1637,14 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
                 const float* __restrict__ md, const float* __restrict__ armature,
                 const int* __restrict__ row_slot, const int* __restrict__ sz,
                 const int* __restrict__ root_of_dof, const int* __restrict__ limit_dadr,
-                float* jscratch, int nlim, int nroots, int ncon) {
+                float* jscratch, int nlim, int nroots, int ncon, int arm_stride) {
   if constexpr (kW == 1) {
     static_assert(!kL2, "layout 2 runs wide");
     fused_narrow<kEll, kWarm>(a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof,
-                              limit_dadr, nlim, nroots, ncon);
+                              limit_dadr, nlim, nroots, ncon, arm_stride);
   } else {
     fused_wide<kEll, kWarm, kL2, kW>(a, f, cdof, Bm, jsign, md, armature, row_slot, sz,
-                                     root_of_dof, limit_dadr, jscratch, nlim, nroots);
+                                     root_of_dof, limit_dadr, jscratch, nlim, nroots, arm_stride);
   }
 }
 
@@ -1762,7 +1762,7 @@ extern "C" int cg_fused_launch(
     float* qfrc, float* a0, float* qvel_new, uint8_t* done, float* jscratch, int B, int nv,
     int nefc, int nlim, int nroots, int ncon, int nell, int ell0, int smem, int layout,
     int warps, int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt,
-    float stall_tol, void* stream) {
+    float stall_tol, int arm_stride, void* stream) {
   if (B == 0) return 0;
   if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch))
     return (int)cudaErrorInvalidValue;
@@ -1787,7 +1787,7 @@ extern "C" int cg_fused_launch(
                            ls_iters, has_damping, has_ws, tol, dt, stall_tol);
   kernel<<<B, warps * kWarp, smem, (cudaStream_t)stream>>>(
       a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, jscratch, nlim,
-      nroots, ncon);
+      nroots, ncon, arm_stride);
   return (int)cudaGetLastError();
 }
 

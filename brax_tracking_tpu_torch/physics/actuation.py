@@ -2,7 +2,7 @@
 batch-first.
 
 Counterpart of ``brax_tracking_tpu/physics/actuation.py`` (mj_fwdActuation
-semantics): hinge-joint, ball-joint and fixed-tendon transmissions; no,
+semantics): hinge-, slide- and ball-joint and fixed-tendon transmissions; no,
 integrator, filter, filterexact and muscle activation dynamics; fixed,
 affine and muscle gain; no, affine and muscle bias; the ctrl and force
 clamps; and the post-integration activation clamp. Site and slider-crank
@@ -20,7 +20,7 @@ from brax_tracking_tpu_torch.physics import model as M
 
 def _transmission(m: M.Model) -> dict:
     """Static transmission tables, built once per model: the actuators of
-    each kind (hinge joint, ball joint, fixed tendon) with their addresses
+    each kind (hinge or slide joint, ball joint, fixed tendon) with their addresses
     and gears, in the order ``_moment_length_velocity`` stacks them, and
     the column permutation back to actuator order (None when the stacked
     order already is it)."""
@@ -33,27 +33,28 @@ def _transmission(m: M.Model) -> dict:
         M.unported("site and slider-crank transmissions", "§A.12")
     joint = trn == M.TRN_JOINT
     jtype = np.where(joint, np.asarray(m.jnt_type)[np.where(joint, tid, 0)], -1)
-    if np.any(joint & (jtype != M.JNT_HINGE) & (jtype != M.JNT_BALL)):
-        M.unported("transmission through a free or slide joint", "§A.12")
+    if np.any(joint & (jtype == M.JNT_FREE)):
+        M.unported("transmission through a free joint (the JAX package raises too)", "§A.12")
     qadrs, dadrs = np.asarray(m.jnt_qposadr), np.asarray(m.jnt_dofadr)
     parts = []
-    hinge = np.nonzero(jtype == M.JNT_HINGE)[0]
+    # per-env gears (B, n) when the model is randomized
+    hinge = np.nonzero((jtype == M.JNT_HINGE) | (jtype == M.JNT_SLIDE))[0]
     if hinge.size:
         parts.append(("hinge", hinge, dict(
             qadr=m.idx(qadrs[tid[hinge]]), dadr=m.idx(dadrs[tid[hinge]]),
-            gear=m.actuator_gear[m.idx(hinge), 0],
+            gear=m.actuator_gear[..., m.idx(hinge), 0],
         )))
     ball = np.nonzero(jtype == M.JNT_BALL)[0]
     if ball.size:
         parts.append(("ball", ball, dict(
             qadr=m.idx(qadrs[tid[ball]][:, None] + np.arange(4)),  # (n, 4)
             dadr=m.idx(dadrs[tid[ball]][:, None] + np.arange(3)),  # (n, 3)
-            gear=m.actuator_gear[m.idx(ball), :3],  # (n, 3)
+            gear=m.actuator_gear[..., m.idx(ball), :3],  # (n, 3)
         )))
     ten = np.nonzero(trn == M.TRN_TENDON)[0]
     if ten.size:
         parts.append(("tendon", ten, dict(
-            tid=m.idx(tid[ten]), gear=m.actuator_gear[m.idx(ten), 0],
+            tid=m.idx(tid[ten]), gear=m.actuator_gear[..., m.idx(ten), 0],
         )))
     cols = np.concatenate([u for _, u, _ in parts]) if parts else np.zeros(0, int)
     identity = np.array_equal(cols, np.arange(m.nu))
@@ -70,7 +71,7 @@ def _transmission(m: M.Model) -> dict:
 def _moment_length_velocity(m: M.Model, d: M.Data):
     """Actuator transmission (mj_transmission), grouped by kind:
 
-    - hinge joint: length = gear0 qpos, moment gear0 at the dof;
+    - hinge or slide joint: length = gear0 qpos, moment gear0 at the dof;
     - ball joint: length = gear[:3] . quat2vel(qpos4), moment the constant
       gear[:3] over the joint's 3 dofs;
     - fixed tendon: length = gear0 ten_length, moment gear0 ten_J.
@@ -91,7 +92,7 @@ def _moment_length_velocity(m: M.Model, d: M.Data):
             lengths.append(torch.sum(t["gear"] * btm.quat_to_axis_angle(q), -1))
             velocities.append(torch.sum(t["gear"] * d.qvel[:, t["dadr"]], -1))
         else:
-            moment = t["gear"][:, None] * d.ten_J[:, t["tid"]]  # (B, n, nv)
+            moment = t["gear"][..., None] * d.ten_J[:, t["tid"]]  # (B, n, nv)
             lengths.append(d.ten_length[:, t["tid"]] * t["gear"])
             velocities.append((moment @ d.qvel[..., None])[..., 0])
             moments.append(moment)
@@ -235,7 +236,7 @@ def fwd_actuation(m: M.Model, d: M.Data) -> M.Data:
     # clamp ctrl
     ctrl = d.ctrl
     lim = m.const(m.actuator_ctrllimited, torch.bool)
-    lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+    lo, hi = m.actuator_ctrlrange[..., 0], m.actuator_ctrlrange[..., 1]
     ctrl = torch.where(lim, torch.minimum(torch.maximum(ctrl, lo), hi), ctrl)
 
     length, velocity, to_qfrc = _moment_length_velocity(m, d)
@@ -251,11 +252,11 @@ def fwd_actuation(m: M.Model, d: M.Data) -> M.Data:
         act_u = d.act[:, aadr]
         inp[:, u] = act_u
         dyn = dyntype[stateful]
-        tau = torch.clamp(m.actuator_dynprm[u, 0], min=M.MINVAL)
+        tau = torch.clamp(m.actuator_dynprm[..., u, 0], min=M.MINVAL)
         filt = (ctrl[:, u] - act_u) / tau
         rate = torch.where(m.const(dyn == M.DYN_INTEGRATOR, torch.bool), ctrl[:, u], filt)
         if np.any(dyn == M.DYN_MUSCLE):
-            mus = muscle_dynamics(ctrl[:, u], act_u, m.actuator_dynprm[u])
+            mus = muscle_dynamics(ctrl[:, u], act_u, m.actuator_dynprm[..., u, :])
             rate = torch.where(m.const(dyn == M.DYN_MUSCLE, torch.bool), mus, rate)
         act_dot[:, aadr] = rate
 
@@ -265,11 +266,11 @@ def fwd_actuation(m: M.Model, d: M.Data) -> M.Data:
     # gain
     gaintype = np.asarray(m.actuator_gaintype)
     gp = m.actuator_gainprm
-    gain = gp[:, 0].expand(B, m.nu)
+    gain = gp[..., 0].expand(B, m.nu)
     if np.any(gaintype == M.GAIN_AFFINE):
         gain = torch.where(
             m.const(gaintype == M.GAIN_AFFINE, torch.bool),
-            gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity,
+            gp[..., 0] + gp[..., 1] * length + gp[..., 2] * velocity,
             gain,
         )
     if np.any(gaintype == M.GAIN_MUSCLE):
@@ -285,7 +286,7 @@ def fwd_actuation(m: M.Model, d: M.Data) -> M.Data:
     if np.any(biastype == M.BIAS_AFFINE):
         bias = torch.where(
             m.const(biastype == M.BIAS_AFFINE, torch.bool),
-            bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity,
+            bp[..., 0] + bp[..., 1] * length + bp[..., 2] * velocity,
             bias,
         )
     if np.any(biastype == M.BIAS_MUSCLE):
@@ -297,7 +298,7 @@ def fwd_actuation(m: M.Model, d: M.Data) -> M.Data:
     force = gain * inp + bias
 
     flim = m.const(m.actuator_forcelimited, torch.bool)
-    flo, fhi = m.actuator_forcerange[:, 0], m.actuator_forcerange[:, 1]
+    flo, fhi = m.actuator_forcerange[..., 0], m.actuator_forcerange[..., 1]
     force = torch.where(flim, torch.minimum(torch.maximum(force, flo), fhi), force)
 
     return d.replace(qfrc_actuator=to_qfrc(force), actuator_force=force, act_dot=act_dot)
@@ -314,7 +315,7 @@ def clamp_act(m: M.Model, act: torch.Tensor) -> torch.Tensor:
     slots = np.concatenate([a + np.arange(n) for a, n in zip(adr, num)])
     owner = np.repeat(limited, num)
     s = m.idx(slots)
-    rng = m.actuator_actrange[m.idx(owner)]
+    rng = m.actuator_actrange[..., m.idx(owner), :]
     out = act.clone()
-    out[:, s] = torch.minimum(torch.maximum(act[:, s], rng[:, 0]), rng[:, 1])
+    out[:, s] = torch.minimum(torch.maximum(act[:, s], rng[..., 0]), rng[..., 1])
     return out

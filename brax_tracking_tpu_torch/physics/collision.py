@@ -485,7 +485,8 @@ def _support(gtype, Rw, size, u, verts=None):
         dots = torch.einsum("...kj,...j->...k", verts, ul)
         h = torch.amax(dots, dim=-1)
         k = torch.argmax(dots, dim=-1)
-        w_l = verts[torch.arange(verts.shape[0], device=k.device), k]
+        vk = verts.expand(*k.shape, *verts.shape[-2:])  # per env or shared
+        w_l = torch.gather(vk, -2, k[..., None, None].expand(*k.shape, 1, 3))[..., 0, :]
     else:  # pragma: no cover
         raise NotImplementedError(gtype)
     return h, _r(Rw, w_l)
@@ -528,7 +529,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if ps.size:
         gp, gs = m.idx(g1[ps]), m.idx(g2[ps])
         pn = _gz(d, gp)
-        di, po = _plane_sphere_point(pn, d.geom_xpos[:, gp], d.geom_xpos[:, gs], size[gs, 0])
+        di, po = _plane_sphere_point(pn, d.geom_xpos[:, gp], d.geom_xpos[:, gs], size[..., gs, 0])
         put(ps, di, po, make_frame(pn))
 
     # ---- plane-capsule: one contact per end sphere ----
@@ -539,8 +540,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         pp = d.geom_xpos[:, gp]
         c = d.geom_xpos[:, gc]
         axis = _gz(d, gc)
-        r = size[gc, 0]
-        half = size[gc, 1]
+        r = size[..., gc, 0]
+        half = size[..., gc, 1]
         # MuJoCo aligns tangent1 with the capsule axis projected onto the
         # plane (helper frame when the axis is perpendicular to it)
         proj = axis - pn * torch.sum(pn * axis, dim=-1, keepdim=True)
@@ -550,7 +551,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         fr_axis = torch.stack([pn, tan1, tan2], dim=-2)
         fr = torch.where((pnorm > 1e-10)[..., None], fr_axis, make_frame(pn))
         for endi, sign in enumerate((1.0, -1.0)):
-            end = c + sign * axis * half[:, None]
+            end = c + sign * axis * half[..., None]
             di, po = _plane_sphere_point(pn, pp, end, r)
             put(pc, di, po, fr, endi)
 
@@ -561,7 +562,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         pn = _gz(d, gp)
         pp = d.geom_xpos[:, gp]
         E = _gmat(d, ge)
-        s_ = size[ge]
+        s_ = size[..., ge, :]
         sn = s_ * _rt(E, pn)
         denom = torch.clamp(torch.linalg.norm(sn, dim=-1, keepdim=True), min=M.MINVAL)
         v = d.geom_xpos[:, ge] + _r(E, -s_ * sn / denom)
@@ -588,7 +589,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     pb = sel(M.GEOM_PLANE, M.GEOM_BOX)
     if pb.size:
         gb = m.idx(g2[pb])
-        corners = m.const(_BOX_CORNERS)[None] * size[gb][:, None, :]  # (n, 8, 3)
+        corners = m.const(_BOX_CORNERS)[None] * size[..., gb, :][..., None, :]  # (n, 8, 3)
         pts = d.geom_xpos[:, gb][..., None, :] + torch.einsum("...ij,...kj->...ki",
                                                                _gmat(d, gb), corners)
         four_deepest(pb, pts)
@@ -597,10 +598,10 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if pm.size:
         gm = m.idx(g2[pm])
         mi = np.asarray(m.geom_meshidx)[g2[pm]]
-        verts = m.mesh_vert[m.idx(mi)]  # (n, maxv, 3) in the geom frame
+        verts = m.mesh_vert[..., m.idx(mi), :, :]  # (n, maxv, 3) in the geom frame
         pts = d.geom_xpos[:, gm][..., None, :] + torch.einsum("...ij,...kj->...ki",
                                                                _gmat(d, gm), verts)
-        valid = np.arange(verts.shape[1])[None, :] < np.asarray(m.mesh_vertnum)[mi][:, None]
+        valid = np.arange(verts.shape[-2])[None, :] < np.asarray(m.mesh_vertnum)[mi][:, None]
         four_deepest(pm, pts, valid)
 
     # ---- height fields: the deepest triangle of a K x K patch per probe ----
@@ -618,21 +619,25 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         Rh = _gmat(d, gp)
         ph = d.geom_xpos[:, gp]
         c = _rt(Rh, centers_w - ph)  # in the height field's frame
-        sz = m.hfield_size[m.idx(gh)]  # (n, 4)
-        dx = 2.0 * sz[:, 0] / m.const(np.maximum(nc - 1, 1))
-        dy = 2.0 * sz[:, 1] / m.const(np.maximum(nr - 1, 1))
+        sz = m.hfield_size[..., m.idx(gh), :]  # (n, 4), per env (B, n, 4)
+        dx = 2.0 * sz[..., 0] / m.const(np.maximum(nc - 1, 1))
+        dy = 2.0 * sz[..., 1] / m.const(np.maximum(nr - 1, 1))
         zero = torch.zeros((), dtype=torch.long, device=device)
-        j0 = _clip(torch.floor((c[..., 0] + sz[:, 0]) / dx).long() - (K - 1) // 2, zero,
+        j0 = _clip(torch.floor((c[..., 0] + sz[..., 0]) / dx).long() - (K - 1) // 2, zero,
                    m.idx(nc - K))
-        i0 = _clip(torch.floor((c[..., 1] + sz[:, 1]) / dy).long() - (K - 1) // 2, zero,
+        i0 = _clip(torch.floor((c[..., 1] + sz[..., 1]) / dy).long() - (K - 1) // 2, zero,
                    m.idx(nr - K))
         ar = torch.arange(K, device=device)
         rows = (i0[..., None] + ar)[..., :, None]  # (B, n, K, 1)
         cols = (j0[..., None] + ar)[..., None, :]  # (B, n, 1, K)
-        patch = m.hfield_elev[m.idx(gh)[:, None, None], rows, cols]  # (B, n, K, K): z at [y, x]
+        if "hfield_elev" in m.env_leaves:
+            env = torch.arange(B, device=device)[:, None, None, None]
+            patch = m.hfield_elev[env, m.idx(gh)[:, None, None], rows, cols]
+        else:
+            patch = m.hfield_elev[m.idx(gh)[:, None, None], rows, cols]  # (B, n, K, K): z at [y, x]
         ar = ar.to(dtype)
-        xs = (j0[..., None].to(dtype) + ar) * dx[:, None] - sz[:, 0:1]
-        ys = (i0[..., None].to(dtype) + ar) * dy[:, None] - sz[:, 1:2]
+        xs = (j0[..., None].to(dtype) + ar) * dx[..., None] - sz[..., 0:1]
+        ys = (i0[..., None].to(dtype) + ar) * dy[..., None] - sz[..., 1:2]
         V = torch.stack([xs[..., None, :].expand(patch.shape), ys[..., :, None].expand(patch.shape),
                          patch], dim=-1)  # (B, n, K, K, 3)
 
@@ -663,23 +668,23 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     hs = sel(M.GEOM_HFIELD, M.GEOM_SPHERE)
     if hs.size:
         gs = m.idx(g2[hs])
-        put(hs, *hfield_probe(hs, d.geom_xpos[:, gs], size[gs, 0]))
+        put(hs, *hfield_probe(hs, d.geom_xpos[:, gs], size[..., gs, 0]))
 
     hc = sel(M.GEOM_HFIELD, M.GEOM_CAPSULE)
     if hc.size:
         gc = m.idx(g2[hc])
         cw = d.geom_xpos[:, gc]
         axis = _gz(d, gc)
-        r, half = size[gc, 0], size[gc, 1]
+        r, half = size[..., gc, 0], size[..., gc, 1]
         for k, t in enumerate((-1.0, 0.0, 1.0)):
-            put(hc, *hfield_probe(hc, cw + t * axis * half[:, None], r), k)
+            put(hc, *hfield_probe(hc, cw + t * axis * half[..., None], r), k)
 
     # ---- sphere-sphere ----
     ss = sel(M.GEOM_SPHERE, M.GEOM_SPHERE)
     if ss.size:
         ga, gb = m.idx(g1[ss]), m.idx(g2[ss])
         c1, c2 = d.geom_xpos[:, ga], d.geom_xpos[:, gb]
-        r1, r2 = size[ga, 0], size[gb, 0]
+        r1, r2 = size[..., ga, 0], size[..., gb, 0]
         delta = c2 - c1
         length = torch.clamp(torch.linalg.norm(delta, dim=-1), min=M.MINVAL)
         n = delta / length[..., None]
@@ -690,8 +695,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     sc = sel(M.GEOM_SPHERE, M.GEOM_CAPSULE)
     if sc.size:
         ga, gb = m.idx(g1[sc]), m.idx(g2[sc])
-        c1, r1 = d.geom_xpos[:, ga], size[ga, 0]
-        r2, h2 = size[gb, 0], size[gb, 1]
+        c1, r1 = d.geom_xpos[:, ga], size[..., ga, 0]
+        r2, h2 = size[..., gb, 0], size[..., gb, 1]
         p2 = _seg_closest(c1, d.geom_xpos[:, gb], _gz(d, gb), h2)
         delta = p2 - c1
         length = torch.clamp(torch.linalg.norm(delta, dim=-1), min=M.MINVAL)
@@ -704,9 +709,9 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if cc.size:
         ga, gb = m.idx(g1[cc]), m.idx(g2[cc])
         c1, ax1 = d.geom_xpos[:, ga], _gz(d, ga)
-        r1, h1 = size[ga, 0], size[ga, 1]
+        r1, h1 = size[..., ga, 0], size[..., ga, 1]
         c2, ax2 = d.geom_xpos[:, gb], _gz(d, gb)
-        r2, h2 = size[gb, 0], size[gb, 1]
+        r2, h2 = size[..., gb, 0], size[..., gb, 1]
         # closest points between segments (clamped alternating projection)
         p1 = c1
         for _ in range(4):
@@ -731,7 +736,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         pp = d.geom_xpos[:, gp]
         c = d.geom_xpos[:, gc]
         axis = _gz(d, gc)
-        r, h = size[gc, 0], size[gc, 1]
+        r, h = size[..., gc, 0], size[..., gc, 1]
         ca = torch.sum(pn * axis, dim=-1)  # cos(axis, normal)
         sgn = torch.where(ca >= 0, torch.ones_like(ca), -torch.ones_like(ca))
         # the in-disk direction toward the plane
@@ -743,7 +748,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         d2 = torch.linalg.cross(axis, d1, dim=-1)  # completes the disk's basis
         lo = c - axis * (h * sgn)[..., None]  # the near (deepest) disk's centre
         hi = c + axis * (h * sgn)[..., None]
-        rr = r[:, None]
+        rr = r[..., None]
         cand = [lo + rr * d1, hi + rr * d1, lo + rr * (-0.5 * d1 + _SIN60 * d2),
                 lo + rr * (-0.5 * d1 - _SIN60 * d2)]
         fr = make_frame(pn)
@@ -756,8 +761,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if sb.size:
         ga, gb = m.idx(g1[sb]), m.idx(g2[sb])
         cb, Rb = d.geom_xpos[:, gb], _gmat(d, gb)
-        outward_l, cdist, q_l = _point_box(_rt(Rb, d.geom_xpos[:, ga] - cb), size[gb])
-        di = cdist - size[ga, 0]
+        outward_l, cdist, q_l = _point_box(_rt(Rb, d.geom_xpos[:, ga] - cb), size[..., gb, :])
+        di = cdist - size[..., ga, 0]
         outward = _r(Rb, outward_l)
         put(sb, di, cb + _r(Rb, q_l) + 0.5 * di[..., None] * outward, make_frame(-outward))
 
@@ -768,11 +773,11 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if cbx.size:
         ga, gb = m.idx(g1[cbx]), m.idx(g2[cbx])
         cc_, axc = d.geom_xpos[:, ga], _gz(d, ga)
-        r, hc_ = size[ga, 0], size[ga, 1]
-        cb2, Rb, s = d.geom_xpos[:, gb], _gmat(d, gb), size[gb]
+        r, hc_ = size[..., ga, 0], size[..., ga, 1]
+        cb2, Rb, s = d.geom_xpos[:, gb], _gmat(d, gb), size[..., gb, :]
         prev_p = prev_out = None
         for endi, esign in enumerate((1.0, -1.0)):
-            p = cc_ + esign * axc * hc_[:, None]
+            p = cc_ + esign * axc * hc_[..., None]
             for _ in range(_CAPSULE_BOX_STEPS):
                 qw = cb2 + _r(Rb, _clip(_rt(Rb, p - cb2), -s, s))
                 p = _seg_closest(qw, cc_, axc, hc_)
@@ -794,8 +799,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     se = sel(M.GEOM_SPHERE, M.GEOM_ELLIPSOID)
     if se.size:
         ga, gb = m.idx(g1[se]), m.idx(g2[se])
-        di, po, n = _sphere_ellipsoid(d.geom_xpos[:, ga], size[ga, 0], d.geom_xpos[:, gb],
-                                      _gmat(d, gb), size[gb])
+        di, po, n = _sphere_ellipsoid(d.geom_xpos[:, ga], size[..., ga, 0], d.geom_xpos[:, gb],
+                                      _gmat(d, gb), size[..., gb, :])
         put(se, di, po, make_frame(n))
 
     # ---- capsule-ellipsoid: the deepest (or closest) segment point ----
@@ -803,8 +808,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if ce.size:
         ga, gb = m.idx(g1[ce]), m.idx(g2[ce])
         cc_, axc = d.geom_xpos[:, ga], _gz(d, ga)
-        r, hc_ = size[ga, 0], size[ga, 1]
-        ce2, Re, se2 = d.geom_xpos[:, gb], _gmat(d, gb), size[gb]
+        r, hc_ = size[..., ga, 0], size[..., ga, 1]
+        ce2, Re, se2 = d.geom_xpos[:, gb], _gmat(d, gb), size[..., gb, :]
 
         def sdist_at(t):
             """Signed point-to-surface distance at segment parameter t: convex,
@@ -823,8 +828,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     scy = sel(M.GEOM_SPHERE, M.GEOM_CYLINDER)
     if scy.size:
         ga, gb = m.idx(g1[scy]), m.idx(g2[scy])
-        di, po, n = _sphere_cylinder(d.geom_xpos[:, ga], size[ga, 0], d.geom_xpos[:, gb],
-                                     _gmat(d, gb), size[gb, 0], size[gb, 1])
+        di, po, n = _sphere_cylinder(d.geom_xpos[:, ga], size[..., ga, 0], d.geom_xpos[:, gb],
+                                     _gmat(d, gb), size[..., gb, 0], size[..., gb, 1])
         put(scy, di, po, make_frame(n))
 
     # ---- capsule-cylinder: the deepest segment point and both ends ----
@@ -832,9 +837,9 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     if ccy.size:
         ga, gb = m.idx(g1[ccy]), m.idx(g2[ccy])
         cc_, axc = d.geom_xpos[:, ga], _gz(d, ga)
-        r, hc_ = size[ga, 0], size[ga, 1]
+        r, hc_ = size[..., ga, 0], size[..., ga, 1]
         cc2, Rc = d.geom_xpos[:, gb], _gmat(d, gb)
-        rcy, hcy = size[gb, 0], size[gb, 1]
+        rcy, hcy = size[..., gb, 0], size[..., gb, 1]
 
         def sdist_cyl(t):
             """The signed point-cylinder distance at segment parameter t
@@ -865,9 +870,10 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         ga, gb = m.idx(g1[cv]), m.idx(g2[cv])
         c1w, c2w = d.geom_xpos[:, ga], d.geom_xpos[:, gb]
         R1w, R2w = _gmat(d, ga), _gmat(d, gb)
-        s1w, s2w = size[ga], size[gb]
-        v1 = m.mesh_vert[m.idx(np.asarray(m.geom_meshidx)[g1[cv]])] if ta == M.GEOM_MESH else None
-        v2 = m.mesh_vert[m.idx(np.asarray(m.geom_meshidx)[g2[cv]])] if tb == M.GEOM_MESH else None
+        s1w, s2w = size[..., ga, :], size[..., gb, :]
+        mv = lambda g: m.mesh_vert[..., m.idx(np.asarray(m.geom_meshidx)[g[cv]]), :, :]
+        v1 = mv(g1) if ta == M.GEOM_MESH else None
+        v2 = mv(g2) if tb == M.GEOM_MESH else None
         dc = c2w - c1w
         u, step = _norm(dc), 0.5
         for _ in range(_CONVEX_STEPS):
@@ -885,8 +891,8 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
     bb = sel(M.GEOM_BOX, M.GEOM_BOX)
     if bb.size:
         ga, gb = m.idx(g1[bb]), m.idx(g2[bb])
-        di, po, nr = _box_box(d.geom_xpos[:, ga], _gmat(d, ga), size[ga].expand(B, -1, -1),
-                              d.geom_xpos[:, gb], _gmat(d, gb), size[gb].expand(B, -1, -1))
+        di, po, nr = _box_box(d.geom_xpos[:, ga], _gmat(d, ga), size[..., ga, :].expand(B, -1, -1),
+                              d.geom_xpos[:, gb], _gmat(d, gb), size[..., gb, :].expand(B, -1, -1))
         slots = m.idx((slot0[bb][:, None] + np.arange(8)[None, :]).ravel())
         dist[:, slots] = di.reshape(B, -1)
         pos[:, slots] = po.reshape(B, -1, 3)
@@ -902,7 +908,7 @@ def collision(m: M.Model, d: M.Data) -> M.Data:
         ga, gb = m.idx(g1[ee]), m.idx(g2[ee])
         c1, c2 = d.geom_xpos[:, ga], d.geom_xpos[:, gb]
         R1, R2 = _gmat(d, ga), _gmat(d, gb)
-        s1, s2 = size[ga], size[gb]
+        s1, s2 = size[..., ga, :], size[..., gb, :]
         dc = c2 - c1
 
         def au(R, s_, u):

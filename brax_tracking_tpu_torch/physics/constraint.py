@@ -7,11 +7,13 @@ activation is run-time masking. Rows are scalar limits first, then ball
 limits, then contacts; an elliptic contact owns a normal and two friction
 rows [n, t1, t2]. Condim > 3 raises.
 
-The dense contact jacobian is not materialized here: the solve kernel
-assembles it from the per-contact operators ``con_A`` (J = (P A) cdof * md,
-see ``_contact_jac``), and the row velocities aref needs come from the
-same factors without it. Ball-limit rows (models off the kernel layout)
-are the dense block ``efc_Jc``; ``jac_mul`` / ``jac_t_mul`` apply J.
+On the kernel layout the dense contact jacobian is not materialized: the
+solve kernel assembles it from the per-contact operators ``con_A`` (J =
+(P A) cdof * md, see ``_contact_jac``), and the row velocities aref needs
+come from the same factors without it. Off it (the array solve paths),
+the rows after the scalar limits are the dense block ``efc_Jc`` = [ball
+limit rows; contact rows], as the JAX package builds it; ``jac_mul`` /
+``jac_t_mul`` apply J and ``dense_J`` rebuilds the whole of it.
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ def _kbi(m: M.Model, solref, solimp, pos):
     imp = torch.clamp(imp, M.MINVAL, 1 - M.MINVAL)
 
     # stiffness / damping
-    dt = m.opt.timestep
+    dt = m.opt_b("timestep", 2)
     tc = torch.maximum(timeconst, 2 * dt)
     k_std = 1.0 / torch.clamp(dmax * dmax * tc * tc * dampratio * dampratio, min=M.MINVAL)
     b_std = 2.0 / torch.clamp(dmax * tc, min=M.MINVAL)
@@ -159,14 +161,16 @@ def _kbi(m: M.Model, solref, solimp, pos):
     return k, b, imp
 
 
-def _contact_jac(m: M.Model, d: M.Data, layout: EfcLayout):
+def _contact_jac(m: M.Model, d: M.Data, layout: EfcLayout, dense: bool = False):
     """Per-root contact-point operators and the contact-frame velocities.
 
     With off = p_c - com(root), frame_row . (lin_v + ang_v x off) =
     [off x frame_row | frame_row] . cdof_v, so per kinematic root the
     translational jacobian of slot c is A[c] @ cdof (A: (3, 6)), masked by
     the static support mask md[c] (body2's dofs minus body1's). Returns
-    (con_A (B, nroots, ncon, 3, 6), jvel (B, ncon, 3) = J qvel).
+    (con_A (B, nroots, ncon, 3, 6), jvel (B, ncon, 3) = J qvel, jac), jac
+    the dense (B, ncon, 3, nv) jacobian with ``dense`` (the JAX package's
+    ``_contact_jac``; jvel is then jac qvel), else None.
     """
     b1 = np.asarray(m.geom_bodyid)[layout.con_geom1]
     b2 = np.asarray(m.geom_bodyid)[layout.con_geom2]
@@ -176,26 +180,43 @@ def _contact_jac(m: M.Model, d: M.Data, layout: EfcLayout):
     F = d.contact_frame  # (B, ncon, 3, 3)
 
     dof_root = np.asarray(m.body_rootid)[np.asarray(m.dof_bodyid)]
-    A_stack, jvel = [], 0.0
-    for r in np.unique(dof_root):
+    roots = np.unique(dof_root)
+    A_stack, jvel, jac = [], 0.0, None
+    for r in roots:
         off = p - d.subtree_com[:, int(r)][:, None, :]
         ofx = torch.linalg.cross(off[:, :, None, :].expand_as(F), F, dim=-1)
         A = torch.cat([ofx, F], dim=-1)  # (B, ncon, 3, 6)
         A_stack.append(A)
+        if dense:
+            Jr = torch.einsum("bcnk,bkv->bcnv", A, d.cdof)
+            if roots.size > 1:
+                Jr = Jr * m.const(dof_root == r)
+            jac = Jr if jac is None else jac + Jr
+            continue
         # J qvel = A (cdof (md_r * qvel)) per slot, without J itself
         md_r = m.const(md * (dof_root == r)[None, :])
         w = torch.einsum("bkv,cv,bv->bck", d.cdof, md_r, d.qvel)
         jvel = jvel + torch.einsum("bcnk,bck->bcn", A, w)
-    return torch.stack(A_stack, dim=1), jvel
+    if dense:
+        jac = jac * m.const(md)[:, None, :]
+        jvel = torch.einsum("bcnv,bv->bcn", jac, d.qvel)
+    return torch.stack(A_stack, dim=1), jvel, jac
 
 
-def make_constraint(m: M.Model, d: M.Data) -> M.Data:
-    """efc_jsign / efc_D / efc_aref / efc_pos / efc_margin and con_A."""
+def make_constraint(m: M.Model, d: M.Data, dense: bool = None) -> M.Data:
+    """efc_jsign / efc_D / efc_aref / efc_pos / efc_margin and con_A; off
+    the kernel layout (or with ``dense``) also the dense block efc_Jc. A
+    per-env parameter leaf (B, ...) is read past its env axis
+    (``[..., idx]``)."""
+    from brax_tracking_tpu_torch.physics import solver as S
+
     B = d.qpos.shape[0]
     layout = efc_layout(m)
     nefc = layout.nefc
     if m.ncon and int(np.max(layout.con_dim)) > 3:
         M.unported("torsional and rolling friction (condim > 3)", "§A.12")
+    if dense is None:
+        dense = not S.quad_kernel_eligible(m)
 
     zeros = lambda *s: d.qpos.new_zeros(B, *s)
     efc_jsign = zeros(layout.limit_rows.size)
@@ -207,18 +228,18 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
         jids = m.idx(layout.limit_jnt)
         qadr = m.idx(np.asarray(m.jnt_qposadr)[layout.limit_jnt])
         dadr = m.idx(np.asarray(m.jnt_dofadr)[layout.limit_jnt])
-        lo, hi = m.jnt_range[jids, 0], m.jnt_range[jids, 1]
+        lo, hi = m.jnt_range[..., jids, 0], m.jnt_range[..., jids, 1]
         qp = d.qpos[:, qadr]
         dist_lo = qp - lo
         dist_hi = hi - qp
         use_lo = dist_lo <= dist_hi
         dist = torch.where(use_lo, dist_lo, dist_hi)
         sign = torch.where(use_lo, 1.0, -1.0).to(qp.dtype)
-        margin = m.jnt_margin[jids]
-        k, b, imp = _kbi(m, m.jnt_solref[jids], m.jnt_solimp[jids], dist - margin)
+        margin = m.jnt_margin[..., jids]
+        k, b, imp = _kbi(m, m.jnt_solref[..., jids, :], m.jnt_solimp[..., jids, :], dist - margin)
         jvel = sign * d.qvel[:, dadr]
         aref = -b * jvel - k * imp * (dist - margin)
-        r = torch.clamp((1 - imp) / imp * m.dof_invweight0[dadr], min=M.MINVAL)
+        r = torch.clamp((1 - imp) / imp * m.dof_invweight0[..., dadr], min=M.MINVAL)
         rows = m.idx(layout.limit_rows)
         efc_jsign = sign
         efc_D[:, rows] = 1.0 / r
@@ -230,10 +251,8 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
     # mj_instantiateLimit, mjJNT_BALL branch: a limit on the total rotation
     # angle; dist = max(range) - |angle|, jacobian = -axis over the 3 dofs
     n_ball = int(layout.limit_ball_jnt.size)
+    ball_J = None
     if n_ball:
-        if m.ncon:
-            # the dense block would need the contact rows too
-            M.unported("dense contact rows beside ball-joint limits", "§A.12")
         jids = layout.limit_ball_jnt
         ji = m.idx(jids)
         qadr = np.asarray(m.jnt_qposadr)[jids]
@@ -244,35 +263,36 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
         axis = torch.where(
             (angle > M.MINVAL)[..., None], axis, m.const([1.0, 0.0, 0.0]).expand_as(axis)
         )
-        dist = torch.maximum(m.jnt_range[ji, 0], m.jnt_range[ji, 1]) - angle
-        margin = m.jnt_margin[ji]
-        k, b, imp = _kbi(m, m.jnt_solref[ji], m.jnt_solimp[ji], dist - margin)
+        dist = torch.maximum(m.jnt_range[..., ji, 0], m.jnt_range[..., ji, 1]) - angle
+        margin = m.jnt_margin[..., ji]
+        k, b, imp = _kbi(m, m.jnt_solref[..., ji, :], m.jnt_solimp[..., ji, :], dist - margin)
         dofs = m.idx(dadr[:, None] + np.arange(3))  # (n_ball, 3)
         jvel = torch.sum(-axis * d.qvel[:, dofs], dim=-1)
         aref = -b * jvel - k * imp * (dist - margin)
-        r = torch.clamp((1 - imp) / imp * m.dof_invweight0[m.idx(dadr)], min=M.MINVAL)
-        efc_Jc = d.qpos.new_zeros(B, n_ball, m.nv)
-        efc_Jc[:, m.idx(np.repeat(np.arange(n_ball), 3)), dofs.reshape(-1)] = -axis.reshape(B, -1)
+        r = torch.clamp((1 - imp) / imp * m.dof_invweight0[..., m.idx(dadr)], min=M.MINVAL)
+        ball_J = d.qpos.new_zeros(B, n_ball, m.nv)
+        ball_J[:, m.idx(np.repeat(np.arange(n_ball), 3)), dofs.reshape(-1)] = -axis.reshape(B, -1)
         rows = m.idx(layout.limit_ball_rows)
         efc_D[:, rows] = 1.0 / r
         efc_aref[:, rows] = aref
         efc_pos[:, rows] = dist
         efc_margin[:, rows] = margin.expand(B, -1)
+    efc_Jc = ball_J
 
     # ---------------- contacts ----------------
     if m.ncon:
         pairs = m.pairs
         cp = m.idx(layout.con_pair)
-        con_A, jvel = _contact_jac(m, d, layout)  # jvel rows: n, t1, t2
-        friction = pairs.friction[cp]  # (ncon, 5)
-        margin = pairs.margin[cp]  # oracle (mujoco 3.10): gap does not subtract
+        con_A, jvel, jac = _contact_jac(m, d, layout, dense)  # jvel rows: n, t1, t2
+        friction = pairs.friction[..., cp, :]  # (ncon, 5)
+        margin = pairs.margin[..., cp]  # oracle (mujoco 3.10): gap does not subtract
         dist = d.contact_dist
         pos_r = dist - margin
-        k, b, imp = _kbi(m, pairs.solref[cp], pairs.solimp[cp], pos_r)
+        k, b, imp = _kbi(m, pairs.solref[..., cp, :], pairs.solimp[..., cp, :], pos_r)
         b1 = m.idx(np.asarray(m.geom_bodyid)[layout.con_geom1])
         b2 = m.idx(np.asarray(m.geom_bodyid)[layout.con_geom2])
-        invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
-        impratio = m.opt.impratio
+        invweight = m.body_invweight0[..., b1, 0] + m.body_invweight0[..., b2, 0]
+        impratio = m.opt_b("impratio", 2)
 
         # vectorized row assembly over the static layout
         c_rows = np.nonzero(layout.row_con >= 0)[0]
@@ -288,21 +308,21 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
         k_ell = m.idx(np.where(rtype == ROW_CON_PYRAMID, 0, kdim))
         i_tan = m.idx(np.where(rtype == ROW_CON_PYRAMID, i_pyr + 1, 0))
 
-        mu_i = friction[slot, m.idx(i_pyr)]
+        mu_i = friction[..., slot, m.idx(i_pyr)]
         vel = torch.where(
             is_pyr,
             jvel[:, slot, 0] + sgn * mu_i * jvel[:, slot, i_tan],
             jvel[:, slot, k_ell],
         )
-        pos_term = k[slot] * imp[:, slot] * pos_r[:, slot]
+        pos_term = k[..., slot] * imp[:, slot] * pos_r[:, slot]
         if np.any(rtype == ROW_CON_FRICTION):
             # elliptic friction rows have no position term
             has_pos = m.const(rtype != ROW_CON_FRICTION, torch.bool)
             pos_term = torch.where(has_pos, pos_term, torch.zeros_like(pos_term))
-        aref = -b[slot] * vel - pos_term
-        invw_pyr = 2.0 * mu_i * mu_i * (1.0 + mu_i * mu_i) * invweight[slot]
+        aref = -b[..., slot] * vel - pos_term
+        invw_pyr = 2.0 * mu_i * mu_i * (1.0 + mu_i * mu_i) * invweight[..., slot]
         invw_ell = torch.where(
-            m.const(kdim == 0, torch.bool), invweight[slot], invweight[slot] / impratio
+            m.const(kdim == 0, torch.bool), invweight[..., slot], invweight[..., slot] / impratio
         )
         invw = torch.where(is_pyr, invw_pyr, invw_ell)
         r_reg = torch.clamp((1 - imp[:, slot]) / imp[:, slot] * invw, min=M.MINVAL)
@@ -310,7 +330,15 @@ def make_constraint(m: M.Model, d: M.Data) -> M.Data:
         efc_D[:, row0 : row0 + n] = 1.0 / r_reg
         efc_aref[:, row0 : row0 + n] = aref
         efc_pos[:, row0 : row0 + n] = dist[:, slot]
-        efc_margin[:, row0 : row0 + n] = margin[slot].expand(B, -1)
+        efc_margin[:, row0 : row0 + n] = margin[..., slot].expand(B, -1)
+        if dense:
+            # the dense block = [ball-limit rows; contact rows]
+            jrow = torch.where(
+                is_pyr[:, None],
+                jac[:, slot, 0] + (sgn * mu_i)[..., None] * jac[:, slot, i_tan],
+                jac[:, slot, k_ell],
+            )
+            efc_Jc = torch.cat([ball_J, jrow], 1) if n_ball else jrow
 
     return d.replace(
         con_A=con_A,
@@ -349,3 +377,21 @@ def jac_t_mul(m: M.Model, d: M.Data, f: torch.Tensor) -> torch.Tensor:
     if d.efc_Jc is not None and d.efc_Jc.shape[1]:
         out = out + (d.efc_Jc.transpose(-1, -2) @ f[:, nlim:, None])[..., 0]
     return out
+
+
+def dense_J(m: M.Model, d: M.Data) -> torch.Tensor:
+    """The dense (B, nefc, nv) jacobian (tests and debugging): the scalar
+    limit rows' signs, then efc_Jc. On the kernel layout, where the contact
+    rows are not materialized, they are built here from the same state."""
+    layout = efc_layout(m)
+    B = d.qpos.shape[0]
+    nlim = d.efc_jsign.shape[1]
+    J = d.qpos.new_zeros(B, layout.nefc, m.nv)
+    if nlim:
+        J[:, m.idx(np.arange(nlim)), m.idx(limit_dofs(m))] = d.efc_jsign
+    Jc = d.efc_Jc
+    if m.ncon and (Jc is None or Jc.shape[1] < layout.nefc - nlim):
+        Jc = make_constraint(m, d, dense=True).efc_Jc
+    if Jc is not None and Jc.shape[1]:
+        J[:, nlim:] = Jc
+    return J

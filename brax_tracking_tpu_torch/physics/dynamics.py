@@ -20,6 +20,7 @@ import torch
 
 from brax_tracking_tpu_torch.math.spatial import inert_mul_cm, motion_cross_force_cm
 from brax_tracking_tpu_torch.ops import cholesky as ops_chol
+from brax_tracking_tpu_torch.physics import kinematics as K
 from brax_tracking_tpu_torch.physics import model as M
 
 
@@ -30,9 +31,9 @@ def crb(m: M.Model, d: M.Data, dense: bool = False) -> M.Data:
     SUB = m.const(m.plan.body_subtree_mask)
     ci = d.cinert_s @ SUB.T  # (B, 6, nbody) composite packed inertia
     ch = d.cinert_h @ SUB.T  # (B, 3, nbody)
-    cm = SUB @ m.body_mass
+    cm = K.subtree_mass(m, d.qpos.shape[0])
     dofb = m.idx(m.dof_bodyid)
-    f = inert_mul_cm(ci[:, :, dofb], ch[:, :, dofb], cm[dofb], d.cdof)
+    f = inert_mul_cm(ci[:, :, dofb], ch[:, :, dofb], cm[:, dofb], d.cdof)
     if not dense:
         return d.replace(crb_f=f)
     # qM[i, j] = cdof_j . f_i on the dof-ancestor pattern, symmetrized
@@ -40,7 +41,7 @@ def crb(m: M.Model, d: M.Data, dense: bool = False) -> M.Data:
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     lower = torch.where(m.const(m.dof_ancestor_mask, torch.bool), full, zero)
     qM = lower + lower.transpose(-1, -2) - torch.diag_embed(torch.diagonal(lower, dim1=-2, dim2=-1))
-    return d.replace(crb_f=f, qM=qM + torch.diag(m.dof_armature))
+    return d.replace(crb_f=f, qM=qM + torch.diag_embed(m.dof_armature))
 
 
 def invert_m(m: M.Model, d: M.Data) -> M.Data:
@@ -48,7 +49,7 @@ def invert_m(m: M.Model, d: M.Data) -> M.Data:
     one kernel launch (ops/cholesky.py): the XLA-CG path's
     preconditioner and the Euler update's implicit damping."""
     if m.has_damping:
-        damp = m.dof_damping * m.opt.timestep
+        damp = m.dof_damping * m.opt.timestep  # shared: solver.static_leaves
         qMinv, qMhinv = ops_chol.spd_inverse2(d.qM, damp, device=m.device)
         return d.replace(qMinv=qMinv, qMhinv=qMhinv)
     return d.replace(qMinv=ops_chol.spd_inverse(d.qM, device=m.device))
@@ -71,15 +72,15 @@ def solve_m(m: M.Model, d: M.Data, rhs: torch.Tensor) -> torch.Tensor:
 def rne(m: M.Model, d: M.Data) -> M.Data:
     """Recursive Newton-Euler: qfrc_bias = C(qpos, qvel), gravity included."""
     dtype = d.qpos.dtype
-    gravity = m.opt.gravity
-    cacc0 = torch.cat([torch.zeros(3, dtype=dtype, device=gravity.device), -gravity])
+    gravity = m.opt.gravity  # (3,), per env (B, 3)
+    cacc0 = torch.cat([torch.zeros_like(gravity), -gravity], -1)
 
     dofb = np.asarray(m.dof_bodyid)
     D2B = m.const(np.eye(m.nbody)[dofb])  # (nv, nbody)
     dof_acc = (d.cdof_dot * d.qvel[:, None, :]) @ D2B  # (B, 6, nbody)
     # prefix (root-to-body) and subtree (body-to-root) sums as mask products
     SUB = m.const(m.plan.body_subtree_mask)
-    cacc = cacc0[:, None] + dof_acc @ SUB
+    cacc = cacc0[..., None] + dof_acc @ SUB
 
     mass = m.body_mass
     fv = inert_mul_cm(d.cinert_s, d.cinert_h, mass, d.cvel)

@@ -2,7 +2,7 @@
 
 Counterpart of ``brax_tracking_tpu/physics/kinematics.py`` (MuJoCo
 mj_kinematics / mj_comPos / mj_tendon for fixed tendons / mj_comVel
-semantics) for free, hinge and ball joints. Bodies are never looped
+semantics) for free, ball, slide and hinge joints. Bodies are never looped
 over: each joint slot group is one wide op, world transforms are composed
 by pointer jumping over the body tree, and tree sums are products with the
 plan's static subtree mask.
@@ -37,14 +37,8 @@ def _joint_slot_groups(m: M.Model):
     return max_slot, groups
 
 
-def _check_joint_types(m: M.Model):
-    if np.any(np.asarray(m.jnt_type) == M.JNT_SLIDE):
-        M.unported("slide joints", "§A.12")
-
-
 def kinematics(m: M.Model, d: M.Data) -> M.Data:
     """mj_kinematics: qpos -> body/joint/geom/site world frames."""
-    _check_joint_types(m)
     qpos = d.qpos
     B = qpos.shape[0]
     nb, nj = m.nbody, m.njnt
@@ -62,20 +56,25 @@ def kinematics(m: M.Model, d: M.Data) -> M.Data:
     free_jids = np.nonzero(np.asarray(m.jnt_type) == M.JNT_FREE)[0]
 
     for s in range(max_slot):
-        for t in (M.JNT_HINGE, M.JNT_BALL):
+        for t in (M.JNT_HINGE, M.JNT_SLIDE, M.JNT_BALL):
             jids = groups[s][t]
             if not jids.size:
                 continue
             bodies = m.idx(jb[jids])
             ji = m.idx(jids)
-            jpos = m.jnt_pos[ji]
+            jpos = m.jnt_pos[..., ji, :]
             q_s, p_s = Lq[:, bodies], Lp[:, bodies]
             preq[:, ji] = q_s
             prep[:, ji] = p_s
             qadr = np.asarray(m.jnt_qposadr)[jids]
+            if t == M.JNT_SLIDE:  # a translation along the axis, no rotation
+                qa = m.idx(qadr)
+                disp = qpos[:, qa] - m.qpos0[..., qa]
+                Lp[:, bodies] = p_s + rot(q_s, m.jnt_axis[..., ji, :] * disp[..., None])
+                continue
             if t == M.JNT_HINGE:
                 qa = m.idx(qadr)
-                qloc = btm.axis_angle_to_quat(m.jnt_axis[ji], qpos[:, qa] - m.qpos0[qa])
+                qloc = btm.axis_angle_to_quat(m.jnt_axis[..., ji, :], qpos[:, qa] - m.qpos0[..., qa])
             else:  # ball: the joint's quaternion straight from qpos
                 qloc = btm.quat_normalize(qpos[:, m.idx(qadr[:, None] + np.arange(4))])
             tp = jpos - rot(qloc, jpos)
@@ -114,13 +113,13 @@ def kinematics(m: M.Model, d: M.Data) -> M.Data:
         q_par, p_par = xquat[:, par], xpos[:, par]
         q_s = btm.quat_mul(q_par, preq[:, nfi])
         p_s = p_par + rot(q_par, prep[:, nfi])
-        xanchor[:, nfi] = rot(q_s, m.jnt_pos[nfi]) + p_s
-        xaxis[:, nfi] = rot(q_s, m.jnt_axis[nfi])
+        xanchor[:, nfi] = rot(q_s, m.jnt_pos[..., nfi, :]) + p_s
+        xaxis[:, nfi] = rot(q_s, m.jnt_axis[..., nfi, :])
     if free_jids.size:
         fqadr = np.asarray(m.jnt_qposadr)[free_jids]
         fi = m.idx(free_jids)
         xanchor[:, fi] = qpos[:, m.idx(fqadr[:, None] + np.arange(3))]
-        xaxis[:, fi] = m.jnt_axis[fi]
+        xaxis[:, fi] = m.jnt_axis[..., fi, :]
 
     xipos = xpos + rot(xquat, m.body_ipos)
     gb = m.idx(m.geom_bodyid)
@@ -146,16 +145,32 @@ def kinematics(m: M.Model, d: M.Data) -> M.Data:
     )
 
 
+def subtree_mass(m: M.Model, B: int) -> torch.Tensor:
+    """(B, nbody) mass of each body's subtree, built once per model and
+    batch size. Each env's row is the JAX package's product SUB @ mass, a
+    per-env model's one env at a time on a copy of its own (a row inside
+    the batch may sit at an address for which the BLAS library picks
+    another kernel), so that a batch of equal masses gives the shared
+    model's values bit for bit."""
+    key = ("subtree_mass", B)
+    if key not in m.cache:
+        SUB = m.const(m.plan.body_subtree_mask)
+        if "body_mass" in m.env_leaves:
+            m.cache[key] = torch.stack([SUB @ mass.clone() for mass in m.body_mass])
+        else:
+            m.cache[key] = (SUB @ m.body_mass).expand(B, m.nbody)
+    return m.cache[key]
+
+
 def com_pos(m: M.Model, d: M.Data) -> M.Data:
     """mj_comPos: subtree CoM, packed cinert, component-major cdof."""
-    _check_joint_types(m)
     B = d.qpos.shape[0]
     plan = m.plan
     mass = m.body_mass
     SUB = m.const(plan.body_subtree_mask)
-    acc = torch.einsum("pb,nbk->npk", SUB, mass[:, None] * d.xipos)
-    submass = SUB @ mass
-    subtree_com = acc / torch.clamp(submass, min=M.MINVAL)[:, None]
+    acc = torch.einsum("pb,nbk->npk", SUB, mass[..., None] * d.xipos)
+    submass = subtree_mass(m, B)
+    subtree_com = acc / torch.clamp(submass, min=M.MINVAL)[..., None]
 
     root_com = subtree_com[:, m.idx(m.body_rootid)]
     iquat = btm.quat_mul(d.xquat, m.body_iquat)
@@ -174,6 +189,13 @@ def com_pos(m: M.Model, d: M.Data) -> M.Data:
         off = subtree_com[:, m.idx(rootid[jb[hinge_j]])] - d.xanchor[:, hj]
         cdof[:, :, m.idx(dofadr[hinge_j])] = torch.cat(
             [axis, torch.linalg.cross(axis, off, dim=-1)], -1
+        ).transpose(-1, -2)
+    slide_j = plan.jnt_by_type[M.JNT_SLIDE]
+    if slide_j.size:
+        # a slide dof moves its subtree along the axis: (0, axis)
+        axis = d.xaxis[:, m.idx(slide_j)]
+        cdof[:, :, m.idx(dofadr[slide_j])] = torch.cat(
+            [torch.zeros_like(axis), axis], -1
         ).transpose(-1, -2)
     ball_j = plan.jnt_by_type[M.JNT_BALL]
     for jgrp, rot_off in ((ball_j, 0), (free_j, 3)):
@@ -208,10 +230,15 @@ def tendon(m: M.Model, d: M.Data) -> M.Data:
     jids = np.asarray(m.wrap_objid)
     qadr = m.idx(np.asarray(m.jnt_qposadr)[jids])
     dadr = np.asarray(m.jnt_dofadr)[jids]
-    coef = m.wrap_prm
-    length = d.qpos.new_zeros(B, m.ntendon).index_add_(1, m.idx(t_of_w), coef * d.qpos[:, qadr])
-    J = torch.zeros(m.ntendon, m.nv, dtype=coef.dtype, device=coef.device)
-    J.index_put_((m.idx(t_of_w), m.idx(dadr)), coef, accumulate=True)
+    coef = m.wrap_prm  # (nwrap,), per env (B, nwrap)
+    # a product with the static wrap -> tendon one-hot matrix, not a
+    # scatter-add: its order is fixed on the card too, so equal inputs give
+    # equal bits (a CUDA index_add_ adds in the order its atomics land)
+    length = (coef * d.qpos[:, qadr]) @ m.const(np.eye(m.ntendon)[t_of_w])
+    lead = coef.shape[:-1]
+    J = coef.new_zeros(*lead, m.ntendon * m.nv).index_add_(
+        -1, m.idx(t_of_w * m.nv + dadr), coef
+    ).reshape(*lead, m.ntendon, m.nv)
     return d.replace(ten_length=length, ten_J=J.expand(B, m.ntendon, m.nv))
 
 

@@ -6,7 +6,10 @@ or indexing (tree topology, joint types, contact pair table, actuator
 wiring) is static numpy; everything physical is a torch tensor on the
 model's device. Data tensors are batch-first: ``qpos`` is ``(B, nq)``,
 ``cdof`` is ``(B, 6, nv)`` (component-major per env, as the JAX package
-keeps it).
+keeps it). A per-env model (``env_model``) carries a leading env axis on
+the parameter leaves it names; the engine reads every leaf past that axis
+(``leaf[..., idx]``), so a shared leaf and a per-env one line up with the
+batch alike.
 """
 
 from __future__ import annotations
@@ -154,6 +157,9 @@ class Option:
     ls_iterations: int = 50
     disableflags: int = 0
 
+    def replace(self, **kwargs) -> "Option":
+        return dataclasses.replace(self, **kwargs)
+
 
 @dataclasses.dataclass
 class ContactPairs:
@@ -173,6 +179,9 @@ class ContactPairs:
     @property
     def count(self) -> int:
         return int(np.sum(self.npoint))
+
+    def replace(self, **kwargs) -> "ContactPairs":
+        return dataclasses.replace(self, **kwargs)
 
 
 @dataclasses.dataclass
@@ -285,8 +294,33 @@ class Model:
     hfield_elev: torch.Tensor = None  # (nhfused, maxrow, maxcol) elevations in metres
     hfield_size: torch.Tensor = None  # (nhfused, 4) rx, ry, z top, z bottom
     pairs: ContactPairs = None
+    # per-env parameters (envs/wrappers.py DomainRandomizationVmapWrapper):
+    # the leaves ("body_mass", "opt.gravity", "pairs.solref") that carry a
+    # leading axis of ``nenv`` envs; every other leaf is shared
+    env_leaves: frozenset = frozenset()
+    nenv: int = 0
     # per-model statics built once on first use (solver kernel tables)
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
+
+    def replace(self, **kwargs) -> "Model":
+        """A copy with the given fields replaced and an empty cache: the
+        cache holds tensors derived from the parameters."""
+        return dataclasses.replace(self, cache={}, **kwargs)
+
+    def leaf(self, name: str) -> torch.Tensor:
+        """A parameter leaf by its name ("body_mass", "opt.gravity")."""
+        obj = self
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def opt_b(self, name: str, ndim: int) -> torch.Tensor:
+        """An option scalar ready to broadcast against a batch tensor of
+        ``ndim`` dims: shared, the 0-d tensor; per env, (B, 1, ...)."""
+        x = getattr(self.opt, name)
+        if "opt." + name in self.env_leaves:
+            return x.reshape(x.shape[:1] + (1,) * (ndim - 1))
+        return x
 
     @property
     def ncon(self) -> int:
@@ -310,6 +344,63 @@ class Model:
     def idx(self, value) -> torch.Tensor:
         """A static index array as a long tensor on the model's device."""
         return self.const(np.asarray(value, np.int64), torch.long)
+
+
+def param_leaves() -> tuple:
+    """Every parameter leaf's name, as ``Model.leaf`` reads it."""
+    return (
+        PARAM_FIELDS + MESH_PARAM_FIELDS
+        + tuple("opt." + k for k in OPT_PARAM_FIELDS)
+        + tuple("pairs." + k for k in PAIR_PARAM_FIELDS)
+    )
+
+
+def replace_leaves(model: Model, values: Dict[str, torch.Tensor]) -> Model:
+    """A copy of ``model`` (empty cache) with the parameter leaves named in
+    ``values`` ("body_mass", "opt.gravity", "pairs.solref") replaced: how a
+    ``randomization_fn`` builds its per-env model."""
+    top, opt, pairs = {}, {}, {}
+    for name, v in values.items():
+        group, _, leaf = name.rpartition(".")
+        {"": top, "opt": opt, "pairs": pairs}[group][leaf] = v
+    if opt:
+        top["opt"] = model.opt.replace(**opt)
+    if pairs:
+        top["pairs"] = model.pairs.replace(**pairs)
+    return model.replace(**top)
+
+
+def env_model(base: Model, batched: Model, leaves, static: Dict[str, str]) -> Model:
+    """``batched`` checked and marked as a per-env model of ``base``: the
+    leaves named in ``leaves`` carry a leading axis of one value per env
+    (the same count for all), every other leaf is ``base``'s shape. A leaf
+    in ``static`` (name -> what reads it as a per-model constant on the
+    model's solve path: ``solver.static_leaves``) raises by name; the JAX
+    package reads it as a constant there too, so it cannot randomize it
+    either. The result has an empty cache."""
+    leaves = frozenset(leaves)
+    known = param_leaves()
+    for name in sorted(leaves):
+        if name not in known:
+            raise ValueError(f"{name!r} is not a parameter leaf of the model ({known})")
+        if name in static:
+            raise NotImplementedError(
+                f"a per-env {name}: {static[name]} reads it as one value per model; "
+                "the JAX package reads it the same way, so it cannot randomize it either "
+                "(ROADMAP.md §A.12, not to port)"
+            )
+    counts = {batched.leaf(n).shape[0] for n in leaves if batched.leaf(n).dim()}
+    if len(counts) != 1:
+        raise ValueError(f"the per-env leaves must share one env count, got {sorted(counts)}")
+    nenv = counts.pop()
+    for name in known:
+        want = base.leaf(name).shape
+        if name in leaves:
+            want = (nenv,) + tuple(want)
+        got = batched.leaf(name).shape
+        if tuple(got) != tuple(want):
+            raise ValueError(f"{name} has shape {tuple(got)}, expected {tuple(want)}")
+    return batched.replace(env_leaves=leaves, nenv=nenv)
 
 
 @dataclasses.dataclass

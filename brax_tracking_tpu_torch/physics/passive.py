@@ -2,7 +2,7 @@
 batch-first.
 
 Counterpart of ``brax_tracking_tpu/physics/passive.py`` (mj_passive
-semantics) for free, hinge and ball joints and fixed tendons, and its
+semantics) for free, ball, slide and hinge joints and fixed tendons, and its
 inertia-box fluid model (the fly's medium: ``density`` and ``viscosity``
 on the option line), batched over envs and bodies.
 """
@@ -25,26 +25,24 @@ def _sub_quat(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
 
 def spring_damper(m: M.Model, d: M.Data) -> torch.Tensor:
     jt = np.asarray(m.jnt_type)
-    if np.any(jt == M.JNT_SLIDE):
-        M.unported("slide joint springs", "§A.12")
     qadr = np.asarray(m.jnt_qposadr)
     dadr = np.asarray(m.jnt_dofadr)
     qfrc = torch.zeros_like(d.qvel)
 
-    # hinge springs, all at once
-    h = np.nonzero(jt == M.JNT_HINGE)[0]
+    # hinge and slide springs, all at once
+    h = np.nonzero((jt == M.JNT_HINGE) | (jt == M.JNT_SLIDE))[0]
     if h.size:
         hq = m.idx(qadr[h])
-        k = m.jnt_stiffness[m.idx(h)]
-        qfrc[:, m.idx(dadr[h])] = -k * (d.qpos[:, hq] - m.qpos_spring[hq])
+        k = m.jnt_stiffness[..., m.idx(h)]
+        qfrc[:, m.idx(dadr[h])] = -k * (d.qpos[:, hq] - m.qpos_spring[..., hq])
     # free-joint springs (translation and orientation) and ball springs
     for jid in np.nonzero((jt == M.JNT_FREE) | (jt == M.JNT_BALL))[0]:
-        k = m.jnt_stiffness[int(jid)]
+        k = m.jnt_stiffness[..., int(jid), None]
         qa, da = int(qadr[jid]), int(dadr[jid])
         if jt[jid] == M.JNT_FREE:
-            qfrc[:, da : da + 3] = -k * (d.qpos[:, qa : qa + 3] - m.qpos_spring[qa : qa + 3])
+            qfrc[:, da : da + 3] = -k * (d.qpos[:, qa : qa + 3] - m.qpos_spring[..., qa : qa + 3])
             qa, da = qa + 3, da + 3
-        dif = _sub_quat(d.qpos[:, qa : qa + 4], m.qpos_spring[qa : qa + 4])
+        dif = _sub_quat(d.qpos[:, qa : qa + 4], m.qpos_spring[..., qa : qa + 4])
         qfrc[:, da : da + 3] = -k * dif
 
     # dof dampers
@@ -53,7 +51,7 @@ def spring_damper(m: M.Model, d: M.Data) -> torch.Tensor:
     # tendon springs (with a deadband) and dampers
     if m.ntendon:
         ten_vel = (d.ten_J @ d.qvel[..., None])[..., 0]
-        lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+        lo, hi = m.tendon_lengthspring[..., 0], m.tendon_lengthspring[..., 1]
         length = d.ten_length
         zero = torch.zeros((), dtype=length.dtype, device=length.device)
         displacement = torch.where(
@@ -70,7 +68,7 @@ def fluid(m: M.Model, d: M.Data) -> torch.Tensor:
     inertial frame, the wrench projected onto the dofs that move it. The
     JAX package's ``fluid``, its operations in its order, over (B, nbody, 3)
     at once."""
-    density, viscosity = m.opt.density, m.opt.viscosity
+    density, viscosity = m.opt_b("density", 3), m.opt_b("viscosity", 3)
     safe_mass = m.body_mass.clamp(min=M.MINVAL)
     ix, iy, iz = m.body_inertia.unbind(-1)
     # equivalent box half-sizes from the principal inertia (nbody, 3)
@@ -90,14 +88,14 @@ def fluid(m: M.Model, d: M.Data) -> torch.Tensor:
     iquat = btm.quat_mul(d.xquat, m.body_iquat)
     ang = btm.quat_rotate_inv(iquat, ang_w)
     lin = btm.quat_rotate_inv(iquat, lin_w) - btm.quat_rotate_inv(
-        iquat, m.opt.wind.expand_as(ang_w))
+        iquat, m.opt.wind[..., None, :].expand_as(ang_w))
 
     # viscous resistance (the sphere's diameter is the mean full edge), then
     # quadratic drag
     diam = 2.0 * box.mean(-1, keepdim=True)
     lfrc_ang = -(math.pi * diam**3 * viscosity * ang)
     lfrc_lin = -(3.0 * math.pi * diam * viscosity * lin)
-    b0, b1, b2 = box[:, 0:1], box[:, 1:2], box[:, 2:3]
+    b0, b1, b2 = box[..., 0:1], box[..., 1:2], box[..., 2:3]
     areas = torch.cat([b1 * b2, b0 * b2, b0 * b1], dim=-1)
     lfrc_lin = lfrc_lin - 0.5 * density * areas * lin.abs() * lin
     tmom = torch.cat([b0 * (b1**4 + b2**4), b1 * (b0**4 + b2**4), b2 * (b0**4 + b1**4)], dim=-1)

@@ -19,6 +19,7 @@ import torch
 
 from brax_tracking_tpu_torch import math as btm
 from brax_tracking_tpu_torch.physics import constraint as Cn
+from brax_tracking_tpu_torch.physics import kinematics as K
 from brax_tracking_tpu_torch.physics import model as M
 from brax_tracking_tpu_torch.physics import support
 
@@ -81,10 +82,10 @@ def sensors(m: M.Model, d: M.Data) -> M.Data:
             # cacc[b] = (0, -gravity) + sum over the dofs above b of
             # cdof_dot qvel + cdof qacc
             gravity = m.opt.gravity
-            cacc0 = torch.cat([torch.zeros_like(gravity), -gravity])
+            cacc0 = torch.cat([torch.zeros_like(gravity), -gravity], -1)
             dof_contrib = d.cdof_dot * d.qvel[:, None, :] + d.cdof * d.qacc[:, None, :]
             d2b = m.const(np.eye(m.nbody)[np.asarray(m.dof_bodyid)])
-            cacc = cacc0[:, None] + (dof_contrib @ d2b) @ m.const(m.plan.body_subtree_mask)
+            cacc = cacc0[..., None] + (dof_contrib @ d2b) @ m.const(m.plan.body_subtree_mask)
             a = slice(0, n_acc)
             cacc_b = cacc.transpose(1, 2)[:, bi[a]]
             off = d.site_xpos[:, site[a]] - com[:, a]
@@ -105,10 +106,10 @@ def sensors(m: M.Model, d: M.Data) -> M.Data:
         # the subtree's momentum over its mass
         mass = m.body_mass
         rel = d.xipos - d.subtree_com[:, m.idx(m.body_rootid)]
-        mom = mass[:, None] * (cvel_t[..., 3:] + torch.linalg.cross(cvel_t[..., :3], rel, dim=-1))
+        mom = mass[..., None] * (cvel_t[..., 3:] + torch.linalg.cross(cvel_t[..., :3], rel, dim=-1))
         sub = m.const(m.plan.body_subtree_mask[objid])  # (n, nbody)
-        total = torch.clamp(sub @ mass, min=M.MINVAL)
-        out[:, m.idx(_cols(adr, 3))] = (sub @ mom) / total[:, None]
+        total = torch.clamp(K.subtree_mass(m, B)[:, m.idx(objid)], min=M.MINVAL)
+        out[:, m.idx(_cols(adr, 3))] = (sub @ mom) / total[..., None]
 
     objid, adr = t[M.SENS_TOUCH]
     if objid.size:

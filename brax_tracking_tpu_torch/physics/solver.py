@@ -26,11 +26,13 @@ Counterpart of ``brax_tracking_tpu/physics/solver.py``. Dispatch follows
 - Newton off that layout runs ``_solve_newton``: exact-Hessian Newton, one
   ``spd_solve`` launch per iteration.
 
-Both array paths warmstart from the previous step's qacc (mj_warmstart),
-freeze each env once it has converged, and stop when every env has (a host
-read of the done flags per iteration), as the JAX package's loops do under
-vmap; the chunked Newton path reads the flags once per chunk. PGS, condim
-> 3 and elliptic rows off the kernel layout raise.
+Both array paths cost pyramidal, limit and elliptic (dim-3) rows as the
+JAX package does, on the dense block efc_Jc (ball-limit rows, then contact
+rows), warmstart from the previous step's qacc (mj_warmstart), freeze each
+env once it has converged, and stop when every env has (a host read of the
+done flags per iteration), as the JAX package's loops do under vmap; the
+chunked Newton path reads the flags once per chunk. PGS and condim > 3
+raise.
 """
 
 from __future__ import annotations
@@ -114,6 +116,36 @@ def _cone_meta(m: M.Model, layout: Cn.EfcLayout) -> _ConeMeta:
     )
     m.cache["cone_meta"] = meta
     return meta
+
+
+def static_leaves(m: M.Model) -> dict:
+    """The parameter leaves the model's solve path reads as per-model
+    constants (Python floats or numpy tables built once), each with what
+    reads it: a per-env value of one raises (``model.env_model``). They are
+    the leaves for which the JAX package's ``DomainRandomizationVmapWrapper``
+    raises on the same path (its kernel path reads them into numpy, and its
+    ball-limit rows read ``jnt_range`` so), found by batching each leaf in
+    turn on the minirat, the rodent stand-in, the ballmuscle and the
+    ball-coxa fly stand-in (on the damped XLA-CG path the JAX wrapper does
+    not raise for damping and timestep but steps every env with env 0's
+    damped inverse)."""
+    if quad_kernel_eligible(m):
+        return {
+            "opt.timestep": "the solve kernel's Euler tail (dt)",
+            "opt.tolerance": "the solve kernel's stopping tolerance",
+            "opt.meaninertia": "the solve kernel's stopping tolerance",
+            "dof_damping": "the solve kernel's damped Euler tail",
+            "pairs.friction": "the solve kernel's row combinations P and elliptic table",
+        }
+    static = {}
+    if Cn.efc_layout(m).limit_ball_jnt.size:
+        static["jnt_range"] = "the ball-limit rows' largest angle"
+    if m.opt.solver == M.SOLVER_CG and m.has_damping:
+        # the JAX package's batched spd_inverse2 takes env 0's damping for
+        # every env (its ops/cholesky.py::_spd_inverse2_vmap)
+        damped = "the damped inverse (M + h diag(damping))^-1 of the array CG path"
+        static.update({"opt.timestep": damped, "dof_damping": damped})
+    return static
 
 
 def quad_kernel_eligible(m: M.Model) -> bool:
@@ -356,6 +388,19 @@ class _Ctx(NamedTuple):
     mgrad: torch.Tensor  # M^-1 grad (CG's preconditioned gradient)
 
 
+class _Rows(NamedTuple):
+    """The array paths' view of the rows: the one-sided quadratic rows
+    gated by existence, and the elliptic cones (every tensor per env)."""
+
+    exists: torch.Tensor  # (B, nefc) bool: an instantiated quadratic row
+    efc_D: torch.Tensor  # (B, nefc)
+    aref: torch.Tensor  # (B, nefc)
+    ell_rows: np.ndarray  # (nell, 3) rows [n, t1, t2] of each elliptic cone
+    mu: torch.Tensor  # (B, nell) the cone's friction (slide1)
+    fr: torch.Tensor  # (B, nell, 2) the tangent rows' friction
+    g: torch.Tensor  # (B, nell) bool: the contact slot is active
+
+
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (A @ x[..., None])[..., 0]
 
@@ -368,28 +413,76 @@ def _select(mask: torch.Tensor, a, b):
 
 
 def _tol(m: M.Model) -> torch.Tensor:
-    return m.opt.tolerance * m.opt.meaninertia * max(1, m.nv)
+    """The solve's tolerance, 0-d or per env (B,)."""
+    return m.opt_b("tolerance", 1) * m.opt_b("meaninertia", 1) * max(1, m.nv)
 
 
-def _eval_cost_force(exists: torch.Tensor, jar: torch.Tensor, efc_D: torch.Tensor):
-    """Cost and per-row force of the one-sided quadratic rows at jar."""
+def _cone_terms(rows: _Rows, jar: torch.Tensor):
+    """Per elliptic cone at jar (..., nefc): the normal n, the scaled
+    tangents u, t = |u|, and the bottom and middle zones (the JAX package's
+    ``_eval_cost_force``; the top zone has no cost)."""
+    er = rows.ell_rows
+    mu = rows.mu
+    n = jar[..., er[:, 0]]
+    u = jar[..., er[:, 1:]] * rows.fr / mu[..., None]
+    t = torch.sqrt(torch.clamp(torch.sum(u * u, -1), min=M.MINVAL * M.MINVAL))
+    bottom = rows.g & (mu * n + t <= 0)
+    middle = rows.g & ~bottom & (n < mu * t)
+    return n, u, t, bottom, middle
+
+
+def _eval_cost_force(rows: _Rows, jar: torch.Tensor):
+    """Cost and per-row force at jar: the one-sided quadratic rows, then the
+    elliptic cones' bottom zone (independent quadratics on the cone's rows)
+    and middle zone (the cone-distance cost)."""
     zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
-    active = (jar < 0) & exists
+    efc_D = rows.efc_D
+    active = (jar < 0) & rows.exists
     force = torch.where(active, -efc_D * jar, zero)
     cost = 0.5 * torch.sum(torch.where(active, efc_D * jar**2, zero), -1)
+    if rows.ell_rows.size:
+        er = rows.ell_rows
+        mu, fr = rows.mu, rows.fr
+        n, u_t, t, bottom, middle = _cone_terms(rows, jar)
+        dm = efc_D[:, er[:, 0]] / torch.clamp(1 + mu * mu, min=M.MINVAL)
+        nmt = n - mu * t
+        d_all, jar_all = efc_D[:, er], jar[:, er]
+        cost = cost + torch.sum(
+            torch.where(bottom, 0.5 * torch.sum(d_all * jar_all**2, -1), zero), -1)
+        cost = cost + torch.sum(torch.where(middle, 0.5 * dm * nmt * nmt, zero), -1)
+        ft_mid = (dm * nmt * mu)[..., None] * (u_t / t[..., None]) * fr / mu[..., None]
+        f_mid = torch.cat([(-dm * nmt)[..., None], ft_mid], -1)
+        f = torch.where(bottom[..., None], -d_all * jar_all,
+                        torch.where(middle[..., None], f_mid, zero))
+        force = force.clone()
+        force[:, er.reshape(-1)] = f.reshape(f.shape[0], -1)
     return cost, force
 
 
-def _linesearch(m: M.Model, exists, ctx: _Ctx, p, jar_p, mp, efc_D) -> torch.Tensor:
+def _linesearch(m: M.Model, rows: _Rows, ctx: _Ctx, p, jar_p, mp) -> torch.Tensor:
     """Exact line search along p per env: bracket the sign change of phi'
     over guess * 2^k, then safeguarded Newton steps, each env frozen once
     |phi'| < tol. It always runs ls_iterations steps: a frozen env is a
     fixed point, and nearly every call needs them all (a host read of the
     flags per step cost more than the steps it saved)."""
     zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    efc_D, exists = rows.efc_D, rows.exists
     pmp = torch.sum(p * mp, -1)
     # gauss part: phi_g' = p'M(x - a0) + alpha p'Mp
     gauss_p = torch.sum(p * ctx.mxa, -1)
+    er = rows.ell_rows
+    if er.size:
+        # per env, ready for the (B, A, nell) alpha batch
+        mu = rows.mu[:, None]
+        scale = (rows.fr / rows.mu[..., None])[:, None]
+        np_ = jar_p[:, None, er[:, 0]]
+        u_tp = jar_p[:, None, er[:, 1:]] * scale
+        tpsqr = torch.sum(u_tp * u_tp, -1)
+        g = rows.g[:, None]
+        dn = efc_D[:, None, er[:, 0]]
+        dm = dn / torch.clamp(1 + mu * mu, min=M.MINVAL)
+        d_all = efc_D[:, None, er]
+        jp_all = jar_p[:, None, er]
 
     def dphi(alpha):
         """alpha (B, A) -> (phi'(alpha), phi''(alpha)), each (B, A)."""
@@ -401,6 +494,24 @@ def _linesearch(m: M.Model, exists, ctx: _Ctx, p, jar_p, mp, efc_D) -> torch.Ten
         ddval = pmp[:, None] + torch.sum(
             torch.where(active, (efc_D * jar_p**2)[:, None, :], zero), -1
         )
+        if er.size:
+            n = jar[..., er[:, 0]]
+            u_t = jar[..., er[:, 1:]] * scale
+            t = torch.sqrt(torch.clamp(torch.sum(u_t * u_t, -1), min=M.MINVAL * M.MINVAL))
+            tp_dot = torch.sum(u_t * u_tp, -1)
+            bottom = g & (mu * n + t <= 0)
+            middle = g & ~bottom & (n < mu * t)
+            nmt = n - mu * t
+            tprime = tp_dot / t
+            tdprime = torch.clamp(tpsqr - tprime * tprime, min=0.0) / t
+            dval = dval + torch.sum(torch.where(middle, dm * nmt * (np_ - mu * tprime), zero), -1)
+            ddval = ddval + torch.sum(torch.where(
+                middle, dm * ((np_ - mu * tprime) ** 2 - nmt * mu * tdprime), zero), -1)
+            jar_all = jar[..., er]
+            dval = dval + torch.sum(torch.where(
+                bottom, torch.sum(d_all * jar_all * jp_all, -1), zero), -1)
+            ddval = ddval + torch.sum(torch.where(
+                bottom, torch.sum(d_all * jp_all**2, -1), zero), -1)
         return dval, ddval
 
     B = p.shape[0]
@@ -431,10 +542,28 @@ def _linesearch(m: M.Model, exists, ctx: _Ctx, p, jar_p, mp, efc_D) -> torch.Ten
     return alpha
 
 
-def _array_inputs(m: M.Model, d: M.Data):
-    if m.ncon:
-        M.unported("dense contact rows (solve paths off the kernel layout)", "§A.12")
-    return d.efc_pos < d.efc_margin, d.efc_D, d.efc_aref
+def _array_inputs(m: M.Model, d: M.Data) -> _Rows:
+    """The rows as the array paths read them: a row exists where efc_pos <
+    efc_margin and is quadratic unless it belongs to an elliptic cone,
+    whose slot is active where contact_dist < margin (the JAX package's
+    ``_solve_xla`` / ``_solve_newton``); friction per slot, per env."""
+    layout = Cn.efc_layout(m)
+    meta = _cone_meta(m, layout)
+    B = d.qpos.shape[0]
+    exists = d.efc_pos < d.efc_margin
+    if meta.ell_con.size:
+        if int(meta.ell_dim.max()) > 3:
+            M.unported("torsional and rolling friction (condim > 3)", "§A.12")
+        quad = np.zeros(layout.nefc, bool)
+        quad[meta.quad_rows] = True
+        exists = exists & m.const(quad, torch.bool)
+        cp = m.idx(layout.con_pair[meta.ell_con])
+        fr = m.pairs.friction[..., cp, 0:2].expand(B, -1, -1)
+        g = d.contact_dist[:, m.idx(meta.ell_con)] < m.pairs.margin[..., cp]
+        return _Rows(exists, d.efc_D, d.efc_aref, meta.ell_rows, fr[..., 0], fr, g)
+    empty = d.qpos.new_zeros(B, 0)
+    return _Rows(exists, d.efc_D, d.efc_aref, np.zeros((0, 3), np.int64), empty,
+                 d.qpos.new_zeros(B, 0, 2), empty.bool())
 
 
 def _warmstart(m, d, eval_ctx, ctx: _Ctx, a0, aref) -> _Ctx:
@@ -449,13 +578,15 @@ def _warmstart(m, d, eval_ctx, ctx: _Ctx, a0, aref) -> _Ctx:
 
 def _solve_xla(m: M.Model, d: M.Data) -> M.Data:
     """M^-1-preconditioned Polak-Ribiere CG with exact line search, on the
-    dense qM and qMinv (port of the JAX package's ``_solve_xla``)."""
-    exists, efc_D, aref = _array_inputs(m, d)
+    dense qM and qMinv, pyramidal and elliptic rows (port of the JAX
+    package's ``_solve_xla``)."""
+    rows = _array_inputs(m, d)
+    aref = rows.aref
     a0 = d.qacc_smooth
     tol = _tol(m)
 
     def eval_ctx(x, jar, mxa):
-        cost, force = _eval_cost_force(exists, jar, efc_D)
+        cost, force = _eval_cost_force(rows, jar)
         gauss = 0.5 * torch.sum((x - a0) * mxa, -1)
         grad = mxa - Cn.jac_t_mul(m, d, force)
         return _Ctx(x, jar, mxa, force, cost + gauss, grad, D.solve_m(m, d, grad))
@@ -467,7 +598,7 @@ def _solve_xla(m: M.Model, d: M.Data) -> M.Data:
     for _ in range(max(int(m.opt.iterations), 1)):
         jar_p = Cn.jac_mul(m, d, p)
         mp = _mv(d.qM, p)
-        alpha = _linesearch(m, exists, ctx, p, jar_p, mp, efc_D)
+        alpha = _linesearch(m, rows, ctx, p, jar_p, mp)
         new = eval_ctx(
             ctx.x + alpha[:, None] * p, ctx.jar + alpha[:, None] * jar_p,
             ctx.mxa + alpha[:, None] * mp,
@@ -493,22 +624,56 @@ def _solve_xla(m: M.Model, d: M.Data) -> M.Data:
 def _solve_newton(m: M.Model, d: M.Data) -> M.Data:
     """Exact-Hessian Newton (mjSOL_NEWTON; port of the JAX package's
     ``_solve_newton`` / ``_newton_iterate``): direction -H^-1 grad with
-    H = M + J' W J, W the row weights of the active quadratic rows, one
-    ``spd_solve`` launch per iteration for the whole batch."""
-    exists, efc_D, aref = _array_inputs(m, d)
+    H = M + J' W J, W the row weights of the active quadratic rows and of
+    the elliptic cones' bottom zone plus a dense 3 x 3 cone Hessian per
+    middle-zone cone, one ``spd_solve`` launch per iteration for the whole
+    batch."""
+    rows = _array_inputs(m, d)
+    aref = rows.aref
     a0 = d.qacc_smooth
     qM = d.qM
     tol = _tol(m)
     nlim = d.efc_jsign.shape[1]
     dadr_lim = m.idx(Cn.limit_dofs(m))
     Jc = d.efc_Jc
+    er = rows.ell_rows
+    if er.size:
+        Jb = Jc[:, m.idx(er - nlim)]  # (B, nell, 3, nv)
+        sc = rows.fr / rows.mu[..., None]  # (B, nell, 2)
+        s2 = torch.cat([torch.zeros_like(rows.mu)[..., None], sc * sc], -1)
+        eye = torch.eye(3, dtype=a0.dtype, device=a0.device)
 
     def hess(jar):
         zero = torch.zeros((), dtype=jar.dtype, device=jar.device)
-        w = torch.where((jar < 0) & exists, efc_D, zero)
+        efc_D = rows.efc_D
+        w = torch.where((jar < 0) & rows.exists, efc_D, zero)
+        H_ell = None
+        if er.size:
+            mu = rows.mu
+            n, u, t, bottom, middle = _cone_terms(rows, jar)
+            # bottom zone: independent quadratics on the cone's rows
+            w = w.clone()
+            w[:, er.reshape(-1)] += torch.where(
+                bottom[..., None], efc_D[:, er], zero).reshape(w.shape[0], -1)
+            # middle zone: the dense 3 x 3 cone Hessian
+            # dm h h' + c (diag(0, s^2) - ghat ghat'), h = [1, -mu g],
+            # ghat = [0, g], g_i = s_i u_i / t, c = -dm (n - mu t) mu / t
+            dm = efc_D[:, er[:, 0]] / torch.clamp(1 + mu * mu, min=M.MINVAL)
+            nmt = n - mu * t
+            gv = sc * u / t[..., None]
+            h = torch.cat([torch.ones_like(mu)[..., None], -mu[..., None] * gv], -1)
+            ghat = torch.cat([torch.zeros_like(mu)[..., None], gv], -1)
+            c = -dm * nmt * mu / t
+            Bm = (dm[..., None, None] * h[..., :, None] * h[..., None, :]
+                  + c[..., None, None] * (eye * s2[..., None, :]
+                                          - ghat[..., :, None] * ghat[..., None, :]))
+            Bm = torch.where(middle[..., None, None], Bm, zero)
+            H_ell = torch.einsum("bcin,bcij,bcjm->bnm", Jb, Bm, Jb)
         H = qM
         if Jc is not None and Jc.shape[1]:
             H = H + (Jc * w[:, nlim:, None]).transpose(-1, -2) @ Jc
+        if H_ell is not None:
+            H = H + H_ell
         if nlim:
             # scalar limit rows are +-1 one-hot: a diagonal scatter-add
             diag_w = torch.zeros_like(a0).index_add_(1, dadr_lim, w[:, :nlim])
@@ -516,7 +681,7 @@ def _solve_newton(m: M.Model, d: M.Data) -> M.Data:
         return H
 
     def eval_ctx(x, jar, mxa):
-        cost, force = _eval_cost_force(exists, jar, efc_D)
+        cost, force = _eval_cost_force(rows, jar)
         gauss = 0.5 * torch.sum((x - a0) * mxa, -1)
         grad = mxa - Cn.jac_t_mul(m, d, force)
         return _Ctx(x, jar, mxa, force, cost + gauss, grad, grad)
@@ -531,7 +696,7 @@ def _solve_newton(m: M.Model, d: M.Data) -> M.Data:
         p = -ops_chol.spd_solve(hess(ctx.jar), ctx.grad, device=m.device)
         jar_p = Cn.jac_mul(m, d, p)
         mp = _mv(qM, p)
-        alpha = _linesearch(m, exists, ctx, p, jar_p, mp, efc_D)
+        alpha = _linesearch(m, rows, ctx, p, jar_p, mp)
         new = eval_ctx(
             ctx.x + alpha[:, None] * p, ctx.jar + alpha[:, None] * jar_p,
             ctx.mxa + alpha[:, None] * mp,

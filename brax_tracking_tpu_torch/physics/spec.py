@@ -40,6 +40,11 @@ MINIRAT_ELLIPTIC_NPZ = os.path.join(ASSETS, "minirat_elliptic.npz")
 # Newton/100), on the solve kernel's layout
 MINIRAT_NEWTON_NPZ = os.path.join(ASSETS, "minirat_newton.npz")
 MINIRAT_NEWTON_OPTIONS = dict(solver="newton", iterations=100, ls_iterations=50)
+# the minirat on the x-z plane (slides rootx, rootz and the hinge rooty in
+# place of its free joint, dm_control's planar walkers' root): the slide
+# joints' fixture, CG 4/4 on the solve kernel's layout
+MINIRAT_PLANAR_XML = os.path.join(ASSETS, "minirat_planar.xml")
+MINIRAT_PLANAR_NPZ = os.path.join(ASSETS, "minirat_planar.npz")
 # the two-rat stand-in at rodent_pair's sizes (assets/make_ratpair.py writes
 # the MJCF): frozen with the dataset config's CG 4/4, with elliptic cones,
 # and for Newton at the pair XML's own default budget (Newton/100)
@@ -99,6 +104,15 @@ FLY_STANDIN_NPZ = os.path.join(ASSETS, "fly_standin.npz")
 FLY_STANDIN_TETHERED_NPZ = os.path.join(ASSETS, "fly_standin_tethered.npz")
 FLY_STANDIN_STAC = os.path.join(ASSETS, "fly_standin_stac.p")
 FLY_STANDIN_TETHERED_STAC = os.path.join(ASSETS, "fly_standin_tethered_stac.p")
+# the fly stand-in's ball-coxa variant (the shape of the fly's _ball model:
+# limited ball joints beside elliptic contacts, off the solve kernel's
+# layout), frozen as fly_freejnt.yaml loads it and as a Newton copy, and
+# its stac export
+FLY_STANDIN_BALL_XML = os.path.join(ASSETS, "fly_standin_ball.xml")
+FLY_STANDIN_BALL_NPZ = os.path.join(ASSETS, "fly_standin_ball.npz")
+FLY_STANDIN_BALL_NEWTON_NPZ = os.path.join(ASSETS, "fly_standin_ball_newton.npz")
+FLY_STANDIN_BALL_STAC = os.path.join(ASSETS, "fly_standin_ball_stac.p")
+FLY_BALL_NEWTON_OPTIONS = dict(solver="newton", iterations=10, ls_iterations=10)
 # the fly configs' render scene on the stand-in: two fly stand-ins, frozen
 # with both free roots and with both stripped (render_scene)
 FLY_STANDIN_PAIR_XML = os.path.join(ASSETS, "fly_standin_pair.xml")
@@ -547,7 +561,8 @@ def freeze_mjcf(
         M.unported("spatial tendons (site and geom wraps)", "§A.12")
     if np.any(np.asarray(m.geom_fluid)[:, 0] > 0):
         # MuJoCo then replaces the body's inertia box by its geoms' ellipsoids
-        M.unported("the ellipsoid fluid model (geom fluidshape)", "§A.12")
+        M.unported("the ellipsoid fluid model (geom fluidshape; the JAX package lacks it too)",
+                   "§A.12")
     # the env-level solver overrides (JAX spec.set_solver_options)
     m.opt.solver = {
         "cg": mujoco.mjtSolver.mjSOL_CG,

@@ -50,6 +50,18 @@ def make_data(m: M.Model, batch_size: int, device="cuda") -> M.Data:
     )
 
 
+def fwd_position_smooth(m: M.Model, d: M.Data) -> M.Data:
+    """The position stage before collision: kinematics, com_pos and the
+    tendons (the JAX package's ``fwd_position_smooth``; the port keeps no
+    rotation-matrix fields, so it has no ``mats`` switch)."""
+    return K.tendon(m, K.com_pos(m, K.kinematics(m, d)))
+
+
+def fwd_velocity_smooth(m: M.Model, d: M.Data) -> M.Data:
+    """The velocity stage: cvel and cdof_dot (mj_comVel)."""
+    return K.com_vel(m, d)
+
+
 def forward_to_constraint(m: M.Model, d: M.Data) -> M.Data:
     """Every stage of ``forward`` before the constraint solve: the state the
     solve reads. Off the kernel layout this includes the dense qM, on the
@@ -58,16 +70,13 @@ def forward_to_constraint(m: M.Model, d: M.Data) -> M.Data:
     M + h diag(damping) after the kernel's chunks."""
     kernel = S.quad_kernel_eligible(m)
     newton = m.opt.solver == M.SOLVER_NEWTON
-    d = K.kinematics(m, d)
-    d = K.com_pos(m, d)
-    d = K.tendon(m, d)
-    d = C.collision(m, d)
+    d = C.collision(m, fwd_position_smooth(m, d))
     d = D.crb(m, d, dense=not kernel or (newton and m.has_damping))
     if not kernel and not newton:
         # the XLA-CG path's preconditioner (and, damped, the Euler
         # update's implicit damping); Newton needs single solves only
         d = D.invert_m(m, d)
-    d = K.com_vel(m, d)
+    d = fwd_velocity_smooth(m, d)
     d = P.passive(m, d)
     d = D.rne(m, d)
     d = A.fwd_actuation(m, d)
@@ -91,13 +100,13 @@ def forward(m: M.Model, d: M.Data) -> M.Data:
 
 
 def _integrate_pos(m: M.Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch.Tensor:
-    """mj_integratePos: hinge dofs in one scatter, free and ball joints
-    (quaternion integration) one by one."""
+    """mj_integratePos: hinge and slide dofs in one scatter, free and ball
+    joints (quaternion integration) one by one."""
     jt = np.asarray(m.jnt_type)
     qadrs = np.asarray(m.jnt_qposadr)
     dadrs = np.asarray(m.jnt_dofadr)
     out = qpos.clone()
-    h = np.nonzero(jt == M.JNT_HINGE)[0]
+    h = np.nonzero((jt == M.JNT_HINGE) | (jt == M.JNT_SLIDE))[0]
     if h.size:
         sq = m.idx(qadrs[h])
         out[:, sq] = qpos[:, sq] + dt * qvel[:, m.idx(dadrs[h])]
@@ -118,7 +127,7 @@ def _integrate_act(m: M.Model, d: M.Data, dt) -> torch.Tensor:
     exact = np.nonzero(np.asarray(m.actuator_dyntype) == M.DYN_FILTEREXACT)[0]
     if exact.size:
         aadr = m.idx(A._last_act(m, exact))
-        tau = torch.clamp(m.actuator_dynprm[m.idx(exact), 0], min=M.MINVAL)
+        tau = torch.clamp(m.actuator_dynprm[..., m.idx(exact), 0], min=M.MINVAL)
         act[:, aadr] = d.act[:, aadr] + d.act_dot[:, aadr] * tau * (1.0 - torch.exp(-dt / tau))
     return A.clamp_act(m, act)
 
@@ -130,7 +139,7 @@ def step(m: M.Model, d: M.Data, device="cuda") -> M.Data:
     dev = _on_model_device(m, device)
     check_device(dev, qpos=d.qpos, qvel=d.qvel, ctrl=d.ctrl)
     d = forward(m, d)
-    dt = m.opt.timestep
+    dt = m.opt_b("timestep", 2)  # 0-d, or per env (B, 1) off the kernel layout
     if d.qvel_next is not None:
         # the solve kernel produced the Euler update
         qvel_new = d.qvel_next
@@ -141,10 +150,11 @@ def step(m: M.Model, d: M.Data, device="cuda") -> M.Data:
         if d.qMhinv is not None:
             qvel_new = d.qvel + dt * (d.qMhinv @ qfrc[..., None])[..., 0]
         else:
-            mh = d.qM + torch.diag(m.dof_damping * dt)
+            mh = d.qM + torch.diag_embed(m.dof_damping * dt)
             qvel_new = d.qvel + dt * ops_chol.spd_solve(mh, qfrc, device=m.device)
     else:
         qvel_new = d.qvel + dt * d.qacc
     qpos_new = _integrate_pos(m, d.qpos, qvel_new, dt)
     act_new = _integrate_act(m, d, dt) if m.na else d.act
-    return d.replace(qpos=qpos_new, qvel=qvel_new, act=act_new, time=d.time + dt)
+    return d.replace(qpos=qpos_new, qvel=qvel_new, act=act_new,
+                     time=d.time + m.opt_b("timestep", 1))

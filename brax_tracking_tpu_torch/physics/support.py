@@ -55,7 +55,7 @@ def contact_force(m: M.Model, d: M.Data, world_frame: bool = False) -> torch.Ten
         k = np.arange(dim - 1)
         f_pos = f[:, m.idx(row0[:, None] + 2 * k)]  # (B, n, dim - 1)
         f_neg = f[:, m.idx(row0[:, None] + 2 * k + 1)]
-        mu = m.pairs.friction[m.idx(pair)][:, : dim - 1]
+        mu = m.pairs.friction[..., m.idx(pair), : dim - 1]
         out[:, si, 0] = torch.sum(mu * (f_pos + f_neg), -1)
         out[:, si, 1:dim] = f_pos - f_neg
     if world_frame:
@@ -69,4 +69,4 @@ def active_contacts(m: M.Model, d: M.Data) -> torch.Tensor:
     margin."""
     if m.ncon == 0:
         return torch.zeros(d.qpos.shape[0], 0, dtype=torch.bool, device=d.qpos.device)
-    return d.contact_dist < m.pairs.margin[m.idx(Cn.efc_layout(m).con_pair)]
+    return d.contact_dist < m.pairs.margin[..., m.idx(Cn.efc_layout(m).con_pair)]

@@ -40,7 +40,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
    converged; and at the
    design edges at 590 rows (the widest one-warp env and the first wide
    one, the widest env of layout 1, the first past it, the widest of
-   layout 2); then the narrowphase's 20 box, cylinder, mesh and
+   layout 2); the one-warp instance on the planar minirat's slide joints
+   (assets/minirat_planar.xml); the one-warp instance on the minirat and
+   the damped wide layout 1 on the rodent stand-in with a per-env armature
+   ((B, nv), B=2048 and B=2047), and with the model's armature repeated
+   per env bitwise its shared (stride 0) run; spd_inverse on the ball-coxa
+   fly stand-in's own mass matrices (nv 42); then the narrowphase's 20 box, cylinder, mesh and
    height-field pair types on those two scenes at 2048 seeded poses
    against the CPU in float64 (phase_pair_gates);
 4. rolls out 2048 tracking envs (GenericSingleClip + EpisodeWrapper +
@@ -67,7 +72,19 @@ Run from the root of a checkout on a machine with a CUDA card. It
    first substep) for 10 control steps, exactly 5 launches per control
    step, its first step (solve converged) against the CPU in float64; then
    10 substeps of 2048 props envs through physics/step.py::step, one
-   launch per substep;
+   launch per substep; then 2048 envs of fly_single_clip_freejnt on the
+   ball-coxa fly stand-in (assets/fly_standin_ball.xml: limited ball
+   joints beside elliptic contacts, off the kernel layout) for 3 control
+   steps on the array CG path, exactly one spd_inverse launch per substep
+   and no other kernel, its first step (solve converged) against the CPU
+   in float64; then 2048 of its envs with every coxa turned past its limit
+   and further into it: one converged CG substep (one spd_inverse) and 5
+   substeps of its Newton copy on the array Newton path (one spd_solve per
+   substep and per Newton iteration), each with ball-limit forces in half
+   the envs or more after the first substep, that substep against the CPU
+   in float64; 10
+   substeps of 2048 planar-minirat envs (slide joints), one solve-kernel
+   launch per substep, the first (converged) against the CPU in float64;
 5. steps 2048 ballmuscle envs (ball-joint limits, a fixed tendon, muscles)
    20 substeps under CG (the XLA-CG path: spd_inverse2 once per substep)
    and under Newton (spd_solve 2 + iterations per substep), counts the
@@ -88,7 +105,13 @@ Run from the root of a checkout on a machine with a CUDA card. It
    trip; then an eval episode that must roll done envs back, and the first
    minibatch's loss and gradients against the CPU in float64; it prints
    the collect and learn rates, ms per control step and per minibatch
-   update, and eval/sps;
+   update, and eval/sps; then per-env randomized models on the flagship
+   rodent env on its stand-in: train() at the same widths unrandomized,
+   with every randomized leaf batched at its shared values (params,
+   normalizer and eval reward bitwise the
+   unrandomized run's) and with each env's leaves drawn per env, each with
+   exactly the unrandomized launches, and the drawn model's first control
+   step of 8 envs against the CPU in float64 with their values;
 9. runs the driver (harness/driver.py::main, the main path) twice at the
    same widths, each in a temporary base_dir, the counts set to 0 just
    before: (i) one clip, read from the committed data/Minirat/clips/0.p
@@ -122,7 +145,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    (dataset.env_args.mjcf_path=builtin:rodent_standin_terrain.xml) with
    its video of the terrain render scene (visual meshes and the terrain
    drawn): exact launches, every narrowphase call recorded and every
-   terrain pair type active in one, the render gate;
+   terrain pair type active in one, the render gate; and once more as
+   train=train_fly_freejnt dataset=fly_freejnt on the ball-coxa fly
+   stand-in: exactly one spd_inverse launch per substep and reset and no
+   other kernel (the kernels line's spd_inverse row);
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -154,6 +180,8 @@ MODELS = ("minirat", "minirat_elliptic", "minirat_newton")
 N_STEPS = 20
 N_SUBSTEPS = 10
 N_CPU_ENVS = 8
+# control steps of each rollout's timed run (after a warm-up step)
+TIMED_STEPS = 10
 
 # Solve outputs the kernel is scored on, and its tolerances. A float64 plain
 # run on the same inputs is the yardstick. The main path's solve (4 CG
@@ -323,6 +351,83 @@ FLY_SUBSTEPS = 5
 FLY_STEPS = 10
 FLY_STEP_ATOL = {"fly_standin": {"obs": 0.72, "reward": 0.048},
                  "fly_standin_tethered": {"obs": 0.51, "reward": 0.085}}
+# the ball-coxa fly stand-in (assets/fly_standin_ball.xml: the shape of the
+# fly's _ball variant, nq 49 / nv 42 / njnt 25, limited ball coxae beside
+# 12 elliptic claw contacts; 60 rows), off the solve kernel's layout: under
+# fly_freejnt.yaml's CG 4/4 it runs the array CG path (_solve_xla), whose
+# M^-1 is one spd_inverse launch per forward (each substep and reset), and
+# its Newton copy the array Newton path (one spd_solve for qacc_smooth and
+# one per Newton iteration). Its rollout of B_MAIN envs for FLY_BALL_STEPS
+# control steps of fly_freejnt.yaml's env (FLY_BALL_ARGV, the clip from its
+# committed stac export) and its first control step, solve converged, of
+# N_CPU_ENVS envs against the CPU in float64 (FLY_BALL_STEP_ATOL leaves
+# ~35x over a CPU float32 rehearsal, first_step_gaps on make_env("cpu",
+# torch.float32, "fly_standin_ball") with both models converged: obs
+# 1.58e-2 and reward 2.17e-3). The env's clip keeps the coxae near their
+# rest pose, where no ball-limit row is instantiated; the posed phases
+# below put them at their limits. spd_inverse on the ball fly's own mass
+# matrices (nv 42, condition number up to 941) gets SPD_FACTOR's gate and
+# SPD_ABS_FLY, ~35x the CPU float32 plain residual there (max 1.55e-6).
+FLY_BALL_ARGV = ["train=train_fly_freejnt", "dataset=fly_freejnt",
+                 "dataset.env_args.mjcf_path=builtin:fly_standin_ball.xml",
+                 "dataset.stac_path=" + os.path.join(_ASSETS, "fly_standin_ball_stac.p")]
+FLY_BALL_STEPS = 3
+# The ball-limit rows beside the contact rows, on both array paths: B_MAIN
+# of random_states' envs of the ball fly (CG with its solve converged, one
+# substep; the Newton copy, BALL_POSED_SUBSTEPS) with every coxa ball
+# turned about the world's vertical through it to an angle uniform in
+# BALL_POSE_ANGLES (the limit is 40 degrees, 0.698 rad), turning further
+# at a rate uniform in BALL_POSE_SPEEDS (rad/s). The coxa springs
+# (stiffness 1 against armature 1e-5) pull back harder than the limit's
+# reference acceleration asks for unless the ball turns this fast: from
+# the angles alone no env of the stand-in gets a limit force (the same in
+# MuJoCo C), at these rates 0.97-0.98 of them do (CPU float32, 64 envs,
+# seeds 0-2). At least BALL_MIN_LIMIT_FORCE of the envs must end the
+# first substep with a ball-limit force, and that substep of N_CPU_ENVS of
+# them is held against the CPU in float64 within BALL_POSED_ATOL, ~35x a
+# CPU float32 rehearsal (ball_posed_gaps on a float32 CPU run of 64 envs,
+# seeds 0-2): CG converged off by up to 9.17e-4 (qpos) and 0.624 (qvel, of
+# ball rates up to 3000), the Newton copy by 3.76e-7 and 2.90e-4.
+BALL_POSE_ANGLES = (0.6, 0.8)
+BALL_POSE_SPEEDS = (1500.0, 3000.0)
+BALL_MIN_LIMIT_FORCE = 0.5
+BALL_POSED_SUBSTEPS = {"fly_standin_ball": 1, "fly_standin_ball_newton": 5}
+FLY_BALL_STEP_ATOL = {"obs": 0.55, "reward": 0.076}
+BALL_POSED_ATOL = {"fly_standin_ball": {"qpos": 3.2e-2, "qvel": 22.0},
+                   "fly_standin_ball_newton": {"qpos": 1.3e-5, "qvel": 1.0e-2}}
+SPD_ABS_FLY = 5.4e-5
+# the planar minirat on slide joints (assets/minirat_planar.xml: the slides
+# rootx, with a spring and a motor, and rootz, limited, and the hinge rooty)
+# on the one-warp solve kernel: the solve against its plain version, and
+# SLIDE_SUBSTEPS substeps of B_MAIN envs through physics/step.py::step, one
+# launch per substep, the first substep of N_CPU_ENVS envs against the CPU
+# in float64 with the solve converged on both sides (at CG 4/4 a CPU
+# float32 run is off float64 by up to 0.40 in qvel on these contact
+# states). A CPU float32 rehearsal of the converged substep (slide_gaps on a
+# float32 CPU run of 64 envs, 8 compared, seeds 0-2) is off float64 by at
+# most 1.57e-6 (qpos) and 7.85e-4 (qvel); the limits leave ~35x.
+SLIDE_SUBSTEPS = 10
+SLIDE_STEP_ATOL = {"qpos": 5.5e-5, "qvel": 2.7e-2}
+# per-env randomized models (envs/wrappers.py DomainRandomizationVmapWrapper)
+# on the flagship rodent env on its stand-in (RODENT_ARGV): train() at
+# train_rodent's widths (PPO_ARGS: 2048 envs, batch 2048, unroll 16, 128
+# eval envs, MLPs 256 x 256, cut as the PPO phase is) three times from the
+# same seed, the counts set to 0 just before each: without a
+# randomization_fn, with every RAND_LEAVES leaf batched at the shared
+# values (bitwise the first run: params, normalizer, eval reward), and
+# with each env's leaves scaled by its own draw in 1 +- RAND_SPREAD; each
+# exactly ppo_expected_launches. Then the scaled model's first control step
+# of N_CPU_ENVS envs against the CPU in float64 with those envs' values.
+# A CPU float32 rehearsal (randomized_first_step_gaps with a float32 CPU
+# env of 16 envs, 8 compared, seeds 0-2) is off float64 by at most 1.75e-6
+# (obs), 1.87e-6 (reward) and 9.73e-6 (sensordata); the limits leave ~35x.
+RAND_LEAVES = ("body_mass", "body_inertia", "dof_armature", "jnt_stiffness", "geom_size",
+               "actuator_gainprm", "actuator_biasprm", "opt.gravity", "pairs.solref")
+RAND_SPREAD = 0.1
+# the solve kernel with a per-env armature: the one-warp (a) and the wide
+# layout 1 with the damped tail
+ARMATURE_MODELS = ("minirat", "rodent_standin")
+RAND_STEP_ATOL = {"obs": 6.1e-5, "reward": 6.5e-5, "sensordata": 3.4e-4}
 # ROADMAP A.12's narrowphase on two scenes that between them hold every one
 # of the 20 box, cylinder, mesh and height-field pair types: the rodent
 # stand-in on a terrain (assets/rodent_standin_terrain.xml, frozen as
@@ -476,7 +581,10 @@ def load(model, device, dtype=None):
     the fly configs freeze it ("fly_standin" with the free root,
     "fly_standin_tethered" without: CG 4/4, elliptic, the fluid model),
     the rodent stand-in on its terrain frozen as the rodent stand-in
-    ("rodent_standin_terrain") or the props ("props", CG 4/4)."""
+    ("rodent_standin_terrain") or the props ("props", CG 4/4), the planar
+    minirat on slide joints ("minirat_planar", CG 4/4), or the ball-coxa
+    fly stand-in as fly_freejnt.yaml freezes it ("fly_standin_ball", CG 4/4
+    off the kernel layout) and its Newton copy ("fly_standin_ball_newton")."""
     from brax_tracking_tpu_torch.physics import spec
 
     npz, options = {
@@ -492,6 +600,10 @@ def load(model, device, dtype=None):
         "fly_standin_tethered": (spec.FLY_STANDIN_TETHERED_NPZ, dict(free_jnt=False)),
         "rodent_standin_terrain": (spec.RODENT_STANDIN_TERRAIN_NPZ, spec.RODENT_OPTIONS),
         "props": (spec.PROPS_NPZ, {}),
+        "minirat_planar": (spec.MINIRAT_PLANAR_NPZ, {}),
+        "fly_standin_ball": (spec.FLY_STANDIN_BALL_NPZ, dict(free_jnt=True)),
+        "fly_standin_ball_newton": (spec.FLY_STANDIN_BALL_NEWTON_NPZ,
+                                    dict(free_jnt=True, **spec.FLY_BALL_NEWTON_OPTIONS)),
     }[model]
     return spec.load_model(npz, device=device, dtype=dtype, **options)
 
@@ -682,14 +794,23 @@ def _errors(out, ref):
             "n_above_tail": int((rel > TAIL_REL).sum())}
 
 
+def armature_draw(armature, B, seed):
+    """A seeded per-env armature (B, nv): the model's scaled per env by
+    U(0.5, 1.5), the draws of a randomization_fn."""
+    g = torch.Generator(device=armature.device).manual_seed(seed + 200)
+    scale = 0.5 + torch.rand(B, 1, generator=g, device=armature.device, dtype=armature.dtype)
+    return (armature * scale).contiguous()
+
+
 def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
-                          batched=False):
+                          batched=False, per_env_armature=False):
     """Kernel and float32 plain version against a float64 plain run on the
     same inputs (the solve at state ``seed`` of ``model``, see solve_case;
     ``iters`` overrides the CG iteration count; ``batched`` runs
     cg_solve_batched on the dense qM and J of the same call; a ``model``
     named in seeded_dense(), e.g. "rodent_like", runs cg_solve_batched on
-    rodent_like_case at that size). Returns the error report and (model,
+    rodent_like_case at that size; ``per_env_armature`` gives every env its
+    own armature, armature_draw). Returns the error report and (model,
     args, kw, kernel outputs)."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
@@ -699,6 +820,8 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
         m, (args, kw) = None, rodent_like_case(device, B, seed, iters, dense[model])
     else:
         m, args, kw = solve_case(device, model, B, seed, damped, iters)
+        if per_env_armature:
+            args[13] = armature_draw(args[13], B, seed)
         if batched:
             args, kw = dense_case(args, kw)
     if batched or m is None:
@@ -713,9 +836,10 @@ def phase_kernel_vs_plain(device, B, damped, seed, iters=None, model="minirat",
 
     damped = kw["has_damping"]  # seeded, or the model's own joint damping
     case = (f"{kernel.__name__}, {model}, B={B}, damped={damped}, iters={kw['iters']}, "
-            f"warmstart={'warmstart' in kw}")
+            f"warmstart={'warmstart' in kw}, per-env armature={per_env_armature}")
     report = {"kernel": kernel.__name__, "model": model, "B": B, "damped": damped,
-              "iters": kw["iters"], "warmstart": "warmstart" in kw}
+              "iters": kw["iters"], "warmstart": "warmstart" in kw,
+              "per_env_armature": per_env_armature}
     for name in ("qacc", "efc_force", "qfrc_constraint", "qacc_smooth", "qvel_new"):
         ek, ep = _errors(kern[name], ref[name]), _errors(plain[name], ref[name])
         report[name] = {"scale": float(ref[name].abs().max()),
@@ -841,7 +965,8 @@ def tracking_env(device, dtype=None, model="minirat"):
 # rodent_pair env on the two-rat stand-in, the flagship rodent env on the
 # rodent stand-in and on its terrain, the two fly envs on the fly stand-in
 CONFIG_ENVS = {"ratpair": PAIR_ARGV, "rodent_standin": RODENT_ARGV,
-               "rodent_standin_terrain": TERRAIN_ARGV, **FLY_ARGVS}
+               "rodent_standin_terrain": TERRAIN_ARGV, **FLY_ARGVS,
+               "fly_standin_ball": FLY_BALL_ARGV}
 
 
 def config_env(device, dtype, model):
@@ -867,6 +992,45 @@ def make_env(device, dtype=None, model="minirat"):
 
     build = config_env if model in CONFIG_ENVS else tracking_env
     return wrappers.wrap(build(device, dtype, model), episode_length=1000)
+
+
+def pose_balls(m, d, seed):
+    """``d``'s qpos and qvel with every ball joint of ``m`` turned about the
+    world's vertical through it by an angle uniform in +-BALL_POSE_ANGLES
+    and turning further at a rate uniform in BALL_POSE_SPEEDS, per env."""
+    from brax_tracking_tpu_torch.physics import kinematics as K
+
+    xquat = K.kinematics(m, d).xquat
+    g = torch.Generator(device=d.qpos.device).manual_seed(seed)
+    qpos, qvel = d.qpos.clone(), d.qvel.clone()
+    B, dt = qpos.shape[0], qpos.dtype
+    ball = np.nonzero(np.asarray(m.jnt_type) == 1)[0]
+    for j in ball:
+        body, adr, dof = (int(np.asarray(f)[j]) for f in (m.jnt_bodyid, m.jnt_qposadr,
+                                                          m.jnt_dofadr))
+        w, u = xquat[:, body, :1], -xquat[:, body, 1:]  # the body's world rotation, inverted
+        up = torch.zeros(B, 3, device=qpos.device, dtype=dt)
+        up[:, 2] = 1.0
+        t = 2.0 * torch.cross(u, up, dim=-1)
+        axis = up + w * t + torch.cross(u, t, dim=-1)  # world vertical in the joint's frame
+        axis = axis / axis.norm(dim=-1, keepdim=True)
+        r = torch.rand(B, 3, generator=g, device=qpos.device, dtype=dt)
+        axis = axis * (2.0 * (r[:, :1] < 0.5) - 1.0)
+        half = 0.5 * (BALL_POSE_ANGLES[0] + (BALL_POSE_ANGLES[1] - BALL_POSE_ANGLES[0]) * r[:, 1:2])
+        qpos[:, adr:adr + 4] = torch.cat([half.cos(), axis * half.sin()], -1)
+        qvel[:, dof:dof + 3] = axis * (
+            BALL_POSE_SPEEDS[0] + (BALL_POSE_SPEEDS[1] - BALL_POSE_SPEEDS[0]) * r[:, 2:])
+    return qpos, qvel
+
+
+def ball_limit_share(m, d):
+    """The share of envs of ``d`` with one of ``m``'s ball-limit rows
+    instantiated (efc_pos below its margin) in the forward that computed
+    ``d``."""
+    from brax_tracking_tpu_torch.physics import constraint as Cn
+
+    rows = torch.as_tensor(Cn.efc_layout(m).limit_ball_rows, device=d.efc_pos.device)
+    return float((d.efc_pos[:, rows] < d.efc_margin[:, rows]).any(-1).float().mean())
 
 
 def phase_rollout(device, B, seed, model="minirat", n_steps=N_STEPS):
@@ -1313,6 +1477,242 @@ def phase_props(device, B, seed, n=PROPS_SUBSTEPS):
 # ---------------------------------------------------------------------------
 # SPD kernels and the ballmuscle slice
 # ---------------------------------------------------------------------------
+
+
+def phase_armature_stride(device, B, model):
+    """The solve kernel with the model's (nv,) armature (stride 0) and with
+    the same values repeated per env ((B, nv), stride nv): every output
+    bitwise equal. Comparison launches do not count."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    _, args, kw = solve_case(device, model, B, SEED)
+    launches = ops_cg.cg_solve_fused.launches
+    shared = outputs(ops_cg.cg_solve_fused(*args, device=device, **kw))
+    repeated = args[:13] + [args[13].expand(B, -1).contiguous()]
+    per_env = outputs(ops_cg.cg_solve_fused(*repeated, device=device, **kw))
+    ops_cg.cg_solve_fused.launches = launches
+    differ = [k for k in shared if not torch.equal(shared[k], per_env[k])]
+    if differ:
+        fail(f"{model}: the solve kernel with a repeated per-env armature differs from the "
+             f"shared one in {differ}")
+
+
+def slide_gaps(device, B, seed, n_cpu, dtype=torch.float32, n=SLIDE_SUBSTEPS):
+    """``n`` substeps of B planar-minirat envs (slide joints) on ``device``
+    in ``dtype``, the counts set to 0 just before: (counts, the first
+    substep's gaps of N_CPU_ENVS envs against the CPU in float64)."""
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    m = load("minirat_planar", device, dtype)
+    d = d0 = random_states(m, B, seed)
+    reset_counts()
+    outs = []
+    for _ in range(n):
+        d = pstep.step(m, d, device=device)
+        outs.append(d)
+    counts = read_counts()
+    for k, o in enumerate(outs):
+        if not (torch.isfinite(o.qpos).all() and torch.isfinite(o.qvel).all()):
+            fail(f"minirat_planar: the state is not finite at substep {k}")
+    # the first substep again with the solve converged on both sides (at CG
+    # 4/4 float32 is far from float64 on contact states: ROADMAP C)
+    first = pstep.step(converged(m), d0, device=device)
+    cpu_m = converged(load("minirat_planar", "cpu", torch.float64))
+    cpu = lambda t: t[:n_cpu].detach().to("cpu", torch.float64)
+    dc = pstep.make_data(cpu_m, n_cpu, device="cpu").replace(
+        **{k: cpu(getattr(d0, k)) for k in ("qpos", "qvel", "ctrl")})
+    dc = pstep.step(cpu_m, dc, device="cpu")
+    gaps = {k: float((getattr(dc, k) - cpu(getattr(first, k))).abs().max())
+            for k in SLIDE_STEP_ATOL}
+    return counts, gaps
+
+
+def phase_slide(device, B, seed):
+    """slide_gaps on the card: exactly one solve-kernel launch per substep
+    and no other kernel, the first substep within SLIDE_STEP_ATOL."""
+    counts, gaps = slide_gaps(device, B, seed, N_CPU_ENVS)
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": SLIDE_SUBSTEPS}
+    if counts != expected:
+        fail(f"minirat_planar launches {counts}, expected {expected}")
+    if any(gaps[k] > SLIDE_STEP_ATOL[k] for k in gaps):
+        fail(f"minirat_planar: first substep on the card differs from the CPU float64 run: "
+             f"{gaps} (limits {SLIDE_STEP_ATOL})")
+    return counts, gaps
+
+
+def ball_posed_gaps(device, B, seed, n_cpu, model, dtype=torch.float32):
+    """BALL_POSED_SUBSTEPS[model] substeps of B ball-fly envs posed by
+    pose_balls (``fly_standin_ball`` with its solve converged: the array CG
+    path; ``fly_standin_ball_newton``: the array Newton path) on ``device``
+    in ``dtype``, the counts set to 0 just before: (counts, the launches
+    the path calls for: one spd_inverse per substep under CG, one spd_solve
+    per substep for qacc_smooth and one per Newton iteration the batch ran
+    under Newton; the share of envs with a ball-limit force after the first
+    substep; the first substep's gaps, against the CPU in float64, of the
+    first ``n_cpu`` envs with such a force)."""
+    from brax_tracking_tpu_torch.physics import constraint as Cn
+    from brax_tracking_tpu_torch.physics import model as M
+    from brax_tracking_tpu_torch.physics import step as pstep
+
+    def model_on(dev, dt):
+        m = load(model, dev, dt)
+        return m if m.opt.solver == M.SOLVER_NEWTON else converged(m)
+
+    m = model_on(device, dtype)
+    newton = m.opt.solver == M.SOLVER_NEWTON
+    d = random_states(m, B, seed, vel=1.0)
+    qpos, qvel = pose_balls(m, d, seed + 5)
+    d = d0 = d.replace(qpos=qpos, qvel=qvel)
+    reset_counts()
+    outs, calls = [], 0
+    for _ in range(BALL_POSED_SUBSTEPS[model]):
+        d = pstep.step(m, d, device=device)
+        calls += 1 + int(d.solver_niter.max()) if newton else 1
+        outs.append(d)
+    counts = read_counts()
+    expected = dict.fromkeys(counts, 0) | {"spd_solve" if newton else "spd_inverse": calls}
+    for k, o in enumerate(outs):
+        if not (torch.isfinite(o.qpos).all() and torch.isfinite(o.qvel).all()):
+            fail(f"{model} (posed): the state is not finite at substep {k}")
+    rows = torch.as_tensor(Cn.efc_layout(m).limit_ball_rows, device=d.qpos.device)
+    hit = (outs[0].efc_force[:, rows] != 0).any(-1)
+    pick = torch.nonzero(hit).flatten()[:n_cpu]
+    cpu_m = model_on("cpu", torch.float64)
+    cpu = lambda t: t[pick].detach().to("cpu", torch.float64)
+    dc = pstep.make_data(cpu_m, pick.numel(), device="cpu").replace(
+        **{k: cpu(getattr(d0, k)) for k in ("qpos", "qvel", "ctrl")})
+    dc = pstep.step(cpu_m, dc, device="cpu")
+    gaps = {k: float((getattr(dc, k) - cpu(getattr(outs[0], k))).abs().max())
+            for k in ("qpos", "qvel")}
+    return counts, expected, float(hit.float().mean()), gaps
+
+
+def phase_ball_posed(device, B, seed, model):
+    """ball_posed_gaps on the card: exactly the launches the path calls for
+    and no other kernel, a ball-limit force in BALL_MIN_LIMIT_FORCE of the
+    envs after the first substep, that substep within
+    BALL_POSED_ATOL[model] on N_CPU_ENVS of those envs."""
+    counts, expected, share, gaps = ball_posed_gaps(device, B, seed, N_CPU_ENVS, model)
+    if counts != expected:
+        fail(f"{model} (posed) launches {counts}, expected {expected}")
+    if share < BALL_MIN_LIMIT_FORCE:
+        fail(f"{model} (posed): ball-limit forces in {share:.4f} of the envs after the first "
+             f"substep, expected >= {BALL_MIN_LIMIT_FORCE}")
+    atol = BALL_POSED_ATOL[model]
+    if any(gaps[k] > atol[k] for k in atol):
+        fail(f"{model} (posed): first substep on the card differs from the CPU float64 run: "
+             f"{gaps} (limits {atol})")
+    return counts, share, gaps
+
+
+def rodent_randomization(mode):
+    """A randomization_fn of RAND_LEAVES: ``equal`` repeats each leaf's
+    shared values per env, ``scaled`` scales each env's leaf by its own
+    draw in 1 +- RAND_SPREAD from the trainer's randomization generator."""
+    from brax_tracking_tpu_torch.physics import model as M
+
+    def randomize(m, num_envs, generator):
+        values = {}
+        for name in RAND_LEAVES:
+            x = m.leaf(name)
+            shape = (num_envs,) + (1,) * x.dim()
+            if mode == "equal":
+                values[name] = x.expand(num_envs, *x.shape).contiguous()
+                continue
+            u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
+            values[name] = x * (1.0 + RAND_SPREAD * (2.0 * u - 1.0))
+        return M.replace_leaves(m, values), values.keys()
+
+    return randomize
+
+
+def randomized_first_step_gaps(device, seed, n_cpu, dtype=None, env=None, B=B_MAIN):
+    """The first control step of B randomized rodent envs (``scaled``
+    draws) on ``device`` against the same step of their first ``n_cpu``
+    envs, with those envs' leaf values, run by the port on the CPU in
+    float64; returns the gaps."""
+    import functools
+
+    from brax_tracking_tpu_torch.envs import wrappers
+    from brax_tracking_tpu_torch.physics import model as M
+
+    env = env or config_env(device, dtype, "rodent_standin")
+    draws = torch.Generator(device=device).manual_seed(seed + 3)
+    w = wrappers.wrap(env, episode_length=1000, randomization_fn=functools.partial(
+        rodent_randomization("scaled"), num_envs=B, generator=draws))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    first_in = w.reset(gen, B)
+    action = 2.0 * torch.rand(B, w.action_size, generator=gen, device=device) - 1.0
+    first_out = w.step(first_in, action)
+    model_v = w.env._model_v
+    cpu = lambda t: t[:n_cpu].detach().to("cpu", torch.float64)
+    values = {n: cpu(model_v.leaf(n)) for n in model_v.env_leaves}
+    wc = wrappers.wrap(config_env("cpu", torch.float64, "rodent_standin"), episode_length=1000,
+                       randomization_fn=lambda m: (M.replace_leaves(m, values), values.keys()))
+    d = first_in.pipeline_state
+    s = wc.init_state(first_in.info["cur_frame"][:n_cpu].cpu(), cpu(d.qpos), cpu(d.qvel))
+    s = wc.step(s, cpu(action))
+    return {
+        "obs": float((s.obs - cpu(first_out.obs)).abs().max()),
+        "reward": float((s.reward - cpu(first_out.reward)).abs().max()),
+        "sensordata": float((s.pipeline_state.sensordata
+                             - cpu(first_out.pipeline_state.sensordata)).abs().max()),
+        "done_mismatch": int((s.done != cpu(first_out.done)).sum()),
+        "envs_apart": float((first_out.obs[0] - first_out.obs[1]).abs().max()),
+    }
+
+
+def phase_randomized_train(device, seed, args=None, hidden=None):
+    """train() on the flagship rodent env on its stand-in three times from
+    one seed (RAND_LEAVES): unrandomized, an equal-values batch and scaled
+    draws, each exactly ppo_expected_launches cg_solve_fused launches (5
+    substeps) and no other kernel, every metric finite; the equal-values
+    run's params, normalizer and eval reward bitwise the unrandomized
+    run's; then randomized_first_step_gaps within RAND_STEP_ATOL. Returns
+    the runs' numbers and the gaps."""
+    import functools
+
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.device import synchronize
+
+    args, hidden = args or PPO_ARGS, hidden or PPO_HIDDEN
+    env = config_env(device, None, "rodent_standin")
+    steps_per, _, _ = ppo_geometry(args)
+    factory = functools.partial(pn.make_ppo_networks, policy_hidden_layer_sizes=hidden,
+                                value_hidden_layer_sizes=hidden)
+    expected = ppo_expected_launches(args, PPO_TRAIN_STEPS, RODENT_SUBSTEPS)
+    runs = {}
+    for mode in ("none", "equal", "scaled"):
+        synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, (normalizer, policy), metrics = pt.train(
+            env, PPO_TRAIN_STEPS * steps_per, network_factory=factory, seed=seed, device=device,
+            randomization_fn=None if mode == "none" else rodent_randomization(mode), **args)
+        synchronize(device)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0) | {"cg_solve_fused": expected}
+        if torch.device(device).type == "cuda" and counts != want:
+            fail(f"randomized train ({mode}) launches {counts}, expected {want}")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            fail(f"randomized train ({mode}) metrics not finite: {bad}")
+        tensors = {f"policy.{k}": v for k, v in policy.state_dict().items()}
+        tensors.update({f"normalizer.{k}": getattr(normalizer, k)
+                        for k in ("count", "mean", "summed_variance", "std")})
+        runs[mode] = dict(seconds=seconds, counts=counts, metrics=metrics, tensors=tensors)
+    a, b = runs["none"], runs["equal"]
+    differ = [k for k in a["tensors"] if not torch.equal(a["tensors"][k], b["tensors"][k])]
+    if differ or a["metrics"]["eval/episode_reward"] != b["metrics"]["eval/episode_reward"]:
+        fail(f"randomized train: the equal-values batch differs from the unrandomized run in "
+             f"{differ or 'eval/episode_reward'}")
+    gaps = randomized_first_step_gaps(device, seed, N_CPU_ENVS, env=env)
+    if any(gaps[k] > RAND_STEP_ATOL[k] for k in RAND_STEP_ATOL) or gaps["done_mismatch"]:
+        fail(f"randomized rodent: first control step on the card differs from the CPU float64 "
+             f"run: {gaps} (limits {RAND_STEP_ATOL})")
+    return runs, expected, gaps
 
 
 def counted():
@@ -1960,13 +2360,13 @@ RODENT_DRIVER_ARGV = RODENT_ARGV + [
 # the flagship's command on the rodent stand-in's terrain at train_rodent's
 # widths, cut deeper than the rodent's run (its narrowphase is ~0.35 s of
 # host dispatch per substep): one training step (65,536 env steps) with
-# evals before and after it of episode_length 8, the clip cut to 12 frames,
-# so the callback's B = 1 rollout takes 14 control steps; its video draws
+# evals before and after it of episode_length 4, the clip cut to 8 frames,
+# so the callback's B = 1 rollout takes 6 control steps; its video draws
 # the visual meshes and the terrain
 TERRAIN_DRIVER_ARGV = TERRAIN_ARGV + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
-    "train.force_episode_length=true", "train.episode_length=8",
-    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=12"]
+    "train.force_episode_length=true", "train.episode_length=4",
+    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=8"]
 # train=train_fly dataset=fly on the tethered fly stand-in: configs/train/
 # train_fly.yaml's widths (MLPs 256 x 256, 1024 envs, batch 1024, unroll 16,
 # 128 eval envs) and fly.yaml's env, cut as the pair's run is (2
@@ -1974,6 +2374,13 @@ TERRAIN_DRIVER_ARGV = TERRAIN_ARGV + [
 # steps) with evals before and after it; the clip the committed tethered
 # stac export's first 24 frames (2 control steps each), so the callback's
 # B = 1 rollout takes 38 control steps
+# train=train_fly_freejnt dataset=fly_freejnt on the ball-coxa fly stand-in
+# (the array CG path: spd_inverse once per substep and reset), cut as the
+# fly's run is, at train_fly_freejnt's 2048 envs (65,536 env steps)
+FLY_BALL_DRIVER_ARGV = FLY_BALL_ARGV + [
+    "train.num_minibatches=2", "train.num_updates_per_batch=2",
+    "train.force_episode_length=true", "train.episode_length=32",
+    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=24"]
 FLY_DRIVER_ARGV = FLY_ARGVS["fly_standin_tethered"] + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
     "train.force_episode_length=true", "train.episode_length=32",
@@ -2077,7 +2484,7 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
 
 
 def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False, replay=False,
-                 terrain=False):
+                 terrain=False, ball=False):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
     temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
@@ -2101,7 +2508,10 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
     (TERRAIN_DRIVER_ARGV): every narrowphase call of the run is recorded,
     and the report holds, per new pair type, the calls (substeps of
     training, evals and the callback's rollout, in order) with an active
-    slot in some env. Returns the run's numbers."""
+    slot in some env. With ``ball`` the run is train=train_fly_freejnt on
+    the ball-coxa fly stand-in (FLY_BALL_DRIVER_ARGV), off the kernel
+    layout: exactly driver_expected_launches spd_inverse launches (one per
+    forward) and no other kernel. Returns the run's numbers."""
     import tempfile
 
     from brax_tracking_tpu_torch.device import synchronize
@@ -2110,13 +2520,14 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
     from brax_tracking_tpu_torch.harness import driver, render
     from brax_tracking_tpu_torch.native import video as vid
 
-    tag = ("fly" if fly else "terrain" if terrain else "rodent" if rodent else "pair" if pair
-           else "multi-clip" if multi else "single clip")
-    committed = not (multi or pair or rodent or fly or terrain)
+    tag = ("ball fly" if ball else "fly" if fly else "terrain" if terrain else "rodent" if rodent
+           else "pair" if pair else "multi-clip" if multi else "single clip")
+    committed = not (multi or pair or rodent or fly or terrain or ball)
     with tempfile.TemporaryDirectory() as tmp:
         base = os.path.join(tmp, "run")
         data_dir = os.path.join(ROOT, "data", "Minirat") if committed else os.path.join(tmp, "data")
-        argv = (FLY_DRIVER_ARGV if fly else TERRAIN_DRIVER_ARGV if terrain else
+        argv = (FLY_BALL_DRIVER_ARGV if ball else FLY_DRIVER_ARGV if fly else
+                TERRAIN_DRIVER_ARGV if terrain else
                 RODENT_DRIVER_ARGV if rodent else PAIR_DRIVER_ARGV if pair else
                 DRIVER_ARGV + (DRIVER_MULTI if multi else [])) + [
             f"paths.base_dir={base}", f"paths.data_dir={data_dir}"]
@@ -2125,8 +2536,9 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
                      f"dataset.rendering_mjcf={RENDER_SCENES[tag]}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
-        m = load("fly_standin_tethered" if fly else "rodent_standin_terrain" if terrain else
-                 "rodent_standin" if rodent else "ratpair" if pair else "minirat", "cpu")
+        m = load("fly_standin_ball" if ball else "fly_standin_tethered" if fly else
+                 "rodent_standin_terrain" if terrain else "rodent_standin" if rodent else
+                 "ratpair" if pair else "minirat", "cpu")
         per_frame = round(1.0 / (ds["mocap_hz"] * float(m.opt.timestep)))
         n_steps = ((ds["clip_length"] - ds["ref_traj_length"])
                    * (per_frame // ds["env_args"]["physics_steps_per_control_step"]))
@@ -2174,8 +2586,8 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
             registry.register_environment("multi_clip_tracking", tracking.GenericMultiClip)
             render.render_rollout_vs_reference = rendering
             collision.collision = narrow
-        expected = dict.fromkeys(counts, 0) | {
-            "cg_solve_fused": driver_expected_launches(cfg, n_steps)}
+        kernel = "spd_inverse" if ball else "cg_solve_fused"
+        expected = dict.fromkeys(counts, 0) | {kernel: driver_expected_launches(cfg, n_steps)}
         if torch.device(device).type == "cuda" and counts != expected:
             fail(f"driver ({tag}) launches {counts}, expected {expected}")
 
@@ -2213,7 +2625,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
             per_clip_s, rollout_s = ts[1] - ts[0], ts[2] - ts[1]
         else:
             per_clip_s, rollout_s = None, ts[1] - ts[0]
-        report = dict(seconds=seconds, counts=counts, expected=expected["cg_solve_fused"],
+        report = dict(seconds=seconds, counts=counts, expected=expected[kernel],
                       metrics=metrics, n_steps=n_steps, rollout_s=rollout_s,
                       per_clip_s=per_clip_s)
         if multi:
@@ -2229,7 +2641,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
                 fail(f"driver (multi-clip): a control step on the card differs from the CPU "
                      f"float64 run: {gaps} (limits {MC_STEP_ATOL})")
             report.update(clips_drawn=clips, step_gaps=gaps)
-        elif pair or rodent or fly or terrain:
+        elif pair or rodent or fly or terrain or ball:
             built = sorted(os.listdir(os.path.join(data_dir, "clips")))
             if built != ["0.npz"]:
                 fail(f"driver ({tag}) cached {built}")
@@ -2701,7 +3113,8 @@ def main() -> int:
     secs = library.build()
     srcs = " ".join(os.path.basename(f) for f in library.SOURCES)
     print(f"build: {srcs} -> {secs:.1f} s")
-    for model in MODELS + PAIR_MODELS + ("rat", "rodent_standin") + FLY_MODELS + PAIR_GATE_SCENES:
+    for model in (MODELS + PAIR_MODELS + ("rat", "rodent_standin") + FLY_MODELS
+                  + PAIR_GATE_SCENES + ("minirat_planar",)):
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
@@ -2752,6 +3165,19 @@ def main() -> int:
             _, args_f, kw_f, _ = flies[model, B, iters][1]
             if not kw_f["ell_mu"] or kw_f["has_damping"]:
                 fail(f"the {model} solve is not the undamped elliptic instance (b)")
+    # slide joints on the one-warp core (the planar minirat), and a per-env
+    # armature ((B, nv), stride nv) in the one-warp and the wide layout 1
+    # (damped) instances, each against its plain version; the stride-0
+    # armature bitwise the same values repeated per env
+    planar = phase_kernel_vs_plain("cuda", B_MAIN, False, SEED, None, "minirat_planar")
+    armature = {}
+    for model in ARMATURE_MODELS:
+        for B in (B_MAIN, B_MAIN - 1):
+            armature[model, B] = phase_kernel_vs_plain("cuda", B, False, SEED, None, model,
+                                                       per_env_armature=True)
+        phase_armature_stride("cuda", B_MAIN, model)
+    print(f"solve kernel with a per-env armature: {ARMATURE_MODELS} at B={B_MAIN}, "
+          f"{B_MAIN - 1}; stride 0 bitwise the repeated armature")
     # the narrowphase's scenes (the wide layout 1): the rodent stand-in on
     # its terrain (damped) and the props (8 roots)
     narrow = {}
@@ -2817,6 +3243,12 @@ def main() -> int:
     bm_reports = {name: phase_spd_vs_plain(name, *chol_inputs(name, *bm_inputs),
                                            "ballmuscle qM", SPD_ABS_BM)
                   for name in SPD_KERNELS + CHOL_KERNELS}
+    # spd_inverse on the ball-coxa fly's own mass matrices (nv 42), its path
+    bf = load("fly_standin_ball", "cuda")
+    dbf = pstep.forward_to_constraint(bf, random_states(bf, B_MAIN, SEED, vel=1.0))
+    fly_inputs = (dbf.qM.contiguous(), dbf.qfrc_smooth.contiguous(),
+                  torch.zeros(bf.nv, device="cuda"))
+    fly_report = phase_spd_vs_plain("spd_inverse", *fly_inputs, "ball fly qM", SPD_ABS_FLY)
     print(f"kernels against their plain versions: {time.perf_counter() - t0:.1f} s")
 
     # 3b. the 20 box, cylinder, mesh and height-field pair types on the card
@@ -2931,17 +3363,53 @@ def main() -> int:
         print(f"{model}_first_step_vs_cpu_f64 (CG 4/4, not gated) " + json.dumps(gaps))
         gaps = phase_converged_first_step(env, first_in, a0, model, FLY_STEP_ATOL[model])
         print(f"{model}_first_step_converged_vs_cpu_f64 " + json.dumps(gaps))
+    # the ball-coxa fly stand-in off the kernel layout: fly_freejnt.yaml's env
+    # on the array CG path (spd_inverse once per substep), then its Newton
+    # copy on the array Newton path; the slide joints' planar minirat
+    model = "fly_standin_ball"
+    t0 = time.perf_counter()
+    env, counts, first_in, a0, first_out, last, touching = phase_rollout(
+        "cuda", B_MAIN, SEED, model, FLY_BALL_STEPS)
+    torch.cuda.synchronize()
+    print(f"{model} rollout: {B_MAIN} envs x {FLY_BALL_STEPS} control steps x {FLY_SUBSTEPS} "
+          f"substeps, first run {time.perf_counter() - t0:.1f} s, kernel launches {counts}")
+    expected = dict.fromkeys(counts, 0) | {"spd_inverse": FLY_BALL_STEPS * FLY_SUBSTEPS}
+    if counts != expected:
+        fail(f"kernel launches in the {model} rollout: {counts}, expected {expected}")
+    print(f"{model} rollout done fraction at the last step: {float(last.done.mean()):.4f}, "
+          f"mean reward {float(last.reward.mean()):.4f}, envs with contact forces "
+          f"{touching:.4f}, envs with a ball-limit row in the first substep's solve "
+          f"{ball_limit_share(env.unwrapped.model, first_in.pipeline_state):.4f} "
+          f"(the posed phases below hold the limits' forces)")
+    gaps = first_step_gaps(first_in, a0, first_out, N_CPU_ENVS, model)
+    print(f"{model}_first_step_vs_cpu_f64 (CG 4/4, not gated) " + json.dumps(gaps))
+    gaps = phase_converged_first_step(env, first_in, a0, model, FLY_BALL_STEP_ATOL)
+    print(f"{model}_first_step_converged_vs_cpu_f64 " + json.dumps(
+        {"gaps": gaps, "limits": FLY_BALL_STEP_ATOL}))
+    envs[model] = env
+    for posed in BALL_POSED_SUBSTEPS:
+        t0 = time.perf_counter()
+        counts, share, gaps = phase_ball_posed("cuda", B_MAIN, SEED, posed)
+        print(f"{posed} (posed at its ball limits): {B_MAIN} envs x "
+              f"{BALL_POSED_SUBSTEPS[posed]} substeps, {time.perf_counter() - t0:.1f} s, kernel "
+              f"launches {counts}, envs with a ball-limit force after the first substep "
+              f"{share:.4f}; first substep vs CPU float64 "
+              + json.dumps({"gaps": gaps, "limits": BALL_POSED_ATOL[posed]}))
+    t0 = time.perf_counter()
+    counts, gaps = phase_slide("cuda", B_MAIN, SEED)
+    launches["cg_solve_fused (slide)"] = counts["cg_solve_fused"]
+    print(f"minirat_planar (slide joints): {B_MAIN} envs x {SLIDE_SUBSTEPS} substeps, "
+          f"{time.perf_counter() - t0:.1f} s, kernel launches {counts}; first substep "
+          f"(converged) vs CPU float64 " + json.dumps({"gaps": gaps, "limits": SLIDE_STEP_ATOL}))
 
     # 5. the ballmuscle slice, CG (i) and Newton (ii)
     for solver, kernel in (("cg", "spd_inverse2"), ("newton", "spd_solve")):
         t0 = time.perf_counter()
         counts, expected, iters, bm_in, bm_out = phase_ballmuscle("cuda", solver, B_MAIN, SEED)
         torch.cuda.synchronize()
+        # the ballmuscle is damped: spd_inverse2 here, spd_inverse on the
+        # ball fly's path (its driver run below)
         launches[kernel] = counts[kernel]
-        if solver == "cg":
-            # an undamped model would invert qM alone here; the ballmuscle
-            # is damped, so the run's count of spd_inverse is 0 (gated above)
-            launches["spd_inverse"] = counts["spd_inverse"]
         print(f"ballmuscle {solver}: {B_MAIN} envs x {BM_SUBSTEPS} substeps, first run "
               f"{time.perf_counter() - t0:.1f} s, kernel launches {counts} (expected "
               f"{expected}; Newton iterations per substep {iters})")
@@ -3008,6 +3476,22 @@ def main() -> int:
           f"minibatch update of {rows // M} rows x {T} steps on {card}")
     print(f"ppo eval/sps {m['eval/sps']:.1f} ({a['num_eval_envs']} envs) on {card}")
     print(f"ppo phase: {time.perf_counter() - t_ppo:.1f} s on {card}")
+
+    # 8b. per-env randomized models: train() on the flagship rodent env on its
+    # stand-in, unrandomized, equal-values and scaled (RAND_LEAVES)
+    t_rand = time.perf_counter()
+    runs, expected, gaps = phase_randomized_train("cuda", SEED)
+    launches["cg_solve_fused (randomized rodent)"] = runs["scaled"]["counts"]["cg_solve_fused"]
+    for mode, r in runs.items():
+        print(f"randomized train ({mode}): {r['seconds']:.1f} s, kernel launches {r['counts']} "
+              f"(expected cg_solve_fused {expected}), training/sps "
+              f"{r['metrics']['training/sps']:.1f}, eval/episode_reward "
+              f"{r['metrics']['eval/episode_reward']:.3f} on {card}")
+    print("randomized train: the equal-values run's params, normalizer and eval reward bitwise "
+          "the unrandomized run's")
+    print("randomized_rodent_first_step_vs_cpu_f64 " + json.dumps(
+        {"gaps": gaps, "limits": RAND_STEP_ATOL}))
+    print(f"randomized phase: {time.perf_counter() - t_rand:.1f} s on {card}")
 
     # 9. the driver, harness/driver.py::main (the main path): (i) single clip
     # from the committed clip cache, (ii) four clips
@@ -3120,6 +3604,18 @@ def main() -> int:
     print(f"render_poses_and_frames_vs_cpu_f64 (tethered fly, {T} frames) "
           + json.dumps({"gaps": gaps, "limits": RENDER_LIMITS}))
     print(f"fly driver phase: {time.perf_counter() - t_fly:.1f} s on {card}")
+    # train=train_fly_freejnt on the ball-coxa fly stand-in: the array CG
+    # path, spd_inverse once per substep and reset
+    t_ball = time.perf_counter()
+    r = phase_driver("cuda", False, ball=True)
+    launches["spd_inverse"] = r["counts"]["spd_inverse"]
+    m = r["metrics"]
+    print(f"driver (ball fly): main() {r['seconds']:.1f} s, kernel launches {r['counts']} "
+          f"(expected spd_inverse {r['expected']}: one per substep and reset), training/sps "
+          f"{m['training/sps']:.1f}, eval/sps {m['eval/sps']:.1f}, eval/episode_reward "
+          f"{m['eval/episode_reward']:.3f}; training/walltime {m['training/walltime']:.2f} s, "
+          f"eval/walltime {m['eval/walltime']:.2f} s on {card}")
+    print(f"ball fly driver phase: {time.perf_counter() - t_ball:.1f} s on {card}")
 
     # 10. times. The solve kernels: every instance the gates held, with its
     # layout and warps per env (ops/cg.py::kernel_layout), each a row of the
@@ -3151,6 +3647,12 @@ def main() -> int:
          launches["cg_solve_fused (tethered fly)"], 100),
         (pair["ratpair", B_PAIR, None], False, B_PAIR, "(a) two-rat stand-in",
          launches["cg_solve_fused (layout 2)"], 10),
+        (planar, False, B_MAIN, "(a) planar minirat, slide joints",
+         launches["cg_solve_fused (slide)"], 100),
+        (armature["minirat", B_MAIN], False, B_MAIN, "(a) minirat, per-env armature", 0, 100),
+        (armature["rodent_standin", B_MAIN], False, B_MAIN,
+         "(a) rodent stand-in, damped, per-env armature",
+         launches["cg_solve_fused (randomized rodent)"], 20),
         (pair["ratpair_elliptic", B_PAIR, None], False, B_PAIR, "(b) two-rat stand-in elliptic",
          0, 10),
         (pair["ratpair_newton", B_PAIR, None], False, B_PAIR, "(c) two-rat stand-in Newton chunk",
@@ -3196,6 +3698,8 @@ def main() -> int:
         timed = [(nv, chol_inputs(name, *spd_cases[nv]), None) for nv in SPD_SIZES]
         if name in CHOL_KERNELS:
             timed.append((qM.shape[-1], chol_inputs(name, qM, rhs, mr_damp), "minirat"))
+        elif name == "spd_inverse":
+            timed.append((bf.nv, fly_inputs, "ball fly"))
         else:
             timed.append((bm.nv, chol_inputs(name, *bm_inputs), "ballmuscle"))
         for nv, ins, where in timed:
@@ -3209,7 +3713,8 @@ def main() -> int:
                   f"host clock), bound {bnd[0] * 1e3:.3f} us by {bnd[1]} ({bnd[2]} B, "
                   f"{bnd[3]:.3e} FLOP) on {card}")
             if where is not None:
-                rep = chol_reports[name] if name in CHOL_KERNELS else bm_reports[name]
+                rep = (chol_reports[name] if name in CHOL_KERNELS else fly_report
+                       if name == "spd_inverse" else bm_reports[name])
                 src, line = spd_meta[name]
                 entries.append(entry(name, src, f"cholesky.py:{line}", launches[name],
                                      rep["max_abs_err"], t[0], t[2], bnd[0], bnd[1], t[4]))
@@ -3218,7 +3723,7 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
         state = env.reset(gen, B_MAIN)
         acts = [2.0 * torch.rand(B_MAIN, env.action_size, generator=gen, device="cuda") - 1.0
-                for _ in range(N_STEPS)]
+                for _ in range(TIMED_STEPS)]
         state = env.step(state, acts[0])  # warmup
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3226,7 +3731,8 @@ def main() -> int:
             state = env.step(state, a)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"{model} rollout: {B_MAIN * N_STEPS / dt:.0f} env-steps/s ({dt / N_STEPS * 1e3:.2f} "
+        print(f"{model} rollout: {B_MAIN * TIMED_STEPS / dt:.0f} env-steps/s "
+              f"({dt / TIMED_STEPS * 1e3:.2f} "
               f"ms per control step of {B_MAIN} envs) on {card}")
     for solver in ("cg", "newton"):
         ms = bm_ms_per_substep(solver, B_MAIN, 10, SEED + 2)

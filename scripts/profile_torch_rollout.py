@@ -14,10 +14,19 @@ and fly_single_clip envs on the fly stand-in (5 substeps, the one-warp
 elliptic instance, the fluid model), their clips from the stac exports;
 ``rodent_standin_terrain``: the flagship env on the rodent stand-in's
 terrain (5 substeps, the narrowphase's box, cylinder, mesh and
-height-field pairs every substep); ``ballmuscle_cg`` and
+height-field pairs every substep); ``rodent_standin_randomized``: the
+flagship env with per-env models (chip_smoke.py's ``scaled`` draws of
+RAND_LEAVES, the solve kernel with a per-env armature);
+``fly_standin_ball``: the fly_single_clip_freejnt env on the ball-coxa fly
+stand-in (5 substeps, off the kernel layout: the array CG path with one
+``spd_inverse`` per substep and a host read of the done flags per CG
+iteration); ``ballmuscle_cg`` and
 ``ballmuscle_newton`` step chip_smoke.py's posed ballmuscle states,
-``minirat_newton`` its seeded Newton minirat states and ``props`` the props
-from qpos0 with seeded velocities, through ``physics.step``, and a step is
+``minirat_newton`` its seeded Newton minirat states, ``minirat_planar``
+the planar minirat's (slide joints) and ``fly_standin_ball_newton`` the
+ball fly's Newton copy's (the array Newton path) seeded states, and
+``props`` the props from qpos0 with seeded velocities, through
+``physics.step``, and a step is
 one substep; ``terrain_narrowphase`` and ``props_narrowphase`` run the
 narrowphase alone (kinematics and ``collision`` at chip_smoke.py's
 pair-gate poses), and a step is one call. It warms up, then profiles
@@ -81,9 +90,21 @@ def _stepper(model: str, envs: int):
     if model == "minirat_ppo":
         return _ppo_stepper(envs)
     configs = ("minirat", "minirat_elliptic", "ratpair", "rodent_standin",
-               "rodent_standin_terrain") + chip_smoke.FLY_MODELS
+               "rodent_standin_terrain", "fly_standin_ball",
+               "rodent_standin_randomized") + chip_smoke.FLY_MODELS
     if model in configs:
-        env = chip_smoke.make_env("cuda", model=model)
+        if model == "rodent_standin_randomized":
+            import functools
+
+            from brax_tracking_tpu_torch.envs import wrappers
+
+            draws = torch.Generator(device="cuda").manual_seed(3)
+            env = wrappers.wrap(
+                chip_smoke.config_env("cuda", None, "rodent_standin"), episode_length=1000,
+                randomization_fn=functools.partial(chip_smoke.rodent_randomization("scaled"),
+                                                   num_envs=envs, generator=draws))
+        else:
+            env = chip_smoke.make_env("cuda", model=model)
         gen = torch.Generator(device="cuda").manual_seed(0)
         box = [env.reset(gen, envs)]
         act = lambda: 2.0 * torch.rand(envs, env.action_size, generator=gen, device="cuda") - 1.0
@@ -93,7 +114,9 @@ def _stepper(model: str, envs: int):
 
         return advance, {"ratpair": chip_smoke.PAIR_SUBSTEPS,
                          "rodent_standin": chip_smoke.RODENT_SUBSTEPS,
+                         "rodent_standin_randomized": chip_smoke.RODENT_SUBSTEPS,
                          "rodent_standin_terrain": chip_smoke.RODENT_SUBSTEPS,
+                         "fly_standin_ball": chip_smoke.FLY_SUBSTEPS,
                          **dict.fromkeys(chip_smoke.FLY_MODELS, chip_smoke.FLY_SUBSTEPS)}.get(
                              model, chip_smoke.N_SUBSTEPS)
     from brax_tracking_tpu_torch.physics import step as pstep
@@ -103,6 +126,14 @@ def _stepper(model: str, envs: int):
         m = chip_smoke.load(scene, "cuda")
         qpos = chip_smoke.gate_qpos(m, scene, envs, 0)
         return (lambda: chip_smoke.narrowphase(m, qpos)), 1
+    if model in ("minirat_planar", "fly_standin_ball_newton"):
+        m = chip_smoke.load(model, "cuda")
+        box = [chip_smoke.random_states(m, envs, 0, vel=1.0)]
+
+        def advance():
+            box[0] = pstep.step(m, box[0], device="cuda")
+
+        return advance, 1
     if model == "props":
         m = chip_smoke.load(model, "cuda")
         box = [pstep.make_data(m, envs, device="cuda")]
@@ -134,7 +165,10 @@ def main() -> int:
                     choices=("minirat", "minirat_elliptic", "minirat_newton",
                              "ballmuscle_cg", "ballmuscle_newton", "minirat_ppo", "ratpair",
                              "rodent_standin", "rodent_standin_terrain", "props",
-                             "terrain_narrowphase", "props_narrowphase") + chip_smoke.FLY_MODELS)
+                             "terrain_narrowphase", "props_narrowphase",
+                             "rodent_standin_randomized", "fly_standin_ball",
+                             "fly_standin_ball_newton", "minirat_planar")
+                    + chip_smoke.FLY_MODELS)
     ap.add_argument("--envs", type=int, default=None,
                     help="envs (default 1024 for ratpair, the pair config's, else 2048)")
     ap.add_argument("--steps", type=int, default=3)

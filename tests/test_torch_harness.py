@@ -282,20 +282,29 @@ def test_driver_unported_options_raise(tmp_path, monkeypatch, extra, env):
 
 
 def test_driver_unported_env_raises_before_building(tmp_path):
-    """An env whose model holds a feature the port does not cover (a slide
-    joint, ROADMAP A.12; every registered env name is ported) raises while
-    its clip is built, before the driver writes the clip cache."""
+    """The env this test pinned, a model with a slide joint, raised (ROADMAP
+    A.12) while its clip was built; slide joints are ported now, so the
+    driver builds its clip cache and trains on it (a site transmission,
+    still not ported, raises at the first step instead:
+    test_torch_model.py)."""
     xml = tmp_path / "slide.xml"
-    xml.write_text("""<mujoco><worldbody><geom type="plane" size="1 1 .1"/>
-    <body name="torso" pos="0 0 0.1"><freejoint/><geom type="capsule" size="0.02 0.05"/>
-    <body><joint name="s" type="slide" axis="1 0 0"/><geom type="sphere" size="0.01"/>
-    </body></body></worldbody></mujoco>""")
+    # the minirat with one hip a limited, actuated slide joint
+    with open(tspec.MINIRAT_XML) as f:
+        text = f.read()
+    hip = '<joint name="hip_FL" axis="0 1 0" range="-60 60"/>'
+    assert hip in text
+    xml.write_text(text.replace(hip, '<joint name="hip_FL" type="slide" axis="0 0 1" '
+                                     'range="-0.01 0.01"/>'))
     npz = str(tmp_path / "slide.npz")
     tspec.freeze_mjcf(str(xml), npz)
-    with pytest.raises(NotImplementedError, match="§A.12"):
-        tdriver.main(CUTS + [f"dataset.env_args.mjcf_path={npz}", f"paths.base_dir={tmp_path}/r",
-                             f"paths.data_dir={tmp_path}/d"], device="cpu")
-    assert not (tmp_path / "d" / "clips").exists()
+    base = tmp_path / "r"
+    tdriver.main(CUTS + [f"dataset.env_args.mjcf_path={npz}", f"paths.base_dir={base}",
+                         f"paths.data_dir={tmp_path}/d"], device="cpu")
+    assert (tmp_path / "d" / "clips" / "0.npz").is_file()
+    (log,) = base.rglob("metrics.jsonl")
+    records = [json.loads(line) for line in open(log)]
+    assert any("training/sps" in r for r in records)
+    assert all(np.isfinite(v) for r in records for v in r.values() if isinstance(v, float))
 
 
 def test_driver_needs_the_card_by_default(tmp_path, monkeypatch):

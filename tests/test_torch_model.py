@@ -154,13 +154,17 @@ def _variant(m, **changes):
 )
 def test_unported_features_raise(feature, monkeypatch):
     """Features the port does not cover raise NotImplementedError naming
-    the ROADMAP item, rather than computing something else. ``sensors`` is
+    the ROADMAP item, rather than computing something else; ``slide`` and
+    ``newton`` were such features until the port took them (slide joints,
+    and the dense contact rows of the array solve paths), so their cases
+    now step to finite states (their parity: test_torch_slide.py,
+    test_torch_fly_ball.py). ``sensors`` is
     a sensor of a type outside the five the port maps (its freeze raises
     too: test_torch_rodent.py); ``geom_pair`` a plane-hfield pair, which the
     JAX package's pair table lacks too (its freeze raises). ``elliptic`` is
     elliptic cones with torsional friction (condim 4); ``newton`` is Newton
     off the kernel layout (200 iterations, past the kernel's 128) on a model
-    with contacts, whose dense contact rows are not ported; ``fluid`` the
+    with contacts; ``fluid`` the
     ellipsoid fluid model (a geom's ``fluidshape``), whose freeze raises
     (the inertia-box model is ported: test_torch_fly.py); ``smem_refused``
     a model the JAX package sends to the kernel path whose env does not fit
@@ -208,6 +212,10 @@ def test_unported_features_raise(feature, monkeypatch):
     if feature == "smem_refused":
         monkeypatch.setattr(cg, "H100_SMEM_PER_BLOCK", 1000)
     mv = _variant(m, **changes)
+    if feature in ("slide", "newton"):
+        d = step.step(mv, step.make_data(mv, 2, device="cpu"), device="cpu")
+        assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
+        return
     match = {"elliptic": r"A\.12", "newton": r"A\.12", "smem_refused": r"A\.10",
              "sensors": r"A\.12", "geom_pair": r"A\.12"}.get(
         feature, "ROADMAP.md"

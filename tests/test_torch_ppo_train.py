@@ -413,8 +413,11 @@ def test_errors(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="§A.15"):
         tnetworks.make_ppo_networks(2, 2, compute_dtype=torch.bfloat16,
                                     generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="§A.12"):
-        ttrain.train(PointMass(), num_timesteps=64, randomization_fn=lambda m, rng: m, **PM_ARGS)
+    # per-env models need a physics model (their tests:
+    # test_torch_randomize.py)
+    with pytest.raises(TypeError, match="physics model"):
+        ttrain.train(PointMass(), num_timesteps=64,
+                     randomization_fn=lambda m, num_envs, generator: (m, ()), **PM_ARGS)
     # an orbax checkpoint of the JAX package cannot be restored here
     orbax_dir = str(tmp_path / "orbax" / "100")
     jcheckpoint.save_checkpoint(orbax_dir, {"x": jnp.ones(3)})
