@@ -1,4 +1,4 @@
-"""PPO trainer on one card.
+"""PPO trainer: one card, or data-parallel over ``torch.distributed`` ranks.
 
 Counterpart of ``brax_tracking_tpu/agents/ppo/train.py`` with the same
 semantics: step accounting (``steps_per_train_step = num_minibatches *
@@ -15,8 +15,21 @@ here that take their random draws as tensors; ``train`` makes every draw
 from one generator seeded by ``seed``. The modules' parameters and the
 optimizer's moments are updated in place.
 
-One card is one shard: the JAX package's ``num_envs``-per-shard check
-holds trivially, and several GPUs (a mesh, all-reduces) are ROADMAP A.14.
+Several cards (``mesh``, ``distributed/mesh.py``; by default the ranks
+torchrun started, else one) are the JAX package's mesh shards: each rank
+steps ``num_envs / world_size`` envs and holds the whole learner. The
+unrolls per training step stay ``batch_size * num_minibatches // num_envs``
+of the global ``num_envs``, so each rank learns from ``1 / world_size`` of
+the rows, permuted and cut into ``num_minibatches`` on the rank; the
+gradients are averaged across ranks before each Adam step, the normalizer
+takes every rank's batch, the loss metrics are averaged. The network
+init is rank 0's, broadcast; every other draw comes from the rank's own
+generator (``fold_process_key``: rank 0's is the undistributed run's, so a
+world of one through a process group is that run bitwise). Evals,
+``progress_fn`` and ``policy_params_fn`` run on rank 0 only, checkpoints are
+written by rank 0; at the end the training state is checked bitwise
+replicated and the ranks meet at a barrier. ``training/sps`` counts the
+env steps of all ranks.
 """
 
 from __future__ import annotations
@@ -32,7 +45,8 @@ import torch
 
 from brax_tracking_tpu_torch.agents.ppo import losses as losses_lib
 from brax_tracking_tpu_torch.agents.ppo import networks as networks_lib
-from brax_tracking_tpu_torch.device import resolve_device, synchronize
+from brax_tracking_tpu_torch.device import resolve_device, same_device, synchronize
+from brax_tracking_tpu_torch.distributed import mesh as dmesh
 from brax_tracking_tpu_torch.envs import wrappers
 from brax_tracking_tpu_torch.envs.base import Env, State
 from brax_tracking_tpu_torch.training import acting, checkpoint, gradients, running_statistics
@@ -70,13 +84,14 @@ def rollout_step(
     training_state: TrainingState,
     env_state: State,
     action_eps: torch.Tensor,
+    group=None,
 ) -> Tuple[State, Transition, running_statistics.RunningStatisticsState]:
     """The acting half of a training step: ``action_eps.shape[0]`` unrolls
     of ``action_eps.shape[1]`` steps (``action_eps`` is ``(n_unrolls, T,
     envs, action_size)``), laid out rows x time with each unroll's final
     observation re-attached as ``next_observation[:, None]`` (the loss's
-    bootstrap), then the normalizer updated on the observations. Returns
-    (env state, data, normalizer)."""
+    bootstrap), then the normalizer updated on the observations (every
+    rank's, under ``group``). Returns (env state, data, normalizer)."""
     policy = make_policy(eval_params(training_state))
     segments, boot_obs = [], []
     for eps in action_eps:
@@ -88,7 +103,8 @@ def rollout_step(
     data = Transition.stack(segments).map(_to_rows)
     boot = torch.stack(boot_obs)
     data = data.replace(next_observation=boot.reshape((-1,) + boot.shape[2:])[:, None])
-    normalizer_params = running_statistics.update(training_state.normalizer_params, data.observation)
+    normalizer_params = running_statistics.update(training_state.normalizer_params,
+                                                  data.observation, group)
     return env_state, data, normalizer_params
 
 
@@ -100,13 +116,15 @@ def learn_step(
     entropy_eps: torch.Tensor,
     loss_fn: Callable,
     steps_per_train_step: int,
+    group=None,
 ) -> Tuple[TrainingState, Metrics]:
     """The learner half: one SGD pass per row of ``perms`` (``(updates,
     rows)``), each cut into ``entropy_eps.shape[1]`` minibatches
     (``entropy_eps`` is ``(updates, minibatches, rows / minibatches, T,
-    action_size)``), one Adam step per minibatch. Returns the state and the
-    loss metrics stacked ``(updates, minibatches)``."""
-    update = gradients.gradient_update_fn(loss_fn, training_state.optimizer)
+    action_size)``), one Adam step per minibatch on the gradients averaged
+    across the ranks of ``group``. Returns the state and this rank's loss
+    metrics stacked ``(updates, minibatches)``."""
+    update = gradients.gradient_update_fn(loss_fn, training_state.optimizer, group)
     num_updates, num_minibatches = entropy_eps.shape[:2]
     step_metrics = []
     for perm, eps_pass in zip(perms, entropy_eps):
@@ -145,6 +163,14 @@ def learn_draws(generator: torch.Generator, num_updates: int, num_minibatches: i
     return perms, eps
 
 
+def mean_across_ranks(metrics: Metrics, group) -> Metrics:
+    """Each metric (tensors of one shape) averaged across the ranks of
+    ``group`` in one all-reduce; the metrics as they are without one."""
+    if group is None:
+        return metrics
+    return dict(zip(metrics, dmesh.all_reduce_mean(list(metrics.values()), group)))
+
+
 def train(
     environment: Env,
     num_timesteps: int,
@@ -180,6 +206,7 @@ def train(
     restore_checkpoint_path: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     device="cuda",
+    mesh: Optional[dmesh.TrainMesh] = None,
 ):
     """PPO training on ``device``. Returns (make_policy, (normalizer,
     policy), metrics). ``environment`` is the unwrapped env, on ``device``;
@@ -190,10 +217,20 @@ def train(
     training envs and the eval envs per-env models, one draw per env
     (envs/wrappers.py ``DomainRandomizationVmapWrapper``), from a generator
     of their own seeded by ``seed``, so every other draw is the one an
-    unrandomized run makes."""
+    unrandomized run makes. ``mesh`` (default ``make_train_mesh(device)``)
+    names the ranks; its device is ``device``'s. On ranks other than 0 the
+    returned metrics are the last epoch's training metrics."""
     if (batch_size * num_minibatches) % num_envs != 0:
         raise ValueError("batch_size * num_minibatches must divide by num_envs")
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = dmesh.make_train_mesh(device)
+    if not same_device(mesh.device, dev):
+        raise ValueError(f"the mesh's device {mesh.device} is not {dev}")
+    if num_envs % mesh.world_size != 0:
+        raise ValueError(f"num_envs={num_envs} not divisible by {mesh.world_size} ranks")
+    group, lead = mesh.group, mesh.rank == 0
+    local_envs = num_envs // mesh.world_size
     t_start = time.perf_counter()
 
     # step accounting: one training step consumes num_minibatches * batch_size
@@ -204,9 +241,10 @@ def train(
     # ceil-divide so the requested step budget is always reached
     train_steps_per_epoch = -(-num_timesteps // (epochs * steps_per_train_step * resets_per_epoch))
     n_unrolls = (batch_size * num_minibatches) // num_envs
-    rows = batch_size * num_minibatches
+    # this rank's rows of the training step
+    rows = n_unrolls * local_envs
 
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = dmesh.fold_process_key(seed, mesh.rank, dev)
     wrap_for_training = functools.partial(
         wrappers.wrap, episode_length=episode_length, action_repeat=action_repeat,
     )
@@ -219,8 +257,8 @@ def train(
         return functools.partial(randomization_fn, num_envs=n,
                                  generator=randomization_generator)
 
-    env = wrap_for_training(environment, randomization_fn=randomized(num_envs))
-    env_state = env.reset(generator, num_envs)
+    env = wrap_for_training(environment, randomization_fn=randomized(local_envs))
+    env_state = env.reset(generator, local_envs)
     obs_size, dtype = env_state.obs.shape[-1], env_state.obs.dtype
     action_size = env.action_size
 
@@ -228,6 +266,7 @@ def train(
                   else networks_lib.identity_preprocessor)
     ppo_network = network_factory(obs_size, action_size, preprocess_observations_fn=preprocess,
                                   generator=generator, device=dev, dtype=dtype)
+    dmesh.broadcast_parameters(ppo_network, mesh)
     make_policy = networks_lib.make_inference_fn(ppo_network)
     loss_fn = functools.partial(
         losses_lib.compute_ppo_loss,
@@ -261,31 +300,36 @@ def train(
         episode_length=episode_length,
         action_repeat=action_repeat,
         generator=generator,
-    )
+    ) if lead else None
 
     training_walltime = 0.0
 
     def run_one_epoch(training_state, env_state):
-        """train_steps_per_epoch training steps, timed to their end."""
+        """train_steps_per_epoch training steps, timed from a barrier (rank 0
+        may still be evaluating) to their end."""
         nonlocal training_walltime
+        dmesh.synchronize_hosts(mesh)
         t0 = time.perf_counter()
         step_metrics = []
         for _ in range(train_steps_per_epoch):
-            eps = rollout_draws(generator, n_unrolls, unroll_length, num_envs, action_size, dtype)
+            eps = rollout_draws(generator, n_unrolls, unroll_length, local_envs, action_size,
+                                dtype)
             env_state, data, normalizer_params = rollout_step(
-                env, make_policy, training_state, env_state, eps)
+                env, make_policy, training_state, env_state, eps, group)
             perms, entropy_eps = learn_draws(generator, num_updates_per_batch, num_minibatches,
                                              rows, unroll_length, action_size, dtype)
             training_state, metrics = learn_step(training_state, data, normalizer_params, perms,
-                                                 entropy_eps, loss_fn, steps_per_train_step)
+                                                 entropy_eps, loss_fn, steps_per_train_step, group)
             step_metrics.append(metrics)
-        loss_metrics = {k: float(torch.stack([m[k] for m in step_metrics]).mean())
-                        for k in step_metrics[0]}
+        loss_metrics = mean_across_ranks(
+            {k: torch.stack([m[k] for m in step_metrics]).mean() for k in step_metrics[0]}, group)
+        loss_metrics = {k: float(v) for k, v in loss_metrics.items()}
         synchronize(dev)
         dt = time.perf_counter() - t0
         training_walltime += dt
-        # the steps this call took: the JAX package multiplies them by
-        # resets_per_epoch too, though this runs once per reset (ROADMAP C)
+        # the steps this call took on every rank: the JAX package multiplies
+        # them by resets_per_epoch too, though this runs once per reset
+        # (ROADMAP C)
         metrics = {
             "training/sps": train_steps_per_epoch * steps_per_train_step / dt,
             "training/walltime": training_walltime,
@@ -294,7 +338,7 @@ def train(
         return training_state, env_state, metrics
 
     metrics = {}
-    if num_evals > 1:
+    if lead and num_evals > 1:
         metrics = evaluator.run_evaluation(eval_params(training_state), training_metrics={})
         _logger.info("initial eval: %s", metrics)
         # keyed by the restored step count, 0 on a fresh run
@@ -308,16 +352,21 @@ def train(
             training_state, env_state, training_metrics = run_one_epoch(training_state, env_state)
             current_step = training_state.env_steps
             if num_resets_per_eval > 0:
-                env_state = env.reset(generator, num_envs)
+                env_state = env.reset(generator, local_envs)
 
-        metrics = evaluator.run_evaluation(eval_params(training_state), training_metrics)
-        _logger.info("eval @%d: %s", current_step, metrics)
-        progress_fn(current_step, metrics)
-        policy_params_fn(current_step, make_policy, eval_params(training_state))
+        if lead:
+            metrics = evaluator.run_evaluation(eval_params(training_state), training_metrics)
+            _logger.info("eval @%d: %s", current_step, metrics)
+            progress_fn(current_step, metrics)
+            policy_params_fn(current_step, make_policy, eval_params(training_state))
+        else:
+            metrics = training_metrics
         if checkpoint_dir is not None:
-            checkpoint.save_checkpoint(f"{checkpoint_dir}/{current_step}", training_state)
+            checkpoint.save_checkpoint(f"{checkpoint_dir}/{current_step}", training_state, group)
 
     if current_step < num_timesteps:
         raise AssertionError(f"trained {current_step} < requested {num_timesteps} steps")
+    dmesh.assert_is_replicated(dmesh.training_state_tensors(training_state), mesh)
     _logger.info("total steps: %s", current_step)
+    dmesh.synchronize_hosts(mesh)
     return make_policy, eval_params(training_state), metrics

@@ -30,6 +30,14 @@ ignored, and so is ``train.epoch_mode``.
 
 With ``dataset.stac_path=''`` a synthetic clip is built from the model's
 home pose.
+
+Several cards: start one process per card with torchrun (``torchrun
+--nproc-per-node N -m brax_tracking_tpu_torch.harness.driver ...``, or
+``harness/launch.py``). ``main`` builds the mesh from torchrun's
+environment (``distributed/mesh.py``), each rank on its card; rank 0 builds
+the clip cache and the others read it after a barrier, rank 0 alone writes
+the run config, the metrics (wandb included), the eval callback's files and
+videos and the final params, and every rank runs ``train()``.
 """
 
 from __future__ import annotations
@@ -52,9 +60,10 @@ _logger = logging.getLogger(__name__)
 _CLIP_EVAL_ENVS = 32
 
 
-def _build_one_clip(cfg: Dict, model, clip_idx: int):
+def _build_one_clip(cfg: Dict, model, clip_idx: int, write: bool = True):
     """Loads clip ``clip_idx`` from the cache, or builds it on the model's
-    device and caches it as ``.npz``."""
+    device and caches it as ``.npz``; with ``write`` false a missing cache
+    raises."""
     from brax_tracking_tpu_torch.data import clips as C
 
     ds = cfg["dataset"]
@@ -64,6 +73,8 @@ def _build_one_clip(cfg: Dict, model, clip_idx: int):
         if os.path.exists(cache):
             _logger.info("clip %d from %s", clip_idx, cache)
             return C.load_clip(cache)
+    if not write:
+        raise FileNotFoundError(f"clip {clip_idx} is not cached in {clip_dir}")
     dt = 1.0 / ds.get("mocap_hz", 50)
     if ds.get("stac_path"):
         clip = C.process_clip_to_train(
@@ -91,23 +102,27 @@ def _build_one_clip(cfg: Dict, model, clip_idx: int):
     return clip
 
 
-def _build_clip(cfg: Dict, model):
+def _build_clip(cfg: Dict, model, write: bool = True):
     """Single clip, or a stacked multi-clip dataset when dataset.n_clips > 1."""
     from brax_tracking_tpu_torch.data import clips as C
 
     ds = cfg["dataset"]
     n_clips = int(ds.get("n_clips", 1))
     if n_clips <= 1:
-        return _build_one_clip(cfg, model, int(ds["clip_idx"]))
+        return _build_one_clip(cfg, model, int(ds["clip_idx"]), write)
     start = int(ds.get("clip_idx", 0))
-    return C.stack_clips([_build_one_clip(cfg, model, start + i) for i in range(n_clips)])
+    return C.stack_clips([_build_one_clip(cfg, model, start + i, write)
+                          for i in range(n_clips)])
 
 
-def build_env_from_cfg(cfg: Dict, device="cuda", dtype=None):
+def build_env_from_cfg(cfg: Dict, device="cuda", dtype=None, mesh=None):
     """Loads the frozen model, loads or builds the reference clip and
     constructs the env on ``device``, in ``dtype`` (by default float64 on
-    the CPU, float32 on the card)."""
+    the CPU, float32 on the card). Under a ``mesh`` of several ranks rank 0
+    loads or builds the clips and the others read its cache after a
+    barrier."""
     from brax_tracking_tpu_torch.device import resolve_device
+    from brax_tracking_tpu_torch.distributed import mesh as dmesh
     from brax_tracking_tpu_torch.envs import registry
     from brax_tracking_tpu_torch.physics import spec as bspec
 
@@ -123,7 +138,12 @@ def build_env_from_cfg(cfg: Dict, device="cuda", dtype=None):
         dtype=dtype,
         **{k: env_args[k] for k in bspec.FROZEN_OPTIONS if k in env_args},
     )
-    clip = _build_clip(cfg, model)
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        dmesh.synchronize_hosts(mesh)  # rank 0 has written the cache
+    clip = _build_clip(cfg, model, write=lead)
+    if lead and mesh is not None:
+        dmesh.synchronize_hosts(mesh)
     return make_env(
         reference_clip=clip,
         mocap_hz=ds.get("mocap_hz", 50),
@@ -260,10 +280,10 @@ def _check_unported(cfg: Dict) -> None:
 
 
 @contextlib.contextmanager
-def _trace(profile_dir: str, dev: torch.device):
+def _trace(profile_dir: str, dev: torch.device, suffix: str = ""):
     """torch.profiler over the block (the host, and the card for a card
     run); the trace is written into ``profile_dir`` however the block
-    ends."""
+    ends, named by the time and ``suffix``."""
     from torch.profiler import ProfilerActivity, profile
 
     out = os.path.expanduser(profile_dir)
@@ -275,7 +295,7 @@ def _trace(profile_dir: str, dev: torch.device):
         yield prof
     finally:
         prof.stop()
-        path = os.path.join(out, time.strftime("%Y%m%d_%H%M%S") + ".pt.trace.json")
+        path = os.path.join(out, time.strftime("%Y%m%d_%H%M%S") + suffix + ".pt.trace.json")
         prof.export_chrome_trace(path)
         _logger.info("profile trace written to %s", path)
 
@@ -285,23 +305,30 @@ def main(argv=None, device="cuda") -> Dict:
     argv = sys.argv[1:] if argv is None else argv
 
     from brax_tracking_tpu_torch.device import resolve_device
+    from brax_tracking_tpu_torch.distributed import mesh as dmesh
     from brax_tracking_tpu_torch.harness.config import load_config, save_config
 
-    dev = resolve_device(device)
+    resolve_device(device)
     cfg = load_config(argv)
     _check_unported(cfg)
+    mesh = dmesh.make_train_mesh(device)
     paths = cfg["paths"]
-    for key in ("base_dir", "save_dir", "log_dir", "ckpt_dir", "fig_dir", "data_dir"):
-        os.makedirs(paths[key], exist_ok=True)
-    save_config(cfg, os.path.join(paths["save_dir"], "run_config.yaml"))
+    if mesh.rank == 0:
+        for key in ("base_dir", "save_dir", "log_dir", "ckpt_dir", "fig_dir", "data_dir"):
+            os.makedirs(paths[key], exist_ok=True)
+        save_config(cfg, os.path.join(paths["save_dir"], "run_config.yaml"))
     profile_dir = cfg.get("profile_dir") or os.environ.get("BTT_PROFILE_DIR")
-    with _trace(profile_dir, dev) if profile_dir else contextlib.nullcontext():
-        return _run(cfg, dev)
+    suffix = f".rank{mesh.rank}" if mesh.world_size > 1 else ""
+    with _trace(profile_dir, mesh.device, suffix) if profile_dir else contextlib.nullcontext():
+        metrics = _run(cfg, mesh)
+    mesh.close()
+    return metrics
 
 
-def _run(cfg: Dict, dev: torch.device) -> Dict:
+def _run(cfg: Dict, mesh) -> Dict:
     """main()'s run once the config is written: the env, train() with the
-    eval callback, the final params."""
+    eval callback, the final params (the callback, the logger and the
+    params on rank 0)."""
     from brax_tracking_tpu_torch.agents.ppo import networks as ppo_networks
     from brax_tracking_tpu_torch.agents.ppo import train as ppo_train
     from brax_tracking_tpu_torch.harness.metrics import MetricsLogger
@@ -309,7 +336,8 @@ def _run(cfg: Dict, dev: torch.device) -> Dict:
 
     paths = cfg["paths"]
     ds, tr = cfg["dataset"], cfg["train"]
-    env = build_env_from_cfg(cfg, dev)
+    dev = mesh.device
+    env = build_env_from_cfg(cfg, dev, mesh=mesh)
     # the episode length follows the clip unless force_episode_length
     if tr.get("force_episode_length"):
         episode_length = int(tr["episode_length"])
@@ -320,23 +348,27 @@ def _run(cfg: Dict, dev: torch.device) -> Dict:
     _logger.info("episode_length=%d", episode_length)
 
     run_name = f"{tr['env_name']}_{tr['task_name']}_{tr['version']}"
-    logger = MetricsLogger(
-        project=tr.get("wandb_project", "brax_tracking_tpu"),
-        run_name=run_name,
-        log_dir=paths["log_dir"],
-        config=cfg,
-    )
-
     model_path = os.path.join(paths["ckpt_dir"], run_name)
-    policy_params_fn = _eval_callback(cfg, env, logger, model_path, fig_dir=paths["fig_dir"])
+    lead = mesh.rank == 0
+    if lead:
+        logger = MetricsLogger(
+            project=tr.get("wandb_project", "brax_tracking_tpu"),
+            run_name=run_name,
+            log_dir=paths["log_dir"],
+            config=cfg,
+        )
+        policy_params_fn = _eval_callback(cfg, env, logger, model_path, fig_dir=paths["fig_dir"])
 
-    def progress_fn(num_steps, metrics):
-        logger.log(metrics, step=num_steps)
-        _logger.info("steps=%s %s", num_steps, {
-            k: round(float(v), 4)
-            for k, v in metrics.items()
-            if k in ("eval/episode_reward", "training/sps")
-        })
+        def progress_fn(num_steps, metrics):
+            logger.log(metrics, step=num_steps)
+            _logger.info("steps=%s %s", num_steps, {
+                k: round(float(v), 4)
+                for k, v in metrics.items()
+                if k in ("eval/episode_reward", "training/sps")
+            })
+    else:
+        # train() calls neither on a rank other than 0
+        progress_fn = policy_params_fn = None
 
     network_factory = functools.partial(
         ppo_networks.make_ppo_networks,
@@ -372,12 +404,14 @@ def _run(cfg: Dict, dev: torch.device) -> Dict:
         restore_checkpoint_path=cfg.get("checkpoint") or None,
         checkpoint_dir=paths["ckpt_dir"],
         device=dev,
+        mesh=mesh,
     )
 
-    final = os.path.join(model_path, "final")
-    checkpoint.save_params(final, params)
-    logger.log({"final_params": final, **metrics})
-    logger.finish()
+    if lead:
+        final = os.path.join(model_path, "final")
+        checkpoint.save_params(final, params)
+        logger.log({"final_params": final, **metrics})
+        logger.finish()
     return metrics
 
 

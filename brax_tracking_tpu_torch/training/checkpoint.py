@@ -24,6 +24,7 @@ import pickle
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from brax_tracking_tpu_torch.data import pickles
 from brax_tracking_tpu_torch.physics import model as M
@@ -33,9 +34,16 @@ STATE_FILE = "training_state.pt"
 _KEYS = {"params", "optimizer_state", "normalizer_params", "env_steps"}
 
 
-def save_checkpoint(path: str, training_state: Any) -> None:
+def save_checkpoint(path: str, training_state: Any, group=None) -> None:
     """Writes ``training_state`` (``params``: a module, ``optimizer``,
-    ``normalizer_params``, ``env_steps``) into the directory ``path``."""
+    ``normalizer_params``, ``env_steps``) into the directory ``path``. Under
+    a process group (whose ranks hold one replicated state and share the
+    directory) rank 0 writes and the ranks meet at a barrier after it, so
+    none reads the checkpoint before it is whole; the JAX package leans on
+    orbax's multi-process save for this."""
+    if group is not None and dist.get_rank(group) != 0:
+        dist.barrier(group=group)
+        return
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     torch.save(
@@ -47,6 +55,8 @@ def save_checkpoint(path: str, training_state: Any) -> None:
         },
         os.path.join(path, STATE_FILE),
     )
+    if group is not None:
+        dist.barrier(group=group)
 
 
 def restore_checkpoint(path: str, target: Any) -> Any:

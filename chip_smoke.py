@@ -111,7 +111,18 @@ Run from the root of a checkout on a machine with a CUDA card. It
    normalizer and eval reward bitwise the
    unrandomized run's) and with each env's leaves drawn per env, each with
    exactly the unrandomized launches, and the drawn model's first control
-   step of 8 envs against the CPU in float64 with their values;
+   step of 8 envs against the CPU in float64 with their values; then data
+   parallel (distributed/mesh.py): (a) the minirat train() again through a
+   process group of one rank (NCCL): exactly its launches and every tensor
+   of its final checkpoint (params, normalizer, Adam's moments and step)
+   bitwise the first run's; (b) two processes that share the one card over
+   gloo (NCCL refuses two ranks on one device), each with 1024 of the rodent
+   stand-in's 2048 envs at the same widths, after a stale _build/lock is
+   planted: both build the kernels at once through the build's flock (one
+   of them logs and removes the lock), each launches exactly its count
+   (rank 0's with the two evals, rank 1's without) and no other kernel,
+   evals on rank 0 only, the final training state bitwise equal on both;
+   it prints each rank's training/sps beside the single-rank run's;
 9. runs the driver (harness/driver.py::main, the main path) twice at the
    same widths, each in a temporary base_dir, the counts set to 0 just
    before: (i) one clip, read from the committed data/Minirat/clips/0.p
@@ -142,13 +153,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
    one reset and 38 control steps of one env's launches and no other
    kernel, its per-frame table bitwise the callback's; and once more as
    the flagship's command on the terrain stand-in
-   (dataset.env_args.mjcf_path=builtin:rodent_standin_terrain.xml) with
+   (dataset.env_args.mjcf_path=builtin:rodent_standin_terrain.xml, its
+   training step cut to unrolls of 4 control steps) with
    its video of the terrain render scene (visual meshes and the terrain
    drawn): exact launches, every narrowphase call recorded and every
    terrain pair type active in one, the render gate; and once more as
    train=train_fly_freejnt dataset=fly_freejnt on the ball-coxa fly
-   stand-in: exactly one spd_inverse launch per substep and reset and no
-   other kernel (the kernels line's spd_inverse row);
+   stand-in, cut as the terrain's run: exactly one spd_inverse launch per
+   substep and reset and no other kernel (the kernels line's spd_inverse
+   row);
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -2078,13 +2091,14 @@ def ppo_geometry(args):
     return rows * args["unroll_length"], rows // args["num_envs"], rows
 
 
-def ppo_expected_launches(args, train_steps, substeps=N_SUBSTEPS):
+def ppo_expected_launches(args, train_steps, substeps=N_SUBSTEPS, evals=True):
     """cg_solve_fused launches of one train() run: one per substep of every
     training and eval control step, and one per reset (its forward): the
     training envs' reset and each eval's (with num_evals > 1, one before
-    training and one after each of num_evals - 1 epochs)."""
+    training and one after each of num_evals - 1 epochs). Without ``evals``
+    a rank other than 0's, which runs none."""
     _, n_unrolls, _ = ppo_geometry(args)
-    evals = max(args["num_evals"] - 1, 1) + (args["num_evals"] > 1)
+    evals = (max(args["num_evals"] - 1, 1) + (args["num_evals"] > 1)) if evals else 0
     control = train_steps * n_unrolls * args["unroll_length"] + evals * args["episode_length"]
     return substeps * control + 1 + evals
 
@@ -2116,13 +2130,17 @@ def ppo_loss_fn(args):
                              clipping_epsilon=args["clipping_epsilon"])
 
 
-def _tensors(ts):
-    """Every tensor of a training state, by name."""
-    out = {f"params.{k}": v for k, v in ts.params.state_dict().items()}
-    for i, st in ts.optimizer.state_dict()["state"].items():
+def checkpoint_tensors(path):
+    """Every tensor of the checkpoint at ``path`` (training/checkpoint.py's
+    file), by distributed/mesh.py::training_state_tensors' names, on the
+    host."""
+    from brax_tracking_tpu_torch.training import checkpoint as pc
+
+    saved = torch.load(os.path.join(path, pc.STATE_FILE), map_location="cpu", weights_only=True)
+    out = {f"params.{k}": v for k, v in saved["params"].items()}
+    for i, st in saved["optimizer_state"]["state"].items():
         out.update({f"adam.{i}.{k}": v for k, v in st.items()})
-    out.update({f"normalizer.{k}": getattr(ts.normalizer_params, k)
-                for k in ("count", "mean", "summed_variance", "std")})
+    out.update({f"normalizer.{k}": v for k, v in saved["normalizer_params"].items()})
     return out
 
 
@@ -2142,6 +2160,7 @@ def phase_ppo(device, seed, args=PPO_ARGS, hidden=PPO_HIDDEN, train_steps=PPO_TR
     from brax_tracking_tpu_torch.agents.ppo import networks as pn
     from brax_tracking_tpu_torch.agents.ppo import train as pt
     from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.distributed import mesh as dmesh
     from brax_tracking_tpu_torch.training import checkpoint as pc
 
     env = tracking_env(device, dtype)
@@ -2211,21 +2230,23 @@ def phase_ppo(device, seed, args=PPO_ARGS, hidden=PPO_HIDDEN, train_steps=PPO_TR
                      for k in ("count", "mean", "summed_variance", "std")})
         for i, st in saved["optimizer_state"]["state"].items():
             live.update({f"adam.{i}.{k}": v for k, v in st.items()})
-        back = _tensors(restored)
+        back = dmesh.training_state_tensors(restored)
         updates = train_steps * args["num_minibatches"] * args["num_updates_per_batch"]
         steps = {int(v) for k, v in back.items() if k.endswith(".step")}
         if back.keys() != live.keys() or steps != {updates} or restored.env_steps != num_timesteps:
             fail(f"ppo checkpoint restore: Adam steps {steps} (expected {updates}), env_steps "
                  f"{restored.env_steps}")
         pc.save_checkpoint(os.path.join(ckpt, "again"), restored)
-        again = _tensors(pc.restore_checkpoint(os.path.join(ckpt, "again"), make(seed + 2)))
+        again = dmesh.training_state_tensors(
+            pc.restore_checkpoint(os.path.join(ckpt, "again"), make(seed + 2)))
         for k, v in live.items():
             v = v.cpu()  # Adam's step lives on the host
             if not (torch.equal(back[k].cpu(), v) and torch.equal(again[k].cpu(), v)):
                 fail(f"ppo checkpoint round trip changed {k}")
+        final = checkpoint_tensors(path)
     return dict(counts=counts, seconds=seconds, metrics=metrics, host_sps=host_sps,
-                num_timesteps=num_timesteps, tensors=len(live)), env, (normalizer, policy), \
-        make_policy, init
+                num_timesteps=num_timesteps, tensors=len(live), final=final), env, \
+        (normalizer, policy), make_policy, init
 
 
 def ppo_first_minibatch(device, seed, init, env=None, args=PPO_ARGS, hidden=PPO_HIDDEN,
@@ -2322,6 +2343,256 @@ def phase_ppo_eval_rollback(env, make_policy, params, seed, args=PPO_ARGS):
 
 
 # ---------------------------------------------------------------------------
+# the data-parallel trainer (distributed/mesh.py): train() over ranks
+# ---------------------------------------------------------------------------
+
+# (b): train() on the flagship rodent env on its stand-in at PPO_ARGS (MLPs
+# 256 x 256, 2048 envs in all, batch 2048, 2 minibatches, 2 updates,
+# episode_length 32, one training step) over DIST_RANKS processes that share
+# the one card over gloo (NCCL refuses two ranks on one device): 1024 envs
+# per rank
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 600
+STALE_BATON_LOG = "left by a build that did not finish"
+
+
+def torchrun_env(rank, world_size, port, local_rank=0):
+    """torchrun's environment for one rank (every rank on cuda:local_rank)."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(local_rank),
+                MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_keeping_state(env, steps, hidden, **kwargs):
+    """train() with the networks and the optimizer it makes kept; returns
+    (metrics, every tensor of the final training state on the host, the
+    steps progress_fn was called at, seconds to a synchronize)."""
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.distributed import mesh as dmesh
+
+    made, evals = {}, []
+    make_optimizer = pt.gradients.make_optimizer
+
+    def keep_optimizer(*a, **kw):
+        made["opt"] = make_optimizer(*a, **kw)
+        return made["opt"]
+
+    def factory(*a, **kw):
+        made["net"] = pn.make_ppo_networks(*a, policy_hidden_layer_sizes=hidden,
+                                           value_hidden_layer_sizes=hidden, **kw)
+        return made["net"]
+
+    pt.gradients.make_optimizer = keep_optimizer
+    try:
+        synchronize(kwargs["device"])
+        t0 = time.perf_counter()
+        _, (normalizer, _), metrics = pt.train(
+            env, steps, network_factory=factory,
+            progress_fn=lambda step, m: evals.append(step), **kwargs)
+        synchronize(kwargs["device"])
+        seconds = time.perf_counter() - t0
+    finally:
+        pt.gradients.make_optimizer = make_optimizer
+    state = pt.TrainingState(params=made["net"], optimizer=made["opt"],
+                             normalizer_params=normalizer, env_steps=0)
+    tensors = dmesh.training_state_tensors(state)
+    return metrics, {k: v.detach().cpu() for k, v in tensors.items()}, evals, seconds
+
+
+def phase_distributed_one(device, seed, reference, args=PPO_ARGS, hidden=PPO_HIDDEN):
+    """(a) phase_ppo's train() again through a process group of one rank
+    (make_train_mesh from torchrun's environment: NCCL on the card, gloo on
+    the CPU), the counts set to 0 just before: exactly ppo_expected_launches
+    cg_solve_fused launches and no other kernel (on the card), and every
+    tensor of its final checkpoint (params, normalizer, Adam's moments and
+    step) bitwise ``reference``'s, phase_ppo's undistributed run's. Returns
+    the run's numbers."""
+    import functools
+    import tempfile
+
+    import torch.distributed as dist
+
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.distributed import mesh as dmesh
+    from brax_tracking_tpu_torch.training import checkpoint as pc
+
+    env = tracking_env(device)
+    steps = PPO_TRAIN_STEPS * ppo_geometry(args)[0]
+    os.environ.update(torchrun_env(0, 1, free_port()))
+    try:
+        mesh = dmesh.make_train_mesh(device)
+    finally:
+        for k in dmesh.TORCHRUN_ENV:
+            del os.environ[k]
+    backend = dist.get_backend(mesh.group)
+    factory = functools.partial(pn.make_ppo_networks, policy_hidden_layer_sizes=hidden,
+                                value_hidden_layer_sizes=hidden)
+    with tempfile.TemporaryDirectory() as ckpt:
+        synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, metrics = pt.train(env, steps, network_factory=factory, checkpoint_dir=ckpt,
+                                 seed=seed, device=device, mesh=mesh, **args)
+        synchronize(device)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        final = checkpoint_tensors(pc.latest_checkpoint(ckpt))
+    mesh.close()
+    expected = dict.fromkeys(counts, 0) | {"cg_solve_fused": ppo_expected_launches(
+        args, PPO_TRAIN_STEPS)}
+    if torch.device(device).type == "cuda" and counts != expected:
+        fail(f"distributed (a): launches {counts}, expected {expected}")
+    differ = sorted(set(final) ^ set(reference)) or [
+        k for k in reference if not torch.equal(final[k], reference[k])]
+    if differ:
+        fail(f"distributed (a): world size 1 through a {backend} group differs from the run "
+             f"with no group in {differ[:5]}")
+    return dict(counts=counts, expected=expected["cg_solve_fused"], backend=backend,
+                seconds=seconds, metrics=metrics, tensors=len(final))
+
+
+def distributed_rank(out, spec):
+    """One rank of (b), started by phase_distributed_ranks with torchrun's
+    environment and ``spec`` (JSON: device, seed, args, hidden): the mesh on
+    gloo on this rank's card, the kernels' build (both ranks at once,
+    through ops/library.py::build_lock; on the CPU the guard alone), then
+    train() on the rodent stand-in with the counts set to 0 just before;
+    pickles its numbers, its launches, the steps of its evals and every
+    tensor of its final training state to ``out``."""
+    import logging
+    import pickle
+
+    import torch.distributed as dist
+
+    from brax_tracking_tpu_torch.distributed import mesh as dmesh
+    from brax_tracking_tpu_torch.ops import library
+
+    spec = json.loads(spec)
+    device, args = spec["device"], spec["args"]
+    if device == "cuda" and not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
+    logging.basicConfig(level=logging.WARNING)
+    mesh = dmesh.make_train_mesh(device, backend="gloo")
+    t0 = time.perf_counter()
+    if device == "cuda":
+        library.build()
+    else:
+        with library.build_lock(library._BUILD_DIR):
+            pass
+    build_s = time.perf_counter() - t0
+    env = config_env(device, None, "rodent_standin")
+    reset_counts()
+    metrics, tensors, evals, seconds = train_keeping_state(
+        env, PPO_TRAIN_STEPS * ppo_geometry(args)[0], tuple(spec["hidden"]), seed=spec["seed"],
+        device=device, mesh=mesh, **args)
+    counts = read_counts()
+    report = dict(rank=mesh.rank, world_size=mesh.world_size, device=str(mesh.device),
+                  backend=dist.get_backend(mesh.group), build_s=build_s, counts=counts,
+                  evals=evals, seconds=seconds, metrics=metrics, tensors=tensors)
+    mesh.close()
+    with open(out, "wb") as f:
+        pickle.dump(report, f)
+    return 0
+
+
+def phase_distributed_ranks(seed, device="cuda", args=PPO_ARGS, hidden=PPO_HIDDEN):
+    """(b) DIST_RANKS processes (this file with --distributed-rank), every
+    one on cuda:0 over gloo, after a stale _build/lock is planted (a build
+    killed mid-way leaves one): every rank exits 0 within DIST_TIMEOUT_S
+    (else the others are killed and the phase fails), exactly one rank logs
+    the stale lock's removal, each rank's cg_solve_fused launches are
+    ppo_expected_launches (rank 0's with its two evals, the others' without)
+    and no other kernel (on the card), evals on rank 0 only, every tensor of
+    the final training state bitwise equal on every rank. Returns the ranks'
+    reports and the rank that removed the lock."""
+    import pickle
+    import tempfile
+
+    from brax_tracking_tpu_torch.ops import library
+
+    baton = os.path.join(library._BUILD_DIR, "lock")
+    with open(baton, "w"):
+        pass
+    port = free_port()
+    spec = json.dumps(dict(device=device, seed=seed, args=args, hidden=hidden))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for rank in range(DIST_RANKS):
+            log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+            env = dict(os.environ, **torchrun_env(rank, DIST_RANKS, port))
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--distributed-rank",
+                 os.path.join(tmp, f"rank{rank}.p"), spec], stdout=log,
+                stderr=subprocess.STDOUT, env=env), log))
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p, _ in procs):
+                failed = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(1.0)
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.close()
+        logs = []
+        for rank in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+                logs.append(f.read())
+        codes = [p.returncode for p, _ in procs]
+        if any(codes):
+            tails = "\n".join(f"--- rank {r} (exit {c}):\n{logs[r][-3000:]}"
+                              for r, c in enumerate(codes))
+            fail(f"distributed (b): ranks exited {codes}\n{tails}")
+        reports = []
+        for rank in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{rank}.p"), "rb") as f:
+                reports.append(pickle.load(f))
+    removed = [r for r, text in enumerate(logs) if STALE_BATON_LOG in text]
+    if len(removed) != 1 or os.path.exists(baton):
+        fail(f"distributed (b): the planted stale {baton} was removed by ranks {removed}")
+    steps = PPO_TRAIN_STEPS * ppo_geometry(args)[0]
+    for r in reports:
+        expected = dict.fromkeys(r["counts"], 0) | {"cg_solve_fused": ppo_expected_launches(
+            args, PPO_TRAIN_STEPS, RODENT_SUBSTEPS, evals=r["rank"] == 0)}
+        if device == "cuda" and r["counts"] != expected:
+            fail(f"distributed (b): rank {r['rank']} launches {r['counts']}, expected {expected}")
+        if r["evals"] != ([0, steps] if r["rank"] == 0 else []):
+            fail(f"distributed (b): rank {r['rank']} ran evals at {r['evals']}")
+        where = "cuda:0" if device == "cuda" else "cpu"
+        if (r["world_size"], r["backend"], r["device"]) != (DIST_RANKS, "gloo", where):
+            fail(f"distributed (b): rank {r['rank']} on {r['device']} over {r['backend']} of "
+                 f"{r['world_size']}")
+        bad = [k for k, v in r["metrics"].items() if not np.isfinite(v)]
+        if bad:
+            fail(f"distributed (b): rank {r['rank']} metrics not finite: {bad}")
+        r["expected"] = expected["cg_solve_fused"]
+    ref = reports[0]["tensors"]
+    for r in reports[1:]:
+        differ = sorted(set(r["tensors"]) ^ set(ref)) or [
+            k for k in ref if not torch.equal(r["tensors"][k], ref[k])]
+        if differ:
+            fail(f"distributed (b): rank {r['rank']}'s training state differs from rank 0's in "
+                 f"{differ[:5]}")
+    for r in reports:
+        r["tensors"] = len(r["tensors"])
+    return reports, removed[0]
+
+
+# ---------------------------------------------------------------------------
 # the driver (harness/driver.py::main), the port's main path since slice 8
 # ---------------------------------------------------------------------------
 
@@ -2359,14 +2630,15 @@ RODENT_DRIVER_ARGV = RODENT_ARGV + [
     "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=24"]
 # the flagship's command on the rodent stand-in's terrain at train_rodent's
 # widths, cut deeper than the rodent's run (its narrowphase is ~0.35 s of
-# host dispatch per substep): one training step (65,536 env steps) with
-# evals before and after it of episode_length 4, the clip cut to 8 frames,
-# so the callback's B = 1 rollout takes 6 control steps; its video draws
-# the visual meshes and the terrain
+# host dispatch per substep): one training step of 2 unrolls x 4 control
+# steps (16,384 env steps; unroll 16 in train_rodent.yaml) with evals before
+# and after it of episode_length 4, the clip cut to 8 frames, so the
+# callback's B = 1 rollout takes 6 control steps; its video draws the visual
+# meshes and the terrain
 TERRAIN_DRIVER_ARGV = TERRAIN_ARGV + [
-    "train.num_minibatches=2", "train.num_updates_per_batch=2",
+    "train.num_minibatches=2", "train.num_updates_per_batch=2", "train.unroll_length=4",
     "train.force_episode_length=true", "train.episode_length=4",
-    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=8"]
+    "train.num_timesteps=16384", "train.eval_every=16384", "dataset.clip_length=8"]
 # train=train_fly dataset=fly on the tethered fly stand-in: configs/train/
 # train_fly.yaml's widths (MLPs 256 x 256, 1024 envs, batch 1024, unroll 16,
 # 128 eval envs) and fly.yaml's env, cut as the pair's run is (2
@@ -2375,12 +2647,15 @@ TERRAIN_DRIVER_ARGV = TERRAIN_ARGV + [
 # stac export's first 24 frames (2 control steps each), so the callback's
 # B = 1 rollout takes 38 control steps
 # train=train_fly_freejnt dataset=fly_freejnt on the ball-coxa fly stand-in
-# (the array CG path: spd_inverse once per substep and reset), cut as the
-# fly's run is, at train_fly_freejnt's 2048 envs (65,536 env steps)
+# (the array CG path: spd_inverse once per substep and reset, a host read
+# per CG iteration) at train_fly_freejnt's 2048 envs, cut deeper than the
+# fly's run as the terrain's is: one training step of 2 unrolls x 4 control
+# steps (16,384 env steps), evals of episode_length 8, the clip cut to 8
+# frames (6 callback control steps)
 FLY_BALL_DRIVER_ARGV = FLY_BALL_ARGV + [
-    "train.num_minibatches=2", "train.num_updates_per_batch=2",
-    "train.force_episode_length=true", "train.episode_length=32",
-    "train.num_timesteps=65536", "train.eval_every=65536", "dataset.clip_length=24"]
+    "train.num_minibatches=2", "train.num_updates_per_batch=2", "train.unroll_length=4",
+    "train.force_episode_length=true", "train.episode_length=8",
+    "train.num_timesteps=16384", "train.eval_every=16384", "dataset.clip_length=8"]
 FLY_DRIVER_ARGV = FLY_ARGVS["fly_standin_tethered"] + [
     "train.num_minibatches=2", "train.num_updates_per_batch=2",
     "train.force_episode_length=true", "train.episode_length=32",
@@ -3493,6 +3768,33 @@ def main() -> int:
         {"gaps": gaps, "limits": RAND_STEP_ATOL}))
     print(f"randomized phase: {time.perf_counter() - t_rand:.1f} s on {card}")
 
+    # 8c. data parallel: (a) phase_ppo's train() through a process group of
+    # one rank (NCCL), bitwise phase_ppo's; (b) two ranks on the one card
+    # over gloo on the rodent stand-in, building the kernels at once
+    t_dist = time.perf_counter()
+    one = phase_distributed_one("cuda", SEED, ppo["final"])
+    dist_launches = {f"world size 1 ({one['backend']})": one["counts"]["cg_solve_fused"]}
+    print(f"distributed (a): train() through a {one['backend']} group of one rank: "
+          f"{one['seconds']:.1f} s, kernel launches {one['counts']} (expected cg_solve_fused "
+          f"{one['expected']}, as phase_ppo), every tensor of the final checkpoint "
+          f"({one['tensors']}) bitwise phase_ppo's; training/sps "
+          f"{one['metrics']['training/sps']:.1f} (phase_ppo's {ppo['metrics']['training/sps']:.1f})"
+          f" on {card}")
+    ranks, remover = phase_distributed_ranks(SEED)
+    single_sps = runs["none"]["metrics"]["training/sps"]
+    for r in ranks:
+        dist_launches[f"rank {r['rank']} (gloo)"] = r["counts"]["cg_solve_fused"]
+        print(f"distributed (b) rank {r['rank']} of {r['world_size']} on {r['device']} over "
+              f"{r['backend']}: build {r['build_s']:.1f} s, train() {r['seconds']:.1f} s, kernel "
+              f"launches {r['counts']} (expected cg_solve_fused {r['expected']}: "
+              f"{'its two evals included' if r['rank'] == 0 else 'no evals'}), evals at "
+              f"{r['evals']}, training/sps {r['metrics']['training/sps']:.1f} (all ranks' env "
+              f"steps; the single-rank rodent train() above: {single_sps:.1f}) on {card}")
+    print(f"distributed (b): {ranks[0]['tensors']} tensors of the final training state bitwise "
+          f"equal on the {DIST_RANKS} ranks; the planted stale _build/lock removed by rank "
+          f"{remover}, the other rank waited on the flock")
+    print(f"distributed phase: {time.perf_counter() - t_dist:.1f} s on {card}")
+
     # 9. the driver, harness/driver.py::main (the main path): (i) single clip
     # from the committed clip cache, (ii) four clips
     t_drv = time.perf_counter()
@@ -3679,6 +3981,14 @@ def main() -> int:
         entries.append(entry(name, "cg_fused.cu", "cg.py:552" if dense else "cg.py:863", n,
                              max(report[nm]["kernel_max"] for nm in SCORED), k_ms, p_ms,
                              bound_ms, bound_by, None))
+        # the data-parallel phase's launches: (a) on the minirat's one-warp
+        # (a), (b)'s per rank on the rodent stand-in's damped wide layout 1
+        if what == "(a) minirat":
+            entries[-1]["distributed_launches"] = {
+                k: v for k, v in dist_launches.items() if k.startswith("world")}
+        if what == "(a) rodent stand-in, damped":
+            entries[-1]["distributed_launches"] = {
+                k: v for k, v in dist_launches.items() if k.startswith("rank")}
         if what == "(a) minirat":
             w_ms = time_cuda(lambda: ops_cg.cg_solve_fused(*args, device="cuda", **kw), 100)
             print(f"cg_solve_fused wrapper with the P A einsum on minirat: {w_ms * 1e3:.1f} "
@@ -3751,4 +4061,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-rank"]:
+        sys.exit(distributed_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -190,7 +190,7 @@ def test_harness_imports_no_jax_or_yaml():
         os.path.join(PORT, "envs", "registry.py"), os.path.join(PORT, "data", "h5io.py"),
         os.path.join(PORT, "data", "pickles.py"), os.path.join(PORT, "data", "clips.py"),
         os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) == 11
+    assert len(files) == 12  # harness/launch.py since the data-parallel slice
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in (
