@@ -10,7 +10,12 @@ and ``params_to_numpy`` carry them across (``nn.Linear.weight`` is the
 kernel transposed).
 
 The matrix products run in ``nn.Linear`` (cuBLAS on the card), as the JAX
-package runs them outside any Pallas kernel (``x @ k + b``).
+package runs them outside any Pallas kernel (``x @ k + b``). With a
+``compute_dtype`` (``make_ppo_networks(compute_dtype=torch.bfloat16)``, as
+the JAX package's ``apply_mlp`` takes it) the inputs, weights and biases
+are cast to it, each layer is ``x @ w.T + b`` in that dtype (a bfloat16
+cuBLAS product on the card) and the output is cast back; the parameters,
+their gradients and their Adam moments stay in their own dtype.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from brax_tracking_tpu_torch.device import default_dtype, resolve_device
-from brax_tracking_tpu_torch.physics import model as M
 from brax_tracking_tpu_torch.training import running_statistics
 from brax_tracking_tpu_torch.training.distribution import NormalTanhDistribution
 
@@ -54,6 +58,22 @@ class MLP(nn.Module):
         for layer in self.layers[:-1]:
             x = self.activation(layer(x))
         return self.layers[-1](x)
+
+
+def apply_mlp(mlp: MLP, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+    """``mlp(x)``; with ``compute_dtype``, computed in it as the JAX
+    package's ``apply_mlp`` does: input, weights and biases cast, each layer
+    a product then a bias add, the output cast back to ``x``'s dtype."""
+    if compute_dtype is None:
+        return mlp(x)
+    in_dtype = x.dtype
+    x = x.to(compute_dtype)
+    n = len(mlp.layers)
+    for i, layer in enumerate(mlp.layers):
+        x = torch.matmul(x, layer.weight.to(compute_dtype).T) + layer.bias.to(compute_dtype)
+        if i < n - 1:
+            x = mlp.activation(x)
+    return x.to(in_dtype)
 
 
 @torch.no_grad()
@@ -95,22 +115,27 @@ def params_to_numpy(mlp: MLP) -> List[dict]:
 class PPONetworks(nn.Module):
     """Policy and value MLPs (the trained parameters, in this order) and the
     action distribution; observations go through ``preprocess`` with the
-    normalizer state first."""
+    normalizer state first. Both MLPs compute in ``compute_dtype`` where one
+    is given (``apply_mlp``)."""
 
     def __init__(self, policy: MLP, value: MLP, distribution: NormalTanhDistribution,
-                 preprocess: PreprocessFn = identity_preprocessor):
+                 preprocess: PreprocessFn = identity_preprocessor,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.policy = policy
         self.value = value
         self.parametric_action_distribution = distribution
         self.preprocess = preprocess
+        self.compute_dtype = compute_dtype
 
     def policy_logits(self, normalizer_params, obs: torch.Tensor,
                       policy: Optional[MLP] = None) -> torch.Tensor:
-        return (self.policy if policy is None else policy)(self.preprocess(obs, normalizer_params))
+        return apply_mlp(self.policy if policy is None else policy,
+                         self.preprocess(obs, normalizer_params), self.compute_dtype)
 
     def value_fn(self, normalizer_params, obs: torch.Tensor) -> torch.Tensor:
-        return self.value(self.preprocess(obs, normalizer_params)).squeeze(-1)
+        return apply_mlp(self.value, self.preprocess(obs, normalizer_params),
+                         self.compute_dtype).squeeze(-1)
 
 
 def make_ppo_networks(
@@ -127,9 +152,8 @@ def make_ppo_networks(
     dtype=None,
 ) -> PPONetworks:
     """Policy (``2 * action_size`` outputs) and value (one output, squeezed)
-    MLPs, initialised from ``generator``, the policy first."""
-    if compute_dtype is not None:
-        M.unported("a compute dtype for the policy and value MLPs", "§A.15")
+    MLPs, initialised from ``generator``, the policy first, computing in
+    ``compute_dtype`` where one is given (their parameters in ``dtype``)."""
     dev = resolve_device(device)
     dtype = default_dtype(dev) if dtype is None else dtype
     dist = NormalTanhDistribution(event_size=action_size)
@@ -139,7 +163,7 @@ def make_ppo_networks(
                 dtype=dtype)
     init_mlp_(policy, generator)
     init_mlp_(value, generator)
-    return PPONetworks(policy, value, dist, preprocess_observations_fn)
+    return PPONetworks(policy, value, dist, preprocess_observations_fn, compute_dtype)
 
 
 def make_inference_fn(ppo_networks: PPONetworks):

@@ -49,7 +49,8 @@ from brax_tracking_tpu_torch.device import resolve_device, same_device, synchron
 from brax_tracking_tpu_torch.distributed import mesh as dmesh
 from brax_tracking_tpu_torch.envs import wrappers
 from brax_tracking_tpu_torch.envs.base import Env, State
-from brax_tracking_tpu_torch.training import acting, checkpoint, gradients, running_statistics
+from brax_tracking_tpu_torch.training import (acting, checkpoint, debug_nans, gradients,
+                                             running_statistics)
 from brax_tracking_tpu_torch.training.types import Metrics, Transition
 
 _logger = logging.getLogger(__name__)
@@ -258,7 +259,7 @@ def train(
                                  generator=randomization_generator)
 
     env = wrap_for_training(environment, randomization_fn=randomized(local_envs))
-    env_state = env.reset(generator, local_envs)
+    env_state = debug_nans.call("the env reset", env.reset, generator, local_envs)
     obs_size, dtype = env_state.obs.shape[-1], env_state.obs.dtype
     action_size = env.action_size
 
@@ -289,7 +290,11 @@ def train(
         return make_policy, eval_params(training_state), {}
 
     if restore_checkpoint_path is not None and os.path.exists(restore_checkpoint_path):
-        _logger.info("restoring from checkpoint %s", restore_checkpoint_path)
+        # probe the layout first, so a partial checkpoint fails with its own error
+        layout = checkpoint.checkpoint_layout(restore_checkpoint_path)
+        _logger.info("restoring from checkpoint %s (layout: %s)", restore_checkpoint_path, layout)
+        # a "reference" layout, (normalizer, params), restores those two only:
+        # the optimizer and env_steps restart, as the reference resumes
         training_state = checkpoint.restore_checkpoint(restore_checkpoint_path, training_state)
 
     evaluator = acting.Evaluator(
@@ -314,12 +319,14 @@ def train(
         for _ in range(train_steps_per_epoch):
             eps = rollout_draws(generator, n_unrolls, unroll_length, local_envs, action_size,
                                 dtype)
-            env_state, data, normalizer_params = rollout_step(
-                env, make_policy, training_state, env_state, eps, group)
+            env_state, data, normalizer_params = debug_nans.call(
+                "rollout_step", rollout_step, env, make_policy, training_state, env_state, eps,
+                group)
             perms, entropy_eps = learn_draws(generator, num_updates_per_batch, num_minibatches,
                                              rows, unroll_length, action_size, dtype)
-            training_state, metrics = learn_step(training_state, data, normalizer_params, perms,
-                                                 entropy_eps, loss_fn, steps_per_train_step, group)
+            training_state, metrics = debug_nans.call(
+                "learn_step", learn_step, training_state, data, normalizer_params, perms,
+                entropy_eps, loss_fn, steps_per_train_step, group)
             step_metrics.append(metrics)
         loss_metrics = mean_across_ranks(
             {k: torch.stack([m[k] for m in step_metrics]).mean() for k in step_metrics[0]}, group)
@@ -352,7 +359,7 @@ def train(
             training_state, env_state, training_metrics = run_one_epoch(training_state, env_state)
             current_step = training_state.env_steps
             if num_resets_per_eval > 0:
-                env_state = env.reset(generator, local_envs)
+                env_state = debug_nans.call("the env reset", env.reset, generator, local_envs)
 
         if lead:
             metrics = evaluator.run_evaluation(eval_params(training_state), training_metrics)

@@ -1,3 +1,3 @@
-"""Experiment harness: config composition, the driver, metrics and eval
-artifacts. Counterpart of ``brax_tracking_tpu/harness`` less rendering
-(ROADMAP A.13)."""
+"""Experiment harness: config composition, the driver, the launcher,
+metrics, eval artifacts and videos. Counterpart of
+``brax_tracking_tpu/harness``."""

@@ -22,9 +22,12 @@ goes on). The run ends with the final params.
 ``device="cpu"`` runs the same on the CPU in float64. ``profile_dir`` /
 ``BTT_PROFILE_DIR`` traces the run with ``torch.profiler`` (the host, and
 the card where the run is on one) and writes the trace there as
-``<time>.pt.trace.json`` when the run returns or raises. Not ported
-(raising ``NotImplementedError`` before anything is written): ``debug_nans``
-/ ``BTT_DEBUG_NANS=1`` (ROADMAP A.13). ``compilation_cache_dir`` names the
+``<time>.pt.trace.json`` when the run returns or raises. ``debug_nans=true``
+or ``BTT_DEBUG_NANS=1`` turns on ``training/debug_nans.py`` for the run: a
+NaN in the outputs of a reset, a training step's rollout or learner half,
+or an eval unroll raises ``FloatingPointError`` naming the op or kernel
+that made it, as ``jax_debug_nans`` does in the JAX driver; with it on a
+run is bitwise the run with it off. ``compilation_cache_dir`` names the
 JAX package's compile cache, which has no counterpart here: it is read and
 ignored, and so is ``train.epoch_mode``.
 
@@ -272,13 +275,6 @@ def _eval_callback(cfg: Dict, env, logger, model_path: str, fig_dir: str = ""):
     return policy_params_fn
 
 
-def _check_unported(cfg: Dict) -> None:
-    from brax_tracking_tpu_torch.physics import model as M
-
-    if os.environ.get("BTT_DEBUG_NANS") == "1" or cfg.get("debug_nans"):
-        M.unported("debug_nans / BTT_DEBUG_NANS (fail at the first NaN-producing op)", "§A.13")
-
-
 @contextlib.contextmanager
 def _trace(profile_dir: str, dev: torch.device, suffix: str = ""):
     """torch.profiler over the block (the host, and the card for a card
@@ -307,10 +303,10 @@ def main(argv=None, device="cuda") -> Dict:
     from brax_tracking_tpu_torch.device import resolve_device
     from brax_tracking_tpu_torch.distributed import mesh as dmesh
     from brax_tracking_tpu_torch.harness.config import load_config, save_config
+    from brax_tracking_tpu_torch.training import debug_nans
 
     resolve_device(device)
     cfg = load_config(argv)
-    _check_unported(cfg)
     mesh = dmesh.make_train_mesh(device)
     paths = cfg["paths"]
     if mesh.rank == 0:
@@ -319,7 +315,12 @@ def main(argv=None, device="cuda") -> Dict:
         save_config(cfg, os.path.join(paths["save_dir"], "run_config.yaml"))
     profile_dir = cfg.get("profile_dir") or os.environ.get("BTT_PROFILE_DIR")
     suffix = f".rank{mesh.rank}" if mesh.world_size > 1 else ""
-    with _trace(profile_dir, mesh.device, suffix) if profile_dir else contextlib.nullcontext():
+    # fail at the op that made the first NaN (training/debug_nans.py; the
+    # JAX driver sets jax_debug_nans); default training relies on the envs'
+    # NaN-to-done guards
+    nan_mode = os.environ.get("BTT_DEBUG_NANS") == "1" or bool(cfg.get("debug_nans"))
+    with debug_nans.debug_nans(nan_mode), \
+            _trace(profile_dir, mesh.device, suffix) if profile_dir else contextlib.nullcontext():
         metrics = _run(cfg, mesh)
     mesh.close()
     return metrics

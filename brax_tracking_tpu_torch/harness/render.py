@@ -9,9 +9,9 @@ here the render scene is a frozen model file
 frozen beside the physics ones), the poses of every frame come from one
 batched ``kinematics`` + ``com_pos`` call on the rollout's device (the
 frames are the batch), the cameras from ``camlight`` (MuJoCo's
-``mj_camlight``), and the poses are copied to the host once. The host then
-rasterizes each frame with ``native/softraster.py`` and encodes the video
-with ``native/video.py``.
+``mj_camlight``, every camera mode), and the poses are copied to the host
+once. The host then rasterizes each frame with ``native/softraster.py``
+and encodes the video with ``native/video.py``.
 
 The frame stride, ``T = min(...)`` and the pair / single-model branches are
 the JAX version's: with a pair scene (its nq differs from the rollout's)
@@ -54,18 +54,26 @@ def load_scene(mjcf_path: str, free_jnt: bool, device, dtype=None):
     return model, spec.render_fields(npz)
 
 
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """MuJoCo's ``mju_normalize3``: a vector shorter than mjMINVAL (1e-15)
+    becomes (1, 0, 0)."""
+    n = torch.linalg.norm(v, dim=-1, keepdim=True)
+    return torch.where(n < 1e-15, v.new_tensor([1.0, 0.0, 0.0]), v / torch.clamp(n, min=1e-15))
+
+
 def camlight(m: M.Model, r, d: M.Data):
     """Camera positions (B, ncam, 3) and frames (B, ncam, 3, 3) as MuJoCo's
     ``mj_camlight`` computes them: fixed, the camera's pose in its body's
     frame; track, the body's position plus ``cam_pos0`` and the frame
     ``cam_mat0``; trackcom, the body's subtree CoM plus ``cam_poscom0`` and
-    ``cam_mat0``. ``d`` holds kinematics and com_pos."""
+    ``cam_mat0``; targetbody and targetbodycom, the fixed position and a
+    frame whose z axis points from the target body's position (its subtree
+    CoM) to the camera and whose x axis is level (z cross world z), where
+    the camera names a target. ``d`` holds kinematics and com_pos."""
     B = d.qpos.shape[0]
     if r.ncam == 0:
         return d.qpos.new_zeros(B, 0, 3), d.qpos.new_zeros(B, 0, 3, 3)
     mode = np.asarray(r.cam_mode)
-    if np.any((mode == M.CAM_TARGETBODY) | (mode == M.CAM_TARGETBODYCOM)):
-        M.unported("cameras that target a body (targetbody, targetbodycom)", "§A.13")
     b = m.idx(r.cam_bodyid)
     xquat, xpos = d.xquat[:, b], d.xpos[:, b]
     pos = xpos + btm.quat_rotate(xquat, m.const(r.cam_pos))
@@ -73,6 +81,18 @@ def camlight(m: M.Model, r, d: M.Data):
     mat0 = m.const(np.asarray(r.cam_mat0).reshape(-1, 3, 3)).expand(B, -1, 3, 3)
     track = m.const(mode == M.CAM_TRACK, torch.bool)
     trackcom = m.const(mode == M.CAM_TRACKCOM, torch.bool)
+    target = np.asarray(r.cam_targetbodyid)
+    aim = (mode == M.CAM_TARGETBODY) | (mode == M.CAM_TARGETBODYCOM)
+    aim &= target >= 0
+    if aim.any():
+        t = m.idx(np.maximum(target, 0))
+        look = torch.where(m.const(mode == M.CAM_TARGETBODY, torch.bool)[:, None],
+                           d.xpos[:, t], d.subtree_com[:, t])
+        z = _normalize(pos - look)
+        x = _normalize(torch.linalg.cross(z.new_tensor([0.0, 0.0, 1.0]).expand_as(z), z))
+        y = _normalize(torch.linalg.cross(z, x))
+        mat = torch.where(m.const(aim, torch.bool)[:, None, None],
+                          torch.stack([x, y, z], dim=-1), mat)
     pos = torch.where(track[:, None], xpos + m.const(r.cam_pos0), pos)
     pos = torch.where(trackcom[:, None], d.subtree_com[:, b] + m.const(r.cam_poscom0), pos)
     mat = torch.where((track | trackcom)[:, None, None], mat0, mat)

@@ -56,6 +56,7 @@ from brax_tracking_tpu_torch.device import check_device, resolve_device
 from brax_tracking_tpu_torch.ops import library
 from brax_tracking_tpu_torch.ops.cholesky import sweep_inverse_reference
 from brax_tracking_tpu_torch.physics import model as M
+from brax_tracking_tpu_torch.training import debug_nans
 
 MINVAL = M.MINVAL
 # floats of nv-length scratch vectors the kernel keeps per env (see the
@@ -260,6 +261,7 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
         ctypes.c_void_p(stream),
     )
     library.check("cg_solve_fused", err)
+    debug_nans.check_kernel("cg_solve_fused", outs.values())
     return outs
 
 
@@ -294,6 +296,7 @@ def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
         ctypes.c_void_p(stream),
     )
     library.check("cg_solve_batched", err)
+    debug_nans.check_kernel("cg_solve_batched", outs.values())
     return outs
 
 

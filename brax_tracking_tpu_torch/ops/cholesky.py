@@ -59,6 +59,7 @@ import torch
 
 from brax_tracking_tpu_torch.device import check_device, resolve_device
 from brax_tracking_tpu_torch.ops import library
+from brax_tracking_tpu_torch.training import debug_nans
 
 H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
 # spd_inverse: widths up to INVERSE_WARP_MAX are swept in registers, wider
@@ -313,6 +314,7 @@ def _launch_inverse(qM: torch.Tensor, damp, ninv: int):
         library.ptr(outs[-1]), B, nv, ninv, threads, smem, stream,
     )
     library.check("spd_inverse", err)
+    debug_nans.check_kernel("spd_inverse", outs)
     return outs
 
 
@@ -326,6 +328,7 @@ def _launch_solve(qM: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         library.ptr(qM), library.ptr(b), library.ptr(x), B, nv, threads, smem, stream
     )
     library.check("spd_solve", err)
+    debug_nans.check_kernel("spd_solve", (x,))
     return x
 
 
@@ -339,6 +342,7 @@ def _launch_factor(qM: torch.Tensor) -> torch.Tensor:
         library.ptr(qM), library.ptr(U), B, nv, threads, smem, stream
     )
     library.check("factor_batched", err)
+    debug_nans.check_kernel("factor_batched", (U,))
     return U
 
 
@@ -352,6 +356,7 @@ def _launch_solve_factor(U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         library.ptr(U), library.ptr(b), library.ptr(x), B, nv, threads, smem, stream
     )
     library.check("solve_batched", err)
+    debug_nans.check_kernel("solve_batched", (x,))
     return x
 
 

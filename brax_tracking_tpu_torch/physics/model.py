@@ -106,8 +106,9 @@ NAME_KINDS = ("body", "joint", "geom", "site", "actuator", "sensor")
 RENDER_FIELDS = (
     "geom_rgba", "geom_dataid", "stat_center", "stat_extent", "cam_mode", "cam_bodyid",
     "cam_pos", "cam_quat", "cam_fovy", "cam_pos0", "cam_poscom0", "cam_mat0",
+    "cam_targetbodyid",
 )
-RENDER_INT_FIELDS = ("geom_dataid", "cam_mode", "cam_bodyid")
+RENDER_INT_FIELDS = ("geom_dataid", "cam_mode", "cam_bodyid", "cam_targetbodyid")
 # the renderer's triangle meshes (every mesh of the model, colliding or not),
 # stored as "render_x" keys beside RENDER_FIELDS
 RENDER_MESH_FIELDS = (

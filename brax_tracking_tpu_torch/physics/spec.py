@@ -45,6 +45,10 @@ MINIRAT_NEWTON_OPTIONS = dict(solver="newton", iterations=100, ls_iterations=50)
 # joints' fixture, CG 4/4 on the solve kernel's layout
 MINIRAT_PLANAR_XML = os.path.join(ASSETS, "minirat_planar.xml")
 MINIRAT_PLANAR_NPZ = os.path.join(ASSETS, "minirat_planar.npz")
+# the minirat with a targetbody, a targetbodycom and a track camera: the
+# render fixture of the cameras that aim at a body
+MINIRAT_CAMERAS_XML = os.path.join(ASSETS, "minirat_cameras.xml")
+MINIRAT_CAMERAS_NPZ = os.path.join(ASSETS, "minirat_cameras.npz")
 # the two-rat stand-in at rodent_pair's sizes (assets/make_ratpair.py writes
 # the MJCF): frozen with the dataset config's CG 4/4, with elliptic cones,
 # and for Newton at the pair XML's own default budget (Newton/100)

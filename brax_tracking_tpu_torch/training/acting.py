@@ -23,6 +23,7 @@ import torch
 
 from brax_tracking_tpu_torch.device import synchronize
 from brax_tracking_tpu_torch.envs.base import Env, State, Wrapper
+from brax_tracking_tpu_torch.training import debug_nans
 from brax_tracking_tpu_torch.training.types import Metrics, Policy, Transition
 
 
@@ -142,18 +143,25 @@ class Evaluator:
         self._eval_walltime = 0.0
         self._steps_per_unroll = episode_length * num_eval_envs
 
+    @torch.no_grad()
+    def _unroll(self, policy_params, generator: torch.Generator) -> State:
+        """One evaluation episode of every env: the final state (the JAX
+        ``generate_eval_unroll``)."""
+        state = self._env.reset(generator, self._num_eval_envs)
+        eps = torch.randn(
+            (self._unroll_length, self._num_eval_envs, self._env.action_size),
+            generator=generator, dtype=state.obs.dtype, device=generator.device,
+        )
+        state, _ = generate_unroll(
+            self._env, state, self._eval_policy_fn(policy_params), eps, self._unroll_length
+        )
+        return state
+
     def run_evaluation(self, policy_params, training_metrics: Metrics) -> Metrics:
         device = self._generator.device
         t = time.perf_counter()
-        with torch.no_grad():
-            state = self._env.reset(self._generator, self._num_eval_envs)
-            eps = torch.randn(
-                (self._unroll_length, self._num_eval_envs, self._env.action_size),
-                generator=self._generator, dtype=state.obs.dtype, device=device,
-            )
-            state, _ = generate_unroll(
-                self._env, state, self._eval_policy_fn(policy_params), eps, self._unroll_length
-            )
+        state = debug_nans.call("the evaluator's unroll", self._unroll, policy_params,
+                                self._generator)
         eval_metrics = state.info["eval_metrics"]
         synchronize(device)
         epoch_eval_time = time.perf_counter() - t

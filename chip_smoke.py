@@ -126,7 +126,7 @@ Run from the root of a checkout on a machine with a CUDA card. It
 9. runs the driver (harness/driver.py::main, the main path) twice at the
    same widths, each in a temporary base_dir, the counts set to 0 just
    before: (i) one clip, read from the committed data/Minirat/clips/0.p
-   (nothing may be written there), two training steps; (ii) four clips,
+   (nothing may be written there), one training step; (ii) four clips,
    built and cached as .npz, one training step: exact cg_solve_fused
    launches and no other kernel, every artifact, finite logged numbers, the
    run config read back as written, (ii) every clip drawn, per-clip rewards
@@ -161,7 +161,19 @@ Run from the root of a checkout on a machine with a CUDA card. It
    train=train_fly_freejnt dataset=fly_freejnt on the ball-coxa fly
    stand-in, cut as the terrain's run: exactly one spd_inverse launch per
    substep and reset and no other kernel (the kernels line's spd_inverse
-   row);
+   row); then the last modules: both committed JAX orbax fixtures
+   (assets/jax_checkpoints: a TrainingState at train_rodent's widths and
+   the rodent stand-in's sizes, and the reference's (normalizer, params)
+   tuple) restored without orbax, every tensor bitwise the fixture's .npz,
+   the restore's seconds printed, and the flagship's rodent run once more
+   with checkpoint= the full fixture: resumed at its env_steps, exactly the
+   unresumed run's launches; debug_nans on 2048 minirat envs: a 20-step
+   rollout bitwise with the mode on and off (200 launches each), a NaN
+   policy bias named by its aten op, NaN solve-kernel and spd_inverse
+   inputs named by their kernels; bfloat16 policy and value MLPs against
+   float32 with their device times, and train() through bfloat16 networks
+   with phase_ppo's launches; the targetbody and targetbodycom cameras of
+   assets/minirat_cameras.xml against the CPU in float64;
 10. times every kernel, its plain version and a PyTorch library call
    computing the same function with CUDA events (the solve kernels', the
    SPD and Cholesky kernels' and their library calls' device time by
@@ -2145,8 +2157,10 @@ def checkpoint_tensors(path):
 
 
 def phase_ppo(device, seed, args=PPO_ARGS, hidden=PPO_HIDDEN, train_steps=PPO_TRAIN_STEPS,
-              dtype=None):
-    """train() once on the minirat tracking env, the counts set to 0 just
+              dtype=None, compute_dtype=None):
+    """train() once on the minirat tracking env (its MLPs computing in
+    ``compute_dtype`` where one is given, as make_ppo_networks takes it),
+    the counts set to 0 just
     before: exactly ppo_expected_launches cg_solve_fused launches and no
     other kernel (on the card), every metric finite, the env steps asked
     for, training/sps within PPO_SPS_REL of the host clock, params moved
@@ -2170,7 +2184,8 @@ def phase_ppo(device, seed, args=PPO_ARGS, hidden=PPO_HIDDEN, train_steps=PPO_TR
 
     def factory(*a, **kw):
         net = pn.make_ppo_networks(*a, policy_hidden_layer_sizes=hidden,
-                                   value_hidden_layer_sizes=hidden, **kw)
+                                   value_hidden_layer_sizes=hidden, compute_dtype=compute_dtype,
+                                   **kw)
         nets.append((net, {k: v.detach().clone() for k, v in net.state_dict().items()}))
         return net
 
@@ -2599,14 +2614,16 @@ def phase_distributed_ranks(seed, device="cuda", args=PPO_ARGS, hidden=PPO_HIDDE
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # configs/train/train_rodent.yaml's widths (MLPs 256 x 256, 2048 envs,
 # batch 2048, unroll 16, 128 eval envs) on the minirat, cut as PPO_ARGS is
-# (PPO_CUTS): (i) single clip, two training steps and evals at 0 and
-# 131,072 steps; (ii) four clips, one training step and one eval
+# (PPO_CUTS): (i) single clip, one training step and evals at 0 and 65,536
+# steps (two training steps up to PR 16: cut to keep the run's seconds as
+# the last modules' phases were added); (ii) four clips, one training step
+# and one eval
 DRIVER_ARGV = ["train=train_rodent", "dataset=minirat", "train.env_name=single_clip_tracking",
                "train.num_minibatches=2", "train.num_updates_per_batch=2",
                "train.force_episode_length=true", "train.episode_length=32",
-               "train.num_timesteps=131072", "train.eval_every=65536"]
+               "train.num_timesteps=65536", "train.eval_every=32768"]
 DRIVER_MULTI = ["dataset.n_clips=4", "train.env_name=multi_clip_tracking",
-                "train.num_timesteps=65536"]
+                "train.num_timesteps=65536", "train.eval_every=65536"]
 # the pair's driver run: configs/train/train_pair.yaml's widths (MLPs 256 x
 # 256, 1024 envs, batch 1024, unroll 16, 128 eval envs) on the stand-in, cut
 # as PPO_ARGS is (2 minibatches, 2 updates, episode_length 32): one training
@@ -2759,7 +2776,7 @@ def mc_step_vs_cpu(device, cfg, dtype=None, seed=SEED):
 
 
 def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False, replay=False,
-                 terrain=False, ball=False):
+                 terrain=False, ball=False, resume=None):
     """harness.driver.main once, (i) single clip reading the committed
     data/Minirat/clips/0.p or (ii) four clips built and cached as .npz in a
     temporary data_dir, or with ``pair`` the rodent_pair run on the stand-in
@@ -2786,7 +2803,11 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
     slot in some env. With ``ball`` the run is train=train_fly_freejnt on
     the ball-coxa fly stand-in (FLY_BALL_DRIVER_ARGV), off the kernel
     layout: exactly driver_expected_launches spd_inverse launches (one per
-    forward) and no other kernel. Returns the run's numbers."""
+    forward) and no other kernel. With ``resume`` = (a checkpoint directory,
+    its env_steps) the run gets ``checkpoint=<directory>`` (a JAX orbax
+    checkpoint restores without orbax) and resumes at those env_steps: its
+    callback at them plus num_timesteps, its launches those of the
+    unresumed run. Returns the run's numbers."""
     import tempfile
 
     from brax_tracking_tpu_torch.device import synchronize
@@ -2809,6 +2830,8 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
         if video:
             argv += ["train.render_video=true",
                      f"dataset.rendering_mjcf={RENDER_SCENES[tag]}"]
+        if resume is not None:
+            argv += [f"checkpoint={resume[0]}"]
         cfg = hc.load_config(argv)
         ds, tr = cfg["dataset"], cfg["train"]
         m = load("fly_standin_ball" if ball else "fly_standin_tethered" if fly else
@@ -2870,7 +2893,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
         with open(os.path.join(base, "logs", "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         steps = sorted({r["_step"] for r in records if "rollout/summed_pos_distance_mean" in r})
-        final = int(tr["num_timesteps"])
+        final = (0 if resume is None else resume[1]) + int(tr["num_timesteps"])
         if steps != [final]:
             fail(f"driver ({tag}) callback at steps {steps}, expected [{final}]")
         need = ["run_config.yaml", "logs/metrics.jsonl", f"ckpt/{final}/training_state.pt",
@@ -2902,7 +2925,7 @@ def phase_driver(device, multi, pair=False, rodent=False, fly=False, video=False
             per_clip_s, rollout_s = None, ts[1] - ts[0]
         report = dict(seconds=seconds, counts=counts, expected=expected[kernel],
                       metrics=metrics, n_steps=n_steps, rollout_s=rollout_s,
-                      per_clip_s=per_clip_s)
+                      per_clip_s=per_clip_s, final=final)
         if multi:
             clips = torch.bincount(drawn[0].cpu().long(), minlength=ds["n_clips"]).tolist()
             if drawn[0].numel() != tr["num_envs"] or 0 in clips:
@@ -3041,6 +3064,299 @@ def encoder_version(module):
         return importlib.import_module(module).__version__
     except ImportError:
         return "absent"
+
+
+# --- the last modules (ROADMAP A.13, A.15): a JAX orbax checkpoint on
+# checkpoint=, debug_nans, bfloat16 MLPs, cameras that aim at a body ---------
+
+# the JAX package's orbax checkpoints of a TrainingState at train_rodent's
+# widths and the rodent stand-in's sizes (rodent/), of its bare
+# (normalizer, params) tuple (rodent_reference/) and their arrays
+# (rodent.npz), written by scripts/make_jax_checkpoint_fixture.py
+JAX_CKPT_DIR = os.path.join(ROOT, "brax_tracking_tpu_torch", "assets", "jax_checkpoints")
+# bfloat16 policy and value MLPs (256 x 256, 2048 observations of the rodent
+# stand-in's 757) against float32 on the card: the max abs gap of the
+# outputs. The CPU rehearsal (the same apply on the committed fixture's
+# MLPs, bfloat16 against float32, 2048 seeded inputs, seeds 0-2) gaps at
+# most 9.95e-3 (policy) and 6.6e-3 (value) at outputs up to 1.70; the limit
+# leaves 3x
+BF16_MLP_ATOL = 3e-2
+BF16_OBS = 2048
+# the cameras of assets/minirat_cameras.xml (targetbody, targetbodycom,
+# track) at TARGET_CAM_FRAMES seeded poses on the card in float32 against
+# the CPU in float64: the max abs gap of cam_xpos and cam_xmat. A float32
+# CPU rehearsal of the same poses (target_camera_poses, seeds 0-2) is off
+# float64 by at most 1.23e-7 (cam_xpos) and 1.17e-6 (cam_xmat); the limits
+# leave 10x
+TARGET_CAM_FRAMES = 64
+TARGET_CAM_ATOL = {"cam_xpos": 1.3e-6, "cam_xmat": 1.2e-5}
+# the debug_nans rollout: N_STEPS control steps of B_MAIN minirat envs
+DEBUG_NANS_PLANT_STEPS = 2
+
+
+def jax_fixture_arrays():
+    """The committed JAX fixture's arrays by dotted orbax key."""
+    with np.load(os.path.join(JAX_CKPT_DIR, "rodent.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def jax_fixture_mlp(arrays, name, device, dtype=torch.float32):
+    """The fixture's ``name`` MLP (policy or value) as the port's MLP."""
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+
+    n = len({k.split(".")[2] for k in arrays if k.startswith(f"params.{name}.")})
+    return pn.params_from_numpy([{"kernel": arrays[f"params.{name}.{i}.kernel"],
+                                  "bias": arrays[f"params.{name}.{i}.bias"]} for i in range(n)],
+                                device=device, dtype=dtype)
+
+
+def phase_jax_checkpoint(device, dtype=torch.float32):
+    """training/checkpoint.py::restore_checkpoint (no orbax, tensorstore or
+    zstandard on this machine) on both committed fixtures into a fresh
+    training state on ``device``: every tensor bitwise the fixture's .npz:
+    the params (each kernel transposed into its nn.Linear), the normalizer,
+    and for the full state the Adam moments with optax's count as each
+    parameter's step and env_steps; the reference tuple restores the
+    params and normalizer only (no Adam state, env_steps 0). Returns the
+    seconds of each restore and the tensors compared."""
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.training import checkpoint as pc
+
+    arrays = jax_fixture_arrays()
+    obs = arrays["params.policy.0.kernel"].shape[0]
+    act = arrays["params.policy.2.bias"].shape[0] // 2
+    report = {}
+    for name in ("rodent", "rodent_reference"):
+        full = name == "rodent"
+        target = ppo_state(obs, act, PPO_HIDDEN, PPO_ARGS["learning_rate"], device, dtype, SEED)
+        synchronize(device)
+        t0 = time.perf_counter()
+        got = pc.restore_checkpoint(os.path.join(JAX_CKPT_DIR, name), target)
+        synchronize(device)
+        seconds = time.perf_counter() - t0
+        pairs = []
+        for mlp in ("policy", "value"):
+            for i, layer in enumerate(getattr(got.params, mlp).layers):
+                for attr, key in (("weight", "kernel"), ("bias", "bias")):
+                    p = getattr(layer, attr)
+                    tr = (lambda a: a.T) if attr == "weight" else (lambda a: a)
+                    k = f"params.{mlp}.{i}.{key}"
+                    pairs.append((k, p, tr(arrays[k])))
+                    if full:
+                        st = got.optimizer.state[p]
+                        for slot, moment in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+                            k = f"optimizer_state.0.{moment}.{mlp}.{i}.{key}"
+                            pairs.append((k, st[slot], tr(arrays[k])))
+                        pairs.append(("optimizer_state.0.count", st["step"],
+                                      arrays["optimizer_state.0.count"].astype(np.float32)))
+        for f in ("count", "mean", "summed_variance", "std"):
+            pairs.append((f"normalizer_params.{f}", getattr(got.normalizer_params, f),
+                          arrays[f"normalizer_params.{f}"]))
+        bad = [k for k, t, a in pairs
+               if not torch.equal(t.detach().cpu(), torch.as_tensor(np.array(a, order="C")))]
+        if bad:
+            fail(f"jax checkpoint ({name}): restored tensors differ from the fixture: {bad[:5]}")
+        want_steps = int(arrays["env_steps"]) if full else 0
+        if got.env_steps != want_steps or (not full and got.optimizer.state):
+            fail(f"jax checkpoint ({name}): env_steps {got.env_steps} (expected {want_steps}), "
+                 f"Adam state {'kept' if got.optimizer.state else 'empty'}")
+        report[name] = dict(seconds=seconds, tensors=len(pairs))
+    report["env_steps"] = int(arrays["env_steps"])
+    report["bytes"] = {name: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                                 os.walk(os.path.join(JAX_CKPT_DIR, name)) for f in fs)
+                       for name in ("rodent", "rodent_reference")}
+    return report
+
+
+def _tensors_of(x, out=None):
+    """Every tensor reachable from ``x`` (dataclasses and containers)."""
+    import dataclasses
+
+    out = [] if out is None else out
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            _tensors_of(getattr(x, f.name), out)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _tensors_of(v, out)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _tensors_of(v, out)
+    return out
+
+
+def phase_debug_nans(device, B, seed, n_steps=N_STEPS):
+    """training/debug_nans.py on the minirat tracking env (B envs, MLPs
+    256 x 256): (a) rollout_step for ``n_steps`` control steps through
+    debug_nans.call with the mode off and on, the counts set to 0 before
+    each: every output tensor bitwise equal and N_SUBSTEPS launches per
+    control step each; (b) a NaN planted in one policy bias, the mode on:
+    FloatingPointError naming an aten op of agents/ppo/networks.py; (c) a
+    NaN planted in a solve-kernel input (one env's qfrc_smooth), the
+    kernels checked outside the dispatch mode (debug_nans.checking(ops=
+    False)): FloatingPointError naming cg_solve_fused, and on a unit case
+    (one SPD matrix with a NaN) naming spd_inverse. On the CPU (c) is not
+    run: there the wrappers run the plain versions, which dispatch sees.
+    Returns the two runs' counts and seconds and the messages."""
+    import copy
+
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+    from brax_tracking_tpu_torch.agents.ppo import train as pt
+    from brax_tracking_tpu_torch.device import synchronize
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+    from brax_tracking_tpu_torch.ops import cholesky as ops_chol
+    from brax_tracking_tpu_torch.training import debug_nans
+
+    env = make_env(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    first = env.reset(gen, B)
+    obs, act = first.obs.shape[-1], env.action_size
+    ts = ppo_state(obs, act, PPO_HIDDEN, PPO_ARGS["learning_rate"], device, first.obs.dtype, seed)
+    eps = torch.randn((1, n_steps, B, act), generator=gen, dtype=first.obs.dtype, device=device)
+    report, outs = {}, {}
+    for on in (False, True):
+        state = copy.deepcopy(first)
+        synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with debug_nans.debug_nans(on):
+            outs[on] = debug_nans.call("rollout_step", pt.rollout_step, env,
+                                       pn.make_inference_fn(ts.params), ts, state, eps)
+        synchronize(device)
+        report["on" if on else "off"] = dict(seconds=time.perf_counter() - t0,
+                                             counts=read_counts())
+    expected = dict.fromkeys(report["off"]["counts"], 0) | {"cg_solve_fused": N_SUBSTEPS * n_steps}
+    if torch.device(device).type == "cuda" and any(
+            report[k]["counts"] != expected for k in ("off", "on")):
+        fail(f"debug_nans rollout launches {report['off']['counts']} (off), "
+             f"{report['on']['counts']} (on), expected {expected}")
+    a, b = _tensors_of(outs[False]), _tensors_of(outs[True])
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail("debug_nans: the rollout with the mode on is not bitwise the rollout with it off")
+    if debug_nans.has_nan(outs[True]):
+        fail("debug_nans: the clean rollout's outputs hold a NaN")
+    report["expected"], report["tensors"] = expected["cg_solve_fused"], len(a)
+
+    bad = copy.deepcopy(ts)
+    with torch.no_grad():
+        bad.params.policy.layers[1].bias[3] = float("nan")
+    try:
+        with debug_nans.debug_nans():
+            debug_nans.call("rollout_step", pt.rollout_step, env, pn.make_inference_fn(bad.params),
+                            bad, copy.deepcopy(first), eps[:, :DEBUG_NANS_PLANT_STEPS])
+        fail("debug_nans: a NaN policy bias raised nothing")
+    except FloatingPointError as e:
+        report["policy_bias"] = str(e)
+        if "aten." not in str(e) or "agents/ppo/networks.py" not in str(e):
+            fail(f"debug_nans: a NaN policy bias raised, naming no op of the policy: {e}")
+
+    if torch.device(device).type == "cuda":
+        _, args, kw = solve_case(device, "minirat", B, seed)
+        args[8] = args[8].clone()
+        args[8][0, 0] = float("nan")
+        M = spd_inputs(device, 42, 8, seed)[0].clone()
+        M[3, 1, 1] = float("nan")
+        for name, launch in (("cg_solve_fused",
+                              lambda: ops_cg.cg_solve_fused(*args, device=device, **kw)),
+                             ("spd_inverse", lambda: ops_chol.spd_inverse(M, device=device))):
+            try:
+                with debug_nans.checking(f"a planted {name} case", ops=False):
+                    launch()
+                    synchronize(device)
+                fail(f"debug_nans: a NaN input of {name} raised nothing")
+            except FloatingPointError as e:
+                report[name] = str(e)
+                if f"the kernel {name}" not in str(e):
+                    fail(f"debug_nans: a NaN input of {name} raised naming another: {e}")
+    return report
+
+
+def bf16_mlp_inputs(device, seed):
+    """The committed JAX fixture's policy and value MLPs (256 x 256, trained
+    widths) and BF16_OBS seeded observations on ``device``."""
+    arrays = jax_fixture_arrays()
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(BF16_OBS, arrays["params.policy.0.kernel"].shape[0], generator=g,
+                    device=device)
+    return {name: jax_fixture_mlp(arrays, name, device) for name in ("policy", "value")}, x
+
+
+def bf16_mlp_ms(seed):
+    """Device ms per apply of each fixture MLP on the card in float32 and in
+    bfloat16 (every kernel of the call, torch.profiler)."""
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+
+    mlps, x = bf16_mlp_inputs("cuda", seed)
+    with torch.no_grad():
+        return {name: {"float32": library_device_ms(lambda: pn.apply_mlp(mlp, x)),
+                       "bfloat16": library_device_ms(
+                           lambda: pn.apply_mlp(mlp, x, torch.bfloat16))}
+                for name, mlp in mlps.items()}
+
+
+def phase_bf16_mlp(device, seed):
+    """make_ppo_networks(compute_dtype=torch.bfloat16): the committed JAX
+    fixture's policy and value MLPs on BF16_OBS seeded observations,
+    bfloat16 against float32, within BF16_MLP_ATOL; then phase_ppo with
+    bfloat16 networks (reached as the JAX package reaches it: a Python
+    caller's network_factory): the same launches as phase_ppo, a finite
+    state, params in float32. Returns the gaps and phase_ppo's report (the
+    device times: bf16_mlp_ms)."""
+    from brax_tracking_tpu_torch.agents.ppo import networks as pn
+
+    mlps, x = bf16_mlp_inputs(device, seed)
+    report = {"gaps": {}}
+    for name, mlp in mlps.items():
+        with torch.no_grad():
+            f32 = pn.apply_mlp(mlp, x)
+            bf16 = pn.apply_mlp(mlp, x, torch.bfloat16)
+            gap = float((bf16 - f32).abs().max())
+        report["gaps"][name] = gap
+        if not gap <= BF16_MLP_ATOL or bf16.dtype != torch.float32:
+            fail(f"bf16 {name} MLP: max |bf16 - f32| {gap:.3e} (limit {BF16_MLP_ATOL}), dtype "
+                 f"{bf16.dtype}")
+    ppo, _, (_, policy), _, _ = phase_ppo(device, seed, compute_dtype=torch.bfloat16)
+    if {p.dtype for p in policy.parameters()} != {torch.float32} and \
+            torch.device(device).type == "cuda":
+        fail("bf16 train(): the policy's params left float32")
+    report["ppo"] = ppo
+    return report
+
+
+def target_camera_poses(device, dtype, seed, n=TARGET_CAM_FRAMES):
+    """scene_poses' cameras of assets/minirat_cameras.xml at ``n`` seeded
+    poses (the free root's quaternion normalised), on ``device``."""
+    from brax_tracking_tpu_torch.harness import render
+    from brax_tracking_tpu_torch.physics import spec
+
+    m = spec.load_model(spec.MINIRAT_CAMERAS_NPZ, device=device, dtype=dtype)
+    r = spec.render_fields(spec.MINIRAT_CAMERAS_NPZ)
+    rng = np.random.RandomState(seed)
+    q0 = m.qpos0.cpu().numpy().astype(np.float64)
+    qpos = np.tile(q0, (n, 1)) + rng.normal(0.0, 0.3, (n, q0.size))
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    _, _, cam_xpos, cam_xmat = render.scene_poses(m, r, torch.as_tensor(qpos, device=m.device))
+    return r, {"cam_xpos": cam_xpos, "cam_xmat": cam_xmat}
+
+
+def phase_target_camera(device, seed, dtype=torch.float32):
+    """The targetbody and targetbodycom cameras (and the track one) of
+    assets/minirat_cameras.xml on ``device`` against the CPU in float64 at
+    TARGET_CAM_FRAMES seeded poses: max abs gaps within TARGET_CAM_ATOL."""
+    from brax_tracking_tpu_torch.physics import model as pm
+
+    r, got = target_camera_poses(device, dtype, seed)
+    _, want = target_camera_poses("cpu", torch.float64, seed)
+    modes = sorted(int(c) for c in r.cam_mode)
+    if modes != sorted([pm.CAM_TARGETBODY, pm.CAM_TARGETBODYCOM, pm.CAM_TRACK]):
+        fail(f"target camera fixture: camera modes {modes}")
+    gaps = {k: float(np.abs(got[k] - want[k]).max()) for k in got}
+    if any(gaps[k] > TARGET_CAM_ATOL[k] for k in gaps):
+        fail(f"target cameras on the card against the CPU in float64: {gaps} (limits "
+             f"{TARGET_CAM_ATOL})")
+    return gaps
 
 
 def print_video(tag, report, card):
@@ -3919,6 +4235,64 @@ def main() -> int:
           f"eval/walltime {m['eval/walltime']:.2f} s on {card}")
     print(f"ball fly driver phase: {time.perf_counter() - t_ball:.1f} s on {card}")
 
+    # 9b. the last modules (ROADMAP A.13, A.15). (i) a JAX orbax checkpoint:
+    # both committed fixtures restored without orbax, bitwise their .npz,
+    # then the flagship's driver run on the rodent stand-in resumed from the
+    # full one (checkpoint=), the damped wide layout 1 launched as in the
+    # unresumed run
+    t_ckpt = time.perf_counter()
+    ck = phase_jax_checkpoint("cuda")
+    for name in ("rodent", "rodent_reference"):
+        print(f"jax checkpoint ({name}): restore_checkpoint {ck[name]['seconds']:.3f} s for "
+              f"{ck['bytes'][name]} bytes of orbax OCDBT + zstd (the pure-Python reader on the "
+              f"card's host), {ck[name]['tensors']} tensors bitwise the fixture's .npz on {card}")
+    r = phase_driver("cuda", False, rodent=True, resume=(os.path.join(JAX_CKPT_DIR, "rodent"),
+                                                         ck["env_steps"]))
+    resumed = r["counts"]["cg_solve_fused"]
+    if resumed != launches["cg_solve_fused (rodent stand-in)"]:
+        fail(f"driver (rodent, resumed): {resumed} launches, the unresumed run "
+             f"{launches['cg_solve_fused (rodent stand-in)']}")
+    m = r["metrics"]
+    print(f"driver (rodent, resumed from the JAX checkpoint at env_steps {ck['env_steps']}): "
+          f"main() {r['seconds']:.1f} s, kernel launches {r['counts']} (the unresumed run's "
+          f"{launches['cg_solve_fused (rodent stand-in)']}), callback and checkpoint at "
+          f"env_steps {r['final']}, training/sps {m['training/sps']:.1f}, eval/sps "
+          f"{m['eval/sps']:.1f}, "
+          f"eval/episode_reward {m['eval/episode_reward']:.3f} on {card}")
+    print(f"jax checkpoint phase: {time.perf_counter() - t_ckpt:.1f} s on {card}")
+    # (ii) debug_nans on the minirat: a clean rollout bitwise with the mode
+    # on and off, a NaN policy bias named by its op, NaN kernel inputs named
+    # by their kernels
+    t_nan = time.perf_counter()
+    dn = phase_debug_nans("cuda", B_MAIN, SEED)
+    print(f"debug_nans: rollout_step of {B_MAIN} minirat envs x {N_STEPS} control steps, mode "
+          f"off {dn['off']['seconds']:.2f} s, on {dn['on']['seconds']:.2f} s (one clone of the "
+          f"inputs, one host read of the outputs), {dn['tensors']} output tensors bitwise equal, "
+          f"cg_solve_fused launches {dn['off']['counts']['cg_solve_fused']} / "
+          f"{dn['on']['counts']['cg_solve_fused']} (expected {dn['expected']}) on {card}")
+    for k in ("policy_bias", "cg_solve_fused", "spd_inverse"):
+        print(f"debug_nans ({k} planted): FloatingPointError: {dn[k]}")
+    print(f"debug_nans phase: {time.perf_counter() - t_nan:.1f} s on {card}")
+    # (iii) bfloat16 MLPs: the apply against float32, its device time, and
+    # train() through bfloat16 networks
+    t_bf = time.perf_counter()
+    b16 = phase_bf16_mlp("cuda", SEED)
+    for name in ("policy", "value"):
+        print(f"bf16 {name} MLP (256 x 256, {BF16_OBS} observations): max |bf16 - f32| "
+              f"{b16['gaps'][name]:.3e} (limit {BF16_MLP_ATOL})")
+    bp = b16["ppo"]
+    print(f"bf16 train(): {bp['seconds']:.1f} s, kernel launches {bp['counts']} (phase_ppo's "
+          f"{ppo['counts']}), training/sps {bp['metrics']['training/sps']:.1f} (phase_ppo's "
+          f"{ppo['metrics']['training/sps']:.1f}), eval/episode_reward "
+          f"{bp['metrics']['eval/episode_reward']:.3f} on {card}")
+    if bp["counts"] != ppo["counts"]:
+        fail(f"bf16 train(): launches {bp['counts']}, phase_ppo's {ppo['counts']}")
+    print(f"bf16 phase: {time.perf_counter() - t_bf:.1f} s on {card}")
+    # (iv) the cameras that aim at a body
+    cam_gaps = phase_target_camera("cuda", SEED)
+    print(f"target_cameras_vs_cpu_f64 ({TARGET_CAM_FRAMES} poses of assets/minirat_cameras.xml) "
+          + json.dumps({"gaps": cam_gaps, "limits": TARGET_CAM_ATOL}))
+
     # 10. times. The solve kernels: every instance the gates held, with its
     # layout and warps per env (ops/cg.py::kernel_layout), each a row of the
     # kernels line. Launches are the main paths' counts: the one-warp fused
@@ -3986,9 +4360,13 @@ def main() -> int:
         if what == "(a) minirat":
             entries[-1]["distributed_launches"] = {
                 k: v for k, v in dist_launches.items() if k.startswith("world")}
+            entries[-1]["debug_nans_launches"] = {
+                k: dn[k]["counts"]["cg_solve_fused"] for k in ("off", "on")}
+            entries[-1]["bf16_train_launches"] = bp["counts"]["cg_solve_fused"]
         if what == "(a) rodent stand-in, damped":
             entries[-1]["distributed_launches"] = {
                 k: v for k, v in dist_launches.items() if k.startswith("rank")}
+            entries[-1]["resumed_driver_launches"] = resumed
         if what == "(a) minirat":
             w_ms = time_cuda(lambda: ops_cg.cg_solve_fused(*args, device="cuda", **kw), 100)
             print(f"cg_solve_fused wrapper with the P A einsum on minirat: {w_ms * 1e3:.1f} "
@@ -4049,6 +4427,10 @@ def main() -> int:
         print(f"ballmuscle {solver}: {ms:.2f} ms per substep of {B_MAIN} envs on {card}")
     ms = newton_ms_per_substep(B_MAIN, 10, SEED + 2)
     print(f"minirat_newton: {ms:.2f} ms per substep of {B_MAIN} envs on {card}")
+    for name, ms in bf16_mlp_ms(SEED).items():
+        print(f"bf16 {name} MLP (256 x 256, {BF16_OBS} observations): device time per apply "
+              f"{ms['bfloat16'] * 1e3:.2f} us in bfloat16, {ms['float32'] * 1e3:.2f} us in "
+              f"float32 on {card}")
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

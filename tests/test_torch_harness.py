@@ -16,10 +16,12 @@ the JAX package, on the CPU.
 - Param snapshots: a (256, 256) policy initialised by the JAX package and
   pickled by its ``save_params`` acts the same in the port, within 1e-12
   (float64).
-- ``debug_nans``, not ported, raises ``NotImplementedError`` naming ROADMAP
-  A.13 before anything is written (the video and the profile trace:
-  tests/test_torch_render.py); a default ``main()`` without a card
-  raises.
+- ``debug_nans=true`` and ``BTT_DEBUG_NANS=1`` run the cut driver with the
+  mode on (training/debug_nans.py; its parity with the JAX package:
+  tests/test_torch_debug_nans.py): every checked call of the run sees it
+  on, the run trains and writes its files, and the mode is off again after
+  ``main()`` (the video and the profile trace: tests/test_torch_render.py);
+  a default ``main()`` without a card raises.
 """
 
 import ast
@@ -272,13 +274,33 @@ def test_driver_multi_clip(tmp_path, monkeypatch):
     ([], {"BTT_DEBUG_NANS": "1"}),
 ])
 def test_driver_unported_options_raise(tmp_path, monkeypatch, extra, env):
+    """The two switches that raised before debug_nans was ported now run the
+    driver with the mode on: each checked call (resets, rollout_step,
+    learn_step, eval unrolls) runs with it, the run trains and writes its
+    files, nothing raises on the clean run, and the mode is off after it."""
+    from brax_tracking_tpu_torch.training import debug_nans
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    base = tmp_path / "run"
-    with pytest.raises(NotImplementedError, match="§A.13"):
-        tdriver.main(CUTS + [f"paths.base_dir={base}", f"paths.data_dir={tmp_path}/d", *extra],
-                     device="cpu")
-    assert not base.exists()
+    seen = []
+    plain = debug_nans.call
+
+    def recording(name, fn, *args, **kwargs):
+        seen.append((name, debug_nans.enabled()))
+        return plain(name, fn, *args, **kwargs)
+
+    monkeypatch.setattr(debug_nans, "call", recording)
+    # the clip cut to 8 frames: the callback's rollout takes 3 control steps
+    _, metrics, base, _, records = _run(tmp_path, ["dataset.clip_length=8", *extra])
+    assert {n for n, _ in seen} == {"the env reset", "rollout_step", "learn_step",
+                                    "the evaluator's unroll"}
+    assert all(on for _, on in seen) and not debug_nans.enabled()
+    run = "single_clip_tracking_track_smoke"
+    for rel in ("run_config.yaml", "logs/metrics.jsonl", "ckpt/64/training_state.pt",
+                f"ckpt/{run}/final", f"ckpt/{run}/rollout_64.p"):
+        assert (base / rel).is_file(), rel
+    assert np.isfinite(metrics["eval/episode_reward"]) and records[0]["_config"][
+        "debug_nans"] is ("debug_nans=true" in extra)
 
 
 def test_driver_unported_env_raises_before_building(tmp_path):

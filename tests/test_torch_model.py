@@ -111,7 +111,8 @@ def test_port_imports_no_jax():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "brax_tracking_tpu", "flax", "optax", "orbax"), (path, mod)
+            assert top not in ("jax", "jaxlib", "brax_tracking_tpu", "flax", "optax", "orbax",
+                               "tensorstore", "zstandard"), (path, mod)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

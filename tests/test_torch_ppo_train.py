@@ -410,21 +410,39 @@ def test_train_zero_timesteps_returns_init():
 def test_errors(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="divide by num_envs"):
         ttrain.train(PointMass(), num_timesteps=64, **dict(PM_ARGS, num_envs=48))
-    with pytest.raises(NotImplementedError, match="§A.15"):
-        tnetworks.make_ppo_networks(2, 2, compute_dtype=torch.bfloat16,
-                                    generator=torch.Generator(), device="cpu")
+    # a bfloat16 compute dtype (ROADMAP A.15, ported): the params stay
+    # float64, the outputs come back in the input's dtype
+    bf16 = tnetworks.make_ppo_networks(2, 2, compute_dtype=torch.bfloat16,
+                                       generator=torch.Generator(), device="cpu")
+    assert bf16.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in bf16.parameters()} == {torch.float64}
+    out = bf16.policy_logits(None, torch.ones(3, 2, dtype=torch.float64))
+    assert out.dtype == torch.float64 and out.shape == (3, 4)
     # per-env models need a physics model (their tests:
     # test_torch_randomize.py)
     with pytest.raises(TypeError, match="physics model"):
         ttrain.train(PointMass(), num_timesteps=64,
                      randomization_fn=lambda m, num_envs, generator: (m, ()), **PM_ARGS)
-    # an orbax checkpoint of the JAX package cannot be restored here
+    # an orbax checkpoint of the JAX package (ROADMAP A.13, ported) restores
+    # where its tree is a training state; another tree raises naming why
+    # (the restores themselves: tests/test_torch_orbax.py)
     orbax_dir = str(tmp_path / "orbax" / "100")
     jcheckpoint.save_checkpoint(orbax_dir, {"x": jnp.ones(3)})
     assert tcheckpoint.checkpoint_layout(orbax_dir) == "unknown"
-    with pytest.raises(NotImplementedError, match="§A.13"):
+    with pytest.raises(ValueError, match="neither"):
         ttrain.train(PointMass(), num_timesteps=2048, restore_checkpoint_path=orbax_dir,
                      **PM_ARGS)
+    ref_dir = str(tmp_path / "orbax" / "reference")
+    jnet = lambda k, out: jnetworks.init_mlp(k, (256, 256, out), 2, jnp.float64)
+    jcheckpoint.save_checkpoint(ref_dir, (jrs.init_state(jnp.ones((2,), jnp.float64)),
+                                          jlosses.PPONetworkParams(
+                                              policy=jnet(jax.random.PRNGKey(0), 4),
+                                              value=jnet(jax.random.PRNGKey(1), 1))))
+    assert tcheckpoint.checkpoint_layout(ref_dir) == "reference"
+    seen = []
+    ttrain.train(PointMass(), num_timesteps=2048, num_evals=2, restore_checkpoint_path=ref_dir,
+                 progress_fn=lambda step, m: seen.append(step), **PM_ARGS)
+    assert seen == [0, 2048]
     # the default device is the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = {k: v for k, v in PM_ARGS.items() if k != "device"}

@@ -8,7 +8,8 @@ the JAX package and MuJoCo C, on the CPU.
 - Poses: ``harness/render.py::scene_poses`` (one batched kinematics call)
   against ``mj_forward`` at seeded poses, 1e-12: geom positions and frames,
   and the cameras in the three modes (fixed in a moving body and in the
-  world, track, trackcom); a camera that targets a body raises.
+  world, track, trackcom); the cameras that aim at a body (targetbody,
+  targetbodycom) at 1e-9.
 - Pixels: the port's ``NativeRenderer`` fed MuJoCo's poses gives the JAX
   ``NativeRenderer``'s pixels exactly, from every camera and the default
   orbit; ``render_rollout_vs_reference`` gives the JAX one's frames on the
@@ -244,17 +245,48 @@ def test_poses_match_mujoco(tmp_path, case):
         np.testing.assert_allclose(a, b, atol=POSE_ATOL, rtol=0, err_msg=name)
 
 
-def test_target_body_camera_raises(tmp_path):
-    text = open(tspec.RODENT_STANDIN_PAIR_XML).read().replace(
-        '<freejoint name="free-0"/>', '<freejoint name="free-0"/>\n<camera name="aim" '
-        'mode="targetbody" target="torso-1" pos="0 -0.3 0.1"/>')
-    xml = tmp_path / "target.xml"
-    xml.write_text(text)
-    tspec.freeze_mjcf(str(xml), str(tmp_path / "target.npz"))
-    m = tspec.load_model(str(tmp_path / "target.npz"), device="cpu")
-    r = tspec.render_fields(str(tmp_path / "target.npz"))
-    with pytest.raises(NotImplementedError, match="§A.13"):
-        trender.scene_poses(m, r, m.qpos0[None])
+TARGET_ATOL = 1e-9
+
+
+@pytest.mark.parametrize("scene", ["rodent_pair", "minirat_cameras"])
+def test_target_body_camera_raises(tmp_path, scene):
+    """Cameras that aim at a body, which raised before they were ported:
+    ``targetbody`` (at the target's origin) and ``targetbodycom`` (at its
+    subtree centre of mass), one fixed in the world and one riding a moving
+    body, match MuJoCo's ``mj_camlight`` at 1e-9 on seeded poses; on the
+    rodent pair (the reference's torso aimed at from the reference's free
+    body and the rollout's skull) and on the committed fixture
+    ``assets/minirat_cameras.xml``, which is also its fresh freeze."""
+    if scene == "rodent_pair":
+        text = open(tspec.RODENT_STANDIN_PAIR_XML).read().replace(
+            '<freejoint name="free-0"/>', '<freejoint name="free-0"/>\n<camera name="aim" '
+            'mode="targetbody" target="torso-1" pos="0 -0.3 0.1"/>')
+        text = text.replace('<body name="skull-1" pos="0.008 0 0.003">',
+                            '<body name="skull-1" pos="0.008 0 0.003">\n<camera name="aimcom" '
+                            'mode="targetbodycom" target="torso-0" pos="0.05 0.1 0.02"/>')
+        xml = tmp_path / "target.xml"
+        xml.write_text(text)
+        xml, npz = str(xml), str(tmp_path / "target.npz")
+        tspec.freeze_mjcf(xml, npz)
+    else:
+        xml, npz = tspec.MINIRAT_CAMERAS_XML, tspec.MINIRAT_CAMERAS_NPZ
+        fresh = tspec.freeze_mjcf(xml, str(tmp_path / "fresh.npz"))
+        committed = dict(np.load(npz))
+        assert sorted(fresh) == sorted(committed)
+        for k, v in fresh.items():
+            np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    mj = _compile(xml, True)
+    m = tspec.load_model(npz, device="cpu")
+    r = tspec.render_fields(npz)
+    aims = [TM.CAM_TARGETBODY, TM.CAM_TARGETBODYCOM]
+    assert sorted(c for c in r.cam_mode.tolist() if c in aims) == aims
+    assert (r.cam_targetbodyid[np.isin(r.cam_mode, aims)] >= 0).all()
+    qpos = _seeded_qpos(mj, 6, 4)
+    got = trender.scene_poses(m, r, torch.as_tensor(qpos))
+    for name, a, b in list(zip(("geom_xpos", "geom_xmat", "cam_xpos", "cam_xmat"), got,
+                               _mj_poses(mj, qpos)))[2:]:
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, atol=TARGET_ATOL, rtol=0, err_msg=name)
 
 
 # ---------------------------------------------------------------------------
