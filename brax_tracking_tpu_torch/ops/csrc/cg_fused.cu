@@ -7,10 +7,12 @@
 // by the sweep operator, run MuJoCo CG with a bracketed Newton line search on
 // one-sided quadratic rows plus one contiguous block of dim-3 elliptic
 // contacts, optionally from the better of a warmstart and qacc_smooth and
-// with the float32 stall exit, and form the Euler velocity update (Cholesky
-// factor + solve of M + h diag(B) when the model has damping). Both kernels
-// run one device function, cg_core, once qM, J and the per-env vectors are in
-// shared memory.
+// with the float32 stall exit, and form the Euler velocity update (when the
+// model has damping, the Cholesky factor of M + h diag(B) and both
+// substitutions by cholesky.cuh's blocked pieces on all of an env's threads:
+// euler_damped). Both kernels run one device function, cg_core (or, for wide
+// envs, cg_core_wide), once qM, J and the per-env vectors are in shared
+// memory.
 //
 // Design. The TPU kernel tiles (rows, dofs, 128 envs) in VMEM; here one
 // warp owns one env and one block holds one warp. qM, M^-1 and J stay in
@@ -107,6 +109,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cholesky.cuh"
 #include "sweep.cuh"
 
 namespace {
@@ -116,10 +119,22 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMinval = 1e-15f;
 // 16 one-warp blocks per SM hold 2048 envs in one wave on the H100's 132
 // SMs; the launch bound keeps the kernels within the 128 registers per
-// thread that allows. A wide block holds its SM alone.
+// thread that allows. A wide block of kW warps is held to the same 128
+// (16 / kW blocks' worth of the SM's registers), so that two layout-1
+// blocks share an SM wherever their shared memory lets them (the rodent
+// stand-in's 92,032 B). Without the bound ptxas gives the layout-1
+// instances up to 168 registers, and above 128 one block per SM: so it
+// left the main path's instance once the blocked damped tail was in it
+// (the undamped one rat 1,309 us per launch instead of 753; H100 80GB
+// HBM3, 700 W).
 constexpr int kBlocksPerSm = 16;
+template <int kW>
+constexpr int kMinBlocks = kW == 1 ? kBlocksPerSm : 16 / kW;
 
 __device__ inline int lead(int nv) { return nv | 1; }
+// the row stride of the wide core's qM and M^-1 and of the damped tail's
+// factor: nv rounded up to a multiple of 4
+__device__ __host__ inline int lead4(int nv) { return (nv + 3) & ~3; }
 
 // N independent warp sums by xor butterflies, issued together (5 levels for
 // all N). Every lane ends with bitwise the same sums: at each level the two
@@ -725,6 +740,32 @@ __device__ __forceinline__ unsigned bracket(const Args& a, const Smem& s, const 
   return __ballot_sync(kFull, pos);
 }
 
+// The damped Euler tail of both cores, on all kThreads threads of the
+// block: qvel_new = qvel + dt z with (M + h diag(B)) z = qfrc_smooth +
+// qfrc_constraint, for one env's nv-vectors. y = qfs + qfrc first (U may
+// overlay qfs and qfrc), then the upper triangle of qM (row stride ldq) +
+// damp into U (row stride ld, a multiple of 4, 16-byte aligned, ceil(nv /
+// 4) * 4 rows), factored and solved in place on y by cholesky.cuh's
+// blocked pieces. Starts after a barrier that made qfs and qfrc visible.
+template <int kThreads>
+__device__ __forceinline__ void euler_damped(int nv, const float* qM, int ldq,
+                                             const float* __restrict__ damp, const float* qfs,
+                                             const float* qfrc, float* U, int ld, float* y,
+                                             const float* __restrict__ qvel,
+                                             float* __restrict__ qvel_new, float dt) {
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1);
+  for (int v = tid; v < nv; v += kThreads) y[v] = qfs[v] + qfrc[v];
+  __syncthreads();
+  for (int i = tid / kWarp; i < nv; i += kThreads / kWarp)
+    for (int j = i + lane; j < nv; j += kWarp)
+      U[i * ld + j] = qM[i * ldq + j] + ((i == j) ? __ldg(damp + i) : 0.f);
+  __syncthreads();
+  chol::factor_blocked<kThreads, true>(U, ld, nv);
+  chol::forward_blocked<kThreads, false>(U, chol::Square{ld}, y, nv);
+  chol::backward_blocked<kThreads>(U, chol::Square{ld}, y, nv);
+  for (int v = tid; v < nv; v += kThreads) qvel_new[v] = __ldg(qvel + v) + dt * y[v];
+}
+
 // The solve of one warp once qM, J and the per-env vectors are in shared
 // memory; writes every output of env b. kEll (nell > 0) compiles the
 // elliptic block in: without it the quadratic rows' loops carry no trace of
@@ -947,41 +988,13 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
   const float* qvel = a.qvel + (size_t)b * nv;
   float* qvel_new = a.qvel_new + (size_t)b * nv;
   if (a.has_damping) {
-    // (M + h diag(B)) = U^T U, right-looking; rows of Mi become U
-    float* U = s.Mi;
-    for (int e = lane; e < nv * nv; e += kWarp) {
-      const int i = e / nv, j = e - i * nv;
-      U[i * ld + j] = s.qM[i * ld + j] + ((i == j) ? __ldg(a.damp + i) : 0.f);
-    }
-    __syncwarp();
-    for (int k = 0; k < nv; ++k) {
-      const float c = 1.f / sqrtf(U[k * ld + k]);
-      __syncwarp();
-      for (int j = k + lane; j < nv; j += kWarp) U[k * ld + j] *= c;
-      __syncwarp();
-      for (int e = lane; e < nv * nv; e += kWarp) {
-        const int i = e / nv, j = e - i * nv;
-        if (i > k && j >= i) U[i * ld + j] -= U[k * ld + i] * U[k * ld + j];
-      }
-      __syncwarp();
-    }
-    // rhs = qfrc_smooth + qfrc_constraint; forward U^T y = rhs into rowb
-    for (int k = 0; k < nv; ++k) {
-      float sum = 0.f;
-      for (int i = lane; i < k; i += kWarp) sum += U[i * ld + k] * s.rowb[i];
-      sum = warp_sum(sum);
-      if (lane == 0) s.rowb[k] = (s.qfs[k] + s.tmp[k] - sum) / U[k * ld + k];
-      __syncwarp();
-    }
-    // backward U z = y into colb
-    for (int k = nv - 1; k >= 0; --k) {
-      float sum = 0.f;
-      for (int j = k + 1 + lane; j < nv; j += kWarp) sum += U[k * ld + j] * s.colb[j];
-      sum = warp_sum(sum);
-      if (lane == 0) s.colb[k] = (s.rowb[k] - sum) / U[k * ld + k];
-      __syncwarp();
-    }
-    for (int v = lane; v < nv; v += kWarp) qvel_new[v] = __ldg(qvel + v) + a.dt * s.colb[v];
+    // U on the 16-byte aligned square past qM, over M^-1, J and the vectors
+    // up to rowb, free once the outputs are written (its ld (nv + nefc) + 6
+    // nefc + 11 nv floats hold the lead4(nv)^2 of the square and the
+    // alignment but at nv = 1 without rows, which the launch refuses); y in
+    // rowb
+    euler_damped<kWarp>(nv, s.qM, ld, a.damp, s.qfs, s.tmp, s.qM + ((nv * ld + 3) & ~3),
+                        lead4(nv), s.rowb, qvel, qvel_new, a.dt);
   } else {
     for (int v = lane; v < nv; v += kWarp) qvel_new[v] = __ldg(qvel + v) + a.dt * s.x[v];
   }
@@ -1004,7 +1017,20 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
 //   the rows, matvec_t's transposing butterfly);
 // - every sum over rows or dofs, the bracket, the line search, the step
 //   and the done flag on warp 0 with cg_core's own code and lane order
-//   (the other warps wait at a barrier), which hands the flag to the block.
+//   (the other warps wait at a barrier), which hands the flag to the block;
+// - the damped Euler tail (euler_damped) on every thread: M + h diag(B)
+//   over M^-1 (free after CG), cholesky.cuh's factor_blocked,
+//   forward_blocked and backward_blocked, two barriers per 16-row panel (32
+//   in all at nv 73). Its first version factored one pivot per step with
+//   three block barriers each (219 at nv 73) and ran both substitutions on
+//   warp 0 alone (146 dependent steps of a 5-level warp_sum): 196.8K of the
+//   rodent stand-in's 340.1K cycles per env in clock64 stamps, 50.9K of
+//   224.6K now, 1,518.0 -> 887.2 us per 2048-env launch (H100 80GB HBM3,
+//   700 W; scripts/stamp_solve_kernel.py --rodent, ab_solve_kernel.py).
+//   cg_core runs the same pieces on its 32 threads (the factor's panel
+//   columns in several passes), and every entry takes its updates in pivot
+//   order by the same operations whatever the thread count, so the two
+//   cores stay bitwise equal, qvel_new included.
 // Each value is formed by the same operations in the same order as in
 // cg_core, so the wide core's outputs are bitwise the one-warp core's
 // (chip_smoke.py holds that at nv > 16, where cg_core takes this path):
@@ -1039,8 +1065,6 @@ static_assert((kWideWarps1 == 4 || kWideWarps1 == 8 || kWideWarps1 == 16) &&
 // pivots per panel of the wide sweep: 8 keeps its buffers beside the vectors
 // up to layout 2's widest env (16, spd_inverse's, does not fit there)
 constexpr int kPanel = 8;
-
-__device__ __host__ inline int lead4(int nv) { return (nv + 3) & ~3; }
 
 // Floats of a wide block's dynamic shared memory (ops/cg.py::
 // wide_smem_bytes / 4): qM (nv x ldm) and qfrc_smooth; in layout 1 J
@@ -1384,44 +1408,9 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
   const float* qvel = a.qvel + (size_t)b * nv;
   float* qvel_new = a.qvel_new + (size_t)b * nv;
   if (a.has_damping) {
-    // (M + h diag(B)) = U^T U, right-looking, rows of the block's warps and
-    // columns of their lanes (each entry as cg_core forms it); rows of Mi
-    // become U
-    float* U = s.Mi;
-    for (int i = warp; i < nv; i += kW)
-      for (int j = lane; j < nv; j += kWarp)
-        U[i * ldm + j] = s.qM[i * ldm + j] + ((i == j) ? __ldg(a.damp + i) : 0.f);
-    __syncthreads();
-    for (int k = 0; k < nv; ++k) {
-      const float c = 1.f / sqrtf(U[k * ldm + k]);
-      __syncthreads();
-      for (int j = k + tid; j < nv; j += kWide) U[k * ldm + j] *= c;
-      __syncthreads();
-      for (int i = k + 1 + warp; i < nv; i += kW)
-        for (int j = i + lane; j < nv; j += kWarp)
-          U[i * ldm + j] -= U[k * ldm + i] * U[k * ldm + j];
-      __syncthreads();
-    }
-    if (w0) {
-      // rhs = qfrc_smooth + qfrc_constraint; forward U^T y = rhs into rowb
-      for (int k = 0; k < nv; ++k) {
-        float sum = 0.f;
-        for (int i = lane; i < k; i += kWarp) sum += U[i * ldm + k] * s.rowb[i];
-        sum = warp_sum(sum);
-        if (lane == 0) s.rowb[k] = (s.qfs[k] + s.tmp[k] - sum) / U[k * ldm + k];
-        __syncwarp();
-      }
-      // backward U z = y into colb
-      for (int k = nv - 1; k >= 0; --k) {
-        float sum = 0.f;
-        for (int j = k + 1 + lane; j < nv; j += kWarp) sum += U[k * ldm + j] * s.colb[j];
-        sum = warp_sum(sum);
-        if (lane == 0) s.colb[k] = (s.rowb[k] - sum) / U[k * ldm + k];
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    for (int v = tid; v < nv; v += kWide) qvel_new[v] = __ldg(qvel + v) + a.dt * s.colb[v];
+    // U over M^-1 (ldm x ldm, 16-byte aligned), y in rowb
+    euler_damped<kWide>(nv, s.qM, ldm, a.damp, s.qfs, s.tmp, s.Mi, ldm, s.rowb, qvel, qvel_new,
+                        a.dt);
   } else {
     for (int v = tid; v < nv; v += kWide) qvel_new[v] = __ldg(qvel + v) + a.dt * s.x[v];
   }
@@ -1445,7 +1434,7 @@ __device__ __forceinline__ void fused_narrow(
   const int lane = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc;
   const int ld = lead(nv);
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   Smem s = carve(sm, nv, nefc, a.nell);
 
   const float* fb = f + (size_t)b * 6 * nv;
@@ -1631,7 +1620,7 @@ __device__ __forceinline__ void fused_wide(
 }
 
 template <bool kEll, bool kWarm, bool kL2, int kW>
-__global__ void __launch_bounds__(kW * kWarp, kW == 1 ? kBlocksPerSm : 1)
+__global__ void __launch_bounds__(kW * kWarp, kMinBlocks<kW>)
 cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ cdof,
                 const float* __restrict__ Bm, const float* __restrict__ jsign,
                 const float* __restrict__ md, const float* __restrict__ armature,
@@ -1649,7 +1638,7 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
 }
 
 template <bool kEll, bool kWarm, bool kL2, int kW>
-__global__ void __launch_bounds__(kW * kWarp, kW == 1 ? kBlocksPerSm : 1)
+__global__ void __launch_bounds__(kW * kWarp, kMinBlocks<kW>)
 cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict__ J,
                   float* jscratch) {
   const int b = blockIdx.x;
@@ -1659,7 +1648,7 @@ cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict_
   if constexpr (kW == 1) {
     static_assert(!kL2, "layout 2 runs wide");
     const int lane = threadIdx.x;
-    extern __shared__ float sm[];
+    extern __shared__ __align__(16) float sm[];
     Smem s = carve(sm, nv, nefc, a.nell);
     copy_rows(s.qM, lead(nv), qMb, nv, nv, lane);
     copy_rows(s.J, s.ldj, Jb, nefc, nv, lane);
@@ -1734,10 +1723,11 @@ int allow_smem(Kernel kernel, int smem) {
 // The geometry a launch asks for, checked against what the kernels take:
 // one warp in layout 1, or the wide core's warps of the layout (with the
 // wide layout's own shared-memory size), the scratch where layout 2 needs
-// it.
+// it; a damped one-warp env has room for its factor (cg_core).
 bool bad_geometry(int layout, int warps, int smem, int nv, int nefc, int nell,
-                  const float* jscratch) {
+                  const float* jscratch, int has_damping) {
   if (layout != 1 && layout != 2) return true;
+  if (warps == 1 && has_damping && nv == 1 && nefc == 0) return true;
   if (warps != 1 && warps != (layout == 1 ? kWideWarps1 : kWideWarps2)) return true;
   if (layout == 2 && (warps == 1 || jscratch == nullptr)) return true;
   return warps > 1 && smem != 4 * wide_smem_floats(nv, nefc, nell, layout == 2);
@@ -1764,7 +1754,7 @@ extern "C" int cg_fused_launch(
     int warps, int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt,
     float stall_tol, int arm_stride, void* stream) {
   if (B == 0) return 0;
-  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch))
+  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch, has_damping))
     return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
   auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
@@ -1799,7 +1789,7 @@ extern "C" int cg_batched_launch(
     int smem, int layout, int warps, int iters, int ls_iters, int has_damping, int has_ws,
     float tol, float dt, float stall_tol, void* stream) {
   if (B == 0) return 0;
-  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch))
+  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch, has_damping))
     return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
   auto pick = [&](auto k11, auto k10, auto k01, auto k00) {

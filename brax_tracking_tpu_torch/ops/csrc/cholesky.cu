@@ -41,9 +41,11 @@
 //   rows, two barriers per panel in the factor and in each substitution (20
 //   per pass at nv = 146). factor_blocked: every warp factors the panel's
 //   diagonal block in registers while each thread solves one panel column
-//   (U12 = U11^-T A12), then every thread takes 4 x 4 register tiles of the
-//   trailing update U22 -= U12^T U12 (0.125 shared-memory loads per FMA),
-//   on the padded square layout (rows and row stride a multiple of 4).
+//   (U12 = U11^-T A12; these kernels' blocks have a thread for each, the
+//   solve kernel's damped tail loops), then every thread takes 4 x 4
+//   register tiles of the trailing update U22 -= U12^T U12 (0.125
+//   shared-memory loads per FMA), on the padded square layout (rows and row
+//   stride a multiple of 4).
 //   forward_blocked / backward_blocked: warp 0 solves the panel's triangle in
 //   registers, then every thread applies the panel as a 16-term update of
 //   one later column (forward) or earlier row (backward).

@@ -250,24 +250,28 @@ __device__ __forceinline__ void load_rows_async(float* S, Layout at, const float
 }
 
 // In-place blocked factor of the upper triangle of U (square layout, row
-// stride ld, a multiple of 4): U's upper triangle becomes the factor. Every
-// thread of the kThreads-thread block calls it; it starts after a barrier
-// that made U visible and ends with one; kThreads >= nv - kNb (each thread
-// solves at most one panel column).
-template <int kThreads>
+// stride ld, a multiple of 4, 16-byte aligned, ceil(nv / 4) * 4 rows): U's
+// upper triangle becomes the factor; nothing below the diagonal or past nv
+// reaches it. Every thread of the kThreads-thread block calls it; it starts
+// after a barrier that made U visible and ends with one. Each thread solves
+// at most one panel column to the right of the diagonal block (kThreads >=
+// nv - kNb: the factor and SPD-solve kernels), or with kLoop the columns
+// tid, tid + kThreads, ... (any nv: the solve kernel's damped tail), each
+// column by the same operations.
+template <int kThreads, bool kLoop = false>
 __device__ __forceinline__ void factor_blocked(float* U, int ld, int nv) {
   const int tid = threadIdx.x, nt = kThreads;
   const int lane = tid & (kWarp - 1), warp = tid >> 5;
   for (int k0 = 0; k0 < nv; k0 += kNb) {
     const int nb = min(kNb, nv - k0);
-    // 1. the diagonal block (lane c < nb holds column k0 + c) and one panel
-    // column j to its right per thread, in one pivot loop; a warp with no
-    // panel column skips it (but warp 0, which writes the block)
+    // 1. the diagonal block (lane c < nb holds column k0 + c) and a panel
+    // column j to its right per thread, in one pivot loop (with kLoop once
+    // per column, the block factored again each time); a warp with no panel
+    // column skips it (but warp 0, which writes the block)
     const int c = lane < nb ? lane : 0;
-    const int j = k0 + kNb + tid;
-    const bool has_col = j < nv;
     float col[kNb];
-    if (warp == 0 || k0 + kNb + warp * kWarp < nv) {
+    auto columns = [&](int j) {
+      const bool has_col = j < nv;
       float x[kNb];
 #pragma unroll
       for (int r = 0; r < kNb; ++r) {
@@ -293,6 +297,12 @@ __device__ __forceinline__ void factor_blocked(float* U, int ld, int nv) {
         for (int r = 0; r < kNb; ++r)
           if (r < nb) U[(k0 + r) * ld + j] = x[r];
       }
+    };
+    const int jw = k0 + kNb + warp * kWarp;  // the warp's first column
+    if constexpr (kLoop) {
+      for (int j = jw; j < nv || (warp == 0 && j == k0 + kNb); j += nt) columns(j + lane);
+    } else if (warp == 0 || jw < nv) {
+      columns(jw + lane);
     }
     __syncthreads();  // U12 complete; every warp has read the diagonal block
 

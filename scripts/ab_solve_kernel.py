@@ -1,7 +1,7 @@
 """Time the solve kernel's instances, the Cholesky kernels and the SPD
 inverses, for comparing two trees on one card.
 
-    python3 scripts/ab_solve_kernel.py [--root DIR] [--reps 3] [--seeded-only]
+    python3 scripts/ab_solve_kernel.py [--root DIR] [--reps 3] [--seeded-only] [--no-ptxas]
     python3 scripts/ab_solve_kernel.py --warps 4,8,16
 
 ``--root`` is the root of the tree to measure (default: this checkout); an
@@ -27,6 +27,14 @@ within it. Prints one JSON line:
   ``pair_batched_a``, the same on the two-rat stand-in (1024 envs, layout
   2), ``rat_a`` on the one-rat file (2048 envs, where the tree has it) and
   ``rodent_like``, the seeded dense case (nv 73, 296 rows, 2048 envs);
+  and the damped wide layout 1 (the Euler tail's factor and substitutions):
+  ``rodent_standin_a`` (the rodent stand-in, nv 73, 135 rows, its own
+  joint damping), ``terrain_a`` (on its terrain, 367 rows) and
+  ``rodent_standin_arm_a`` (a per-env armature), 2048 envs each;
+- ``digest``: per solve instance above, per output, and per width of
+  ``factor_batched``, ``spd_solve`` and ``solve_batched`` below, the first
+  16 hex digits of the SHA-256 of the output's bytes: equal digests of two
+  trees in one call are bitwise equal outputs;
 - ``factor_us`` / ``spd_solve_us`` / ``solve_us``: device us per launch
   (torch.profiler, ``--reps`` runs of 20 launches) of ``factor_batched``
   at nv 7, 10, 73, 144 (the widest on 128 threads) and 146, of
@@ -56,7 +64,8 @@ within it. Prints one JSON line:
 - ``in_rollout_us``: device us per launch of (a) from torch.profiler over
   10 control steps of that rollout (after the 22 above).
 
-``--seeded-only`` skips the rollout (the last two).
+``--seeded-only`` skips the rollout (the last two), ``--no-ptxas`` the
+ptxas report (empty), for a second run of a tree in the same call.
 
 ``--warps 4,8,16`` instead builds the tree's ``cg_fused.cu`` once per warp
 count of the wide core (both layouts' ``-DCG_WIDE_WARPS_L1`` / ``_L2``,
@@ -77,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -94,6 +104,12 @@ SOLVE_CASES = (("a", "minirat", False), ("b", "minirat_elliptic", False),
 WIDE_CASES = (("pair_a", "ratpair", False, 1024), ("pair_b", "ratpair_elliptic", False, 1024),
               ("pair_c", "ratpair_newton", False, 1024), ("pair_batched_a", "ratpair", True, 1024),
               ("rat_a", "rat", False, 2048), ("rodent_like", "rodent_like", True, 2048))
+# the damped wide layout 1 (its own joint damping: the Euler tail's factor
+# and substitutions), timed and digested with the seeded instances; "+arm"
+# gives every env its own armature (chip_smoke.py's armature_draw)
+DAMPED_CASES = (("rodent_standin_a", "rodent_standin", False, 2048),
+                ("terrain_a", "rodent_standin_terrain", False, 2048),
+                ("rodent_standin_arm_a", "rodent_standin+arm", False, 2048))
 PAIR_OCCUPANCY_ENVS = (132, 528, 1024)
 # the fly stand-in's files (the one-warp elliptic instance by the rule),
 # timed on both cores by --warps
@@ -158,12 +174,16 @@ def profile_device(fn, reps: int):
 
 def wide_case(cs, model: str, dense: bool, B: int):
     """(launch args, keywords, dense) of a wide case at B envs, or None
-    where the tree lacks its model file."""
+    where the tree lacks its model file (or, for "<model>+arm", a per-env
+    armature)."""
     if model == "rodent_like":
         args, kw = cs.rodent_like_case("cuda", B, cs.SEED)
         return args, kw, True
+    model, arm = model.removesuffix("+arm"), model.endswith("+arm")
     try:
         _, args, kw = cs.solve_case("cuda", model, B, cs.SEED)
+        if arm:
+            args[13] = cs.armature_draw(args[13], B, cs.SEED)
     except (KeyError, AttributeError, FileNotFoundError):
         return None
     if dense:
@@ -253,6 +273,16 @@ def warps_sweep(cs, root: str, counts, reps: int) -> dict:
     return report
 
 
+def digest(outs) -> dict:
+    """The first 16 hex digits of the SHA-256 of each output's bytes (a dict
+    of tensors, or one tensor as "out"), so two trees' outputs compare
+    bitwise across runs."""
+    if isinstance(outs, torch.Tensor):
+        outs = {"out": outs}
+    return {k: hashlib.sha256(v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+            for k, v in outs.items()}
+
+
 def device_us(fn, tag: str, reps: int = 20) -> float:
     """Mean device us per call of ``fn`` of the CUDA kernels whose name
     holds ``tag`` (profile_device). A profile that does not see exactly
@@ -276,6 +306,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seeded-only", action="store_true")
+    ap.add_argument("--no-ptxas", action="store_true",
+                    help="skip the ptxas report (a second run of the same tree)")
     ap.add_argument("--warps", default=None,
                     help="comma-separated warp counts of the wide core to sweep")
     args = ap.parse_args()
@@ -300,10 +332,11 @@ def main() -> int:
     library.build()
     csrc = os.path.join(root, "brax_tracking_tpu_torch", "ops", "csrc")
     report = {"root": root, "card": cs.card_line(),
-              "ptxas": {f: ptxas(root, f)
-                        for f in ("cg_fused.cu", "cholesky.cu", "spd_inverse.cu", "spd_solve.cu")
-                        if os.path.exists(os.path.join(csrc, f))}}
-    seeded = {}
+              "ptxas": {} if args.no_ptxas else {
+                  f: ptxas(root, f)
+                  for f in ("cg_fused.cu", "cholesky.cu", "spd_inverse.cu", "spd_solve.cu")
+                  if os.path.exists(os.path.join(csrc, f))}}
+    seeded, digests = {}, {}
     for key, model, batched in SOLVE_CASES:
         _, kargs, kw = cs.solve_case("cuda", model, cs.B_MAIN, cs.SEED)
         if batched:
@@ -311,11 +344,14 @@ def main() -> int:
         launch = cs.kernel_launch(kargs, kw, batched)
         tag = "cg_batched_kernel" if batched else "cg_fused_kernel"
         seeded[key] = [device_us(launch, tag, 100) for _ in range(args.reps)]
-    for key, model, dense, B in WIDE_CASES:
+        digests[key] = digest(launch())
+    for key, model, dense, B in WIDE_CASES + DAMPED_CASES:
         case = wide_case(cs, model, dense, B)
         if case is not None:
             tag = "cg_batched_kernel" if case[2] else "cg_fused_kernel"
-            seeded[key] = [device_us(cs.kernel_launch(*case), tag, 10) for _ in range(args.reps)]
+            launch = cs.kernel_launch(*case)
+            seeded[key] = [device_us(launch, tag, 10) for _ in range(args.reps)]
+            digests[key] = digest(launch()) | {"damped": bool(case[1]["has_damping"])}
     report["seeded_us"] = seeded
     keys = ("factor_us", "factor_library_us", "factor_library_device_us", "spd_solve_us",
             "spd_solve_library_device_us", "solve_us", "solve_library_device_us", "inverse_us",
@@ -327,6 +363,7 @@ def main() -> int:
         if nv in FACTOR_SIZES:
             kern = lambda: ops_chol._launch_factor(M)
             lib = lambda: torch.linalg.cholesky(M)
+            digests[f"factor_{nv}"] = digest(kern())
             chol["factor_us"][nv] = [device_us(kern, "factor_kernel") for _ in reps]
             chol["factor_library_us"][nv] = [cs.time_cuda(lib, 20) * 1e3 for _ in reps]
             chol["factor_library_device_us"][nv] = [all_device_us(lib) for _ in reps]
@@ -334,10 +371,12 @@ def main() -> int:
             U = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()
             kern = lambda: ops_chol._launch_solve(M, b)
             chol["spd_solve_us"][nv] = [device_us(kern, "spd_solve_kernel") for _ in reps]
+            digests[f"spd_solve_{nv}"] = digest(kern())
             chol["spd_solve_library_device_us"][nv] = [
                 all_device_us(lambda: torch.linalg.solve(M, b[..., None])) for _ in reps]
             kern = lambda: ops_chol._launch_solve_factor(U, b)
             chol["solve_us"][nv] = [device_us(kern, "solve_kernel") for _ in reps]
+            digests[f"solve_{nv}"] = digest(kern())
             chol["solve_library_device_us"][nv] = [
                 all_device_us(lambda: torch.cholesky_solve(b[..., None], U, upper=True))
                 for _ in reps]
@@ -350,6 +389,7 @@ def main() -> int:
             chol["inverse_library_device_us"][nv] = [
                 all_device_us(lambda: torch.linalg.inv(M)) for _ in reps]
     report.update(chol)
+    report["digest"] = digests
     occ = {}
     _, kargs, kw = cs.solve_case("cuda", "minirat", cs.B_MAIN, cs.SEED)
     for B in OCCUPANCY_ENVS:

@@ -1,6 +1,6 @@
 """Split one solve-kernel launch into phases by clock64 stamps, per env.
 
-    python3 scripts/stamp_solve_kernel.py [--root DIR] [--pair | --rodent]
+    python3 scripts/stamp_solve_kernel.py [--root DIR] [--pair | --rodent | --fly]
 
 Copies ``DIR``'s ``brax_tracking_tpu_torch/ops/csrc/cg_fused.cu`` (default:
 this checkout's) to ``runs/stamp/`` with a ``clock64()`` stamp at each phase
@@ -12,7 +12,9 @@ three on the two-rat stand-in (1024 envs, layout 2: J in device memory),
 which run the wide core (``cg_core_wide``, several warps per env); with
 ``--rodent``, (a) on the one rat (undamped) and on the rodent stand-in
 (its own joint damping: the damped Euler tail), 2048 envs, the wide core
-in layout 1. Lane 0
+in layout 1; with ``--fly``, (b) on the fly stand-in, free and tethered
+(``fly_standin``, ``fly_standin_tethered``: the one-warp elliptic
+instance), 2048 envs. Lane 0
 of each env (thread 0 in the wide core, whose warp runs the core's scalar
 work) adds the cycles since the last stamp to its phase:
 
@@ -23,7 +25,9 @@ work) adds the cycles since the last stamp to its phase:
   (phi'(0) and the first guess), ``bracket`` (phi' at the 13 candidates),
   ``ls`` (the line search), ``step`` (the new iterate's cost, forces and
   gradients);
-- ``outputs``: J^T force and the writes; ``euler``: the velocity update.
+- ``outputs``: J^T force and the writes; ``euler``: the velocity update
+  (with damping the whole tail, euler_damped: the factor of M + h diag(B)
+  and both substitutions).
 
 A core that forms J p, M p and phi'(0) in one row pass has one phase,
 ``products_phi0``, for the two. Which layout the source has is read from
@@ -173,6 +177,8 @@ def main() -> int:
                        help="the stand-in's instances (layout 2) instead of the minirat's")
     which.add_argument("--rodent", action="store_true",
                        help="(a) on the one rat and the damped rodent stand-in (wide layout 1)")
+    which.add_argument("--fly", action="store_true",
+                       help="(b) on the free and the tethered fly stand-in (one warp, elliptic)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -210,6 +216,8 @@ def main() -> int:
     card = cs.card_line()
     if args.rodent:
         B, reps, instances = cs.B_MAIN, 20, (("a", "rat"), ("a", "rodent_standin"))
+    elif args.fly:
+        B, reps, instances = cs.B_MAIN, 20, tuple(("b", m) for m in cs.FLY_MODELS)
     else:
         family, B, reps = ("ratpair", cs.B_PAIR, 10) if args.pair else ("minirat", cs.B_MAIN, 100)
         instances = (("a", family), ("b", f"{family}_elliptic"), ("c", f"{family}_newton"))
