@@ -33,7 +33,8 @@ dependent steps: the assembly's loads, the sweep, and per iteration the
 products, the bracket, the line search and the step. The core keeps that
 chain short: independent sums share one butterfly, the 13 bracket
 candidates are evaluated in one pass, J^T f reduces several columns at a
-time, and the one-warp sweep of a matrix up to 16 wide runs in registers.
+time, the one-warp sweep of a matrix up to 16 wide runs in registers, and
+a wider one in panels of 8 pivots with register tiles.
 Envs that converge leave the iteration loop early. The two entry points
 share one device-side core per block shape and differ only in how qM and J
 reach it.
@@ -60,8 +61,9 @@ from brax_tracking_tpu_torch.training import debug_nans
 
 MINVAL = M.MINVAL
 # floats of nv-length scratch vectors the kernel keeps per env (see the
-# layout in csrc/cg_fused.cu: x a0 mxa grad mgrad gradn mgradn p mp qfs
-# tmp rowbuf colbuf, then f and cdof, 6 each, staged for the assembly)
+# layout in csrc/cg_fused.cu::carve: qfs, then x a0 mxa grad mgrad gradn
+# mgradn p mp tmp y and one spare, then f and cdof, 6 each, staged for the
+# assembly)
 _NVEC = 13 + 12
 H100_SMEM_PER_BLOCK = library.H100_SMEM_PER_BLOCK
 # an H100 SM's shared memory, and what each resident block reserves of it
@@ -89,8 +91,9 @@ def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
     block (activation, mu and the two tangent scales), then for
     cg_solve_fused the rest of the assembly's inputs (P A, nroots x 6
     nefc-vectors, and the (ncon, nv) support masks), all float32. The launch
-    passes this size to the kernel, which carves it up in this order
-    (csrc/cg_fused.cu)."""
+    passes this size to the kernel, which carves it up with what the sweep
+    inverse reads or keeps first and the rest, which its panel buffers
+    overlay past nv 16, last (csrc/cg_fused.cu::carve)."""
     ld = nv | 1
     return 4 * (2 * nv * ld + nefc * ld + 6 * nefc + _NVEC * nv + 4 * nell
                 + 6 * nroots * nefc + ncon * nv)

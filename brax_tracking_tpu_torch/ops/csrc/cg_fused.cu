@@ -41,7 +41,10 @@
 // - the sweep inverse of an n <= 16 matrix runs in registers (lane j holds
 //   column j, each pivot's column comes from lane k by shuffles: no barrier
 //   and no shared-memory traffic until the columns are written), wider ones
-//   in shared memory one row at a time, without an integer divide;
+//   by sweep.cuh's one-warp panel sweep (panels_warp: per panel of 8 pivots
+//   the pivot block in registers, the panel's rows and columns replayed in
+//   registers, the rest in 4 x 4 register tiles; three warp barriers per
+//   panel), its buffers over what the sweep does not read;
 // - reductions: xor butterflies with no broadcast from lane 0 (both
 //   partners add the same two values, so every lane holds bitwise the same
 //   sums and takes the same branches), and independent sums reduced
@@ -223,12 +226,14 @@ __device__ __forceinline__ void matvec_t(const float* J, int ld, const float* f,
 // plain version's elimination order and update formulas. Up to kSweepReg
 // wide in registers: lane j holds column j, and each pivot's column comes
 // from lane k by shuffles, with no shared-memory traffic or barrier until
-// the columns are written. Wider matrices in shared memory: per pivot the
-// pivot row and column are staged in rowb and colb, then each lane updates
-// its columns of every row (no integer divide per element).
+// the columns are written. Wider matrices by sweep.cuh's one-warp panel
+// sweep (panels_warp, kWarpPanel pivots per panel) in place on a copy of A,
+// its buffers in `panel`.
 constexpr int kSweepReg = 16;
-__device__ void sweep_inverse(const float* A, float* S, int ld, int n, float* rowb,
-                              float* colb, int lane) {
+// 8 pivots per panel: 16 were no faster on the fly stand-ins, and their
+// buffers do not fit the dead vectors of a dense one-warp block
+constexpr int kWarpPanel = 8;
+__device__ void sweep_inverse(const float* A, float* S, int ld, int n, float* panel, int lane) {
   if (n <= kSweepReg) {
     const int j = lane < n ? lane : 0;  // lanes past n shadow column 0
     float c[kSweepReg];
@@ -257,29 +262,18 @@ __device__ void sweep_inverse(const float* A, float* S, int ld, int n, float* ro
     __syncwarp();
     return;
   }
-  for (int i = 0; i < n; ++i)
-    for (int j = lane; j < n; j += kWarp) S[i * ld + j] = A[i * ld + j];
-  for (int k = 0; k < n; ++k) {
-    __syncwarp();
-    for (int i = lane; i < n; i += kWarp) {
-      rowb[i] = S[k * ld + i];
-      colb[i] = S[i * ld + k];
-    }
-    __syncwarp();
-    const float dinv = 1.f / rowb[k];
-    for (int i = 0; i < n; ++i) {
-      const float ci = colb[i];
-      for (int j = lane; j < n; j += kWarp) {
-        float v;
-        if (i == k && j == k) v = dinv;
-        else if (i == k) v = rowb[j] * dinv;
-        else if (j == k) v = -ci * dinv;
-        else v = S[i * ld + j] - ci * (rowb[j] * dinv);
-        S[i * ld + j] = v;
-      }
-    }
+  // the copy in batches of 8 loads per lane before their stores
+  const int len = n * ld;
+  for (int e0 = lane; e0 < len; e0 += 8 * kWarp) {
+    float t[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t[q] = A[min(e0 + q * kWarp, len - 1)];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (e0 + q * kWarp < len) S[e0 + q * kWarp] = t[q];
   }
   __syncwarp();
+  sweep::panels_warp<kWarpPanel>(S, ld, n, panel);
 }
 
 // 4 bytes from device to shared memory without passing through registers
@@ -362,15 +356,19 @@ struct Args {
 
 // The dynamic shared memory of one env's block, whose size the caller
 // computes (ops/cg.py::kernel_smem_bytes): qM, Mi (M^-1, later the damped
-// factor), J, six nefc-vectors, thirteen nv-vectors, four nell-vectors, and
-// f and cdof (6 x nv each) staged for the assembly.
+// factor), J, three nefc-vectors, qfs and four nell-vectors (what the
+// sweep leaves alone: the solve reads them later), then what the sweep does
+// not read, which its panel buffers overlay: three nefc-vectors, twelve
+// nv-vectors (the last one spare), and f and cdof (6 x nv each) staged for
+// the assembly, with the fused kernel's P A and support masks past them.
 struct Smem {
   float *qM, *Mi, *J;  // J: shared memory (layout 1) or device memory (layout 2)
   int ldj;             // J's row stride in shared memory
   float *Dv, *ar, *ex, *jar, *jarp, *force;
-  float *x, *a0, *mxa, *grad, *mgrad, *gradn, *mgradn, *p, *mp, *qfs, *tmp, *rowb, *colb;
+  float *x, *a0, *mxa, *grad, *mgrad, *gradn, *mgradn, *p, *mp, *qfs, *tmp, *rowb;
   float *econ, *mu, *sc1, *sc2;
   float *fs, *cs;
+  float* panel;  // the one-warp sweep's buffers (16-byte aligned, over jar...)
 };
 
 __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
@@ -383,7 +381,12 @@ __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
   s.Dv = s.J + nefc * ld;
   s.ar = s.Dv + nefc;
   s.ex = s.ar + nefc;
-  s.jar = s.ex + nefc;
+  s.qfs = s.ex + nefc;
+  s.econ = s.qfs + nv;
+  s.mu = s.econ + nell;
+  s.sc1 = s.mu + nell;
+  s.sc2 = s.sc1 + nell;
+  s.jar = s.sc2 + nell;
   s.jarp = s.jar + nefc;
   s.force = s.jarp + nefc;
   s.x = s.force + nefc;
@@ -395,16 +398,13 @@ __device__ __forceinline__ Smem carve(float* sm, int nv, int nefc, int nell) {
   s.mgradn = s.gradn + nv;
   s.p = s.mgradn + nv;
   s.mp = s.p + nv;
-  s.qfs = s.mp + nv;
-  s.tmp = s.qfs + nv;
+  s.tmp = s.mp + nv;
   s.rowb = s.tmp + nv;
-  s.colb = s.rowb + nv;
-  s.econ = s.colb + nv;
-  s.mu = s.econ + nell;
-  s.sc1 = s.mu + nell;
-  s.sc2 = s.sc1 + nell;
-  s.fs = s.sc2 + nell;
+  s.fs = s.rowb + 2 * nv;
   s.cs = s.fs + 6 * nv;
+  // sweep::warp_panel_floats past the alignment fits the 3 nefc + 24 nv
+  // floats from jar on: at most 16 (nv + 2) + 131 (tests/test_torch_cg.py)
+  s.panel = sm + ((s.jar - sm + 3) & ~3);
   return s;
 }
 
@@ -777,7 +777,7 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
   const int ld = lead(nv);
 
   // ---- M^-1 (stays in shared memory) and qacc_smooth
-  sweep_inverse(s.qM, s.Mi, ld, nv, s.rowb, s.colb, lane);
+  sweep_inverse(s.qM, s.Mi, ld, nv, s.panel, lane);
   matvec(s.Mi, ld, s.qfs, s.a0, nv, nv, lane);
 
   // ---- start at x = a0 (mxa = 0, so the gauss term is 0)
@@ -1125,7 +1125,6 @@ __device__ __forceinline__ SmemW carve_wide(float* sm, int nv, int nefc, int nel
   s.mp = s.p + ldm;
   s.tmp = s.mp + ldm;
   s.rowb = s.tmp + ldm;
-  s.colb = s.rowb + ldm;
   s.Rk = s.jar;
   s.Cn = s.Rk + kPanel * ldm;
   s.colk = s.Cn + kPanel * ldm;

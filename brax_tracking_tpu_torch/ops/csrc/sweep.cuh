@@ -1,6 +1,7 @@
 // The sweep operator's SPD inverse for Hopper (sm_90a), shared by
 // spd_inverse.cu (spd_inverse, spd_inverse2) and cg_fused.cu (the solve
-// kernel's M^-1 in its wide instances, several warps per env).
+// kernel's M^-1: panels in its wide instances, several warps per env, and
+// panels_warp in its one-warp instances past nv 16).
 //
 // Both run the plain version's scalar sweep (ops/cholesky.py::
 // sweep_inverse_reference): pivots in order, per pivot k
@@ -20,9 +21,10 @@
 //       pivot row (colk, rowk: kNb x kNb each) and writes the swept block;
 //   (2) one thread per column outside the panel replays the kNb steps on
 //       its kNb entries of the panel's rows, and one thread per row outside
-//       the panel on its kNb entries of the panel's columns, in registers,
-//       each recording what the rest needs: the scaled pivot row of each
-//       step (Rk, kNb x ld) and the pivot column, negated (Cn, kNb x ld);
+//       the panel on its kNb entries of the panel's columns, in registers
+//       (replay_item), each recording what the rest needs: the scaled pivot
+//       row of each step (Rk, kNb x ld) and the pivot column, negated (Cn,
+//       kNb x ld);
 //   (3) every thread applies the kNb-deep update S += Cn^T Rk to the rest in
 //       4 x 4 register tiles (0.125 shared-memory loads per FMA). Warp 0
 //       updates the next panel's pivot block first and runs (1) of the next
@@ -32,6 +34,8 @@
 //   would do), which keeps every tile on one rule. spd_inverse.cu sweeps in
 //   panels of 16; the solve kernel in panels of 8, whose buffers (Rk and Cn,
 //   2 x 8 x ld floats) fit beside its vectors up to layout 2's widest env.
+// - panels_warp: the same three steps on one warp at any row stride (see
+//   below), with no overlap of (1) and (3).
 // Shortcuts that read a row in place of a column lost accuracy in float32
 // (the swept matrix is symmetric up to sign only to rounding): the TPU
 // kernel's block form S -= C A^-1 R with C = s R^T left residuals
@@ -114,6 +118,52 @@ __device__ __forceinline__ void pivot_block(float* S, int ld, int kb, int nb, fl
   }
 }
 
+// Step (2) of a panel for one item outside its pivot block: the kNb steps
+// recorded in colk and rowk replayed in registers on the item's kNb entries
+// e[q es] (zero past nb), which are written back, with each step's record
+// written to rec[k rs]. A column item (the panel's rows at one column)
+// records the scaled pivot-row entry r = v[k] / S[k, k], a row item (the
+// panel's columns at one row) the negated pivot-column entry. The column
+// replay takes fmaf(-colk[k, q], r, v[q]), the row replay fmaf(-v[k],
+// rowk[k, q], v[q]): the same rounding of the same product, so both are one
+// loop.
+template <int kNb>
+__device__ __forceinline__ void replay_item(float* e, int es, int nb, bool is_col,
+                                            const float* colk, const float* rowk, float* rec,
+                                            int rs) {
+  const float* tab = is_col ? colk : rowk;
+  float v[kNb], out[kNb];
+#pragma unroll
+  for (int q = 0; q < kNb; ++q) {
+    const float t = e[min(q, nb - 1) * es];
+    v[q] = q < nb ? t : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kNb; ++k) {
+    float m[kNb];  // step k's pivot column (column items) or scaled pivot row
+#pragma unroll
+    for (int q4 = 0; q4 < kNb / 4; ++q4) {
+      const float4 t = reinterpret_cast<const float4*>(tab + k * kNb)[q4];
+      m[4 * q4] = t.x;
+      m[4 * q4 + 1] = t.y;
+      m[4 * q4 + 2] = t.z;
+      m[4 * q4 + 3] = t.w;
+    }
+    const float d = rowk[k * kNb + k];  // 1 / S[k, k]
+    const float s = is_col ? v[k] * d : v[k];
+#pragma unroll
+    for (int q = 0; q < kNb; ++q)
+      if (q != k) v[q] = fmaf(-m[q], s, v[q]);
+    v[k] = is_col ? s : -s * d;
+    out[k] = is_col ? s : -s;
+  }
+#pragma unroll
+  for (int k = 0; k < kNb; ++k) rec[k * rs] = out[k];
+#pragma unroll
+  for (int q = 0; q < kNb; ++q)
+    if (q < nb) e[q * es] = v[q];
+}
+
 // The 4 x 4 tile of S at (i0, j0) takes a panel's kNb updates:
 // S[i, j] += sum_k Cn[k, i] Rk[k, j] (Cn holds the pivot column negated)
 template <int kNb>
@@ -170,57 +220,8 @@ __device__ __forceinline__ void panels(float* S, int ld, int nv, float* Rk, floa
       const bool is_col = w < nc;
       const int wc = is_col ? w : w - nc;
       const int x = wc < kb ? wc : wc + (pend - kb);
-      // entry q: S[kb + q, x] (column) or S[x, kb + q] (row); zero past nb
-      float* e = is_col ? S + kb * ld + x : S + x * ld + kb;
-      const int es = is_col ? ld : 1;
-      float v[kNb];
-#pragma unroll
-      for (int q = 0; q < kNb; ++q) {
-        const float t = e[min(q, nb - 1) * es];
-        v[q] = q < nb ? t : 0.f;
-      }
-      if (is_col) {
-#pragma unroll
-        for (int k = 0; k < kNb; ++k) {
-          float m[kNb];  // the pivot column of step k
-#pragma unroll
-          for (int q4 = 0; q4 < kNb / 4; ++q4) {
-            const float4 t = reinterpret_cast<const float4*>(colk + k * kNb)[q4];
-            m[4 * q4] = t.x;
-            m[4 * q4 + 1] = t.y;
-            m[4 * q4 + 2] = t.z;
-            m[4 * q4 + 3] = t.w;
-          }
-          const float r = v[k] * rowk[k * kNb + k];
-#pragma unroll
-          for (int q = 0; q < kNb; ++q)
-            if (q != k) v[q] = fmaf(-m[q], r, v[q]);
-          v[k] = r;
-          Rk[k * ld + x] = r;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kNb; ++k) {
-          float rr[kNb];  // the scaled pivot row of step k
-#pragma unroll
-          for (int q4 = 0; q4 < kNb / 4; ++q4) {
-            const float4 t = reinterpret_cast<const float4*>(rowk + k * kNb)[q4];
-            rr[4 * q4] = t.x;
-            rr[4 * q4 + 1] = t.y;
-            rr[4 * q4 + 2] = t.z;
-            rr[4 * q4 + 3] = t.w;
-          }
-          const float ck = v[k];
-#pragma unroll
-          for (int q = 0; q < kNb; ++q)
-            if (q != k) v[q] = fmaf(-ck, rr[q], v[q]);
-          v[k] = -ck * rr[k];
-          Cn[k * ld + x] = -ck;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kNb; ++q)
-        if (q < nb) e[q * es] = v[q];
+      replay_item<kNb>(is_col ? S + kb * ld + x : S + x * ld + kb, is_col ? ld : 1, nb, is_col,
+                       colk, rowk, (is_col ? Rk : Cn) + x, ld);
     }
     __syncthreads();
 
@@ -248,6 +249,120 @@ __device__ __forceinline__ void panels(float* S, int ld, int nv, float* Rk, floa
       }
     }
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// panels_warp: the panel sweep on one warp (the one-warp solve core past
+// nv 16), in panels's grouping: per panel of kNb pivots at kb (nb real, the
+// last partial one padded with the identity)
+//   (1) the pivot block swept in registers (pivot_block: colk, rowk);
+//   (2) the kNb steps replayed on the panel's rows and columns outside the
+//       block, one lane per item and all its steps in registers, then the
+//       scaled pivot rows (Rk) and negated pivot columns (Cn) written;
+//   (3) the rank-kNb update of the rest in 4 x 4 register tiles,
+// with three warp barriers per panel in place of the two per pivot of a
+// row-at-a-time sweep. S keeps its own row stride ld (the solve core's is
+// odd, so that its lane-per-row products read S free of bank conflicts):
+// the tiles read and write S by scalar loads. Rk and Cn are indexed in the
+// numbering of the rows outside the panel (row c below kb, c + nb past it),
+// at the row stride warp_panel_ld, a multiple of 4, so their tiles' reads
+// are float4s; only the nv rows and columns of S are read or written (no
+// padding). Every entry takes the same fused multiply-adds in the same
+// order as in panels, so the two give bitwise the same S^-1.
+
+// The row stride of panels_warp's Rk and Cn: the most rows outside a panel
+// (nv less the last panel's width), rounded up to a multiple of 4.
+template <int kNb>
+__device__ __host__ constexpr int warp_panel_ld(int nv) {
+  return (nv - ((nv - 1) % kNb + 1) + 3) & ~3;
+}
+
+// Floats of panels_warp's buffers: Rk and Cn (kNb x warp_panel_ld each),
+// colk and rowk (kNb x kNb each).
+template <int kNb>
+__device__ __host__ constexpr int warp_panel_floats(int nv) {
+  return 2 * kNb * warp_panel_ld<kNb>(nv) + 2 * kNb * kNb;
+}
+
+// The 4 x 4 tile at (i0, j0) of the numbering of the nc rows (and columns)
+// outside the panel of nb pivots at kb takes the panel's kNb updates:
+// S[i, j] += sum_k Cn[k, i] Rk[k, j]. Entries past nc are loaded from a
+// clamped index and never stored.
+template <int kNb>
+__device__ __forceinline__ void update_tile_skip(float* S, int ld, const float* Cn,
+                                                 const float* Rk, int ldb, int i0, int j0,
+                                                 int kb, int nb, int nc) {
+  int ro[4], co[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = min(i0 + r, nc - 1), j = min(j0 + r, nc - 1);
+    ro[r] = (i < kb ? i : i + nb) * ld;
+    co[r] = j < kb ? j : j + nb;
+  }
+  float a[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[r][c] = S[ro[r] + co[c]];
+  // 4 steps' loads in flight at a time: fully unrolled, their 64 registers
+  // made the one-warp instances spill (12-16 B) at the 128-register cap
+#pragma unroll 4
+  for (int k = 0; k < kNb; ++k) {
+    const float4 ci = *reinterpret_cast<const float4*>(&Cn[k * ldb + i0]);
+    const float4 rj = *reinterpret_cast<const float4*>(&Rk[k * ldb + j0]);
+    const float vi[4] = {ci.x, ci.y, ci.z, ci.w};
+    const float vj[4] = {rj.x, rj.y, rj.z, rj.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[r][c] = fmaf(vi[r], vj[c], a[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (i0 + r < nc && j0 + c < nc) S[ro[r] + co[c]] = a[r][c];
+}
+
+// S <- S^-1 in place for the nv x nv SPD matrix in shared memory (row
+// stride ld, any) by one warp; buf holds warp_panel_floats<kNb>(nv) floats,
+// 16-byte aligned: Rk and Cn (kNb x warp_panel_ld<kNb>(nv) each), colk and
+// rowk (kNb x kNb each). Called by the whole warp after a __syncwarp that
+// follows the last write of S; returns after one.
+template <int kNb>
+__device__ __forceinline__ void panels_warp(float* S, int ld, int nv, float* buf) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int ldb = warp_panel_ld<kNb>(nv);
+  float* const Rk = buf;
+  float* const Cn = Rk + kNb * ldb;
+  float* const colk = Cn + kNb * ldb;
+  float* const rowk = colk + kNb * kNb;
+  for (int kb = 0; kb < nv; kb += kNb) {
+    const int nb = min(kNb, nv - kb);
+    const int nc = nv - nb;  // rows (and columns) outside the panel
+    pivot_block<kNb>(S, ld, kb, nb, colk, rowk, lane);
+    __syncwarp();
+
+    // (2) item w < nc: the panel's rows at column x, each step's scaled
+    // pivot-row entry into Rk; item w >= nc: the panel's columns at row x,
+    // each step's negated pivot-column entry into Cn
+    for (int w = lane; w < 2 * nc; w += kWarp) {
+      const bool is_col = w < nc;
+      const int wc = is_col ? w : w - nc;
+      const int x = wc < kb ? wc : wc + nb;
+      replay_item<kNb>(is_col ? S + kb * ld + x : S + x * ld + kb, is_col ? ld : 1, nb, is_col,
+                       colk, rowk, (is_col ? Rk : Cn) + wc, ldb);
+    }
+    __syncwarp();
+
+    // (3) the rest: 4 x 4 tiles of the numbering outside the panel
+    const int tn = (nc + 3) >> 2;
+    for (int t = lane; t < tn * tn; t += kWarp) {
+      const int I = t / tn;
+      update_tile_skip<kNb>(S, ld, Cn, Rk, ldb, 4 * I, 4 * (t - I * tn), kb, nb, nc);
+    }
+    __syncwarp();
   }
 }
 

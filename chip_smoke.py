@@ -778,16 +778,24 @@ def wide_edges(nefc=PAIR_ROWS):
     return nv, nv + 1
 
 
+# dense one-warp cases past nv 16 (nv, rows): the one-warp core's panel
+# sweep at every odd width of its last 8-pivot panel (1, 3, 5, 7) and a full
+# one, at the pair's rows and, wider, at 128 rows (ONE_WARP_DENSE)
+ONE_WARP_DENSE = ((17, PAIR_ROWS), (19, PAIR_ROWS), (21, PAIR_ROWS), (33, 128), (47, 128),
+                  (61, 128), (64, 128))
+
+
 def seeded_dense():
     """The seeded dense cases of cg_solve_batched by name: RODENT_LIKE,
-    PAIR_LIKE, and at the pair's rows the one-warp / wide edge and layout
-    2's design edges."""
+    PAIR_LIKE, at the pair's rows the one-warp / wide edge and layout 2's
+    design edges, and ONE_WARP_DENSE as "one_warp_<nv>"."""
     last1, first2, last2 = l2_edges()
     narrow, wide = wide_edges()
-    edge = lambda nv: {"nv": nv, "nefc": PAIR_ROWS, "nlim": 4}
+    edge = lambda nv, nefc=PAIR_ROWS: {"nv": nv, "nefc": nefc, "nlim": 4}
     return {"rodent_like": RODENT_LIKE, "pair_like": PAIR_LIKE, "narrow_last": edge(narrow),
             "wide_first": edge(wide), "l1_last": edge(last1), "l2_first": edge(first2),
-            "l2_last": edge(last2)}
+            "l2_last": edge(last2)} | {f"one_warp_{nv}": edge(nv, nefc)
+                                       for nv, nefc in ONE_WARP_DENSE}
 
 
 def cast(args, dtype):
@@ -917,13 +925,14 @@ def phase_wide_vs_one_warp(device, B, model, damped=False):
     """The wide core against the one-warp core on the same inputs: the
     solve of ``model`` (see phase_kernel_vs_plain; ``damped`` adds a seeded
     damping, a damped model brings its own) launched once as
-    kernel_layout dispatches it (the wide core) and once with the one-warp
-    core forced (ops/cg.py::WIDE_ABOVE_SMEM raised past the env; the env
-    must fit layout 1). The wide core forms every value by the one-warp
-    core's operations in its order (csrc/cg_fused.cu), so at nv > 16, where
-    the one-warp core takes the same path, every output must be bitwise
-    equal, the damped Euler tail's qvel_new included. Returns the number of
-    envs compared and whether the solve was damped."""
+    kernel_layout dispatches it and once with the other core forced
+    (ops/cg.py::WIDE_ABOVE_SMEM raised past a wide env, or 0 for a one-warp
+    env such as the fly stand-in's; the env must fit layout 1). The wide
+    core forms every value by the one-warp core's operations in its order
+    (csrc/cg_fused.cu; past nv 16 both sweep M^-1 in sweep.cuh's 8-pivot
+    panels), so at nv > 16 every output must be bitwise equal, the damped
+    Euler tail's qvel_new included. Returns the number of envs compared and
+    whether the solve was damped."""
     from brax_tracking_tpu_torch.ops import cg as ops_cg
 
     dense = seeded_dense()
@@ -935,15 +944,16 @@ def phase_wide_vs_one_warp(device, B, model, damped=False):
     layout, _, warps = (ops_cg.kernel_layout(nv, args[1].shape[1]) if batched else
                         ops_cg.kernel_layout(nv, args[4].shape[1], args[7].shape[1],
                                              len(kw["root_bounds"]), args[12].shape[0]))
-    if nv <= 16 or layout != 1 or warps == 1:
-        fail(f"wide against one-warp: {model} (nv={nv}) is not a wide layout-1 env past nv 16")
-    wide = kernel_launch(args, kw, batched)()
+    if nv <= 16 or layout != 1:
+        fail(f"wide against one-warp: {model} (nv={nv}) is not a layout-1 env past nv 16")
+    ruled = kernel_launch(args, kw, batched)()
     above = ops_cg.WIDE_ABOVE_SMEM
-    ops_cg.WIDE_ABOVE_SMEM = ops_cg.H100_SMEM_PER_SM
+    ops_cg.WIDE_ABOVE_SMEM = ops_cg.H100_SMEM_PER_SM if warps > 1 else 0
     try:
-        one = kernel_launch(args, kw, batched)()
+        forced = kernel_launch(args, kw, batched)()
     finally:
         ops_cg.WIDE_ABOVE_SMEM = above
+    wide, one = (ruled, forced) if warps > 1 else (forced, ruled)
     torch.cuda.synchronize()
     for name in wide:
         if not torch.equal(wide[name], one[name]):
@@ -3779,11 +3789,17 @@ def main() -> int:
         fail("the terrain stand-in's solve is not damped")
     # the wide core against the one-warp core on the same inputs, bitwise,
     # where both take the same path (layout 1, nv > 16): undamped and with
-    # the damped Euler tail
+    # the damped Euler tail; the fly stand-in's (b), free and tethered, and
+    # the dense one-warp cases (the one-warp core by the rule; its panel
+    # sweep at every odd width of the last panel), against the wide core
+    # forced
     same = [(model, phase_wide_vs_one_warp("cuda", B, model, damped)) for model, B, damped in
             (("rat", B_MAIN, False), ("rat", B_MAIN - 1, False), ("rat", B_MAIN, True),
              ("rodent_standin", B_MAIN, False), ("rodent_standin", B_MAIN - 1, False),
-             ("rodent_like", B_MAIN, False), ("l1_last", B_PAIR, False))]
+             ("rodent_like", B_MAIN, False), ("l1_last", B_PAIR, False),
+             ("fly_standin", B_MAIN, False), ("fly_standin_tethered", B_MAIN, False),
+             ("narrow_last", B_PAIR, False))
+            + tuple((f"one_warp_{nv}", B_PAIR, False) for nv, _ in ONE_WARP_DENSE)]
     print(f"wide core against the one-warp core: bitwise equal on (model, (B, damped)) {same}")
     # layout 2 (J in device memory): the stand-in's (a), (b), (c) and its
     # dense qM and J, the pair-size dense case and the design edges

@@ -30,7 +30,11 @@ within it. Prints one JSON line:
   and the damped wide layout 1 (the Euler tail's factor and substitutions):
   ``rodent_standin_a`` (the rodent stand-in, nv 73, 135 rows, its own
   joint damping), ``terrain_a`` (on its terrain, 367 rows) and
-  ``rodent_standin_arm_a`` (a per-env armature), 2048 envs each;
+  ``rodent_standin_arm_a`` (a per-env armature), 2048 envs each; the
+  one-warp core past nv 16 (its panel sweep): (b) on the fly stand-in,
+  free, tethered and ball-coxa (``fly_standin_b``,
+  ``fly_standin_tethered_b``, ``fly_standin_ball_b``; nv 42 / 36 / 42),
+  2048 envs each;
 - ``digest``: per solve instance above, per output, and per width of
   ``factor_batched``, ``spd_solve`` and ``solve_batched`` below, the first
   16 hex digits of the SHA-256 of the output's bytes: equal digests of two
@@ -54,6 +58,8 @@ within it. Prints one JSON line:
   diag(damp));
 - ``occupancy_us``: device us per launch of (a) on the first 132 (one env
   per SM), 528 and 2048 of those envs, of ``pair_a`` on 132, 528 and 1024,
+  of the fly's (b), free and tethered, on 132, one full wave (the blocks
+  of its shared memory that fit an SM, times 132: 792 / 924) and 2048,
   and of ``factor_batched``,
   ``spd_solve``, ``solve_batched``, ``spd_inverse`` and ``spd_inverse2``
   at nv 73 and 146 on 132, 792 and 2048 matrices: a time that stays flat
@@ -114,6 +120,11 @@ PAIR_OCCUPANCY_ENVS = (132, 528, 1024)
 # the fly stand-in's files (the one-warp elliptic instance by the rule),
 # timed on both cores by --warps
 FLY_CASES = ("fly_standin", "fly_standin_tethered")
+# the one-warp core past nv 16 (its panel sweep), timed and digested with the
+# seeded instances
+FLY_SEEDED = (("fly_standin_b", "fly_standin", False, 2048),
+              ("fly_standin_tethered_b", "fly_standin_tethered", False, 2048),
+              ("fly_standin_ball_b", "fly_standin_ball", False, 2048))
 # nv of the dense case at 590 rows for the one-warp / wide comparison
 EDGE_NV = (8, 12, 15, 16, 20, 24, 32, 36, 48, 71)
 FACTOR_SIZES = (7, 10, 73, 144, 146)
@@ -273,6 +284,14 @@ def warps_sweep(cs, root: str, counts, reps: int) -> dict:
     return report
 
 
+def fly_wave(ops_cg, kargs, kw) -> int:
+    """Envs of one full wave of a one-warp fused case: the blocks of its
+    shared memory (ops/cg.py::kernel_layout) that fit an SM, times 132."""
+    _, smem, _ = ops_cg.kernel_layout(kargs[0].shape[-1], kargs[4].shape[1], kargs[7].shape[1],
+                                      len(kw["root_bounds"]), kargs[12].shape[0])
+    return 132 * (ops_cg.H100_SMEM_PER_SM // (smem + ops_cg._SMEM_RESERVED_PER_BLOCK))
+
+
 def digest(outs) -> dict:
     """The first 16 hex digits of the SHA-256 of each output's bytes (a dict
     of tensors, or one tensor as "out"), so two trees' outputs compare
@@ -345,7 +364,7 @@ def main() -> int:
         tag = "cg_batched_kernel" if batched else "cg_fused_kernel"
         seeded[key] = [device_us(launch, tag, 100) for _ in range(args.reps)]
         digests[key] = digest(launch())
-    for key, model, dense, B in WIDE_CASES + DAMPED_CASES:
+    for key, model, dense, B in WIDE_CASES + DAMPED_CASES + FLY_SEEDED:
         case = wide_case(cs, model, dense, B)
         if case is not None:
             tag = "cg_batched_kernel" if case[2] else "cg_fused_kernel"
@@ -401,6 +420,13 @@ def main() -> int:
         part = [t[:B].contiguous() if t.shape[0] == max(PAIR_OCCUPANCY_ENVS) else t for t in kargs]
         launch = cs.kernel_launch(part, kw)
         occ[f"pair_a/{B}"] = min(device_us(launch, "cg_fused_kernel", 10) for _ in range(args.reps))
+    for model in FLY_CASES:
+        _, kargs, kw = cs.solve_case("cuda", model, cs.B_MAIN, cs.SEED)
+        for B in (132, fly_wave(ops_cg, kargs, kw), cs.B_MAIN):
+            part = [t[:B].contiguous() if t.shape[0] == cs.B_MAIN else t for t in kargs]
+            launch = cs.kernel_launch(part, kw)
+            occ[f"{model}_b/{B}"] = min(device_us(launch, "cg_fused_kernel", 10)
+                                        for _ in range(args.reps))
     for nv, counts in OCCUPANCY_CHOL.items():
         M, b, damp = cs.spd_inputs("cuda", nv, cs.B_MAIN, cs.SEED + nv)
         U = ops_chol.cholesky_factor_reference(M.double()).float().contiguous()

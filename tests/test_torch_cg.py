@@ -297,6 +297,10 @@ LAYOUT_POINTS = {
     "minirat_newton": (lambda: _file_point(tspec.MINIRAT_NEWTON_NPZ,
                                            **tspec.MINIRAT_NEWTON_OPTIONS), (1, 11224, 1)),
     "ballmuscle": (lambda: _file_point(tspec.BALLMUSCLE_NPZ["cg"], solver="cg"), (1, 1320, 1)),
+    # the one-warp core past nv 16 (its panel sweep's buffers overlay the
+    # block, which stays this size: 6 / 7 blocks per SM)
+    "fly_standin": (lambda: _file_point(tspec.FLY_STANDIN_NPZ), (1, 36696, 1)),
+    "fly_standin_tethered": (lambda: _file_point(tspec.FLY_STANDIN_TETHERED_NPZ), (1, 30288, 1)),
     "rodent_size": (lambda: (73, 300, 0, 1, 70), (1, 144064, 8)),
     "rat": (lambda: _file_point(tspec.RAT_NPZ), (1, 100784, 8)),
     "ratpair": (lambda: _file_point(tspec.RATPAIR_NPZ), (2, 195936, 16)),
@@ -380,12 +384,14 @@ def test_kernel_layout_raises_past_layout_2(monkeypatch):
         tS._kernel_args(m, d, tCn.efc_layout(m))
 
 
-@pytest.mark.parametrize("nv", [5, 8, 9, 16, 73, 146])
+@pytest.mark.parametrize("nv", [5, 8, 9, 16, 36, 42, 73, 146])
 def test_wide_sweep_panels(nv):
-    """The wide core's M^-1 (sweep.cuh's panels in 8-pivot panels) regroups
-    the scalar sweep: its plain version, _sweep_inverse_panels_reference at
-    nb = 8, agrees with sweep_inverse_reference in float64 on seeded SPD
-    matrices (condition number 1e3), at this file's tolerance."""
+    """The wide core's M^-1 (sweep.cuh's panels in 8-pivot panels) and the
+    one-warp core's past nv 16 (panels_warp, the same grouping; nv 36 and
+    42 are the fly stand-in's) regroup the scalar sweep: their plain
+    version, _sweep_inverse_panels_reference at nb = 8, agrees with
+    sweep_inverse_reference in float64 on seeded SPD matrices (condition
+    number 1e3), at this file's tolerance."""
     from brax_tracking_tpu_torch.ops import cholesky as tchol
 
     rng = np.random.RandomState(nv)
@@ -395,3 +401,29 @@ def test_wide_sweep_panels(nv):
     out = tchol._sweep_inverse_panels_reference(M, nb=8)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=RTOL, atol=ATOL * float(ref.abs().max()))
 
+
+def _warp_panel_floats(nv: int, nb: int) -> int:
+    """csrc/sweep.cuh::warp_panel_floats: Rk and Cn (nb x ld each, ld the
+    most rows outside a panel rounded up to a multiple of 4), colk and
+    rowk (nb x nb each)."""
+    ld = (nv - ((nv - 1) % nb + 1) + 3) & ~3
+    return 2 * nb * ld + 2 * nb * nb
+
+
+def test_one_warp_panel_buffers_fit():
+    """The one-warp core's panel sweep (nv > 16) keeps its buffers, 16-byte
+    aligned, in what the sweep does not read (csrc/cg_fused.cu::carve: from
+    jar on, 3 nefc + 24 nv floats in cg_solve_batched's block, more in
+    cg_solve_fused's): they fit every env the one-warp rule takes, nefc 0
+    included, at the kernel's panel width, so kernel_smem_bytes need not
+    grow."""
+    nb = 8  # csrc/cg_fused.cu::kWarpPanel
+    taken = 0
+    for nv in range(17, 170):
+        nefc = 0
+        while tcg.kernel_smem_bytes(nv, nefc) <= tcg.WIDE_ABOVE_SMEM:
+            assert tcg.kernel_layout(nv, nefc)[2] == 1
+            assert _warp_panel_floats(nv, nb) + 3 <= 3 * nefc + 24 * nv, (nv, nefc)
+            taken += 1
+            nefc += 1
+    assert taken > 1000
