@@ -99,20 +99,25 @@ def kernel_smem_bytes(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
                 + 6 * nroots * nefc + ncon * nv)
 
 
-def wide_smem_bytes(nv: int, nefc: int, nell: int = 0, l2: bool = False) -> int:
+def wide_smem_bytes(nv: int, nefc: int, nell: int = 0, l2: bool = False,
+                    j_floats: int = None) -> int:
     """Shared memory of one env's block in the wide core (any warp count):
     qM (nv x ldm, ldm = nv rounded up to a multiple of 4) and
-    qfrc_smooth; in layout 1 J (row stride nv | 1); D, aref, exists and the
-    elliptic block's four vectors; the done flag; then, 16-byte aligned,
-    M^-1 (ldm x ldm) and the vectors the sweep does not read (jar, jarp,
-    force at a multiple of 4 each; twelve nv-vectors at stride ldm), which
-    the sweep's panel buffers (2 x 8 x ldm + 2 x 8 x 8) overlay and extend
-    where they are larger. P A and md are read from device memory, and the
-    fused kernel stages f, cdof and its tables over M^-1 before the sweep.
+    qfrc_smooth; in layout 1 J's ``j_floats`` stored values (the fused
+    kernel's pattern's nnz, ``j_pattern``; the dense kernel's nefc x nv),
+    by default a dense J at row stride nv | 1, the size ``kernel_layout``
+    decides on; D, aref, exists and the elliptic block's four vectors; the
+    done flag; then, 16-byte aligned, M^-1 (ldm x ldm) and the vectors the
+    sweep does not read (jar, jarp, force at a multiple of 4 each; twelve
+    nv-vectors at stride ldm), which the sweep's panel buffers (2 x 8 x
+    ldm + 2 x 8 x 8) overlay and extend where they are larger. P A, md and
+    J's pattern are read from device memory, and the fused kernel stages
+    f, cdof and its tables over M^-1 before the sweep.
     The kernel carves it in this order (csrc/cg_fused.cu::carve_wide,
     wide_smem_floats)."""
     ldm, nefc4 = (nv + 3) & ~3, (nefc + 3) & ~3
-    head = nv * ldm + ldm + (0 if l2 else nefc * (nv | 1)) + 3 * nefc + 4 * nell + 1
+    jf = nefc * (nv | 1) if j_floats is None else j_floats
+    head = nv * ldm + ldm + (0 if l2 else jf) + 3 * nefc + 4 * nell + 1
     rest = max(3 * nefc4 + 12 * ldm, 2 * _WIDE_PANEL * ldm + 2 * _WIDE_PANEL ** 2)
     return 4 * (((head + 3) & ~3) + ldm * ldm + rest)
 
@@ -130,14 +135,17 @@ def kernel_layout(nv: int, nefc: int, nell: int = 0, nroots: int = 0,
       layout 1, 16 in layout 2; ``wide_smem_bytes``): layout 1 where the
       env fits a block (a rodent-size env: nv 73, one root, 70 slots; the
       one-rat stand-in ``assets/rat.xml``; at 590 rows nv 24 to 72), else
-      layout 2 where qM, M^-1 and the vectors fit but J does not. In
-      layout 2 J stays in device memory: the fused kernel assembles it
-      dof-major into a (B, nefc, nv) float32 scratch that ``_launch``
-      allocates per call (352.8 MB at rodent_pair's 590 rows and 1024
-      envs, 705.7 MB at 2048), and the dense kernel copies its J into one
-      of the same size. Layout 2 reaches nv = 160 at the pair's 590 rows
-      (up to 804 rows) and nv = 164 up to 364 rows, past every env the
+      layout 2 where qM, M^-1 and the vectors fit but J does not, which
+      stays in device memory. Layout 2 reaches nv = 160 at the pair's 590
+      rows (up to 804 rows) and nv = 164 up to 364 rows, past every env the
       one-warp layout 2 held (nv 159 at 590 rows, nv 163 up to 149).
+      The rule decides on J held dense; the fused kernel's wide core holds
+      it by its static sparsity (``j_pattern``), so its launch asks for
+      ``wide_smem_bytes`` at the pattern's stored values: in layout 1 the
+      terrain's block is 77,360 B in place of 165,248, and in layout 2 J's
+      values take a (B, nnz) float32 scratch (36.2 MB at rodent_pair's 590
+      rows and 1024 envs, where a dense J takes 352.8 MB; 705.7 MB at
+      2048, as the dense kernel's still does).
     - Above that it raises ``NotImplementedError`` (ROADMAP.md §A.10: a
       layout over a thread-block cluster).
     """
@@ -203,6 +211,70 @@ def _ell_table(ell_mu, ell_scale, dtype, device) -> torch.Tensor:
 _TABLES: dict = {}
 
 
+def j_pattern(md, row_slot, limit_dadr, nv: int) -> dict:
+    """J's static sparsity, as the wide core holds J (csrc/jsparse.cuh): a
+    contact row of slot s is nonzero only at the support dofs of the slot's
+    two bodies, md[s] != 0, and scalar limit row r (r < nlim) only at its
+    dof limit_dadr[r]. Fixed with the model (``solver._fused_statics``):
+    nnz is 4,819 of the terrain's 367 x 73 entries and 8,846 of the pair's
+    590 x 146.
+
+    Consecutive rows that share their columns (a slot's; a limit row alone)
+    form a group whose values are entry-major: entry k of its row i at
+    base + k nr + i. Returns per row {base + i, nr, col0, n} (``rec``), the
+    groups' ascending columns (``cols``), per 16-column chunk and row the
+    value index of the row's first entry in the chunk and its column mask
+    there with its stride (``chw``, (nch, nefc, 2): index, mask | stride <<
+    16), and the stored values' count (``nnz``)."""
+    md = np.asarray(md)
+    rs = np.asarray(row_slot, np.int64).reshape(-1)
+    groups, r = [], 0
+    while r < rs.size:
+        e = r + 1
+        if rs[r] < 0:
+            groups.append((r, 1, [int(limit_dadr[r])] if r < len(limit_dadr) else []))
+        else:
+            while e < rs.size and rs[e] == rs[r]:
+                e += 1
+            groups.append((r, e - r, np.nonzero(md[rs[r]])[0]))
+        r = e
+    nch = (nv + 15) // 16
+    rec = np.zeros((rs.size, 4), np.int32)
+    chw = np.zeros((nch, rs.size, 2), np.int64)
+    cols, base, col0 = [], 0, 0
+    for r0, nr, gc in groups:
+        gc = np.asarray(gc, np.int64)
+        rec[r0 : r0 + nr] = [(base + i, nr, col0, gc.size) for i in range(nr)]
+        for ch in range(nch):
+            inch = gc[(gc >= 16 * ch) & (gc < 16 * ch + 16)] - 16 * ch
+            if inch.size:
+                chw[ch, r0 : r0 + nr, 0] = base + np.sum(gc < 16 * ch) * nr + np.arange(nr)
+                chw[ch, r0 : r0 + nr, 1] = np.sum(1 << inch) | (nr << 16)
+        cols.append(gc)
+        base += nr * gc.size
+        col0 += gc.size
+    cols = np.concatenate(cols).astype(np.int32) if cols else np.zeros(0, np.int32)
+    return dict(rec=rec, cols=cols, chw=chw.astype(np.int32), nnz=base)
+
+
+def _j_tables(md, row_slot, limit_dadr, pattern=None):
+    """``j_pattern``'s tables on md's device, uploaded once per support-mask
+    tensor: keyed by md's storage and version (the entry holds md, so its
+    address is not reused while the entry lives). ``pattern`` is md's
+    pattern where the caller has it (the solver's statics); else md is read
+    once."""
+    key = ("j", md.data_ptr(), md._version, tuple(md.shape), str(md.device), row_slot,
+           limit_dadr)
+    hit = _TABLES.get(key)
+    if hit is None:
+        if pattern is None:
+            pattern = j_pattern(md.detach().cpu().numpy(), row_slot, limit_dadr, md.shape[1])
+        tables = [torch.as_tensor(pattern[k], device=md.device) for k in ("rec", "cols", "chw")]
+        hit = (md, (*tables, pattern["nnz"]))
+        _TABLES[key] = hit
+    return hit[1]
+
+
 def _check_kernel_tensors(name, float_tensors, bool_tensors):
     for k, t in float_tensors.items():
         if t.dtype != torch.float32:
@@ -222,13 +294,13 @@ def _outputs(B, nv, nefc, like):
 
 
 def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
-            damp, md, armature, ell, warmstart, tables, *, ell0, iters,
+            damp, md, armature, ell, warmstart, tables, jtables, *, ell0, iters,
             ls_iters, tol, dt, has_damping, stall_tol):
     """``cg_solve_fused``'s kernel on prepared arguments (Bm = P A, the int
-    tables, the (3, nell) friction table, the warmstart or None). In layout
-    2 it allocates the (B, nefc, nv) float32 scratch for J (the kernel keeps
-    each env's J there dof-major): 352.8 MB at rodent_pair's 590 rows and
-    1024 envs, 705.7 MB at 2048."""
+    tables, J's pattern (``_j_tables``), the (3, nell) friction table, the
+    warmstart or None). A wide block asks for the shared memory of J's
+    stored values; in layout 2 it allocates the (B, nnz) float32 scratch for
+    them: 36.2 MB at rodent_pair's 590 rows and 1024 envs."""
     B, _, nv = f.shape
     nefc = D.shape[1]
     nlim = jsign.shape[1]
@@ -242,22 +314,25 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_fused", fl, dict(exists=exists, exists_con=exists_con))
     layout, smem, warps = kernel_layout(nv, nefc, nell, nroots, ncon)
+    *jt, jnnz = jtables
+    if warps > 1:
+        smem = wide_smem_bytes(nv, nefc, nell, l2=layout == 2, j_floats=jnnz)
     row_slot, sz, root_of_dof, limit_dadr = tables
     outs = _outputs(B, nv, nefc, f)
     ptr = library.ptr
     ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
-    # layout 2: each env's J in device memory (kernel_layout gives its size),
-    # held here until the launch is queued
-    jbuf = torch.empty(B, nefc, nv, dtype=f.dtype, device=f.device) if layout == 2 else None
+    # layout 2: each env's J values in device memory, held here until the
+    # launch is queued
+    jbuf = torch.empty(B, jnnz, dtype=f.dtype, device=f.device) if layout == 2 else None
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = library.lib().cg_fused_launch(
         *(ptr(t) for t in (f, cdof, Bm, jsign, D, aref, exists, exists_con,
                            qfrc_smooth, qvel, damp, md, armature, ell)),
         ws,
-        *(ptr(t) for t in (row_slot, sz, root_of_dof, limit_dadr)),
+        *(ptr(t) for t in (row_slot, sz, root_of_dof, limit_dadr, *jt)),
         *(ptr(t) for t in outs.values()),
         ptr(jbuf) if jbuf is not None else ctypes.c_void_p(None),
-        B, nv, nefc, nlim, nroots, ncon, nell, ell0, smem, layout, warps, iters, ls_iters,
+        B, nv, nefc, nlim, nroots, ncon, nell, ell0, jnnz, smem, layout, warps, iters, ls_iters,
         int(has_damping), int(warmstart is not None),
         ctypes.c_float(tol), ctypes.c_float(dt), ctypes.c_float(stall_tol),
         nv if armature.dim() == 2 else 0,  # the armature's per-env stride
@@ -271,9 +346,10 @@ def _launch(f, cdof, Bm, jsign, D, aref, exists, exists_con, qfrc_smooth, qvel,
 def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
                     damp, ell, warmstart, *, ell0, iters, ls_iters, tol, dt,
                     has_damping, stall_tol):
-    """``cg_solve_batched``'s kernel on prepared arguments. In layout 2 it
-    allocates a (B, nefc, nv) float32 scratch, into which the kernel copies
-    each env's J dof-major."""
+    """``cg_solve_batched``'s kernel on prepared arguments. The wide core
+    holds the dense J dof-major, in shared memory in layout 1 and in a (B,
+    nefc, nv) float32 scratch in layout 2, into which the kernel copies
+    it."""
     B, nefc, nv = J.shape
     nell = exists_con.shape[1]
     fl = dict(qM=qM, J=J, D=D, aref=aref, qfrc_smooth=qfrc_smooth, qvel=qvel,
@@ -282,6 +358,8 @@ def _launch_batched(qM, J, D, aref, exists, exists_con, qfrc_smooth, qvel,
         fl["warmstart"] = warmstart
     _check_kernel_tensors("cg_solve_batched", fl, dict(exists=exists, exists_con=exists_con))
     layout, smem, warps = kernel_layout(nv, nefc, nell)
+    if warps > 1:  # J dof-major, nefc x nv
+        smem = wide_smem_bytes(nv, nefc, nell, l2=layout == 2, j_floats=nefc * nv)
     outs = _outputs(B, nv, nefc, qM)
     ptr = library.ptr
     ws = ptr(warmstart) if warmstart is not None else ctypes.c_void_p(None)
@@ -662,7 +740,7 @@ def cg_solve_fused(
         f, cdof, _bm(P, A, nroots, ncon).contiguous(), jsign, D, aref, exists,
         exists_con, qfrc_smooth, qvel, damp, md, armature,
         _ell_table(ell_mu, ell_scale, f.dtype, dev), warmstart, tables,
-        ell0=ell0, **statics,
+        _j_tables(md, row_slot, limit_dadr), ell0=ell0, **statics,
     )
     cg_solve_fused.launches += 1
     return tuple(outs.values())

@@ -113,6 +113,7 @@
 #include <stdint.h>
 
 #include "cholesky.cuh"
+#include "jsparse.cuh"
 #include "sweep.cuh"
 
 namespace {
@@ -156,26 +157,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return w[0];
 }
 
-// The warp sums of 16 per-lane values by a transposing butterfly: at each
-// level a lane keeps half of its values and trades the other half with its
-// partner (8 + 4 + 2 + 1 + 1 shuffles instead of 16 x 5). Returns the sum of
-// v[lane >> 1]: lanes 2c and 2c + 1 hold column c, bitwise equal (their last
-// step adds the same two values).
-__device__ __forceinline__ float warp_sum_scatter16(const float (&v)[16], int lane) {
-  float w8[8], w4[4], w2[2];
-  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4, h1 = lane & 2;
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    w8[q] = (h4 ? v[q + 8] : v[q]) + __shfl_xor_sync(kFull, h4 ? v[q] : v[q + 8], 16);
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    w4[q] = (h3 ? w8[q + 4] : w8[q]) + __shfl_xor_sync(kFull, h3 ? w8[q] : w8[q + 4], 8);
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    w2[q] = (h2 ? w4[q + 2] : w4[q]) + __shfl_xor_sync(kFull, h2 ? w4[q] : w4[q + 2], 4);
-  float w1 = (h1 ? w2[1] : w2[0]) + __shfl_xor_sync(kFull, h1 ? w2[0] : w2[1], 2);
-  return w1 + __shfl_xor_sync(kFull, w1, 1);
-}
+using jsp::warp_sum_scatter16;
 
 __device__ __forceinline__ float dot_row(const float* a, const float* x, int n) {
   float s = 0.f;
@@ -1040,13 +1022,22 @@ __device__ __forceinline__ void cg_core(const Args& a, const Smem& s, int b, int
 // any regrouping of a sum, so a kernel whose sums are grouped otherwise
 // stops in other envs than the one it is held against (a first version
 // with block-wide reductions did, in 2 of 1024 pair envs; PERF.md).
-// Layout 2 keeps J in device memory dof-major, (nv, nefc) per env in the
-// wrapper's (B, nefc, nv) scratch, so a row pass (consecutive threads on
-// consecutive rows) and a J^T force chunk (consecutive lanes on
-// consecutive rows) both read whole cache lines; the dense kernel copies
-// its row-major input there first. In layout 1 J stays in shared memory
-// with its odd row stride, so both passes are free of bank conflicts. P A
-// and the support masks md are read through the read-only cache in both
+// J is held by its static sparsity (jsparse.cuh): only its nnz entries are
+// stored, built and multiplied, the rows of a slot entry-major, which keeps
+// the dense forms' sums bitwise. A dense J (nefc x (nv | 1) in layout 1,
+// (B, nefc, nv) in device memory in layout 2) is 5-10x J's nonzeros on the
+// rodent files: the terrain's 107,164 B made its block 165,248 B, alone on
+// its SM, and the pair's row passes and J^T force chunks each read its
+// 344 KB J from device memory. Held sparse, the terrain's values take
+// 19.3 KB of a 77.4 KB block, two of which share an SM, and the pair's
+// (layout 2, a (B, nnz) device scratch) 35.4 KB per env, which the L2 keeps
+// for the resident envs. Consecutive rows of a slot hold consecutive
+// values, so a row pass (consecutive threads on consecutive rows) and a J^T
+// force chunk (consecutive lanes on consecutive rows) read runs of them.
+// The dense kernel keeps every entry of its J, dof-major, copied from its
+// row-major input into shared memory (layout 1) or the device scratch
+// (layout 2), and reads it without the tables (jsparse.cuh's kDense). P A,
+// md and the pattern's tables are read through the read-only cache in both
 // wide layouts, not staged.
 
 // Warps per env of the wide core in layout 1 and layout 2 (ops/cg.py::
@@ -1067,30 +1058,34 @@ static_assert((kWideWarps1 == 4 || kWideWarps1 == 8 || kWideWarps1 == 16) &&
 constexpr int kPanel = 8;
 
 // Floats of a wide block's dynamic shared memory (ops/cg.py::
-// wide_smem_bytes / 4): qM (nv x ldm) and qfrc_smooth; in layout 1 J
-// (nefc x (nv | 1)); D, aref and exists; the elliptic block's four vectors;
+// wide_smem_bytes / 4): qM (nv x ldm) and qfrc_smooth; in layout 1 J's jf
+// stored values (jsparse.cuh); D, aref and exists; the elliptic block's four vectors;
 // warp 0's done flag; then, 16-byte aligned, M^-1 (ldm x ldm, zero past
 // nv) and the vectors the sweep does not read (jar, jarp, force; twelve
 // nv-vectors), which the sweep's panel buffers overlay (and extend where
 // they are larger). ldm = nv rounded up to a multiple of 4.
-__device__ __host__ inline int wide_smem_floats(int nv, int nefc, int nell, bool l2) {
+__device__ __host__ inline int wide_smem_floats(int nv, int nefc, int nell, bool l2, int jf) {
   const int ldm = lead4(nv), nefc4 = (nefc + 3) & ~3;
-  const int head = nv * ldm + ldm + (l2 ? 0 : nefc * (nv | 1)) + 3 * nefc + 4 * nell + 1;
+  const int head = nv * ldm + ldm + (l2 ? 0 : jf) + 3 * nefc + 4 * nell + 1;
   const int rest = 3 * nefc4 + 12 * ldm, panel = 2 * kPanel * ldm + 2 * kPanel * kPanel;
   return ((head + 3) & ~3) + ldm * ldm + (rest > panel ? rest : panel);
 }
 
 // A wide block's shared memory (wide_smem_floats): the one-warp layout's
-// names, the stride of qM and M^-1, warp 0's done flag and the sweep's
-// panel buffers.
+// names (J: the jf stored values, in shared memory or device memory), the
+// stride of qM and M^-1, warp 0's done flag and the sweep's panel buffers;
+// and J's pattern (jsparse.cuh), in device memory.
 struct SmemW : Smem {
   int ldm;                       // row stride of qM and M^-1, a multiple of 4
   float* done;                   // warp 0's done flag, read by the block
   float *Rk, *Cn, *colk, *rowk;  // the sweep's, over jar... (free during the sweep)
+  const int4* jrec;              // per row {base, stride, col0, n}
+  const int* jcols;              // the rows' columns
+  const int2* jchw;              // per 16-column chunk and row: first entry, mask, stride
 };
 
 template <bool kL2>
-__device__ __forceinline__ SmemW carve_wide(float* sm, int nv, int nefc, int nell) {
+__device__ __forceinline__ SmemW carve_wide(float* sm, int nv, int nefc, int nell, int jf) {
   const int ldm = lead4(nv), nefc4 = (nefc + 3) & ~3;
   SmemW s;
   s.ldm = ldm;
@@ -1100,8 +1095,8 @@ __device__ __forceinline__ SmemW carve_wide(float* sm, int nv, int nefc, int nel
   s.qfs = q;
   q += ldm;
   s.J = kL2 ? nullptr : q;  // layout 2: the kernel points it at device memory
-  s.ldj = lead(nv);
-  q += kL2 ? 0 : nefc * lead(nv);
+  s.ldj = 0;                // J's entries are placed by its pattern
+  q += kL2 ? 0 : jf;
   s.Dv = q;
   s.ar = s.Dv + nefc;
   s.ex = s.ar + nefc;
@@ -1131,6 +1126,9 @@ __device__ __forceinline__ SmemW carve_wide(float* sm, int nv, int nefc, int nel
   s.rowk = s.colk + kPanel * kPanel;
   s.fs = s.Mi;  // the fused kernel's staging, over M^-1 (free before the sweep)
   s.cs = s.fs + 6 * nv;
+  s.jrec = nullptr;  // the fused kernel points them at J's pattern
+  s.jcols = nullptr;
+  s.jchw = nullptr;
   return s;
 }
 
@@ -1151,52 +1149,18 @@ __device__ __forceinline__ float dot4(const float* a, const float* x, int n) {
   return s;
 }
 
-// J[r, v]: shared memory row-major (layout 1) or device memory dof-major
-template <bool kL2>
-__device__ __forceinline__ float& jat(const SmemW& s, int r, int v, int nefc) {
-  return kL2 ? s.J[(size_t)v * nefc + r] : s.J[r * s.ldj + v];
+// J[r, :] . x by the row's entries (jsparse.cuh; kDenseJ: every column of
+// the dense J), in dot_row's order
+template <bool kDenseJ>
+__device__ __forceinline__ float jdot(const SmemW& s, int r, const float* x, int nv, int nefc) {
+  return jsp::row_dot<kDenseJ>(s.J, s.jrec, s.jcols, r, nv, nefc, x);
 }
 
-// J[r, :] . x over nv columns, in dot_row's order
-template <bool kL2>
-__device__ __forceinline__ float jrow_dot(const SmemW& s, int r, const float* x, int nv,
-                                          int nefc) {
-  if (!kL2) return dot_row(s.J + r * s.ldj, x, nv);
-  float acc = 0.f;
-#pragma unroll 8
-  for (int v = 0; v < nv; ++v) acc += s.J[(size_t)v * nefc + r] * x[v];
-  return acc;
-}
-
-// y = J^T f by the block: warp w takes matvec_t's 16-column chunks w, w +
-// kW, ..., each as matvec_t forms it (the lane's rows in order,
-// then the transposing butterfly; lane 2c writes column c); no barrier.
-// A row's 16 loads are issued from clamped columns before any is used, then
-// the columns past nv are dropped by a select: a load behind a branch would
-// wait for the one before it (in layout 2 a device-memory latency each).
-template <bool kL2, int kW>
+// y = J^T f by the block's kW warps (jsparse.cuh); no barrier
+template <bool kDenseJ, int kW>
 __device__ __forceinline__ void jt_f_wide(const SmemW& s, const float* f, float* y, int nv,
                                           int nefc, int lane, int warp) {
-  for (int v0 = 16 * warp; v0 < nv; v0 += 16 * kW) {
-    float acc[16];
-#pragma unroll
-    for (int c = 0; c < 16; ++c) acc[c] = 0.f;
-#pragma unroll 2
-    for (int r = lane; r < nefc; r += kWarp) {
-      const float fr = f[r];
-      float jv[16];
-#pragma unroll
-      for (int c = 0; c < 16; ++c) jv[c] = jat<kL2>(s, r, min(v0 + c, nv - 1), nefc);
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float t = acc[c] + jv[c] * fr;
-        acc[c] = v0 + c < nv ? t : acc[c];
-      }
-    }
-    const float sum = warp_sum_scatter16(acc, lane);
-    const int c = lane >> 1;
-    if (!(lane & 1) && v0 + c < nv) y[v0 + c] = sum;
-  }
+  jsp::jt_f<kDenseJ, kW>(s.J, s.jchw, f, y, nv, nefc, lane, warp);
 }
 
 // y[i] = A[i, :] . x for i < n (A: stride ld, 16-byte aligned rows), one
@@ -1210,12 +1174,12 @@ __device__ __forceinline__ void matvec_wide(const float* A, int ld, const float*
 // gradients() by the block: J^T force into tmp (all warps), grad = mxa -
 // tmp (warp 0, cg_core's lanes), M^-1 grad (all threads); starts with a
 // barrier (every row's force) and ends with one (every entry of mgrad)
-template <bool kL2, int kW>
+template <bool kDenseJ, int kW>
 __device__ __forceinline__ void gradients_wide(const Args& a, const SmemW& s, const float* mxa,
                                                float* grad, float* mgrad, int tid, int lane,
                                                int warp) {
   __syncthreads();
-  jt_f_wide<kL2, kW>(s, s.force, s.tmp, a.nv, a.nefc, lane, warp);
+  jt_f_wide<kDenseJ, kW>(s, s.force, s.tmp, a.nv, a.nefc, lane, warp);
   __syncthreads();
   if (warp == 0)
     for (int v = lane; v < a.nv; v += kWarp) grad[v] = mxa[v] - s.tmp[v];
@@ -1225,13 +1189,15 @@ __device__ __forceinline__ void gradients_wide(const Args& a, const SmemW& s, co
 }
 
 // cg_core's solve (its path for nv > 16) by a block of kW warps,
-// once qM, J (layout 1: shared memory; layout 2: device memory, dof-major)
-// and the per-env vectors are in place and a barrier has passed; writes
-// every output of env b. kEll and kWarm as in cg_core; kL2 compiles in
-// where J lives. Warp 0 holds the scalars (costs, alpha, beta, the done
-// flag) and runs cg_core's sums and updates; every barrier is reached by
-// every thread, and the loop's exit reads the flag warp 0 wrote.
-template <bool kEll, bool kWarm, bool kL2, int kW>
+// once qM, J's values (layout 1: shared memory; layout 2: device memory;
+// s.J points at them) and the per-env vectors are in place and a barrier
+// has passed; writes every output of env b. kEll and kWarm as in cg_core;
+// kDenseJ: J is dense (cg_solve_batched's, dof-major), else held by its
+// pattern (s.jrec, s.jcols, s.jchw). Warp 0 holds the scalars (costs,
+// alpha, beta, the done flag) and runs cg_core's sums and updates; every
+// barrier is reached by every thread, and the loop's exit reads the flag
+// warp 0 wrote.
+template <bool kEll, bool kWarm, bool kDenseJ, int kW>
 __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int b, int tid) {
   constexpr int kWide = kW * kWarp;  // threads per env
   const int lane = tid & (kWarp - 1), warp = tid / kWarp;
@@ -1251,7 +1217,8 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
     s.mxa[v] = 0.f;
   }
   __syncthreads();
-  for (int r = tid; r < nefc; r += kWide) s.jar[r] = jrow_dot<kL2>(s, r, s.x, nv, nefc) - s.ar[r];
+  for (int r = tid; r < nefc; r += kWide)
+    s.jar[r] = jdot<kDenseJ>(s, r, s.x, nv, nefc) - s.ar[r];
   __syncthreads();
   float cost = 0.f;  // warp 0's
   // without kWarm x = a0 is the start: its forces are formed here
@@ -1265,7 +1232,7 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
     __syncthreads();
     matvec_wide<kW>(s.qM, ldm, s.tmp, s.mp, nv, tid);
     for (int r = tid; r < nefc; r += kWide)
-      s.jarp[r] = jrow_dot<kL2>(s, r, s.p, nv, nefc) - s.ar[r];
+      s.jarp[r] = jdot<kDenseJ>(s, r, s.p, nv, nefc) - s.ar[r];
     __syncthreads();
     if (w0) {
       float cw[2] = {cost_part<kEll, false>(a, s, s.jarp, nullptr, lane), 0.f};
@@ -1284,7 +1251,7 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
     }
   }
   if (kWarm && w0) cost_part<kEll, true>(a, s, s.jar, s.force, lane);  // the chosen start's forces
-  gradients_wide<kL2, kW>(a, s, s.mxa, s.grad, s.mgrad, tid, lane, warp);
+  gradients_wide<kDenseJ, kW>(a, s, s.mxa, s.grad, s.mgrad, tid, lane, warp);
   for (int v = tid; v < nv; v += kWide) s.p[v] = -s.mgrad[v];
   __syncthreads();
 
@@ -1295,7 +1262,7 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
     if (done) break;  // frozen: later iterations would not change the iterate
     // J p (one thread per row) and M p (one thread per dof, counted from
     // the block's last thread, which has the fewest rows)
-    for (int r = tid; r < nefc; r += kWide) s.jarp[r] = jrow_dot<kL2>(s, r, s.p, nv, nefc);
+    for (int r = tid; r < nefc; r += kWide) s.jarp[r] = jdot<kDenseJ>(s, r, s.p, nv, nefc);
     for (int v = kWide - 1 - tid; v < nv; v += kWide) s.mp[v] = dot4(s.qM + v * ldm, s.p, nv);
     __syncthreads();
     float t5[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // warp 0's, across gradients_wide
@@ -1363,7 +1330,7 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
       __syncwarp();
       t5[0] = cost_part<kEll, true>(a, s, s.jar, s.force, lane);
     }
-    gradients_wide<kL2, kW>(a, s, s.mxa, s.gradn, s.mgradn, tid, lane, warp);
+    gradients_wide<kDenseJ, kW>(a, s, s.mxa, s.gradn, s.mgradn, tid, lane, warp);
     if (w0) {
       // |grad|^2 and Polak-Ribiere's numerator and denominator with the two
       // cost terms, reduced together; the direction and the done flag
@@ -1393,7 +1360,7 @@ __device__ __forceinline__ void cg_core_wide(const Args& a, const SmemW& s, int 
   }
 
   // ---- outputs: qacc, efc_force, qfrc_constraint = J^T force, qacc_smooth
-  jt_f_wide<kL2, kW>(s, s.force, s.tmp, nv, nefc, lane, warp);
+  jt_f_wide<kDenseJ, kW>(s, s.force, s.tmp, nv, nefc, lane, warp);
   __syncthreads();
   for (int v = tid; v < nv; v += kWide) {
     a.qacc[(size_t)b * nv + v] = s.x[v];
@@ -1519,42 +1486,54 @@ __device__ __forceinline__ void fused_narrow(
   cg_core<kEll, kWarm>(a, s, b, lane);
 }
 
+// J's static pattern (jsparse.cuh): the wide core's tables, device
+// pointers the wrapper uploads once per model, and its stored values' count
+struct JPattern {
+  const int4* rec;
+  const int* cols;
+  const int2* chw;
+  int nnz;
+};
+
 // cg_solve_fused's assembly by a block of kW warps: f, cdof and the
-// tables staged over M^-1 (free until the sweep), P A and md read through
-// the read-only cache; qM one thread per row, J one thread per row (into
-// shared memory, or dof-major into the device scratch: consecutive threads
-// write consecutive addresses).
+// tables staged over M^-1 (free until the sweep), P A, md and J's pattern
+// read through the read-only cache; qM one thread per row, J one thread per
+// row at its pattern's entries (into shared memory, or into the device
+// scratch: consecutive threads of a slot's rows write consecutive
+// addresses).
 template <bool kEll, bool kWarm, bool kL2, int kW>
 __device__ __forceinline__ void fused_wide(
     const Args& a, const float* __restrict__ f, const float* __restrict__ cdof,
     const float* __restrict__ Bm, const float* __restrict__ jsign, const float* __restrict__ md,
     const float* __restrict__ armature, const int* __restrict__ row_slot,
-    const int* __restrict__ sz, const int* __restrict__ root_of_dof,
-    const int* __restrict__ limit_dadr, float* jscratch, int nlim, int nroots, int arm_stride) {
+    const int* __restrict__ sz, const int* __restrict__ root_of_dof, JPattern jp,
+    float* jscratch, int nlim, int nroots, int arm_stride) {
   constexpr int kWide = kW * kWarp;  // threads per env
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nv = a.nv, nefc = a.nefc, ldm = lead4(nv);
+  const int jnnz = jp.nnz;
   extern __shared__ __align__(16) float smw[];
-  SmemW s = carve_wide<kL2>(smw, nv, nefc, a.nell);
-  if (kL2) s.J = jscratch + (size_t)b * nefc * nv;
+  SmemW s = carve_wide<kL2>(smw, nv, nefc, a.nell, jnnz);
+  if (kL2) s.J = jscratch + (size_t)b * jnnz;
+  s.jrec = jp.rec;
+  s.jcols = jp.cols;
+  s.jchw = jp.chw;
 
   const float* fb = f + (size_t)b * 6 * nv;
   const float* cb = cdof + (size_t)b * 6 * nv;
   const float* Bmb = Bm + (size_t)b * nroots * 6 * nefc;
   // f and cdof (6 nv each), then the tables, over M^-1 and on into jar...
-  // (wide_smem_floats leaves room: 15 nv + nefc + 2 nlim <= ldm^2 + 3 nefc
+  // (wide_smem_floats leaves room: 15 nv + nefc + nlim <= ldm^2 + 3 nefc
   // + 12 ldm)
   int* const slot_s = reinterpret_cast<int*>(s.cs + 6 * nv);  // nefc
-  int* const dadr_s = slot_s + nefc;                           // nlim
-  float* const jsign_s = reinterpret_cast<float*>(dadr_s + nlim);
+  float* const jsign_s = reinterpret_cast<float*>(slot_s + nefc);
   int* const sz_s = reinterpret_cast<int*>(jsign_s + nlim);    // nv
   int* const root_s = sz_s + nv;                               // nv
   float* const arm_s = reinterpret_cast<float*>(root_s + nv);  // nv
   copy_vec(s.fs, fb, 6 * nv, tid, kWide);
   copy_vec(s.cs, cb, 6 * nv, tid, kWide);
   copy_vec(slot_s, row_slot, nefc, tid, kWide);
-  copy_vec(dadr_s, limit_dadr, nlim, tid, kWide);
   copy_vec(jsign_s, jsign + (size_t)b * nlim, nlim, tid, kWide);
   copy_vec(sz_s, sz, nv, tid, kWide);
   copy_vec(root_s, root_of_dof, nv, tid, kWide);
@@ -1589,18 +1568,23 @@ __device__ __forceinline__ void fused_wide(
       s.qM[i * ldm + j] = v;
     }
   }
-  // ---- J, one thread per row (as fused_narrow); limit row i is row i, so
-  // the thread that zeroed it sets its entry
+  // ---- J at its pattern's entries, one thread per row: a contact row's
+  // from Bm = P A and cdof, masked by md (fused_narrow's values at the
+  // slot's support dofs; the row's six Bm entries of a root stay in
+  // registers); limit row r (< nlim) holds jsign_r at its dof
   for (int r = tid; r < nefc; r += kWide) {
+    const jsp::Row q = jsp::row(jp.rec, r);
+    float* jr = s.J + q.base;
     const int slot = slot_s[r];
     if (slot < 0) {
-      for (int v = 0; v < nv; ++v) jat<kL2>(s, r, v, nefc) = 0.f;
+      if (q.n) jr[0] = jsign_s[r];
       continue;
     }
     const float* mdr = md + slot * nv;
     int root = -1;
     float bm[6];
-    for (int v = 0; v < nv; ++v) {
+    for (int k = 0; k < q.n; ++k) {
+      const int v = __ldg(jp.cols + q.col0 + k);
       const int rv = root_s[v];
       if (rv != root) {
         root = rv;
@@ -1610,12 +1594,12 @@ __device__ __forceinline__ void fused_wide(
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < 6; ++c) acc += bm[c] * s.cs[c * nv + v];
-      jat<kL2>(s, r, v, nefc) = acc * __ldg(mdr + v);
+      jr[k * q.stride] = acc * __ldg(mdr + v);
     }
   }
-  for (int i = tid; i < nlim; i += kWide) jat<kL2>(s, i, dadr_s[i], nefc) = jsign_s[i];
   __syncthreads();  // orders qM and J (either memory) for every thread
-  cg_core_wide<kEll, kWarm, kL2, kW>(a, s, b, tid);
+  constexpr bool kDenseJ = false;
+  cg_core_wide<kEll, kWarm, kDenseJ, kW>(a, s, b, tid);
 }
 
 template <bool kEll, bool kWarm, bool kL2, int kW>
@@ -1625,14 +1609,25 @@ cg_fused_kernel(Args a, const float* __restrict__ f, const float* __restrict__ c
                 const float* __restrict__ md, const float* __restrict__ armature,
                 const int* __restrict__ row_slot, const int* __restrict__ sz,
                 const int* __restrict__ root_of_dof, const int* __restrict__ limit_dadr,
-                float* jscratch, int nlim, int nroots, int ncon, int arm_stride) {
+                JPattern jp, float* jscratch, int nlim, int nroots, int ncon, int arm_stride) {
   if constexpr (kW == 1) {
     static_assert(!kL2, "layout 2 runs wide");
     fused_narrow<kEll, kWarm>(a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof,
                               limit_dadr, nlim, nroots, ncon, arm_stride);
   } else {
     fused_wide<kEll, kWarm, kL2, kW>(a, f, cdof, Bm, jsign, md, armature, row_slot, sz,
-                                     root_of_dof, limit_dadr, jscratch, nlim, nroots, arm_stride);
+                                     root_of_dof, jp, jscratch, nlim, nroots, arm_stride);
+  }
+}
+
+// The row-major (nrow, ncol) src into dst column-major (dst[j nrow + i]),
+// asynchronously: consecutive threads on consecutive source elements (step
+// threads in all).
+__device__ __forceinline__ void copy_cols(float* dst, const float* src, int nrow, int ncol,
+                                          int tid, int step) {
+  for (int e = tid; e < nrow * ncol; e += step) {
+    const int i = e / ncol;
+    copy_async(dst + (e - i * ncol) * nrow + i, src + e);
   }
 }
 
@@ -1654,18 +1649,20 @@ cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict_
     load_env(a, s, b, lane);  // waits for all of them
     cg_core<kEll, kWarm>(a, s, b, lane);
   } else {
+    // every entry of J, dof-major (vals[v nefc + r]; jsparse.cuh's kDense)
     constexpr int kWide = kW * kWarp;  // threads per env
     const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+    const int jnnz = nefc * nv;
     extern __shared__ __align__(16) float smw[];
-    SmemW s = carve_wide<kL2>(smw, nv, nefc, a.nell);
+    SmemW s = carve_wide<kL2>(smw, nv, nefc, a.nell, jnnz);
     copy_rows(s.qM, s.ldm, qMb, nv, nv, tid, kWide);
-    if (!kL2) copy_rows(s.J, s.ldj, Jb, nefc, nv, tid, kWide);
+    if (!kL2) copy_cols(s.J, Jb, nefc, nv, tid, kWide);
     load_env(a, s, b, tid, kWide);  // waits for this thread's copies
     if (kL2) {
       // the row-major input J into the dof-major scratch: warp w takes rows
       // 32 w + lane, ...; each lane walks its row (its cache lines stay in
       // L1 across the walk) and the warp's stores are consecutive
-      s.J = jscratch + (size_t)b * nefc * nv;
+      s.J = jscratch + (size_t)b * jnnz;
       for (int r = warp * kWarp + lane; r < nefc; r += kWide) {
         const float* src = Jb + (size_t)r * nv;
 #pragma unroll 8
@@ -1673,7 +1670,8 @@ cg_batched_kernel(Args a, const float* __restrict__ qM, const float* __restrict_
       }
     }
     __syncthreads();
-    cg_core_wide<kEll, kWarm, kL2, kW>(a, s, b, tid);
+    constexpr bool kDenseJ = true;
+    cg_core_wide<kEll, kWarm, kDenseJ, kW>(a, s, b, tid);
   }
 }
 
@@ -1721,15 +1719,35 @@ int allow_smem(Kernel kernel, int smem) {
 
 // The geometry a launch asks for, checked against what the kernels take:
 // one warp in layout 1, or the wide core's warps of the layout (with the
-// wide layout's own shared-memory size), the scratch where layout 2 needs
-// it; a damped one-warp env has room for its factor (cg_core).
-bool bad_geometry(int layout, int warps, int smem, int nv, int nefc, int nell,
+// wide layout's own shared-memory size for J's jnnz stored values), the
+// scratch where layout 2 needs it; a damped one-warp env has room for its
+// factor (cg_core).
+bool bad_geometry(int layout, int warps, int smem, int nv, int nefc, int nell, int jnnz,
                   const float* jscratch, int has_damping) {
   if (layout != 1 && layout != 2) return true;
   if (warps == 1 && has_damping && nv == 1 && nefc == 0) return true;
   if (warps != 1 && warps != (layout == 1 ? kWideWarps1 : kWideWarps2)) return true;
   if (layout == 2 && (warps == 1 || jscratch == nullptr)) return true;
-  return warps > 1 && smem != 4 * wide_smem_floats(nv, nefc, nell, layout == 2);
+  return warps > 1 && smem != 4 * wide_smem_floats(nv, nefc, nell, layout == 2, jnnz);
+}
+
+// cg_solve_fused's instance for a launch: one warp or the wide core's warps
+// of the layout, with or without the elliptic block and the warmstart /
+// stall exit (a launch's geometry is checked by bad_geometry first).
+auto fused_kernel(int layout, int warps, bool ell, bool warm) {
+  auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
+    return ell ? (warm ? k11 : k10) : (warm ? k01 : k00);
+  };
+  constexpr int W1 = kWideWarps1, W2 = kWideWarps2;
+  return warps == 1
+             ? pick(cg_fused_kernel<true, true, false, 1>, cg_fused_kernel<true, false, false, 1>,
+                    cg_fused_kernel<false, true, false, 1>, cg_fused_kernel<false, false, false, 1>)
+         : layout == 1
+             ? pick(cg_fused_kernel<true, true, false, W1>, cg_fused_kernel<true, false, false, W1>,
+                    cg_fused_kernel<false, true, false, W1>,
+                    cg_fused_kernel<false, false, false, W1>)
+             : pick(cg_fused_kernel<true, true, true, W2>, cg_fused_kernel<true, false, true, W2>,
+                    cg_fused_kernel<false, true, true, W2>, cg_fused_kernel<false, false, true, W2>);
 }
 
 }  // namespace
@@ -1739,45 +1757,52 @@ bool bad_geometry(int layout, int warps, int smem, int nv, int nefc, int nell,
 // dynamic shared memory (ops/cg.py::kernel_layout), and returns the
 // cudaGetLastError() code of the launch (0 on success), or
 // cudaErrorInvalidValue for a geometry the kernels do not take. `warmstart`
-// may be null when has_ws is 0; `jscratch`, a (B, nefc, nv) float32
-// scratch that layout 2 keeps J in (dof-major per env), may be null in
+// may be null when has_ws is 0. cg_solve_fused's wide core holds J by its
+// pattern (jsparse.cuh: `jrec`, `jcols`, `jchw` and its `jnnz` stored
+// values), which the one-warp core does not read; cg_solve_batched's holds
+// the dense J dof-major (nefc nv values). `jscratch`, a (B, stored values)
+// float32 scratch that layout 2 keeps J's values in, may be null in
 // layout 1.
 extern "C" int cg_fused_launch(
     const float* f, const float* cdof, const float* Bm, const float* jsign,
     const float* D, const float* aref, const uint8_t* exists, const uint8_t* exists_con,
     const float* qfrc_smooth, const float* qvel, const float* damp, const float* md,
     const float* armature, const float* ell, const float* warmstart, const int* row_slot,
-    const int* sz, const int* root_of_dof, const int* limit_dadr, float* qacc, float* force,
-    float* qfrc, float* a0, float* qvel_new, uint8_t* done, float* jscratch, int B, int nv,
-    int nefc, int nlim, int nroots, int ncon, int nell, int ell0, int smem, int layout,
-    int warps, int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt,
-    float stall_tol, int arm_stride, void* stream) {
+    const int* sz, const int* root_of_dof, const int* limit_dadr, const int* jrec,
+    const int* jcols, const int* jchw, float* qacc, float* force, float* qfrc, float* a0,
+    float* qvel_new, uint8_t* done, float* jscratch, int B, int nv, int nefc, int nlim,
+    int nroots, int ncon, int nell, int ell0, int jnnz, int smem, int layout, int warps,
+    int iters, int ls_iters, int has_damping, int has_ws, float tol, float dt, float stall_tol,
+    int arm_stride, void* stream) {
   if (B == 0) return 0;
-  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch, has_damping))
+  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jnnz, jscratch, has_damping))
     return (int)cudaErrorInvalidValue;
-  const bool warm = has_ws || stall_tol > 0.f;
-  auto pick = [&](auto k11, auto k10, auto k01, auto k00) {
-    return nell ? (warm ? k11 : k10) : (warm ? k01 : k00);
-  };
-  constexpr int W1 = kWideWarps1, W2 = kWideWarps2;
-  auto kernel =
-      warps == 1
-          ? pick(cg_fused_kernel<true, true, false, 1>, cg_fused_kernel<true, false, false, 1>,
-                 cg_fused_kernel<false, true, false, 1>, cg_fused_kernel<false, false, false, 1>)
-      : layout == 1
-          ? pick(cg_fused_kernel<true, true, false, W1>, cg_fused_kernel<true, false, false, W1>,
-                 cg_fused_kernel<false, true, false, W1>, cg_fused_kernel<false, false, false, W1>)
-          : pick(cg_fused_kernel<true, true, true, W2>, cg_fused_kernel<true, false, true, W2>,
-                 cg_fused_kernel<false, true, true, W2>, cg_fused_kernel<false, false, true, W2>);
+  auto kernel = fused_kernel(layout, warps, nell > 0, has_ws || stall_tol > 0.f);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   const Args a = make_args(D, aref, exists, exists_con, qfrc_smooth, qvel, damp, ell, warmstart,
                            qacc, force, qfrc, a0, qvel_new, done, nv, nefc, nell, ell0, iters,
                            ls_iters, has_damping, has_ws, tol, dt, stall_tol);
+  const JPattern jp{reinterpret_cast<const int4*>(jrec), jcols,
+                    reinterpret_cast<const int2*>(jchw), jnnz};
   kernel<<<B, warps * kWarp, smem, (cudaStream_t)stream>>>(
-      a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, jscratch, nlim,
-      nroots, ncon, arm_stride);
+      a, f, cdof, Bm, jsign, md, armature, row_slot, sz, root_of_dof, limit_dadr, jp, jscratch,
+      nlim, nroots, ncon, arm_stride);
   return (int)cudaGetLastError();
+}
+
+// Blocks of cg_solve_fused's instance for (layout, warps, elliptic block,
+// warmstart or stall exit) that one SM holds at `smem` bytes of dynamic
+// shared memory per block (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
+// what the card's registers and shared memory allow), or -1 on an error.
+extern "C" int cg_fused_blocks_per_sm(int layout, int warps, int ell, int warm, int smem) {
+  if (layout != 1 && layout != 2) return -1;
+  auto kernel = fused_kernel(layout, warps, ell != 0, warm != 0);
+  if (allow_smem(kernel, smem)) return -1;
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, warps * kWarp, smem);
+  return err == cudaSuccess ? n : -1;
 }
 
 extern "C" int cg_batched_launch(
@@ -1788,7 +1813,7 @@ extern "C" int cg_batched_launch(
     int smem, int layout, int warps, int iters, int ls_iters, int has_damping, int has_ws,
     float tol, float dt, float stall_tol, void* stream) {
   if (B == 0) return 0;
-  if (bad_geometry(layout, warps, smem, nv, nefc, nell, jscratch, has_damping))
+  if (bad_geometry(layout, warps, smem, nv, nefc, nell, nefc * nv, jscratch, has_damping))
     return (int)cudaErrorInvalidValue;
   const bool warm = has_ws || stall_tol > 0.f;
   auto pick = [&](auto k11, auto k10, auto k01, auto k00) {

@@ -44,8 +44,9 @@ H100_SMEM_PER_BLOCK = 232448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each launch function (see its source)
 _SIGNATURES = {
-    "cg_fused_launch": [_P] * 26 + [_I] * 15 + [_F] * 3 + [_I, _P],
+    "cg_fused_launch": [_P] * 29 + [_I] * 16 + [_F] * 3 + [_I, _P],
     "cg_batched_launch": [_P] * 18 + [_I] * 12 + [_F] * 3 + [_P],
+    "cg_fused_blocks_per_sm": [_I] * 5,
     "spd_inverse_launch": [_P] * 4 + [_I] * 5 + [_P],
     "spd_solve_launch": [_P] * 3 + [_I] * 4 + [_P],
     "cholesky_factor_launch": [_P] * 2 + [_I] * 4 + [_P],

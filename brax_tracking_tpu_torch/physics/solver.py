@@ -232,13 +232,18 @@ def _fused_statics(m: M.Model, layout: Cn.EfcLayout):
         b1 = np.asarray(m.geom_bodyid)[layout.con_geom1]
         b2 = np.asarray(m.geom_bodyid)[layout.con_geom2]
         bdm = np.asarray(m.body_dof_mask, np.float64)
+        md = bdm[b2] - bdm[b1] if ncon else np.zeros((0, nv))
+        row_slot = tuple(int(s) for s in layout.row_con)
+        limit_dadr = tuple(int(a) for a in Cn.limit_dofs(m))
         out = dict(
             P=P,
-            md=bdm[b2] - bdm[b1] if ncon else np.zeros((0, nv)),
-            row_slot=tuple(int(s) for s in layout.row_con),
+            md=md,
+            row_slot=row_slot,
             sz=tuple(int(s) for s in sz),
             root_bounds=tuple(bounds),
-            limit_dadr=tuple(int(a) for a in Cn.limit_dofs(m)),
+            limit_dadr=limit_dadr,
+            # J's static sparsity, as the kernel's wide core holds J
+            j_pattern=ops_cg.j_pattern(md, row_slot, limit_dadr, nv),
         )
     m.cache["fused_statics"] = out
     return out
@@ -288,6 +293,9 @@ def _solve_statics(m: M.Model, layout: Cn.EfcLayout) -> dict:
                 **ell,
             ),
         )
+        if st["md"].is_cuda:  # J's pattern reaches the card once, from the host's md
+            ops_cg._j_tables(st["md"], fstat["row_slot"], fstat["limit_dadr"],
+                             pattern=fstat["j_pattern"])
         m.cache["solve_statics"] = st
     return st
 

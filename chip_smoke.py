@@ -40,7 +40,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
    converged; and at the
    design edges at 590 rows (the widest one-warp env and the first wide
    one, the widest env of layout 1, the first past it, the widest of
-   layout 2); the one-warp instance on the planar minirat's slide joints
+   layout 2); the wide core (J held by its static pattern) on the terrain
+   and the pair with a non-finite qfrc_smooth entry in four of 64 envs,
+   each returning a non-finite qacc where the plain version does and the
+   other envs bitwise their clean run (phase_nonfinite); the one-warp
+   instance on the planar minirat's slide joints
    (assets/minirat_planar.xml); the one-warp instance on the minirat and
    the damped wide layout 1 on the rodent stand-in with a per-env armature
    ((B, nv), B=2048 and B=2047), and with the model's armature repeated
@@ -3546,6 +3550,56 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+NONFINITE_MODELS = ("rodent_standin_terrain", "ratpair")
+NONFINITE_ENVS = 64
+# (env, dof, value) planted in qfrc_smooth
+NONFINITE_PLANTS = ((1, 3, float("nan")), (9, 40, float("inf")), (30, 0, float("-inf")),
+                    (63, 72, float("nan")))
+
+
+def phase_nonfinite(device, model, B=NONFINITE_ENVS):
+    """The solve of ``model`` (see solve_case) with one non-finite entry of
+    qfrc_smooth in a few envs (NONFINITE_PLANTS): the kernel (the wide
+    core, which holds J by its pattern) returns a non-finite qacc in each
+    such env where its plain version (J dense) does, and every other env
+    bitwise as without the planted entries. The kernel forms a row's force
+    as -D jar act (NaN x 0 is NaN) where the plain version selects it, so
+    its efc_force and qfrc_constraint are non-finite in more entries
+    (ROADMAP C): returns, per planted env and output, whether the kernel's
+    set of non-finite entries is the plain version's. Its launches do not
+    count."""
+    from brax_tracking_tpu_torch.ops import cg as ops_cg
+
+    _, args, kw = solve_case(device, model, B, SEED)
+    clean = kernel_launch(args, kw)()
+    planted = list(args)
+    planted[8] = args[8].clone()
+    for b, j, val in NONFINITE_PLANTS:
+        planted[8][b, j % args[8].shape[1]] = val
+    kern = kernel_launch(planted, kw)()
+    plain = outputs(ops_cg.cg_solve_fused_reference(*planted, **kw))
+    torch.cuda.synchronize()
+    names = dict(qacc="qacc", force="efc_force", qfrc="qfrc_constraint", a0="qacc_smooth",
+                 qvel_new="qvel_new")
+    envs = sorted({b for b, _, _ in NONFINITE_PLANTS})
+    others = torch.ones(B, dtype=torch.bool, device=device)
+    others[envs] = False
+    same_sets = {}
+    for key, name in names.items():
+        if not torch.equal(kern[key][others], clean[key][others]):
+            fail(f"non-finite qfrc_smooth on {model}: {name} of the other envs moved")
+        for b in envs:
+            k_bad, p_bad = ~torch.isfinite(kern[key][b]), ~torch.isfinite(plain[name][b])
+            same_sets[f"{name}[{b}]"] = bool(torch.equal(k_bad, p_bad))
+            if key == "qacc" and bool(p_bad.any()) and not bool(k_bad.any()):
+                fail(f"non-finite qfrc_smooth on {model}, env {b}: the kernel's qacc is finite "
+                     "where its plain version's is not")
+    report = {"model": model, "B": B, "planted": [list(p) for p in NONFINITE_PLANTS],
+              "same_nonfinite_sets": same_sets}
+    print("nonfinite " + json.dumps(report))
+    return report
+
+
 def _launch_statics(kw):
     return dict(ell0=kw["ell0"], iters=kw["iters"], ls_iters=kw["ls_iters"], tol=kw["tol"],
                 dt=kw["dt"], has_damping=kw["has_damping"], stall_tol=kw.get("stall_tol", 0.0))
@@ -3564,8 +3618,9 @@ def kernel_launch(args, kw, batched=False):
     Bm = ops_cg._bm(P, A, len(kw["root_bounds"]), md.shape[0]).contiguous()
     tables = ops_cg._int_tables(kw["row_slot"], kw["sz"], kw["root_bounds"],
                                 kw["limit_dadr"], f.shape[-1], f.device)
+    jtables = ops_cg._j_tables(md, kw["row_slot"], kw["limit_dadr"])
     return lambda: ops_cg._launch(f, cdof, Bm, jsign, D, aref, exists, econ, qfs, qvel,
-                                  damp, md, arm, ell, ws, tables, **st)
+                                  damp, md, arm, ell, ws, tables, jtables, **st)
 
 
 def iterations_run(args, kw, batched=False):
@@ -3601,6 +3656,15 @@ def line_search_steps(args, kw, batched=False):
     return steps
 
 
+def fused_j_nnz(md, kw):
+    """J's nonzeros as cg_solve_fused assembles it: the md support of the
+    contact rows, one entry per scalar limit row (the wide core stores just
+    these, ops/cg.py::j_pattern). Returns (contact entries, all)."""
+    rs = np.asarray(kw["row_slot"])
+    j_con = int((np.asarray(md.cpu())[rs[rs >= 0]] != 0).sum())
+    return j_con, j_con + len(kw["limit_dadr"])
+
+
 def kernel_bound(args, kw, its, ls_steps, batched=False):
     """Least time of one call on an H100: max(bytes / HBM rate, FLOPs /
     FP32 rate), counting each input read once and each output written once,
@@ -3629,9 +3693,7 @@ def kernel_bound(args, kw, its, ls_steps, batched=False):
         i = np.arange(nv)
         sz = np.asarray(kw["sz"])
         anc = int(((i[:, None] >= i[None, :]) & (i[:, None] < (i + sz)[None, :])).sum())
-        rs = np.asarray(kw["row_slot"])
-        j_con = int((md.cpu().numpy()[rs[rs >= 0]] != 0).sum())
-        j_nnz = j_con + len(kw["limit_dadr"])
+        j_con, j_nnz = fused_j_nnz(md, kw)
         Bm = ops_cg._bm(P, A, len(kw["root_bounds"]), ncon)
         ins = [f, cdof, Bm, jsign, D, aref, exists, econ, qfs, qvel, damp, md, arm]
         build = 12 * anc + nv + 12 * j_con  # qM (ancestor pairs, armature), contact rows of J
@@ -3719,11 +3781,19 @@ def main() -> int:
         m = load(model, "cuda", torch.float32)
         layout = Cn.efc_layout(m)
         nell = int(S._cone_meta(m, layout).ell_con.size)
-        nroots = len(S._fused_statics(m, layout)["root_bounds"])
+        fstat = S._fused_statics(m, layout)
+        nroots = len(fstat["root_bounds"])
         kl, smem, warps = ops_cg.kernel_layout(m.nv, layout.nefc, nell, nroots, m.ncon)
-        print(f"{model}: kernel layout {kl}, {warps} warps and {smem} B of shared memory per env (nv={m.nv}, "
-              f"nefc={layout.nefc}, elliptic contacts {nell}, roots {nroots}, contact slots "
-              f"{m.ncon})")
+        nnz = fstat["j_pattern"]["nnz"]
+        if warps > 1:  # the wide block asks for J's stored values (ops/cg.py::j_pattern)
+            smem = ops_cg.wide_smem_bytes(m.nv, layout.nefc, nell, l2=kl == 2, j_floats=nnz)
+        per_sm = library.lib().cg_fused_blocks_per_sm(kl, warps, int(nell > 0),
+                                                      int(model.endswith("newton")), smem)
+        print(f"{model}: kernel layout {kl}, {warps} warps and {smem} B of shared memory per "
+              f"env, {per_sm} blocks per SM (nv={m.nv}, nefc={layout.nefc}, J's nonzeros "
+              f"{nnz}, elliptic contacts {nell}, roots {nroots}, contact slots {m.ncon})")
+        if per_sm < 1:
+            fail(f"{model}: no block of the solve kernel fits an SM ({per_sm})")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -3817,6 +3887,12 @@ def main() -> int:
                      ("wide_first", B_PAIR), ("l1_last", B_PAIR), ("l2_first", B_PAIR),
                      ("l2_last", B_PAIR)]:
         pair[model, B] = phase_kernel_vs_plain("cuda", B, False, SEED, None, model)
+    # a non-finite qfrc_smooth entry in a few envs of the wide layout 1 (the
+    # terrain) and layout 2 (the pair), J held by its pattern
+    nonfinite = [phase_nonfinite("cuda", model) for model in NONFINITE_MODELS]
+    print(f"non-finite qfrc_smooth: qacc non-finite where the plain version's is, on "
+          f"{NONFINITE_MODELS}; the same non-finite entries per output and env: "
+          f"{[r['same_nonfinite_sets'] for r in nonfinite]}")
     print(f"layout 2 and the edges against the plain versions: {time.perf_counter() - t_l2:.1f} s "
           f"(at {PAIR_ROWS} rows: one warp / wide at nv {wide_edges()}, layout 1 / 2 / widest "
           f"at nv {l2_edges()})")

@@ -25,8 +25,9 @@ within it. Prints one JSON line:
   J of (a) and (b); the wide instances (several warps per env, where the
   tree has them): ``pair_a`` / ``pair_b`` / ``pair_c`` and
   ``pair_batched_a``, the same on the two-rat stand-in (1024 envs, layout
-  2), ``rat_a`` on the one-rat file (2048 envs, where the tree has it) and
-  ``rodent_like``, the seeded dense case (nv 73, 296 rows, 2048 envs);
+  2), ``rat_a`` on the one-rat file (2048 envs, where the tree has it),
+  ``rodent_like``, the seeded dense case (nv 73, 296 rows, 2048 envs), and
+  ``props_a`` on the props (nv 48, 288 rows, 8 roots, 2048 envs);
   and the damped wide layout 1 (the Euler tail's factor and substitutions):
   ``rodent_standin_a`` (the rodent stand-in, nv 73, 135 rows, its own
   joint damping), ``terrain_a`` (on its terrain, 367 rows) and
@@ -35,7 +36,10 @@ within it. Prints one JSON line:
   free, tethered and ball-coxa (``fly_standin_b``,
   ``fly_standin_tethered_b``, ``fly_standin_ball_b``; nv 42 / 36 / 42),
   2048 envs each;
-- ``digest``: per solve instance above, per output, and per width of
+- ``digest``: per solve instance above, per output (on the terrain and the
+  pair also with a non-finite qfrc_smooth entry in four of 64 envs:
+  ``terrain_nonfinite``, ``pair_nonfinite``, the mask of each output's
+  non-finite entries and its finite values apart), and per width of
   ``factor_batched``, ``spd_solve`` and ``solve_batched`` below, the first
   16 hex digits of the SHA-256 of the output's bytes: equal digests of two
   trees in one call are bitwise equal outputs;
@@ -109,7 +113,8 @@ SOLVE_CASES = (("a", "minirat", False), ("b", "minirat_elliptic", False),
 # chip_smoke.py's seeded dense case
 WIDE_CASES = (("pair_a", "ratpair", False, 1024), ("pair_b", "ratpair_elliptic", False, 1024),
               ("pair_c", "ratpair_newton", False, 1024), ("pair_batched_a", "ratpair", True, 1024),
-              ("rat_a", "rat", False, 2048), ("rodent_like", "rodent_like", True, 2048))
+              ("rat_a", "rat", False, 2048), ("rodent_like", "rodent_like", True, 2048),
+              ("props_a", "props", False, 2048))
 # the damped wide layout 1 (its own joint damping: the Euler tail's factor
 # and substitutions), timed and digested with the seeded instances; "+arm"
 # gives every env its own armature (chip_smoke.py's armature_draw)
@@ -117,6 +122,13 @@ DAMPED_CASES = (("rodent_standin_a", "rodent_standin", False, 2048),
                 ("terrain_a", "rodent_standin_terrain", False, 2048),
                 ("rodent_standin_arm_a", "rodent_standin+arm", False, 2048))
 PAIR_OCCUPANCY_ENVS = (132, 528, 1024)
+# a non-finite qfrc_smooth entry (env, dof, value) in a few envs of the wide
+# layout 1 and 2 (chip_smoke.py's phase_nonfinite plants the same), digested
+# per output as the mask of its non-finite entries and its finite values
+NONFINITE_CASES = (("terrain_nonfinite", "rodent_standin_terrain", 64),
+                   ("pair_nonfinite", "ratpair", 64))
+NONFINITE_PLANTS = ((1, 3, float("nan")), (9, 40, float("inf")), (30, 0, float("-inf")),
+                    (63, 72, float("nan")))
 # the fly stand-in's files (the one-warp elliptic instance by the rule),
 # timed on both cores by --warps
 FLY_CASES = ("fly_standin", "fly_standin_tethered")
@@ -371,6 +383,20 @@ def main() -> int:
             launch = cs.kernel_launch(*case)
             seeded[key] = [device_us(launch, tag, 10) for _ in range(args.reps)]
             digests[key] = digest(launch()) | {"damped": bool(case[1]["has_damping"])}
+    # a non-finite qfrc_smooth entry in a few envs: per output, the mask of
+    # its non-finite entries and its finite values
+    for key, model, B in NONFINITE_CASES:
+        _, kargs, kw = cs.solve_case("cuda", model, B, cs.SEED)
+        kargs[8] = kargs[8].clone()
+        for b, j, val in NONFINITE_PLANTS:
+            kargs[8][b, j % kargs[8].shape[1]] = val
+        out = cs.kernel_launch(kargs, kw)()
+        torch.cuda.synchronize()
+        digests[key] = {}
+        for k, t in out.items():
+            if t.is_floating_point():
+                digests[key][f"{k}_nonfinite"] = digest(~torch.isfinite(t))["out"]
+                digests[key][f"{k}_finite"] = digest(torch.nan_to_num(t, 0.0, 0.0, 0.0))["out"]
     report["seeded_us"] = seeded
     keys = ("factor_us", "factor_library_us", "factor_library_device_us", "spd_solve_us",
             "spd_solve_library_device_us", "solve_us", "solve_library_device_us", "inverse_us",

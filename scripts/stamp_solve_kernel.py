@@ -1,6 +1,6 @@
 """Split one solve-kernel launch into phases by clock64 stamps, per env.
 
-    python3 scripts/stamp_solve_kernel.py [--root DIR] [--pair | --rodent | --fly]
+    python3 scripts/stamp_solve_kernel.py [--root DIR] [--pair | --rodent | --terrain | --fly]
 
 Copies ``DIR``'s ``brax_tracking_tpu_torch/ops/csrc/cg_fused.cu`` (default:
 this checkout's) to ``runs/stamp/`` with a ``clock64()`` stamp at each phase
@@ -12,7 +12,9 @@ three on the two-rat stand-in (1024 envs, layout 2: J in device memory),
 which run the wide core (``cg_core_wide``, several warps per env); with
 ``--rodent``, (a) on the one rat (undamped) and on the rodent stand-in
 (its own joint damping: the damped Euler tail), 2048 envs, the wide core
-in layout 1; with ``--fly``, (b) on the fly stand-in, free and tethered
+in layout 1; with ``--terrain``, (a) on the rodent stand-in's terrain
+(367 rows, damped), 2048 envs, the wide layout 1; with ``--fly``, (b) on
+the fly stand-in, free and tethered
 (``fly_standin``, ``fly_standin_tethered``: the one-warp elliptic
 instance), 2048 envs. Lane 0
 of each env (thread 0 in the wide core, whose warp runs the core's scalar
@@ -152,10 +154,13 @@ def stamped_source(src: str, wide: bool = False) -> tuple[str, tuple[str, ...]]:
         src = edit(src, pattern, new, count)
 
     whole(r"^constexpr float kMinval = .*;$", lambda m: m.group(0) + STAMPS % NSLOT, 1)
-    carve = (r"^  +SmemW s = carve_wide<kL2>\(smw, nv, nefc, a\.nell\);$" if wide
+    # the wide carve with or without J's stored values (jnnz, since the wide
+    # core holds J by its pattern)
+    carve = (r"^  +SmemW s = carve_wide<kL2>\(smw, nv, nefc, a\.nell(?:, jnnz)?\);$" if wide
              else r"^  +Smem s = carve\(sm, nv, nefc, a\.nell\);$")
     whole(carve, lambda m: m.group(0) + "\n  Stamps st;\n  st.init();", 2)
-    call = (r"^( +)cg_core_wide<kEll, kWarm, kL2, kW>\(a, s, b, tid\);$" if wide
+    # the wide core's third parameter: where J lives (kL2) or how (kDenseJ)
+    call = (r"^( +)cg_core_wide<kEll, kWarm, k(?:L2|DenseJ), kW>\(a, s, b, tid\);$" if wide
             else r"^( +)cg_core<kEll, kWarm>\(a, s, b, lane\);$")
     whole(call, lambda m: f"{m.group(1)}st.mark(0);\n" + m.group(0)[:-2] + ", st);", 2)
     whole(r"^\}  // namespace$", lambda m: m.group(0) + """
@@ -177,6 +182,8 @@ def main() -> int:
                        help="the stand-in's instances (layout 2) instead of the minirat's")
     which.add_argument("--rodent", action="store_true",
                        help="(a) on the one rat and the damped rodent stand-in (wide layout 1)")
+    which.add_argument("--terrain", action="store_true",
+                       help="(a) on the damped rodent stand-in's terrain (wide layout 1)")
     which.add_argument("--fly", action="store_true",
                        help="(b) on the free and the tethered fly stand-in (one warp, elliptic)")
     args = ap.parse_args()
@@ -197,7 +204,7 @@ def main() -> int:
     tag = re.sub(r"\W", "_", os.path.relpath(root, here)).strip("_") or "tree"
     cu = os.path.join(out_dir, f"cg_stamped_{tag}.cu")
     with open(os.path.join(csrc, "cg_fused.cu")) as f:
-        text, phases = stamped_source(f.read(), wide=args.pair or args.rodent)
+        text, phases = stamped_source(f.read(), wide=args.pair or args.rodent or args.terrain)
     slots = [PHASES.index("phi0" if p == "products_phi0" else p) for p in phases]
     with open(cu, "w") as f:
         f.write(text)
@@ -216,6 +223,8 @@ def main() -> int:
     card = cs.card_line()
     if args.rodent:
         B, reps, instances = cs.B_MAIN, 20, (("a", "rat"), ("a", "rodent_standin"))
+    elif args.terrain:
+        B, reps, instances = cs.B_MAIN, 20, (("a", "rodent_standin_terrain"),)
     elif args.fly:
         B, reps, instances = cs.B_MAIN, 20, tuple(("b", m) for m in cs.FLY_MODELS)
     else:

@@ -1,12 +1,14 @@
 // Host stand-ins for the CUDA names that brax_tracking_tpu_torch/ops/csrc/
-// sweep.cuh uses, so that its block-level code runs on a CPU: one
-// std::thread per CUDA thread, __syncthreads and __syncwarp as waits on a
-// std::barrier of the block or of the warp, __shfl_sync through a per-warp
-// exchange array between two waits. Float arithmetic is IEEE float32 with a
+// sweep.cuh and jsparse.cuh use, so that their block-level code runs on a
+// CPU: one std::thread per CUDA thread, __syncthreads and __syncwarp as
+// waits on a std::barrier of the block or of the warp, __shfl_sync and
+// __shfl_xor_sync through a per-warp exchange array between two waits,
+// __ldg as a plain load. Float arithmetic is IEEE float32 with a
 // correctly rounded fmaf and reciprocal, so code that fixes its operations
 // (explicit fmaf, nothing left to contraction: build with -ffp-contract=off)
-// gives bitwise the card's values. sweep_host.cc beside this file is the
-// harness; tests/test_torch_sweep_host.py builds and drives it.
+// gives bitwise the card's values. sweep_host.cc and jsparse_host.cc beside
+// this file are the harnesses; tests/test_torch_sweep_host.py and
+// tests/test_torch_jsparse_host.py build and drive them.
 #pragma once
 
 #include <math.h>
@@ -28,6 +30,19 @@ struct alignas(16) float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int x, int y) { return {x, y}; }
+
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -77,6 +92,16 @@ inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
   w.slot[lane] = v;
   w.bar.arrive_and_wait();
   const float r = w.slot[(lane & ~(width - 1)) + (src & (width - 1))];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  host_cuda::Warp& w = host_cuda::block->warps[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31;
+  w.slot[lane] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.slot[lane ^ mask];
   w.bar.arrive_and_wait();
   return r;
 }

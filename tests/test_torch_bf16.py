@@ -25,10 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.agents.ppo import networks as jnetworks
 from brax_tracking_tpu_torch.agents.ppo import networks as tnetworks
 from brax_tracking_tpu_torch.agents.ppo import train as ttrain
-from test_torch_ppo_train import PM_ARGS, PointMass
+from test_torch_ppo_trainer import PM_ARGS, PointMass
 
 BF16_ATOL = 3e-2
 

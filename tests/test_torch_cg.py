@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 import brax_tracking_tpu.physics.constraint as jCn
 import brax_tracking_tpu.physics.solver as jS
 import brax_tracking_tpu.physics.spec as jspec
@@ -138,6 +139,29 @@ def test_assembly_matches_dense_qM_J(case):
     np.testing.assert_allclose(qM.numpy(), np.asarray(dF.qM), rtol=1e-12, atol=1e-15)
     dense = np.asarray(jax.jit(jax.vmap(lambda d: jCn.dense_J(model, d)))(dF))
     np.testing.assert_allclose(J.numpy(), dense, rtol=1e-12, atol=1e-14)
+
+
+def test_jax_J_is_zero_outside_the_port_pattern(case):
+    """The JAX package's own dense constraint jacobian on the minirat's
+    seeded states is zero outside the static pattern by which the port's
+    wide core holds J (ops/cg.py::j_pattern, from the port's statics), and
+    the pattern counts the JAX statics' support (md) entries plus one per
+    limit row."""
+    model, dF, layout, fstat, tol, exists = case
+    tm = tspec.load_model(device="cpu")
+    pat = tS._fused_statics(tm, tCn.efc_layout(tm))["j_pattern"]
+    dense = np.asarray(jax.jit(jax.vmap(lambda d: jCn.dense_J(model, d)))(dF))
+    on = np.zeros(dense.shape[1:], bool)
+    for r, (_, _, col0, n) in enumerate(pat["rec"]):
+        on[r, pat["cols"][col0:col0 + n]] = True
+    assert (dense[:, ~on] == 0).all()
+    # the pattern is not padding: 85% of its entries are nonzero in some env
+    # (the rest are zeros of the values, e.g. a free joint's components
+    # along a plane contact's normal)
+    assert dense[:, on].any(0).mean() > 0.75
+    rs = np.asarray(fstat["row_slot"])
+    md = np.asarray(fstat["md"])
+    assert pat["nnz"] == on.sum() == int((md[rs[rs >= 0]] != 0).sum()) + len(fstat["limit_dadr"])
 
 
 def test_port_statics_and_wrapper_dispatch(case):

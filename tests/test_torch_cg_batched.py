@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.ops import cg as jcg
 from brax_tracking_tpu_torch.ops import cg as tcg
 

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.agents.ppo import networks as jnetworks
 from brax_tracking_tpu.data import clips as jclips
 from brax_tracking_tpu.envs import tracking as jtracking
@@ -49,7 +50,8 @@ from brax_tracking_tpu_torch.physics import spec as tspec
 from brax_tracking_tpu_torch.training import debug_nans
 from brax_tracking_tpu_torch.training import gradients as tgradients
 from brax_tracking_tpu_torch.training import running_statistics as trs
-from test_torch_ppo_train import ENV_ARGS, PM_ARGS, PointMass, _synth_qpos
+from test_torch_ppo_train import ENV_ARGS, _synth_qpos
+from test_torch_ppo_trainer import PM_ARGS, PointMass
 
 NUM_ENVS, HIDDEN, UNROLL, EPISODE = 8, (32, 32), 4, 3
 

@@ -40,6 +40,7 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.agents.ppo import losses as jlosses
 from brax_tracking_tpu.agents.ppo import networks as jnetworks
 from brax_tracking_tpu.data import clips as jclips

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.data import clips as jclips
 from brax_tracking_tpu.envs import tracking as jtracking
 from brax_tracking_tpu.envs import wrappers as jwrappers

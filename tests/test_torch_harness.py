@@ -11,17 +11,14 @@ the JAX package, on the CPU.
   control step of the minirat costs ~0.2 s on the CPU. It writes every
   artifact and logs exactly the metric keys the JAX driver logs for the
   same run (listed below from harness/driver.py, training/acting.py and
-  agents/ppo/losses.py); with two clips also ``eval/episode_reward_clip0..1``
-  (that run without matplotlib, as on the card: the CSV and no PNG).
+  agents/ppo/losses.py); a default ``main()`` without a card raises (the
+  video and the profile trace: tests/test_torch_render.py).
 - Param snapshots: a (256, 256) policy initialised by the JAX package and
   pickled by its ``save_params`` acts the same in the port, within 1e-12
   (float64).
-- ``debug_nans=true`` and ``BTT_DEBUG_NANS=1`` run the cut driver with the
-  mode on (training/debug_nans.py; its parity with the JAX package:
-  tests/test_torch_debug_nans.py): every checked call of the run sees it
-  on, the run trains and writes its files, and the mode is off again after
-  ``main()`` (the video and the profile trace: tests/test_torch_render.py);
-  a default ``main()`` without a card raises.
+
+The driver with two clips, with ``debug_nans`` and on a slide joint:
+tests/test_torch_harness_driver.py.
 """
 
 import ast
@@ -39,6 +36,7 @@ import pytest
 import torch
 import yaml
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.agents.ppo import networks as jnetworks
 from brax_tracking_tpu.harness import config as jconfig
 from brax_tracking_tpu.training import checkpoint as jcheckpoint
@@ -46,8 +44,6 @@ from brax_tracking_tpu.training import running_statistics as jrs
 from brax_tracking_tpu_torch.agents.ppo import networks as tnetworks
 from brax_tracking_tpu_torch.harness import config as tconfig
 from brax_tracking_tpu_torch.harness import driver as tdriver
-from brax_tracking_tpu_torch.physics import spec as tspec
-from brax_tracking_tpu_torch.harness import eval_plots
 from brax_tracking_tpu_torch.harness import metrics as tmetrics
 from brax_tracking_tpu_torch.training import checkpoint as tcheckpoint
 
@@ -253,80 +249,6 @@ def test_driver_single_clip(tmp_path):
     normalizer, policy = tcheckpoint.load_policy(str(base / "ckpt" / run / "final"),
                                                  device="cpu")
     assert [layer.out_features for layer in policy.layers] == [64, 64, 2 * 4]
-
-
-def test_driver_multi_clip(tmp_path, monkeypatch):
-    # as where matplotlib is absent: the CSV and no PNG
-    monkeypatch.setattr(eval_plots, "_pyplot", lambda: None)
-    _, metrics, base, data, records = _run(
-        tmp_path, ["dataset.n_clips=2", "train.env_name=multi_clip_tracking"])
-    per_clip = {"eval/episode_reward_clip0", "eval/episode_reward_clip1"}
-    pngs = {"rollout/perframe_rewards_png", "rollout/thorax_height_png"}
-    assert _logged_keys(records) == (JAX_DRIVER_KEYS - pngs) | per_clip
-    assert not list((base / "figures").glob("*.png"))
-    logged = {k: v for r in records for k, v in r.items() if k in per_clip}
-    assert all(np.isfinite(v) for v in logged.values())
-    assert sorted(os.listdir(data / "clips")) == ["0.npz", "1.npz"]
-
-
-@pytest.mark.parametrize("extra,env", [
-    (["debug_nans=true"], {}),
-    ([], {"BTT_DEBUG_NANS": "1"}),
-])
-def test_driver_unported_options_raise(tmp_path, monkeypatch, extra, env):
-    """The two switches that raised before debug_nans was ported now run the
-    driver with the mode on: each checked call (resets, rollout_step,
-    learn_step, eval unrolls) runs with it, the run trains and writes its
-    files, nothing raises on the clean run, and the mode is off after it."""
-    from brax_tracking_tpu_torch.training import debug_nans
-
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    seen = []
-    plain = debug_nans.call
-
-    def recording(name, fn, *args, **kwargs):
-        seen.append((name, debug_nans.enabled()))
-        return plain(name, fn, *args, **kwargs)
-
-    monkeypatch.setattr(debug_nans, "call", recording)
-    # the clip cut to 8 frames: the callback's rollout takes 3 control steps
-    _, metrics, base, _, records = _run(tmp_path, ["dataset.clip_length=8", *extra])
-    assert {n for n, _ in seen} == {"the env reset", "rollout_step", "learn_step",
-                                    "the evaluator's unroll"}
-    assert all(on for _, on in seen) and not debug_nans.enabled()
-    run = "single_clip_tracking_track_smoke"
-    for rel in ("run_config.yaml", "logs/metrics.jsonl", "ckpt/64/training_state.pt",
-                f"ckpt/{run}/final", f"ckpt/{run}/rollout_64.p"):
-        assert (base / rel).is_file(), rel
-    assert np.isfinite(metrics["eval/episode_reward"]) and records[0]["_config"][
-        "debug_nans"] is ("debug_nans=true" in extra)
-
-
-def test_driver_unported_env_raises_before_building(tmp_path):
-    """The env this test pinned, a model with a slide joint, raised (ROADMAP
-    A.12) while its clip was built; slide joints are ported now, so the
-    driver builds its clip cache and trains on it (a site transmission,
-    still not ported, raises at the first step instead:
-    test_torch_model.py)."""
-    xml = tmp_path / "slide.xml"
-    # the minirat with one hip a limited, actuated slide joint
-    with open(tspec.MINIRAT_XML) as f:
-        text = f.read()
-    hip = '<joint name="hip_FL" axis="0 1 0" range="-60 60"/>'
-    assert hip in text
-    xml.write_text(text.replace(hip, '<joint name="hip_FL" type="slide" axis="0 0 1" '
-                                     'range="-0.01 0.01"/>'))
-    npz = str(tmp_path / "slide.npz")
-    tspec.freeze_mjcf(str(xml), npz)
-    base = tmp_path / "r"
-    tdriver.main(CUTS + [f"dataset.env_args.mjcf_path={npz}", f"paths.base_dir={base}",
-                         f"paths.data_dir={tmp_path}/d"], device="cpu")
-    assert (tmp_path / "d" / "clips" / "0.npz").is_file()
-    (log,) = base.rglob("metrics.jsonl")
-    records = [json.loads(line) for line in open(log)]
-    assert any("training/sps" in r for r in records)
-    assert all(np.isfinite(v) for r in records for v in r.values() if isinstance(v, float))
 
 
 def test_driver_needs_the_card_by_default(tmp_path, monkeypatch):

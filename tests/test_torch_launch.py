@@ -27,6 +27,7 @@ import time
 import numpy as np
 import pytest
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu_torch.harness import launch
 from brax_tracking_tpu_torch.ops import library
 from _torch_dist_worker import free_ports, spawn_ranks, wait_ranks

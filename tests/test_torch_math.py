@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu import math as jm
 from brax_tracking_tpu.math import spatial as js
 from brax_tracking_tpu_torch import math as tm

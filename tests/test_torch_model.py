@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.physics import spec as jspec
 from brax_tracking_tpu_torch.physics import model as TM
 from brax_tracking_tpu_torch.physics import spec as tspec

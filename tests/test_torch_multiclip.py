@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.data import clips as jclips
 from brax_tracking_tpu.data import h5io as jh5io
 from brax_tracking_tpu.envs import tracking as jtracking

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 import brax_tracking_tpu.physics.spec as jspec
 import brax_tracking_tpu.physics.step as jstep
 from brax_tracking_tpu.ops import cg as jcg

@@ -45,6 +45,7 @@ import xxhash
 import zstandard
 from orbax import checkpoint as ocp
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.agents.ppo import losses as jlosses
 from brax_tracking_tpu.agents.ppo import networks as jnetworks
 from brax_tracking_tpu.agents.ppo import train as jtrain
@@ -60,7 +61,7 @@ from brax_tracking_tpu_torch.training import checkpoint as tcheckpoint
 from brax_tracking_tpu_torch.training import gradients as tgradients
 from brax_tracking_tpu_torch.training import running_statistics as trs
 from brax_tracking_tpu_torch.training.types import Transition
-from test_torch_ppo_train import PM_ARGS, PointMass
+from test_torch_ppo_trainer import PM_ARGS, PointMass
 
 RTOL, ATOL = 1e-7, 1e-8
 OBS, ACT, HIDDEN, LR, ENV_STEPS = 6, 2, (16, 16), 3e-4, 512

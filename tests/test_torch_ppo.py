@@ -19,6 +19,7 @@ import optax
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.agents.ppo import losses as jlosses
 from brax_tracking_tpu.agents.ppo import networks as jnetworks
 from brax_tracking_tpu.training import distribution as jdistribution

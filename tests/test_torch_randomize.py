@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.data import clips as jclips
 from brax_tracking_tpu.envs import rodent as jrodent
 from brax_tracking_tpu.envs import tracking as jtracking

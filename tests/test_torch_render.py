@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from brax_tracking_tpu.harness import render as jrender
 from brax_tracking_tpu.native import softraster as jraster
 from brax_tracking_tpu.native import video as jvideo

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 import brax_tracking_tpu.physics.spec as jspec
 from brax_tracking_tpu_torch.physics import spec as tspec
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 import brax_tracking_tpu.math.spatial as jsp
 import brax_tracking_tpu.physics.constraint as jCn
 import brax_tracking_tpu.physics.spec as jspec

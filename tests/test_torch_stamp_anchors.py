@@ -53,7 +53,7 @@ def test_every_anchor_found(wide):
     assert core.count("st.write(b, ") == 1
     # the assembly's stamp before each kernel's call of the core, and the
     # Stamps set up after each kernel's carve
-    call = "cg_core_wide<kEll, kWarm, kL2, kW>(" if wide else "cg_core<kEll, kWarm>("
+    call = "cg_core_wide<kEll, kWarm, kDenseJ, kW>(" if wide else "cg_core<kEll, kWarm>("
     assert text.count("st.mark(0);\n") == 2
     assert len(re.findall(re.escape(call) + r"a, s, b, \w+, st\);", text)) == 2
     assert text.count("Stamps st;\n  st.init();") == 2
